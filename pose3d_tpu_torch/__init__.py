@@ -1,0 +1,19 @@
+"""pose3d_tpu_torch — the PyTorch and CUDA port of pose3d_tpu, for NVIDIA Hopper.
+
+Each module keeps the name of its JAX counterpart in `pose3d_tpu`, which
+stays the reference the port is tested against. Plain tensor code is
+PyTorch; each Pallas kernel of the JAX package becomes a CUDA kernel written
+by hand for sm_90a (`csrc/`), built at first use (`ops/_build.py`) and
+launched by a wrapper that keeps the plain PyTorch version beside it for
+CPU tensors.
+
+Ported so far (slice 1): the RGB-only student (`models`), its evaluation
+(`train.steps`, `train.evaluate`, `cli.testing`) and single-image serving
+(`cli.inference`), with the geodesic rotation error on the card through
+`ops.geodesic`.
+
+Importing the package imports nothing: the data layer needs PIL and pandas,
+and the kernels need a card and nvcc, so each is loaded where it is used.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,92 @@
+"""The port stands alone: it imports no JAX, takes its plain versions only for
+CPU tensors, and never moves to the CPU unasked."""
+
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from pose3d_tpu_torch import geometry
+from pose3d_tpu_torch.cli import inference, testing
+from pose3d_tpu_torch.ops import geodesic
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import pkgutil, sys
+import pose3d_tpu_torch
+for m in pkgutil.walk_packages(pose3d_tpu_torch.__path__, "pose3d_tpu_torch."):
+    __import__(m.name)
+banned = {"jax", "jaxlib", "flax", "optax", "orbax", "pose3d_tpu"}
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+assert not loaded, loaded
+print(len([m for m in sys.modules if m.startswith("pose3d_tpu_torch")]))
+"""
+
+
+def _run(args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax():
+    proc = _run(["-c", _IMPORT_ALL], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout) >= 20  # every module, data and CLIs included
+
+
+def test_geodesic_on_cpu_takes_the_plain_version(rng):
+    preds = torch.from_numpy(rng.uniform(0, 360, (50, 3)).astype("float32"))
+    labels = torch.from_numpy(rng.integers(0, 180, (50, 3)).astype("float32"))
+    before = geodesic.rotation_err.launches
+    out = geodesic.rotation_err(preds, labels)
+    assert geodesic.rotation_err.launches == before
+    assert torch.equal(out, geometry.rotation_err(preds, labels))
+
+
+@pytest.mark.parametrize("cli", ["testing", "inference"])
+def test_cli_default_device_refuses_without_cuda(cli, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        if cli == "testing":
+            testing.main(["--dataset", "ObjectNet3D", "--shape", "None",
+                          "--data_root", str(tmp_path)])
+        else:
+            inference.main(["--ckpt", str(tmp_path / "s.pth"),
+                            "--img_path", str(tmp_path / "x.jpg")])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--shape", "PointCloud"], ["--shape", "None", "--bf16"],
+    ["--shape", "None", "--int8"], ["--shape", "None", "--device_shapes"],
+    ["--shape", "None", "--n_devices", "2"]])
+def test_testing_cli_refuses_unported_modes(argv):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        testing.main(["--dataset", "ObjectNet3D", "--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("argv", [["--bf16"], ["--int8"], ["--ply_path", "p.ply"],
+                                  ["--render_dir", "r"], ["--export_aot", "a"]])
+def test_inference_cli_refuses_unported_modes(argv):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        inference.main(["--ckpt", "s.pth", "--img_path", "x.jpg", "--device", "cpu"]
+                       + argv)
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card_or_the_package(where, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cwd = REPO
+    if where == "alone":
+        shutil.copy(REPO / "chip_smoke.py", tmp_path)
+        cwd = tmp_path
+    proc = _run(["chip_smoke.py"], cwd)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
