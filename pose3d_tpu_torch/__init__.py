@@ -7,10 +7,12 @@ by hand for sm_90a (`csrc/`), built at first use (`ops/_build.py`) and
 launched by a wrapper that keeps the plain PyTorch version beside it for
 CPU tensors.
 
-Ported so far (slice 1): the RGB-only student (`models`), its evaluation
-(`train.steps`, `train.evaluate`, `cli.testing`) and single-image serving
-(`cli.inference`), with the geodesic rotation error on the card through
-`ops.geodesic`.
+Ported so far: the RGB-only student (slice 1) and the frozen PointCloud
+teacher (slice 2) (`models`), their evaluation (`train.steps`,
+`train.evaluate`, `cli.testing`) and single-image serving
+(`cli.inference`), with the geodesic rotation error (`ops.geodesic`) and
+the teacher's PointNet encoder (`ops.pointnet`) in CUDA kernels on the
+card.
 
 Importing the package imports nothing: the data layer needs PIL and pandas,
 and the kernels need a card and nvcc, so each is loaded where it is used.

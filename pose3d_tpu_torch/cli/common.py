@@ -1,5 +1,6 @@
 """Shared CLI plumbing. Port of `pose3d_tpu/cli/common.py`: the flags of the
-student's evaluation and serving, the device, and the student's construction.
+evaluation and serving CLIs, the device, and the construction of the
+student and of the PointCloud teacher.
 
 Flags of the JAX CLIs whose paths are not ported yet are still accepted
 where a user would pass them, and refused with a message that names
@@ -12,7 +13,7 @@ import argparse
 
 import torch
 
-from pose3d_tpu_torch.models.estimators import BaselineEstimator
+from pose3d_tpu_torch.models.estimators import BaselineEstimator, PoseEstimator
 from pose3d_tpu_torch.train.convert import read_state_dict
 
 
@@ -27,8 +28,9 @@ def add_student_flags(parser: argparse.ArgumentParser, img_feature_dim: int) -> 
                         help="not ported yet: refused (ROADMAP.md Queue 1)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda). On a CUDA device the "
-                             "geodesic error runs in its CUDA kernel; on cpu the "
-                             "plain PyTorch versions run. TF32 is turned off for "
+                             "geodesic error and the PointNet encoder run in their "
+                             "CUDA kernels; on cpu the plain PyTorch versions "
+                             "run. TF32 is turned off for "
                              "convolutions and matmuls, matching the JAX "
                              "package's float32 semantics.")
 
@@ -67,6 +69,24 @@ def build_student(opt, checkpoint: str | None,
         img_feature_dim=opt.img_feature_dim, azi_classes=azi, ele_classes=ele,
         inp_classes=inp, bin_size=opt.bin_size, width_mult=opt.student_width_mult,
         input_dim=opt.input_dim, generator=torch.Generator().manual_seed(0))
+    return _loaded(model, checkpoint, device)
+
+
+def build_teacher(opt, checkpoint: str | None, device: torch.device,
+                  img_feature_dim: int | None = None) -> PoseEstimator:
+    """The PointCloud teacher of the flags, with weights from `checkpoint`
+    (a reference-layout .pth, loaded strictly) or, without one, a seeded
+    random init. In eval mode, on `device`."""
+    azi, ele, inp = num_classes(opt.bin_size)
+    model = PoseEstimator(
+        img_feature_dim=img_feature_dim or opt.img_feature_dim,
+        shape_feature_dim=opt.shape_feature_dim, azi_classes=azi, ele_classes=ele,
+        inp_classes=inp, bin_size=opt.bin_size,
+        generator=torch.Generator().manual_seed(0))
+    return _loaded(model, checkpoint, device)
+
+
+def _loaded(model, checkpoint: str | None, device: torch.device):
     if checkpoint:
         model.load_state_dict(read_state_dict(checkpoint), strict=True)
     else:

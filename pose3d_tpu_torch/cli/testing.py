@@ -1,14 +1,16 @@
-"""Evaluation CLI, student path. Port of `pose3d_tpu/cli/testing.py` with
-`--shape None`.
+"""Evaluation CLI. Port of `pose3d_tpu/cli/testing.py` for the student
+(`--shape None`) and the PointCloud teacher (`--shape PointCloud`).
 
 One pass over the validation set, reduced per category. Writes the same
 artifacts as the JAX CLI: testing_log.txt with the per-category lines and
-predictions_{cat}.npy dumps. The teacher (`--shape MultiView/PointCloud`),
-`--int8`, `--device_shapes`, `--n_devices`, `--bf16` and the LineMod / Pix3D
-datasets are refused with a message until they are ported (ROADMAP.md).
+predictions_{cat}.npy dumps. The MultiView teacher, `--int8`,
+`--device_shapes`, `--n_devices`, `--bf16` and the LineMod / Pix3D datasets
+are refused with a message until they are ported (ROADMAP.md).
 
     python -m pose3d_tpu_torch.cli.testing --dataset ObjectNet3D --shape None \\
         --img_feature_dim 2048 --model student.pth
+    python -m pose3d_tpu_torch.cli.testing --dataset ObjectNet3D \\
+        --shape PointCloud --shape_dir pointcloud --model teacher.pth
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def parse_args(argv=None):
     parser.add_argument("--batch_size", type=int, default=16)
     parser.add_argument("--workers", type=int, default=4)
     parser.add_argument("--model", type=str, default=None,
-                        help="student weights: a reference-layout .pth")
+                        help="student or teacher weights: a reference-layout .pth")
     parser.add_argument("--dataset", type=str, default=None,
                         choices=["ObjectNet3D", "Pascal3D", "ShapeNetCore", "Pix3D",
                                  "LineMod"])
@@ -41,8 +43,14 @@ def parse_args(argv=None):
                         help="root containing <dataset>/ trees")
     parser.add_argument("--shape", type=str, default="MultiView",
                         choices=["MultiView", "PointCloud", "None"],
-                        help="None evaluates the RGB-only student; the teacher "
-                             "shapes are not ported yet")
+                        help="None evaluates the RGB-only student, PointCloud the "
+                             "teacher with its clouds; MultiView is not ported yet")
+    parser.add_argument("--shape_dir", type=str, default="Renders_semi_sphere",
+                        choices=["Renders_semi_sphere", "pointcloud"])
+    parser.add_argument("--shape_feature_dim", type=int, default=256)
+    parser.add_argument("--point_num", type=int, default=2500)
+    parser.add_argument("--random_model", action="store_true",
+                        help="pair each image with another CAD model of its category")
     parser.add_argument("--output_dir", type=str, default=None)
     common.add_student_flags(parser, img_feature_dim=1024)
     for flag in ("int8", "device_shapes"):
@@ -51,10 +59,11 @@ def parse_args(argv=None):
     parser.add_argument("--n_devices", type=int, default=None,
                         help="not ported yet: refused (ROADMAP.md)")
     opt = parser.parse_args(argv)
-    if opt.shape != "None":
-        raise SystemExit(f"--shape {opt.shape}: teacher evaluation is not ported "
+    if opt.shape == "MultiView":
+        raise SystemExit("--shape MultiView: the MultiView teacher is not ported "
                          "to pose3d_tpu_torch yet; see ROADMAP.md Queue 1 "
-                         "(pass --shape None for the student)")
+                         "(--shape None for the student, PointCloud for the "
+                         "PointCloud teacher)")
     common.refuse_unported(opt, ("bf16", "int8", "device_shapes", "n_devices"))
     return opt
 
@@ -66,14 +75,18 @@ def build_eval_dataset(opt):
     return datasets.Pascal3DContrast(
         os.path.join(opt.data_root, opt.dataset), f"{opt.dataset}.txt",
         input_dim=opt.input_dim, keypoint=opt.dataset == "Pascal3D",
-        cat_choice=_TEST_CATS[opt.dataset])
+        cat_choice=_TEST_CATS[opt.dataset], shape=opt.shape, shape_dir=opt.shape_dir,
+        point_num=opt.point_num, random_model=opt.random_model)
 
 
 def main(argv=None):
     opt = parse_args(argv)
     print(opt)
     device = common.setup_device(opt)
-    model = common.build_student(opt, opt.model, device)
+    if opt.shape == "None":
+        model, kind = common.build_student(opt, opt.model, device), "student"
+    else:
+        model, kind = common.build_teacher(opt, opt.model, device), "teacher"
 
     dataset = build_eval_dataset(opt)
     loader = DataLoader(dataset, opt.batch_size, shuffle=False,
@@ -83,7 +96,7 @@ def main(argv=None):
     os.makedirs(predictions_path, exist_ok=True)
     logname = os.path.join(predictions_path, "testing_log.txt")
 
-    result = evaluate_categories(steps.make_eval_step(model, "student", opt.bin_size),
+    result = evaluate_categories(steps.make_eval_step(model, kind, opt.bin_size),
                                  loader, dataset.category_names, device)
 
     with open(logname, "w") as f:

@@ -1,9 +1,11 @@
-"""Host-side image transforms and label algebra, evaluation subset. Port of
-`pose3d_tpu/data/transforms.py` (`resize_pad`, `normalize_image`,
-`to_float_array`, `process_viewpoint_label`), plus `load_rgb`; numpy and PIL
-only."""
+"""Host-side image transforms, point sampling and label algebra, evaluation
+subset. Port of `pose3d_tpu/data/transforms.py` (`resize_pad`,
+`normalize_image`, `to_float_array`, `sample_pointcloud`,
+`process_viewpoint_label`), plus `load_rgb`; numpy and PIL only."""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 from PIL import Image
@@ -39,6 +41,27 @@ def normalize_image(arr: np.ndarray) -> np.ndarray:
 
 def to_float_array(im: Image.Image) -> np.ndarray:
     return np.asarray(im, np.float32) / 255.0
+
+
+def sample_pointcloud(vertices: np.ndarray, point_num: int, rotation_deg: float,
+                      rng: np.random.Generator) -> np.ndarray:
+    """A random subset of `point_num` vertices (with replacement only when
+    there are fewer), rotated about z, then min-max normalised to [0, 1] over
+    all coordinates in float64 -> (point_num, 3) float32."""
+    replace = vertices.shape[0] < point_num
+    idx = rng.choice(vertices.shape[0], point_num, replace=replace)
+    pts = vertices[idx].astype(np.float64)
+    if rotation_deg != 0:
+        a = math.radians(rotation_deg)
+        rot = np.array([[np.cos(a), -np.sin(a), 0.0],
+                        [np.sin(a), np.cos(a), 0.0],
+                        [0.0, 0.0, 1.0]])
+        pts = pts @ rot.T
+    pts = pts - pts.min()
+    m = pts.max()
+    if m > 0:
+        pts = pts / m
+    return pts.astype(np.float32)
 
 
 def process_viewpoint_label(label: np.ndarray, offset: float = 0.0) -> np.ndarray:

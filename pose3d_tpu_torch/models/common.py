@@ -37,6 +37,19 @@ def dense_bn_relu(in_features: int, out_features: int,
             nn.ReLU(inplace=True)]
 
 
+def conv_bn(in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+            generator=None) -> tuple[nn.Conv2d, nn.BatchNorm2d]:
+    """The reference's ConvBN: Conv2d without bias, then BatchNorm2d (the
+    caller applies the ReLU where there is one). Padding is symmetric
+    (k - 1) // 2, as in JAX (not XLA SAME). Returned as a pair so that the
+    caller names them (`conv1`, `bn1`, `downsample.0/1`) as the reference's
+    state_dict does."""
+    conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                     padding=(kernel_size - 1) // 2, bias=False)
+    kaiming_leaky02_(conv.weight, generator)
+    return conv, nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+
+
 def head_dense(in_features: int, out_features: int, generator=None) -> nn.Linear:
     """A plain Linear head (fc_cls_* / fc_reg_*), N(0, 1e-3)."""
     return dense_init_(nn.Linear(in_features, out_features), generator)

@@ -1,11 +1,18 @@
-"""The RGB-only student. Port of `pose3d_tpu/models/estimators.py`
-(`_SixHeads`, `BaselineEstimator`).
+"""The pose estimators. Port of `pose3d_tpu/models/estimators.py`
+(`_SixHeads`, `BaselineEstimator`, `PoseEstimator` with a point cloud).
 
-vgg11(img_feature_dim) -> compress MLP img_feature_dim -> 800 -> 400 -> 200
-(BN + ReLU each) -> six heads; projector 200 -> 200 (BN + ReLU) -> 200.
-Forward returns ([6 heads], projector(compress(x))), heads in the order
-[cls_azi, cls_ele, cls_inp, reg_azi, reg_ele, reg_inp] with
-(360/bin, 180/bin, 360/bin) classes.
+  * BaselineEstimator, the RGB-only student: vgg11(img_feature_dim) ->
+    compress MLP img_feature_dim -> 800 -> 400 -> 200 (BN + ReLU each) ->
+    six heads; projector 200 -> 200 (BN + ReLU) -> 200. Forward returns
+    ([6 heads], projector(compress(x))).
+  * PoseEstimator, the PointCloud teacher: resnet50 (its head's output is
+    the image feature) and ShapeEncoderPC, concat (shape, image) ->
+    DeformNet -> the 200-d fused feature; six heads on it; projector
+    img_feature -> 800 -> 400 (BN + ReLU each) -> 200. Forward returns
+    ([6 heads], fused, projector(img_feature)).
+
+Heads in the order [cls_azi, cls_ele, cls_inp, reg_azi, reg_ele, reg_inp]
+with (360/bin, 180/bin, 360/bin) classes.
 """
 
 from __future__ import annotations
@@ -15,9 +22,13 @@ from torch import nn
 
 from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.models.common import dense_bn_relu, head_dense
+from pose3d_tpu_torch.models.deformnet import DeformNet
+from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
+from pose3d_tpu_torch.models.resnet import resnet50
 from pose3d_tpu_torch.models.vgg import vgg11
 
 COMPRESS_WIDTHS = (800, 400, 200)
+PROJECTOR_WIDTHS = (800, 400)  # the teacher's projector, then a plain 200
 # the six heads (JAX `_SixHeads`) sit directly on the estimator, as in the
 # reference's state_dict
 HEADS = ("fc_cls_azi", "fc_cls_ele", "fc_cls_inp",
@@ -57,5 +68,57 @@ class BaselineEstimator(nn.Module):
         """Serving: NHWC images -> (N, 3) degrees through the inference
         decoder, in canonical label convention. Call in eval mode."""
         outputs, _ = self(im)
+        return geometry.decode_predictions_inference(outputs[:3], outputs[3:],
+                                                     self.bin_size)
+
+
+class PoseEstimator(nn.Module):
+    """The PointCloud teacher. Inputs im (N, H, W, 3) and shape (N', P, 3)
+    float32; returns ([6 heads], fused_200d, projector(img_feature)).
+
+    Eval mode only for now: the shape encoder's train-mode forward is not
+    ported (ROADMAP.md Queue 1).
+    """
+
+    def __init__(self, shape: str = "PointCloud", img_feature_dim: int = 1024,
+                 shape_feature_dim: int = 1024, azi_classes: int = 24,
+                 ele_classes: int = 12, inp_classes: int = 24, bin_size: int = 15,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if shape != "PointCloud":
+            raise NotImplementedError(f"PoseEstimator(shape={shape!r}) is not ported to "
+                                      "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+        self.bin_size = bin_size
+        self.img_encoder = resnet50(num_classes=img_feature_dim, generator=generator)
+        self.shape_encoder = ShapeEncoderPC(shape_feature_dim, generator=generator)
+        self.deformNet = DeformNet(shape_feature_dim + img_feature_dim,
+                                   generator=generator)
+        for name, n in zip(HEADS, (azi_classes, ele_classes, inp_classes) * 2):
+            setattr(self, name, head_dense(200, n, generator))
+        layers: list[nn.Module] = []
+        width = img_feature_dim
+        for out in PROJECTOR_WIDTHS:
+            layers += dense_bn_relu(width, out, generator)
+            width = out
+        self.projector = nn.Sequential(*layers, head_dense(width, 200, generator))
+
+    def forward(self, im: torch.Tensor, shape: torch.Tensor, view_tile: int = 1):
+        """view_tile > 1: `im` holds view_tile stacked views of the same
+        samples (the KD step's [im, im_flip, im_rot]) and `shape` only the
+        leading im.shape[0] / view_tile clouds. Each cloud is encoded once
+        and its feature tiled as `jnp.tile` does: rows 0..n-1, then 0..n-1
+        again (not each row repeated in place)."""
+        _, img_feature = self.img_encoder(im)
+        shape_feature = self.shape_encoder(shape)
+        if view_tile > 1:
+            shape_feature = shape_feature.repeat(view_tile, 1)
+        x = self.deformNet(torch.cat([shape_feature, img_feature], dim=-1))
+        return [getattr(self, name)(x) for name in HEADS], x, self.projector(img_feature)
+
+    @torch.no_grad()
+    def predict_viewpoint(self, im: torch.Tensor, shape: torch.Tensor) -> torch.Tensor:
+        """Serving: NHWC images and their clouds -> (N, 3) degrees through the
+        inference decoder, in canonical label convention. Call in eval mode."""
+        outputs, _, _ = self(im, shape)
         return geometry.decode_predictions_inference(outputs[:3], outputs[3:],
                                                      self.bin_size)

@@ -1,15 +1,20 @@
 """Weights bridge from the JAX package, and the reader of reference `.pth` files.
 
-`baseline_state_dict` turns the JAX `BaselineEstimator`'s
-{"params", "batch_stats"} tree (numpy arrays) into the port's state_dict,
-mirroring `pose3d_tpu/train/torch_export.py export_baseline_estimator`:
-  flax Dense kernel (in, out)        -> Linear weight (out, in)
+`baseline_state_dict` and `pose_state_dict` turn the JAX `BaselineEstimator`'s
+and PointCloud `PoseEstimator`'s {"params", "batch_stats"} trees (numpy
+arrays) into the port's state_dicts, mirroring
+`pose3d_tpu/train/torch_export.py export_baseline_estimator` and
+`export_pose_estimator`:
+  flax Dense kernel (in, out)        -> Linear weight (out, in), or Conv1d
+                                        weight (out, in, 1) in the PointNet
+                                        and the DeformNet
   flax Conv kernel (kh, kw, in, out) -> Conv2d weight (out, in, kh, kw)
   flax BatchNorm scale/bias + batch_stats mean/var
                                      -> weight/bias/running_mean/running_var
   classifier.0's input axis          -> permuted from flax's (H, W, C)
                                         flatten to torch's (C, H, W)
-The result loads into `models.estimators.BaselineEstimator` with strict=True.
+The results load into `models.estimators.BaselineEstimator` and
+`PoseEstimator` with strict=True.
 """
 
 from __future__ import annotations
@@ -31,7 +36,21 @@ def _linear(p, sd, prefix):
 
 def _conv2d(p, sd, prefix):
     sd[f"{prefix}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = p["bias"]
+
+
+def _conv1d(p, sd, prefix):
+    sd[f"{prefix}.weight"] = np.asarray(p["kernel"]).T[:, :, None]
     sd[f"{prefix}.bias"] = p["bias"]
+
+
+def _bn(p, st, sd, prefix):
+    sd[f"{prefix}.weight"] = p["scale"]
+    sd[f"{prefix}.bias"] = p["bias"]
+    sd[f"{prefix}.running_mean"] = st["mean"]
+    sd[f"{prefix}.running_var"] = st["var"]
+    sd[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
 
 
 def _mlp(params, stats, sd, prefix, start, n):
@@ -39,13 +58,15 @@ def _mlp(params, stats, sd, prefix, start, n):
     for i in range(n):
         sub = f"DenseBNRelu_{start + i}"
         _linear(params[sub]["Dense_0"], sd, f"{prefix}.{3 * i}")
-        bn, st = params[sub]["BatchNorm_0"], stats[sub]["BatchNorm_0"]
-        bn_prefix = f"{prefix}.{3 * i + 1}"
-        sd[f"{bn_prefix}.weight"] = bn["scale"]
-        sd[f"{bn_prefix}.bias"] = bn["bias"]
-        sd[f"{bn_prefix}.running_mean"] = st["mean"]
-        sd[f"{bn_prefix}.running_var"] = st["var"]
-        sd[f"{bn_prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+        _bn(params[sub]["BatchNorm_0"], stats[sub]["BatchNorm_0"], sd,
+            f"{prefix}.{3 * i + 1}")
+
+
+def _to_tensors(sd) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(
+                v, np.int64 if k.endswith("num_batches_tracked") else np.float32,
+                order="C"))
+            for k, v in sd.items()}
 
 
 def baseline_state_dict(variables) -> dict[str, torch.Tensor]:
@@ -74,10 +95,56 @@ def baseline_state_dict(variables) -> dict[str, torch.Tensor]:
         _linear(params["_SixHeads_0"][f"Dense_{i}"], sd, name)
     _mlp(params, stats, sd, "projector", 3, 1)
     _linear(params["Dense_0"], sd, "projector.3")
-    return {k: torch.from_numpy(np.array(
-                v, np.int64 if k.endswith("num_batches_tracked") else np.float32,
-                order="C"))
-            for k, v in sd.items()}
+    return _to_tensors(sd)
+
+
+def _resnet(params, stats, sd, prefix, stage_sizes, block, n_convs):
+    """flax ResNet (ConvBN_0 stem, `{block}_k` blocks of ConvBN_0..n_convs-1
+    plus ConvBN_{n_convs} for the projection, Dense_0 head)."""
+    def convbn(p, st, conv, bn):
+        _conv2d(p["Conv_0"], sd, conv)
+        _bn(p["BatchNorm_0"], st["BatchNorm_0"], sd, bn)
+
+    convbn(params["ConvBN_0"], stats["ConvBN_0"], f"{prefix}.conv1", f"{prefix}.bn1")
+    k = 0
+    for stage, n_blocks in enumerate(stage_sizes):
+        for j in range(n_blocks):
+            p, st = params[f"{block}_{k}"], stats[f"{block}_{k}"]
+            layer = f"{prefix}.layer{stage + 1}.{j}"
+            for c in range(n_convs):
+                convbn(p[f"ConvBN_{c}"], st[f"ConvBN_{c}"], f"{layer}.conv{c + 1}",
+                       f"{layer}.bn{c + 1}")
+            if f"ConvBN_{n_convs}" in p:
+                convbn(p[f"ConvBN_{n_convs}"], st[f"ConvBN_{n_convs}"],
+                       f"{layer}.downsample.0", f"{layer}.downsample.1")
+            k += 1
+    _linear(params["Dense_0"], sd, f"{prefix}.fc")
+
+
+def pose_state_dict(variables) -> dict[str, torch.Tensor]:
+    """JAX PoseEstimator(shape="PointCloud") variables (numpy) -> the port's
+    state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    _resnet(params["ResNet_0"], stats["ResNet_0"], sd, "img_encoder", (3, 4, 6, 3),
+            "Bottleneck", 3)
+    pc, pc_stats = params["ShapeEncoderPC_0"], stats["ShapeEncoderPC_0"]
+    for i in range(3):
+        _conv1d(pc[f"Dense_{i}"], sd, f"shape_encoder.conv{i + 1}")
+        _bn(pc[f"BatchNorm_{i}"], pc_stats[f"BatchNorm_{i}"], sd,
+            f"shape_encoder.bn{i + 1}")
+    deform, deform_stats = params["DeformNet_0"], stats["DeformNet_0"]
+    for i in range(3):
+        sub = f"DenseBNRelu_{i}"
+        _conv1d(deform[sub]["Dense_0"], sd, f"deformNet.conv{i + 1}")
+        _bn(deform[sub]["BatchNorm_0"], deform_stats[sub]["BatchNorm_0"], sd,
+            f"deformNet.bn{i + 1}")
+    _conv1d(deform["Dense_0"], sd, "deformNet.conv4")
+    for i, name in enumerate(HEADS):
+        _linear(params["_SixHeads_0"][f"Dense_{i}"], sd, name)
+    _mlp(params, stats, sd, "projector", 0, 2)
+    _linear(params["Dense_0"], sd, "projector.6")
+    return _to_tensors(sd)
 
 
 def read_state_dict(path: str) -> dict[str, torch.Tensor]:

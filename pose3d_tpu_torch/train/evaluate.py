@@ -1,7 +1,7 @@
 """Evaluation loop: one pass over the validation set, reduced per category.
 Port of `pose3d_tpu/train/evaluate.py evaluate_categories`.
 
-Predictions, labels and the validation loss stay on the model's device
+Predictions, labels and the validation losses stay on the model's device
 through the pass; the geodesic errors of the whole set are computed there in
 one call of `ops.geodesic.rotation_err` (the CUDA kernel on the card). Only
 the (N,) errors come back to the host, where the per-category median, mean
@@ -11,7 +11,9 @@ Numbers (the reference's testing log):
   * per-category Acc@pi/6 = 100 * mean(err <= 30) and MedErr = median(err);
   * category-mean Acc / Med;
   * sample-mean Acc / Med (the reference swaps these two on its summary
-    line; they are reported here in their right places).
+    line; they are reported here in their right places);
+  * the validation pose loss and, for a teacher, the contrastive NCE loss,
+    each a mean over the valid rows.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ class CategoryEvalResult:
     sample_acc: float = 0.0
     sample_med: float = 0.0
     val_loss: float = 0.0
+    val_nce_loss: float = 0.0
     predictions: np.ndarray = field(default=None, repr=False)
     labels: np.ndarray = field(default=None, repr=False)
     errors: np.ndarray = field(default=None, repr=False)
@@ -50,24 +53,27 @@ def evaluate_categories(
     """Run `eval_step(batch)` over all batches and reduce.
 
     Each batch is a dict of host arrays as the loader emits them: 'im',
-    'label', 'cat_id' (int per sample, indexing category_names) and 'valid'
-    (bool mask of the padded tail batch; padded rows are dropped from every
-    statistic). 'im' and 'label' move to `device` for the step.
+    'label', 'shape' for a teacher, 'cat_id' (int per sample, indexing
+    category_names) and 'valid' (bool mask of the padded tail batch; padded
+    rows are dropped from every statistic). 'im', 'label', 'shape' and
+    'valid' move to `device` for the step.
     """
     preds, labels, cats = [], [], []
     loss_sum = torch.zeros((), dtype=torch.float64, device=device)
+    nce_sum = torch.zeros((), dtype=torch.float64, device=device)
     for batch in batches:
         valid_np = np.asarray(batch.get("valid", np.ones(len(batch["label"]), bool)))
-        label = torch.as_tensor(np.asarray(batch["label"]), device=device)
-        metrics = eval_step({"im": torch.as_tensor(np.asarray(batch["im"]),
-                                                   device=device),
-                             "label": label})
-        valid = torch.as_tensor(valid_np, device=device)
+        step_batch = {k: torch.as_tensor(np.asarray(batch[k]), device=device)
+                      for k in ("im", "label", "shape") if k in batch}
+        valid = step_batch["valid"] = torch.as_tensor(valid_np, device=device)
+        metrics = eval_step(step_batch)
         preds.append(metrics["pred"][valid])
-        labels.append(label[valid])
+        labels.append(step_batch["label"][valid])
         cats.append(np.asarray(batch["cat_id"])[valid_np])
-        # per-sample loss: exact masking of the padded tail rows
+        # per-sample losses: exact masking of the padded tail rows
         loss_sum += metrics["per_sample_loss"][valid].sum(dtype=torch.float64)
+        if "per_sample_nce" in metrics:
+            nce_sum += metrics["per_sample_nce"][valid].sum(dtype=torch.float64)
 
     preds_t = torch.cat(preds).contiguous()
     labels_t = torch.cat(labels)
@@ -93,6 +99,7 @@ def evaluate_categories(
         sample_acc=100.0 * float(np.mean(errs <= threshold)),
         sample_med=float(np.median(errs)),
         val_loss=float(loss_sum) / total,
+        val_nce_loss=float(nce_sum) / total,
         predictions=preds_t.cpu().numpy(),
         labels=labels_t.cpu().numpy(),
         errors=errs,

@@ -12,7 +12,7 @@ import torch
 
 from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.cli import inference, testing
-from pose3d_tpu_torch.ops import geodesic
+from pose3d_tpu_torch.ops import geodesic, pointnet
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -37,7 +37,9 @@ def _run(args, cwd):
 def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout) >= 20  # every module, data and CLIs included
+    # every module: data (PLY reader included), models (ResNet, PointNet,
+    # DeformNet), both kernels' wrappers, losses and CLIs
+    assert int(proc.stdout) >= 30
 
 
 def test_geodesic_on_cpu_takes_the_plain_version(rng):
@@ -49,21 +51,23 @@ def test_geodesic_on_cpu_takes_the_plain_version(rng):
     assert torch.equal(out, geometry.rotation_err(preds, labels))
 
 
-@pytest.mark.parametrize("cli", ["testing", "inference"])
+@pytest.mark.parametrize("cli", ["testing", "inference", "testing_teacher",
+                                 "inference_teacher"])
 def test_cli_default_device_refuses_without_cuda(cli, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="no CUDA device"):
-        if cli == "testing":
-            testing.main(["--dataset", "ObjectNet3D", "--shape", "None",
-                          "--data_root", str(tmp_path)])
+        if cli.startswith("testing"):
+            testing.main(["--dataset", "ObjectNet3D", "--data_root", str(tmp_path),
+                          "--shape", "None" if cli == "testing" else "PointCloud"])
         else:
             inference.main(["--ckpt", str(tmp_path / "s.pth"),
-                            "--img_path", str(tmp_path / "x.jpg")])
+                            "--img_path", str(tmp_path / "x.jpg")]
+                           + (["--ply_path", "p.ply"] if cli != "inference" else []))
 
 
 @pytest.mark.parametrize("argv", [
-    ["--shape", "PointCloud"], ["--shape", "None", "--bf16"],
+    ["--shape", "MultiView"], ["--shape", "None", "--bf16"],
     ["--shape", "None", "--int8"], ["--shape", "None", "--device_shapes"],
     ["--shape", "None", "--n_devices", "2"]])
 def test_testing_cli_refuses_unported_modes(argv):
@@ -71,7 +75,7 @@ def test_testing_cli_refuses_unported_modes(argv):
         testing.main(["--dataset", "ObjectNet3D", "--device", "cpu"] + argv)
 
 
-@pytest.mark.parametrize("argv", [["--bf16"], ["--int8"], ["--ply_path", "p.ply"],
+@pytest.mark.parametrize("argv", [["--bf16"], ["--int8"], ["--load_aot", "a"],
                                   ["--render_dir", "r"], ["--export_aot", "a"]])
 def test_inference_cli_refuses_unported_modes(argv):
     with pytest.raises(SystemExit, match="ROADMAP"):
@@ -90,3 +94,30 @@ def test_chip_smoke_fails_without_a_card_or_the_package(where, tmp_path):
     proc = _run(["chip_smoke.py"], cwd)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("argv", [["--shape", "PointCloud", "--bf16"],
+                                  ["--shape", "PointCloud", "--int8"],
+                                  ["--shape", "PointCloud", "--n_devices", "2"]])
+def test_testing_cli_refuses_unported_teacher_modes(argv):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        testing.main(["--dataset", "ObjectNet3D", "--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("argv", [["--int8"], ["--render_dir", "r"],
+                                  ["--export_aot", "a"]])
+def test_inference_cli_refuses_unported_teacher_modes(argv):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        inference.main(["--ckpt", "t.pth", "--img_path", "x.jpg", "--ply_path", "p.ply",
+                        "--device", "cpu"] + argv)
+
+
+def test_pointnet_on_cpu_takes_the_plain_version(rng):
+    folded = [(torch.from_numpy(rng.standard_normal((i, o)).astype("float32")),
+               torch.from_numpy(rng.standard_normal(o).astype("float32")))
+              for i, o in ((3, 64), (64, 128), (128, 16))]
+    pts = torch.from_numpy(rng.uniform(0, 1, (3, 40, 3)).astype("float32"))
+    before = pointnet.pointnet_eval.launches
+    out = pointnet.pointnet_eval(pts, folded)
+    assert pointnet.pointnet_eval.launches == before
+    assert torch.equal(out, pointnet.pointnet_eval_plain(pts, folded))
