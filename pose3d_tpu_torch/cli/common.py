@@ -1,6 +1,6 @@
 """Shared CLI plumbing. Port of `pose3d_tpu/cli/common.py`: the flags of the
-evaluation and serving CLIs, the device, and the construction of the
-student and of the PointCloud teacher.
+evaluation and serving CLIs, the device, the construction of the student
+and of the PointCloud teacher, and the training datasets and loader.
 
 Flags of the JAX CLIs whose paths are not ported yet are still accepted
 where a user would pass them, and refused with a message that names
@@ -10,11 +10,18 @@ ROADMAP.md, so that no flag is silently ignored.
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
+from pose3d_tpu_torch.data import annotations, datasets
+from pose3d_tpu_torch.data.loader import DataLoader
 from pose3d_tpu_torch.models.estimators import BaselineEstimator, PoseEstimator
 from pose3d_tpu_torch.train.convert import read_state_dict
+
+MANUAL_SEED = 46  # the reference's fixed seed
+TEST_CATS = {"ObjectNet3D": annotations.OBJECTNET3D_TEST_CATS,
+             "Pascal3D": annotations.PASCAL3D_TEST_CATS}
 
 
 def add_student_flags(parser: argparse.ArgumentParser, img_feature_dim: int) -> None:
@@ -92,3 +99,40 @@ def _loaded(model, checkpoint: str | None, device: torch.device):
     else:
         print("WARNING: no checkpoint given; evaluating random init")
     return model.to(device).eval()
+
+
+def make_train_loader(dataset, opt, seed: int = MANUAL_SEED) -> DataLoader:
+    """The shuffled train loader. The ragged tail is dropped unless the set
+    is smaller than one batch (then its one batch is padded and masked)."""
+    return DataLoader(dataset, opt.batch_size, shuffle=True,
+                      drop_last=len(dataset) > opt.batch_size, num_workers=opt.workers,
+                      seed=seed)
+
+
+def build_train_eval_datasets(opt):
+    """The train set and the validation (val_new) set of --dataset, as the
+    JAX CLI builds them: ObjectNet3D trains on the contrastive three-view
+    samples and validates on Pascal3D-style samples of the test categories;
+    Pascal3D trains and validates on Pascal3D samples."""
+    root_dir = os.path.join(opt.data_root, opt.dataset)
+    annotation_file = f"{opt.dataset}.txt"
+    shape = dict(shape=opt.shape, shape_dir=opt.shape_dir, input_dim=opt.input_dim,
+                 point_num=opt.point_num)
+    if opt.dataset == "ObjectNet3D":
+        cats = annotations.OBJECTNET3D_TEST_CATS
+        train = datasets.Pascal3DContrast(
+            root_dir, annotation_file, train=True, cat_choice=cats, keypoint=opt.keypoint,
+            novel=opt.novel, shot=opt.shot, seed=MANUAL_SEED, **shape)
+        val = datasets.Pascal3D(root_dir, annotation_file, train=False, cat_choice=cats,
+                                keypoint=opt.keypoint, novel=opt.novel, random=False, **shape)
+    elif opt.dataset == "Pascal3D":
+        cats = ["bus", "motorbike"] if opt.novel else None
+        train = datasets.Pascal3D(root_dir, annotation_file, train=True, cat_choice=cats,
+                                  novel=opt.novel, random=opt.random,
+                                  random_range=opt.random_range, **shape)
+        val = datasets.Pascal3D(root_dir, annotation_file, train=False, cat_choice=cats,
+                                novel=opt.novel, random=False, **shape)
+    else:
+        raise SystemExit(f"--dataset {opt.dataset}: training on it is not ported to "
+                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+    return train, val

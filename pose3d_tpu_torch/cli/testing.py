@@ -21,14 +21,10 @@ import os
 import numpy as np
 
 from pose3d_tpu_torch.cli import common
-from pose3d_tpu_torch.data import annotations, datasets
+from pose3d_tpu_torch.data import datasets
 from pose3d_tpu_torch.data.loader import DataLoader
 from pose3d_tpu_torch.train import steps
 from pose3d_tpu_torch.train.evaluate import evaluate_categories
-
-_TEST_CATS = {"ObjectNet3D": annotations.OBJECTNET3D_TEST_CATS,
-              "Pascal3D": annotations.PASCAL3D_TEST_CATS}
-
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -69,13 +65,13 @@ def parse_args(argv=None):
 
 
 def build_eval_dataset(opt):
-    if opt.dataset not in _TEST_CATS:
+    if opt.dataset not in common.TEST_CATS:
         raise SystemExit(f"--dataset {opt.dataset} is not ported to "
                          "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
     return datasets.Pascal3DContrast(
         os.path.join(opt.data_root, opt.dataset), f"{opt.dataset}.txt",
         input_dim=opt.input_dim, keypoint=opt.dataset == "Pascal3D",
-        cat_choice=_TEST_CATS[opt.dataset], shape=opt.shape, shape_dir=opt.shape_dir,
+        cat_choice=common.TEST_CATS[opt.dataset], shape=opt.shape, shape_dir=opt.shape_dir,
         point_num=opt.point_num, random_model=opt.random_model)
 
 

@@ -1,6 +1,7 @@
 """Annotation-frame loading and filtering. Port of
-`pose3d_tpu/data/annotations.py` (`LABEL_COLS`, the test-category lists,
-`pascal3d_frame`).
+`pose3d_tpu/data/annotations.py` (`LABEL_COLS`, `BAD_CATS`, the
+test-category lists, `pascal3d_frame` with its train filters: `novel`,
+`train_cls`, `shot`).
 
 Labels are read by column name: annotation files carry `azimuth`,
 `elevation` and `inplane_rotation` columns.
@@ -14,6 +15,14 @@ import numpy as np
 import pandas as pd
 
 LABEL_COLS = ["azimuth", "elevation", "inplane_rotation"]
+
+# categories whose canonical frame is never azimuth-randomized
+BAD_CATS = [
+    "ashtray", "basket", "bottle", "bucket", "can", "cap", "cup",
+    "fire_extinguisher", "fish_tank", "flashlight", "helmet", "jar",
+    "paintbrush", "pen", "pencil", "plate", "pot", "road_pole",
+    "screwdriver", "toothbrush", "trash_bin", "trophy",
+]
 
 OBJECTNET3D_TEST_CATS = [
     "bed", "bookshelf", "calculator", "cellphone", "computer", "door",

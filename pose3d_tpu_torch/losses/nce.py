@@ -1,5 +1,7 @@
-"""The contrastive KD loss, per sample. Port of `pose3d_tpu/losses/nce.py
-info_nce_kd_per_sample`, the teacher's validation NCE.
+"""The contrastive KD loss. Port of `pose3d_tpu/losses/nce.py`
+(`info_nce_kd_per_sample`, the teacher's validation NCE; `info_nce_kd`, its
+mean over the valid rows, the teacher step's contrastive term without
+`--fused_nce`).
 
 Per row i: L2-normalise the query (student/image) features s and the key
 (teacher/fused) features t, z_ij = s_i . t_j / tau, and
@@ -14,6 +16,8 @@ bits, so the caller owns the mask.
 from __future__ import annotations
 
 import torch
+
+from pose3d_tpu_torch.losses.binned import masked_mean
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -37,10 +41,20 @@ def info_nce_kd_per_sample(feat_ori: torch.Tensor, feat_pos: torch.Tensor,
     feat_pos = _l2_normalize(feat_pos)
     pos = torch.sum(feat_ori * feat_pos, dim=-1) / tau
     neg = (feat_ori @ feat_pos.T) / tau
-    m = torch.maximum(pos, neg.amax(dim=-1))[:, None]
+    # a constant shift, as JAX's stop_gradient: its gradient is zero
+    m = torch.maximum(pos, neg.amax(dim=-1)).detach()[:, None]
     exp_pos = torch.exp(pos[:, None] - m)[:, 0]
     exp_neg = torch.exp(neg - m)
     if valid is not None:
         exp_neg = exp_neg * valid[None, :].to(exp_neg.dtype)
     denom = exp_pos + torch.sum(exp_neg, dim=-1)
     return -(torch.log(exp_pos) - torch.log(denom))
+
+
+def info_nce_kd(feat_ori: torch.Tensor, feat_pos: torch.Tensor, tau: float = 0.1,
+                keep: torch.Tensor | None = None, dropout_rate: float = 0.3,
+                valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The batch-mean infoNCE-KD of the reference's recipes: the mean of
+    `info_nce_kd_per_sample` over the valid rows (all rows with None)."""
+    return masked_mean(
+        info_nce_kd_per_sample(feat_ori, feat_pos, tau, keep, dropout_rate, valid), valid)

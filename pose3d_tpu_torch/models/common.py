@@ -6,11 +6,22 @@ run):
   * dense kernels: normal(std=1e-3);
   * all biases:    zeros. BatchNorm: weight 1, bias 0.
 Random draws take an optional `torch.Generator`.
+
+BatchNorm follows flax (`nn.BatchNorm(momentum=0.9, epsilon=1e-5)` with the
+`mask` of `bn_mask`), not torch: in train mode the statistics come from the
+valid rows only, and the running variance moves toward the BIASED batch
+variance (torch's BatchNorm moves it toward the unbiased one).
 """
 
 from __future__ import annotations
 
+from typing import Iterable, Sequence
+
+import torch
+import torch.nn.functional as F
 from torch import nn
+
+BN_MOMENTUM, BN_EPS = 0.1, 1e-5  # flax's decay 0.9 is torch's momentum 0.1
 
 
 def kaiming_leaky02_(weight, generator=None):
@@ -25,21 +36,104 @@ def dense_init_(linear: nn.Linear, generator=None) -> nn.Linear:
     return linear
 
 
+def batch_stats(x: torch.Tensor, dims: Sequence[int],
+                mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """flax's train-mode statistics over `dims`: mean and E[x^2] - E[x]^2
+    clamped at 0, over the rows where the (N,) bool `mask` is set (all rows
+    with None). Differentiable."""
+    if mask is None:
+        mu = x.mean(dims)
+        mu2 = (x * x).mean(dims)
+    else:
+        w = mask.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+        count = mask.sum().to(x.dtype)
+        for d in dims:
+            if d != 0:
+                count = count * x.shape[d]
+        mu = (x * w).sum(dims) / count
+        mu2 = (x * x * w).sum(dims) / count
+    return mu, torch.clamp(mu2 - mu * mu, min=0.0)
+
+
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm over the channel axis 1 of (N, C) or (N, C, H, W), with
+    torch's parameter and buffer names (so reference state_dicts load with
+    strict=True) and flax's train-mode semantics:
+
+      * forward(x, mask): the (N,) bool `mask` keeps padded rows out of the
+        batch statistics (JAX `bn_mask`); normalisation is
+        (x - mean) * rsqrt(var + eps) * weight + bias, differentiated
+        through the statistics;
+      * the running statistics move by momentum 0.1 toward the batch mean
+        and the biased batch variance.
+
+    Eval mode uses the running statistics, as torch's BatchNorm does.
+    """
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def _check_input_dim(self, x):
+        if x.dim() not in (2, 4):
+            raise ValueError(f"BatchNorm takes (N, C) or (N, C, H, W); got {tuple(x.shape)}")
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """running = (1 - momentum) running + momentum batch (flax's update)."""
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean.detach(), alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var.detach(), alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
+
+    def normalize(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                  channel_dim: int = 1) -> torch.Tensor:
+        """(x - mean) * rsqrt(var + eps) * weight + bias, per channel."""
+        shape = [1] * x.dim()
+        shape[channel_dim] = -1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        self._check_input_dim(x)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        n = x.numel() // x.shape[1]  # values per channel
+        if mask is None and n > 1:
+            # the library kernel normalises with the biased variance and,
+            # at momentum 1, hands back the batch mean and the UNBIASED
+            # variance in zeroed buffers; the running update takes the
+            # biased one, so no second pass over x computes the statistics
+            mean, var = torch.zeros_like(self.running_mean), torch.zeros_like(self.running_var)
+            y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+            var = var * ((n - 1) / n)
+        else:
+            mean, var = batch_stats(x, [0] + list(range(2, x.dim())), mask)
+            y = self.normalize(x, mean, var)
+        self.update_running(mean, var)
+        return y
+
+
+def run_layers(layers: Iterable[nn.Module], x: torch.Tensor,
+               mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Apply a flat list of layers, handing `mask` to each BatchNorm."""
+    for layer in layers:
+        x = layer(x, mask) if isinstance(layer, BatchNorm) else layer(x)
+    return x
+
+
 def dense_bn_relu(in_features: int, out_features: int,
                   generator=None) -> list[nn.Module]:
-    """Linear + BatchNorm1d + ReLU, the reference's MLP block (for example
+    """Linear + BatchNorm + ReLU, the reference's MLP block (for example
     `compress`). Returned as three layers, not one module, so that a
     Sequential built from them has the reference's flat keys
-    (`compress.0`, `compress.1`, ...). BatchNorm1d's momentum 0.1 is flax's
-    running-average decay 0.9."""
+    (`compress.0`, `compress.1`, ...); `run_layers` applies it with a mask."""
     return [dense_init_(nn.Linear(in_features, out_features), generator),
-            nn.BatchNorm1d(out_features, eps=1e-5, momentum=0.1),
-            nn.ReLU(inplace=True)]
+            BatchNorm(out_features), nn.ReLU(inplace=True)]
 
 
 def conv_bn(in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
-            generator=None) -> tuple[nn.Conv2d, nn.BatchNorm2d]:
-    """The reference's ConvBN: Conv2d without bias, then BatchNorm2d (the
+            generator=None) -> tuple[nn.Conv2d, BatchNorm]:
+    """The reference's ConvBN: Conv2d without bias, then BatchNorm (the
     caller applies the ReLU where there is one). Padding is symmetric
     (k - 1) // 2, as in JAX (not XLA SAME). Returned as a pair so that the
     caller names them (`conv1`, `bn1`, `downsample.0/1`) as the reference's
@@ -47,7 +141,7 @@ def conv_bn(in_channels: int, out_channels: int, kernel_size: int, stride: int =
     conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                      padding=(kernel_size - 1) // 2, bias=False)
     kaiming_leaky02_(conv.weight, generator)
-    return conv, nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+    return conv, BatchNorm(out_channels)
 
 
 def head_dense(in_features: int, out_features: int, generator=None) -> nn.Linear:

@@ -13,9 +13,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pose3d_tpu_torch.models.common import BatchNorm
+
 
 class DeformNet(nn.Module):
-    """Input (N, bottleneck_size); output (N, out_dim) in (-1, 1)."""
+    """Input (N, bottleneck_size); output (N, out_dim) in (-1, 1). In train
+    mode `mask` keeps padded rows out of the BatchNorm statistics."""
 
     def __init__(self, bottleneck_size: int = 1024, out_dim: int = 200,
                  generator: torch.Generator | None = None):
@@ -28,13 +31,12 @@ class DeformNet(nn.Module):
             nn.init.zeros_(conv.bias)
             setattr(self, f"conv{i + 1}", conv)
             if i < 3:
-                setattr(self, f"bn{i + 1}", nn.BatchNorm1d(widths[i + 1], eps=1e-5,
-                                                           momentum=0.1))
+                setattr(self, f"bn{i + 1}", BatchNorm(widths[i + 1]))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         for i in range(1, 5):
             conv = getattr(self, f"conv{i}")
             x = F.linear(x, conv.weight[:, :, 0], conv.bias)
             if i < 4:
-                x = torch.relu(getattr(self, f"bn{i}")(x))
+                x = torch.relu(getattr(self, f"bn{i}")(x, mask))
         return torch.tanh(x)

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from pose3d_tpu_torch import geometry
-from pose3d_tpu_torch.models.common import dense_bn_relu, head_dense
+from pose3d_tpu_torch.models.common import dense_bn_relu, head_dense, run_layers
 from pose3d_tpu_torch.models.deformnet import DeformNet
 from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
 from pose3d_tpu_torch.models.resnet import resnet50
@@ -75,10 +75,7 @@ class BaselineEstimator(nn.Module):
 class PoseEstimator(nn.Module):
     """The PointCloud teacher. Inputs im (N, H, W, 3) and shape (N', P, 3)
     float32; returns ([6 heads], fused_200d, projector(img_feature)).
-
-    Eval mode only for now: the shape encoder's train-mode forward is not
-    ported (ROADMAP.md Queue 1).
-    """
+    Trains in train mode (batch-statistics BatchNorm, with `mask`)."""
 
     def __init__(self, shape: str = "PointCloud", img_feature_dim: int = 1024,
                  shape_feature_dim: int = 1024, azi_classes: int = 24,
@@ -102,18 +99,24 @@ class PoseEstimator(nn.Module):
             width = out
         self.projector = nn.Sequential(*layers, head_dense(width, 200, generator))
 
-    def forward(self, im: torch.Tensor, shape: torch.Tensor, view_tile: int = 1):
+    def forward(self, im: torch.Tensor, shape: torch.Tensor, view_tile: int = 1,
+                mask: torch.Tensor | None = None):
         """view_tile > 1: `im` holds view_tile stacked views of the same
         samples (the KD step's [im, im_flip, im_rot]) and `shape` only the
         leading im.shape[0] / view_tile clouds. Each cloud is encoded once
         and its feature tiled as `jnp.tile` does: rows 0..n-1, then 0..n-1
-        again (not each row repeated in place)."""
-        _, img_feature = self.img_encoder(im)
-        shape_feature = self.shape_encoder(shape)
+        again (not each row repeated in place). It is exact only with
+        running-statistics BatchNorm, so eval mode only, as in JAX.
+        `mask`: (N,) bool, the valid rows of a padded batch in train mode."""
+        if view_tile > 1 and self.training:
+            raise ValueError("view_tile tiling is only exact with eval-mode BatchNorm")
+        _, img_feature = self.img_encoder(im, mask)
+        shape_feature = self.shape_encoder(shape, mask)
         if view_tile > 1:
             shape_feature = shape_feature.repeat(view_tile, 1)
-        x = self.deformNet(torch.cat([shape_feature, img_feature], dim=-1))
-        return [getattr(self, name)(x) for name in HEADS], x, self.projector(img_feature)
+        x = self.deformNet(torch.cat([shape_feature, img_feature], dim=-1), mask)
+        return ([getattr(self, name)(x) for name in HEADS], x,
+                run_layers(self.projector, img_feature, mask))
 
     @torch.no_grad()
     def predict_viewpoint(self, im: torch.Tensor, shape: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """PointNet-lite shape encoder. Port of `pose3d_tpu/models/pointnet.py
-ShapeEncoderPC`, eval mode.
+ShapeEncoderPC`.
 
-Pointwise Conv1d 3 -> 64 -> 128 -> feature_dim with BatchNorm1d on each,
+Pointwise Conv1d 3 -> 64 -> 128 -> feature_dim with BatchNorm on each,
 ReLU on the first two, then a max over the points. The parameters keep the
 reference's layout (`conv{1,2,3}` with (out, in, 1) weights and a bias,
 `bn{1,2,3}`), which `torch_export.export_pointnet` writes.
@@ -11,15 +11,23 @@ The eval forward folds each BatchNorm into its conv
 the CUDA kernel on the card, the plain version on the CPU. JAX's eval
 forward computes (x W + b - mean) * rsqrt(var + eps) * scale + shift
 unfolded, so the two round differently and agree to float32 tolerance.
-It is the frozen teacher's forward and is not differentiated. The
-train-mode forward (batch statistics, masked rows) is not ported yet.
+It is the frozen teacher's forward and is not differentiated.
+
+The train forward is JAX's `dense_bn_forward` in plain PyTorch with
+autograd, on channels-last (N, P, C) activations: per channel, statistics
+over the valid clouds' points, variance E[x^2] - E[x]^2 clamped at 0, the
+running statistics updated toward it; then the max over the points. The
+fused train-mode kernel (`pose3d_tpu/ops/pointnet_train_fused.py`) is not
+ported yet (ROADMAP.md Queue 2 item 3).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from pose3d_tpu_torch.models.common import BatchNorm, batch_stats
 from pose3d_tpu_torch.ops.pointnet import HIDDEN, fold_pointnet_params, pointnet_eval
 
 
@@ -35,13 +43,19 @@ class ShapeEncoderPC(nn.Module):
             nn.init.normal_(conv.weight, 0.0, 1e-3, generator=generator)
             nn.init.zeros_(conv.bias)
             setattr(self, f"conv{i + 1}", conv)
-            setattr(self, f"bn{i + 1}", nn.BatchNorm1d(widths[i + 1], eps=1e-5,
-                                                       momentum=0.1))
+            setattr(self, f"bn{i + 1}", BatchNorm(widths[i + 1]))
 
-    @torch.no_grad()
-    def forward(self, points: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "ShapeEncoderPC's train-mode forward (batch-statistics BN) is not "
-                "ported to pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
-        return pointnet_eval(points, fold_pointnet_params(self.state_dict()))
+    def forward(self, points: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        if not self.training:
+            with torch.no_grad():
+                return pointnet_eval(points, fold_pointnet_params(self.state_dict()))
+        x = points
+        for i in (1, 2, 3):
+            conv, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")
+            x = F.linear(x, conv.weight[:, :, 0], conv.bias)
+            mean, var = batch_stats(x, (0, 1), mask)
+            bn.update_running(mean, var)
+            x = bn.normalize(x, mean, var, channel_dim=-1)
+            if i < 3:
+                x = torch.relu(x)
+        return x.amax(dim=1)

@@ -7,6 +7,8 @@ global average pool and a linear head. The forward returns both the pooled
 feature and the head's output, as the reference does; the teacher uses the
 head's output as its image feature. Keys follow the reference's state_dict
 (`conv1`, `bn1`, `layer{1..4}.{j}.conv{c}/bn{c}`, `.downsample.0/1`, `fc`).
+In train mode every BatchNorm takes the forward's `mask` (padded rows out of
+the batch statistics, as JAX passes `mask` to each ConvBN).
 
 The JAX package's `remat` option (recompute blocks in the backward) is a
 TPU memory trade and is not ported.
@@ -33,11 +35,10 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(in_channels, features * self.expansion, stride,
                                       generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(y + residual)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x), mask))
+        y = self.bn2(self.conv2(y), mask)
+        return torch.relu(y + _residual(self.downsample, x, mask))
 
 
 class Bottleneck(nn.Module):
@@ -53,12 +54,11 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(in_channels, features * self.expansion, stride,
                                       generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(y + residual)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x), mask))
+        y = torch.relu(self.bn2(self.conv2(y), mask))
+        y = self.bn3(self.conv3(y), mask)
+        return torch.relu(y + _residual(self.downsample, x, mask))
 
 
 def _downsample(in_channels, out_channels, stride, generator):
@@ -67,6 +67,13 @@ def _downsample(in_channels, out_channels, stride, generator):
     if stride == 1 and in_channels == out_channels:
         return None
     return nn.Sequential(*conv_bn(in_channels, out_channels, 1, stride, generator))
+
+
+def _residual(downsample, x, mask):
+    if downsample is None:
+        return x
+    conv, bn = downsample
+    return bn(conv(x), mask)
 
 
 class ResNet(nn.Module):
@@ -88,13 +95,14 @@ class ResNet(nn.Module):
         self.n_stages = len(stage_sizes)
         self.fc = head_dense(channels, num_classes, generator)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None):
         # NHWC -> the NCHW view convolutions take. The stem pools before its
         # ReLU, as JAX does: both are monotone, so the order is exact.
-        x = self.bn1(self.conv1(x.permute(0, 3, 1, 2)))
+        x = self.bn1(self.conv1(x.permute(0, 3, 1, 2)), mask)
         x = torch.relu(self.maxpool(x))
         for i in range(self.n_stages):
-            x = getattr(self, f"layer{i + 1}")(x)
+            for block in getattr(self, f"layer{i + 1}"):
+                x = block(x, mask)
         feat = x.mean(dim=(2, 3))
         return feat, self.fc(feat)
 

@@ -12,7 +12,7 @@ import torch
 
 from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.models.estimators import PoseEstimator
-from pose3d_tpu_torch.ops import _build, geodesic, pointnet
+from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet
 
 
 @pytest.fixture
@@ -158,3 +158,68 @@ def test_pointnet_kernel_all_negative_and_identical_points(cuda):
     assert float(out.max()) < 0
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     assert pointnet.pointnet_eval(pts[:0], folded).shape == (0, 256)
+
+
+def _nce_inputs(n, d, kind, device, seed=0):
+    """(s, t, valid_rows, valid_cols, row_offset): all valid ("fused"), a
+    masked tail ("masked"), or a shard of rows against more columns with
+    its own offset ("partial")."""
+    g = torch.Generator().manual_seed(seed)
+    nc = n + 60 if kind == "partial" else n
+    s = torch.randn(n, d, generator=g).to(device)
+    t = torch.randn(nc, d, generator=g).to(device)
+    vrow = vcol = None
+    if kind == "masked":
+        vrow = vcol = torch.arange(n, device=device) < max(n - 3, 1)
+    elif kind == "partial":
+        vrow = torch.arange(n, device=device) < n - 5
+        vcol = torch.arange(nc, device=device) < nc - 2
+    return s, t, vrow, vcol, 37 if kind == "partial" else 0
+
+
+def _nce_call(s, t, vrow, vcol, off, kind):
+    if kind == "fused":
+        return nce.fused_info_nce(s, t, 0.1)
+    if kind == "masked":
+        return nce.blocked_info_nce(s, t, 0.1, valid=vrow)
+    return nce.blocked_info_nce_partial(s, t, vrow, vcol, off, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,kind", [
+    (1, 64, "fused"), (7, 200, "fused"), (160, 200, "fused"), (160, 64, "masked"),
+    (1025, 200, "masked"), (2500, 64, "fused"), (100, 200, "partial"), (40, 512, "fused")])
+def test_nce_kernel_matches_plain_on_cuda(cuda, n, d, kind):
+    s, t, vrow, vcol, off = _nce_inputs(n, d, kind, cuda)
+    s.requires_grad_()
+    t.requires_grad_()
+    before = nce.nce_forward.launches, nce.nce_backward.launches
+    loss = _nce_call(s, t, vrow, vcol, off, kind)
+    ds, dt = torch.autograd.grad(loss, (s, t))
+    torch.cuda.synchronize()
+    assert (nce.nce_forward.launches, nce.nce_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = nce.info_nce_plain(s, t, 0.1, vrow, vcol, off)
+    if kind != "partial":
+        ref = ref / (n if vrow is None else vrow.sum())
+    rs, rt = torch.autograd.grad(ref, (s, t))
+    assert float(loss) == pytest.approx(float(ref), rel=1e-5)
+    for got, want in ((ds, rs), (dt, rt)):
+        assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1e-4)
+
+
+@pytest.mark.cuda
+def test_nce_kernel_is_deterministic_and_checks_its_inputs(cuda):
+    s, t, *_ = _nce_inputs(300, 200, "fused", cuda)
+    runs = []
+    for _ in range(2):
+        a, b = s.clone().requires_grad_(), t.clone().requires_grad_()
+        loss = nce.fused_info_nce(a, b)
+        runs.append((loss.detach(), *torch.autograd.grad(loss, (a, b))))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="contiguous"):
+        nce.fused_info_nce(s.t().contiguous().t(), t)
+    with pytest.raises(ValueError, match="D <= 512"):
+        wide = torch.zeros((4, 513), device=cuda)
+        nce.fused_info_nce(wide, wide)

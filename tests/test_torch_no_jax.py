@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from pose3d_tpu_torch import geometry
-from pose3d_tpu_torch.cli import inference, testing
+from pose3d_tpu_torch.cli import inference, testing, training
 from pose3d_tpu_torch.ops import geodesic, pointnet
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -121,3 +121,23 @@ def test_pointnet_on_cpu_takes_the_plain_version(rng):
     out = pointnet.pointnet_eval(pts, folded)
     assert pointnet.pointnet_eval.launches == before
     assert torch.equal(out, pointnet.pointnet_eval_plain(pts, folded))
+
+
+def test_training_cli_default_device_refuses_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        training.main(["--dataset", "ObjectNet3D", "--shape", "PointCloud",
+                       "--data_root", str(tmp_path)])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--shape", "None"], ["--shape", "MultiView"], ["--dataset", "ShapeNetCore"],
+    ["--dataset", "Pix3D"], ["--bf16"], ["--device_shapes"], ["--device_augment"],
+    ["--nce", "pose"], ["--nce", "multipose"], ["--weighting", "sqrt"],
+    ["--loader", "shm"], ["--n_devices", "2"], ["--cache_decoded_mb", "64"],
+    ["--profile_dir", "trace"], ["--model", "teacher.pth"]])
+def test_training_cli_refuses_unported_flags(argv):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        training.main(["--dataset", "ObjectNet3D", "--shape", "PointCloud", "--device", "cpu"]
+                      + argv)

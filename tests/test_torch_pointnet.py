@@ -121,9 +121,17 @@ def test_all_negative_outputs_keep_their_max():
 
 
 def test_shape_encoder_train_mode_is_refused():
-    enc = ShapeEncoderPC(FEATURE_DIM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enc(torch.zeros((2, 10, 3)))
+    """Train mode was refused until its forward was ported; it now runs in
+    plain PyTorch, away from the eval kernel: batch statistics (the output
+    differs from eval mode's), gradients, the running statistics updated."""
+    enc = ShapeEncoderPC(FEATURE_DIM, generator=torch.Generator().manual_seed(0))
+    pts = torch.from_numpy(_points(2, 10))
+    before = pointnet.pointnet_eval.launches
+    out = enc.train()(pts)
+    out.sum().backward()
+    assert pointnet.pointnet_eval.launches == before
+    assert enc.conv3.weight.grad is not None and int(enc.bn1.num_batches_tracked) == 1
+    assert not torch.allclose(out.detach(), enc.eval()(pts))
 
 
 def test_cpu_tensors_take_the_plain_version():
