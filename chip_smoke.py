@@ -16,20 +16,28 @@ width with random weights from a seed:
     DeformNet bottleneck 1280, batch 160, 224x224, 2,500 points, Adam lr
     1e-4, weight decay 5e-4): train steps whose infoNCE runs forward and
     backward in the NCE kernels, then the trainer's epoch loop (train, both
-    evaluations, checkpoints, resume).
-Phases:
+    evaluations, checkpoints, resume);
+  * the KD --crd student's training at the KD CLI's width (the student
+    above, the frozen teacher above, batch 46 samples x 3 views, 224x224,
+    2,500 points, Adam lr 1e-4): train steps whose student stem runs
+    forward and backward in the VGG stem kernels and whose teacher encodes
+    the clouds in the PointNet kernel, then the KD trainer's epoch loop.
+The student's stem (conv3x3 + ReLU + 2x2 pool) runs in the VGG stem
+kernel in every student forward. Phases:
 
   1 device    2 build    3 geodesic kernel vs plain
-  4 pointnet kernel vs plain    5 student at full width
-  6 student serving    7 student evaluation
-  8 teacher at full width    9 teacher serving    10 teacher evaluation
-  11 view_tile    12 serving times
-  13 NCE kernel vs plain    14 train step, card vs CPU
-  15 teacher training at full width    16 trainer epoch and resume
-  17 training times and profile
-Each path (6-7, 9-10, 15 and 16) is driven with the kernels' launch counts
-set to 0 just before it and read just after it; 15 is the training path's
-main path.
+  4 pointnet kernel vs plain    5 VGG stem kernel vs plain
+  6 student at full width    7 student serving    8 student evaluation
+  9 teacher at full width    10 teacher serving    11 teacher evaluation
+  12 view_tile    13 serving times
+  14 NCE kernel vs plain    15 train step, card vs CPU
+  16 teacher training at full width    17 trainer epoch and resume
+  18 training times and profile
+  19 KD step, card vs CPU    20 KD training at full width
+  21 KD trainer epoch and resume    22 KD times and profile
+Each path (7-8, 10-11, 16-17 and 20-21) is driven with the kernels'
+launch counts set to 0 just before it and read just after it; 16 and 20
+are the two training paths' main paths.
 
 Each phase prints a line; any failure raises and exits non-zero. Before the
 last line come the card's name and power limit (nvidia-smi) and one JSON
@@ -67,6 +75,11 @@ NCE_LOSS_RTOL, NCE_GRAD_TOL = 1e-5, 1e-4
 # CPU test against JAX): losses relative; gradients against their max|ref|
 STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-5, 1e-3
 TRAIN_BATCH, TRAIN_SHAPE_DIM, TRAIN_STEPS, LR = 160, 256, 6, 1e-4
+# VGG stem kernel vs plain: f32 sums of 27 products (forward), of the
+# gradient over the image (weight and bias) in another order; each against
+# its max|ref|
+STEM_Y_TOL, STEM_GRAD_TOL = 1e-5, 1e-4
+KD_BATCH = 46  # samples a KD step (x 3 views: 138 student rows), bench.py's
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
@@ -276,6 +289,32 @@ def check_eval(result, geometry, name: str) -> None:
                                f"{result.per_category_med[cat]} vs CPU {acc}/{med}")
 
 
+def profile_steps(run_step, steps: int = 2):
+    """Profile `steps` calls of run_step(): the device's own rows (kernels,
+    copies), as the profiler's "Self CUDA time total" counts them (an aten
+    op's row repeats its kernels' time), sorted by self device time; their
+    sum in ms; and the wall time in ms of the synced calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tt = time.perf_counter()
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tt) * 1e3
+    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation), key=lambda e: -e.self_device_time_total)
+    return rows, sum(e.self_device_time_total for e in rows) / 1e3, wall_ms
+
+
+def print_rows(rows, device_ms: float, top: int = 16) -> None:
+    for e in rows[:top] if device_ms > 0 else []:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{100 * e.self_device_time_total / 1e3 / device_ms:5.1f} %  x{e.count:<5d} "
+              f"{e.key[:90]}", flush=True)
+
+
 def rel_err(got, want) -> float:
     return float((got.cpu() - want.cpu()).abs().max() / want.abs().max())
 
@@ -357,6 +396,86 @@ class MemorySet:
         return {k: v[idx] for k, v in self.batch.items()}
 
 
+def stem_inputs(rng: np.random.Generator, n: int, hw: int, f: int, kind: str, dev,
+                dtype=torch.float32):
+    """The stem's inputs, as the student hands them over: an NCHW view of
+    NHWC memory, the (F, 3, 3, 3) weight and bias (both needing a
+    gradient), and an upstream gradient. `kind`: random, "ties" (an image
+    constant on each 2x2 cell and the kernel's centre tap only: every
+    pooling window ties, and the off-centre taps' gradient shows which
+    position took it) or "negative" (every output masked by the ReLU)."""
+    if kind == "ties":
+        cells = rng.standard_normal((n, hw // 2, hw // 2, 3))
+        x = np.repeat(np.repeat(cells, 2, axis=1), 2, axis=2)
+        w = np.zeros((f, 3, 3, 3))
+        w[:, :, 1, 1] = rng.standard_normal((f, 3))
+    else:
+        x = rng.standard_normal((n, hw, hw, 3), dtype=np.float32)
+        w = rng.standard_normal((f, 3, 3, 3)) * math.sqrt(2.0 / 27)
+        if kind == "negative":  # positive weights on a negative image
+            x, w = -100.0 - np.abs(x), np.abs(w)
+    b = rng.standard_normal(f) * 0.1
+    as_dev = lambda a: torch.from_numpy(a).to(dev, dtype)
+    # the upstream gradient drawn on the device: 111 M values at the KD shape
+    g = torch.randn((n, hw // 2, hw // 2, f), device=dev, dtype=dtype,
+                    generator=torch.Generator(dev).manual_seed(int(rng.integers(2**31))))
+    return (as_dev(x).permute(0, 3, 1, 2), as_dev(w).requires_grad_(),
+            as_dev(b).requires_grad_(), g.permute(0, 3, 1, 2))
+
+
+def stem_kernel_vs_plain(vgg_stem, x, w, b, g):
+    """The stem's output and weight/bias gradients through the kernels and
+    through the plain version (autograd) on the same inputs: (output error
+    over max|ref|, gradient error over max|ref|, max|d|, the kernels' bits
+    equal on a second run, the kernel's largest output)."""
+    runs = []
+    for _ in range(2):
+        y = vgg_stem.vgg_stem(x, w, b)
+        runs.append((y.detach(), *torch.autograd.grad(y, (w, b), g)))
+    y_ref = vgg_stem.vgg_stem_plain(x, w, b)
+    refs = (y_ref.detach(), *torch.autograd.grad(y_ref, (w, b), g))
+    errs = [float((got - want).abs().max()) for got, want in zip(runs[0], refs)]
+    scaled = [e / max(float(want.abs().max()), 1e-6) for e, want in zip(errs, refs)]
+    same = all(torch.equal(a, c) for a, c in zip(*runs))
+    return scaled[0], max(scaled[1:]), max(errs), same, float(runs[0][0].max())
+
+
+def student_heads_plain_stem(model, x):
+    """The student's eval forward with its first block run layer by layer
+    (cuDNN conv, ReLU, MaxPool2d): the plain stem, on the card too."""
+    from pose3d_tpu_torch.models.estimators import HEADS
+
+    vgg = model.img_encoder
+    feat = vgg.classifier(torch.flatten(vgg.features(x.permute(0, 3, 1, 2)), 1))
+    h = model.compress(feat)
+    return [getattr(model, name)(h) for name in HEADS]
+
+
+def kd_batch(rng: np.random.Generator, n: int, dim: int, points: int) -> dict:
+    """A KD train batch as the loader emits it (numpy): three views of each
+    sample with their labels, and the sample's cloud."""
+    batch = {}
+    for view in ("", "_flip", "_rot"):
+        batch["im" + view] = rng.standard_normal((n, dim, dim, 3), dtype=np.float32)
+        batch["label" + view] = random_labels(rng, n)
+    extent = rng.uniform(0.2, 1.0, (n, 1, 3))
+    batch["shape"] = (rng.uniform(0, 1, (n, points, 3)) * extent).astype(np.float32)
+    return batch
+
+
+class KDMemorySet(MemorySet):
+    """KD samples (three views, labels, a cloud) held in memory, or, with
+    `train` False, evaluation samples (one view, no cloud)."""
+
+    def __init__(self, n: int, seed: int, dim: int, train: bool = True):
+        rng = np.random.default_rng(seed)
+        self.batch = kd_batch(rng, n, dim, POINT_NUM)
+        if not train:
+            self.batch = {"im": self.batch["im"], "label": self.batch["label"]}
+        self.batch["cat_id"] = rng.integers(0, len(EVAL_CATEGORIES), n).astype(np.int32)
+        self.category_names = list(EVAL_CATEGORIES)
+
+
 def main() -> int:
     t0 = time.perf_counter()
     # 1. device
@@ -365,19 +484,23 @@ def main() -> int:
     from pose3d_tpu_torch import geometry
     from pose3d_tpu_torch.models.estimators import BaselineEstimator, PoseEstimator
     from pose3d_tpu_torch.data.loader import DataLoader
-    from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet
+    from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet, vgg_stem
     from pose3d_tpu_torch.train import convert, steps
     from pose3d_tpu_torch.train.evaluate import evaluate_categories
     from pose3d_tpu_torch.train.state import create_train_state
-    from pose3d_tpu_torch.train.trainer import TeacherTrainer
+    from pose3d_tpu_torch.train.trainer import KDTrainer, TeacherTrainer
 
     def reset_counts():
         geodesic.rotation_err.launches = pointnet.pointnet_eval.launches = 0
         nce.nce_forward.launches = nce.nce_backward.launches = 0
+        vgg_stem.stem_forward.launches = vgg_stem.stem_backward.launches = 0
 
     def counts():
+        """(geodesic, pointnet, NCE forward, NCE backward, stem forward,
+        stem backward) launches."""
         return (geodesic.rotation_err.launches, pointnet.pointnet_eval.launches,
-                nce.nce_forward.launches, nce.nce_backward.launches)
+                nce.nce_forward.launches, nce.nce_backward.launches,
+                vgg_stem.stem_forward.launches, vgg_stem.stem_backward.launches)
 
     card = card_line()
     dev = torch.device("cuda")
@@ -389,17 +512,20 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     tb = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        libs = list(pool.map(_build.build, ("geodesic", "pointnet_eval", "info_nce")))
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        libs = list(pool.map(_build.build, ("geodesic", "pointnet_eval", "info_nce",
+                                            "vgg_stem")))
     build_s = time.perf_counter() - tb
     for lib in libs:
         with open(lib[:-3] + ".log") as f:
             ptxas = " | ".join(line.strip() for line in f
                                if "ptxas info" in line or "spill" in line)
         phase("build", t0, f"nvcc {lib}; {ptxas}")
-    phase("build", t0, f"three libraries in {build_s:.2f} s; pointnet_eval_kernel: "
+    phase("build", t0, f"four libraries in {build_s:.2f} s; pointnet_eval_kernel: "
           f"{pointnet.shared_memory_bytes()} bytes of dynamic shared memory a block; "
-          f"info_nce at D 200 (forward, backward): {nce.shared_memory_bytes(200)} bytes")
+          f"info_nce at D 200 (forward, backward): {nce.shared_memory_bytes(200)} bytes; "
+          f"vgg_stem at F 64 (forward, weight gradient): "
+          f"{vgg_stem.shared_memory_bytes(64)} bytes")
 
     # 3. geodesic kernel vs plain version on the card, 1,000,003 rows + edge rows
     rng = np.random.default_rng(0)
@@ -454,7 +580,37 @@ def main() -> int:
           f"2500/2501 x D 256/1024, all outputs negative, identical points): max|d| "
           f"{pn_err:.3g}, max|d|/max|ref| {pn_rel:.3g} (tol {POINTNET_REL_TOL})")
 
-    # 5. student at full width, random weights from a seed, loaded strictly
+    # 5. VGG stem kernel vs plain version on the card: forward and the
+    # weight/bias gradient, at the main path's shapes and around them
+    srng = np.random.default_rng(2)
+    cases = [(n_c, hw, f_c, "rand") for n_c in (1, 7, 138) for hw in (224, 64, 30)
+             for f_c in (16, 64)]
+    cases += [(7, 224, 64, "ties"), (7, 224, 64, "negative")]
+    stem_y_err = stem_grad_err = stem_err = 0.0
+    for n_c, hw, f_c, kind in cases:
+        x_s, w_s, b_s, g_s = stem_inputs(srng, n_c, hw, f_c, kind, dev)
+        before = counts()
+        y_err, grad_err, max_d, same, y_max = stem_kernel_vs_plain(vgg_stem, x_s, w_s, b_s,
+                                                                   g_s)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(counts()[4:], before[4:]))
+        if launched != (2, 2) or not same or (kind == "negative") != (y_max == 0.0):
+            raise RuntimeError(f"stem case {(n_c, hw, f_c, kind)}: launches (forward, "
+                               f"backward) {launched} for two runs, bits equal {same}, "
+                               f"largest output {y_max}")
+        if y_err > STEM_Y_TOL or grad_err > STEM_GRAD_TOL:
+            raise RuntimeError(f"stem kernel vs plain at {(n_c, hw, f_c, kind)}: output "
+                               f"{y_err:.3g}, gradients {grad_err:.3g}")
+        stem_y_err, stem_grad_err = max(stem_y_err, y_err), max(stem_grad_err, grad_err)
+        stem_err = max(stem_err, max_d)
+    del x_s, w_s, b_s, g_s
+    phase("vgg_stem", t0, f"kernel vs plain in {len(cases)} cases (N 1/7/138 x H=W 224/64/30 "
+          f"x F 16/64, every window tied, every output masked): output max|d|/max|ref| "
+          f"{stem_y_err:.3g} (tol {STEM_Y_TOL}), weight and bias gradients {stem_grad_err:.3g} "
+          f"(tol {STEM_GRAD_TOL}); one forward and one backward launch a run, the same bits "
+          f"on a second run")
+
+    # 6. student at full width, random weights from a seed, loaded strictly
     state = convert.baseline_state_dict(student_variables(np.random.default_rng(1)))
     with torch.device("meta"):
         model_cpu, model = BaselineEstimator(), BaselineEstimator()
@@ -474,6 +630,9 @@ def main() -> int:
                     raise RuntimeError(f"non-finite output at batch {b}")
         heads, proj = model(x[:2].to(dev))
         heads_ref, proj_ref = model_cpu(x[:2])
+        # the same student with its first block layer by layer on the card
+        heads_plain = student_heads_plain_stem(model, x.to(dev))
+        vp_plain = geometry.decode_predictions_inference(heads_plain[:3], heads_plain[3:], 15)
     worst = max(rel_err(g, w) for g, w in zip(heads + [proj], heads_ref + [proj_ref]))
     if worst > HEADS_REL_TOL:
         raise RuntimeError(f"student card vs CPU: max|d|/max|ref| {worst:.3g}")
@@ -483,30 +642,55 @@ def main() -> int:
 
     # the student's main path: serving, then evaluation
     reset_counts()
-    # 6. serving: NHWC batch -> forward -> inference decoder
+    # 7. serving: NHWC batch -> forward -> inference decoder
     vp = model.predict_viewpoint(x.to(dev))
+    torch.cuda.synchronize()
+    serving_stem = counts()[4:]
     if vp.shape != (64, 3) or not bool(((vp >= 0) & (vp <= 360)).all()):
         raise RuntimeError(f"serving output {tuple(vp.shape)} outside [0, 360]")
-    phase("student serving", t0, f"64 requests -> {tuple(vp.shape)} degrees in [0, 360]; "
-          f"first {np.round(vp[0].cpu().numpy(), 2).tolist()}")
-    # 7. evaluation
+    vp_d = float((vp - vp_plain).abs().max())
+    if serving_stem != (1, 0) or vp_d >= 5e-3:  # the printed digits agree
+        raise RuntimeError(f"student serving: stem launches {serving_stem}, predictions vs "
+                           f"the plain stem's max|d| {vp_d:.3g} deg")
+    phase("student serving", t0, f"64 requests -> {tuple(vp.shape)} degrees in [0, 360], "
+          f"{serving_stem[0]} stem launch; first {np.round(vp[0].cpu().numpy(), 2).tolist()}, "
+          f"plain stem {np.round(vp_plain[0].cpu().numpy(), 2).tolist()} (max|d| over the "
+          f"batch {vp_d:.3g} deg)")
+    # 8. evaluation, and again with the plain stem
     result = evaluate_categories(steps.make_eval_step(model, "student"),
                                  eval_batches(3, False), EVAL_CATEGORIES, dev)
     torch.cuda.synchronize()
-    student_geo = geodesic.rotation_err.launches
-    if student_geo < 1:
-        raise RuntimeError("the student's evaluation did not launch the geodesic kernel")
+    student_geo, eval_stem = geodesic.rotation_err.launches, counts()[4] - serving_stem[0]
+    if student_geo < 1 or eval_stem != len(EVAL_COUNTS):
+        raise RuntimeError(f"the student's evaluation made {student_geo} geodesic and "
+                           f"{eval_stem} stem launches")
     check_eval(result, geometry, "student")
+    plain_step = steps.make_eval_step(model, "student")
+
+    def plain_stem_step(batch):
+        with torch.no_grad():
+            heads_p = student_heads_plain_stem(model, batch["im"])
+        return {"pred": geometry.decode_predictions(heads_p[:3], heads_p[3:], 15),
+                "per_sample_loss": plain_step(batch)["per_sample_loss"]}
+
+    result_plain = evaluate_categories(plain_stem_step, eval_batches(3, False),
+                                       EVAL_CATEGORIES, dev)
+    pred_d = float(np.abs(result.predictions - result_plain.predictions).max())
+    if result.per_category_acc != result_plain.per_category_acc or pred_d >= 5e-3:
+        raise RuntimeError(f"student evaluation vs the plain stem's: Acc "
+                           f"{result.per_category_acc} vs {result_plain.per_category_acc}, "
+                           f"predictions max|d| {pred_d:.3g}")
     p_eval = torch.from_numpy(result.predictions).to(dev)
     l_eval = torch.from_numpy(result.labels).float().to(dev)
     d_eval = geodesic.rotation_err(p_eval, l_eval) - geometry.rotation_err(p_eval, l_eval)
     geo_err = max(geo_err, float(d_eval.abs().max()))
     phase("student evaluation", t0, f"{len(result.cat_ids)} rows, {student_geo} geodesic "
-          f"launch(es); Acc {result.per_category_acc} Med "
+          f"and {eval_stem} stem launch(es); Acc {result.per_category_acc} Med "
           f"{ {k: round(v, 3) for k, v in result.per_category_med.items()} } "
-          f"val_loss {result.val_loss:.4f}; equal to the plain CPU recomputation")
+          f"val_loss {result.val_loss:.4f}; equal to the plain CPU recomputation; with the "
+          f"plain stem the same Acc and predictions within {pred_d:.3g} deg")
 
-    # 8. teacher at full width, random weights from a seed, loaded strictly
+    # 9. teacher at full width, random weights from a seed, loaded strictly
     state = convert.pose_state_dict(teacher_variables(np.random.default_rng(5)))
     with torch.device("meta"):
         teacher_cpu, teacher = PoseEstimator(), PoseEstimator()
@@ -537,7 +721,7 @@ def main() -> int:
 
     # the teacher's main path: serving, then evaluation
     reset_counts()
-    # 9. serving: (image, cloud) requests -> forward -> inference decoder
+    # 10. serving: (image, cloud) requests -> forward -> inference decoder
     vp = teacher.predict_viewpoint(xt.to(dev), pc.to(dev))
     torch.cuda.synchronize()
     if vp.shape != (TEACHER_BATCH, 3) or not bool(((vp >= 0) & (vp <= 360)).all()):
@@ -548,7 +732,7 @@ def main() -> int:
     phase("teacher serving", t0, f"{TEACHER_BATCH} requests -> {tuple(vp.shape)} degrees "
           f"in [0, 360], {serving_pn} pointnet launch(es); first "
           f"{np.round(vp[0].cpu().numpy(), 2).tolist()}")
-    # 10. evaluation through the teacher's eval step (validation NCE included)
+    # 11. evaluation through the teacher's eval step (validation NCE included)
     result = evaluate_categories(steps.make_eval_step(teacher, "teacher"),
                                  eval_batches(7, True), EVAL_CATEGORIES, dev)
     torch.cuda.synchronize()
@@ -580,7 +764,7 @@ def main() -> int:
           f"equal to the plain CPU recomputation; kernel vs plain on the teacher's "
           f"PointNet max|d| {err:.3g}")
 
-    # 11. view_tile: 3 stacked views of 16 samples, the 16 clouds encoded once
+    # 12. view_tile: 3 stacked views of 16 samples, the 16 clouds encoded once
     with torch.no_grad():
         im3 = xt[:48].to(dev)
         tiled = teacher(im3, pc_dev[:16], view_tile=3)
@@ -592,14 +776,14 @@ def main() -> int:
     phase("view_tile", t0, f"teacher(im x3, 16 clouds, view_tile=3) vs the clouds tiled "
           f"x3: max|d|/max|ref| {worst:.3g}")
 
-    # 12. times (CUDA events, after warm-up), with the card beside each
+    # 13. times (CUDA events, after warm-up), with the card beside each
     with torch.no_grad():
         for b in (1, 64, 256):
             xb = torch.from_numpy(np.random.default_rng(4).standard_normal(
                 (b, 224, 224, 3), dtype=np.float32)).to(dev)
             ms = cuda_ms(lambda: model(xb), iters=20 if b < 256 else 10)
-            phase("time", t0, f"student serving f32 batch {b}: {ms:.3f} ms/batch = "
-                  f"{b * 1000.0 / ms:.1f} img/s [{card}]")
+            phase("time", t0, f"student serving f32 batch {b} (stem kernel): {ms:.3f} "
+                  f"ms/batch = {b * 1000.0 / ms:.1f} img/s [{card}]")
         del model
         for b in (1, TEACHER_BATCH):
             xb, pb = xt[:b].to(dev), pc_dev[:b]
@@ -638,7 +822,7 @@ def main() -> int:
     geo_bound = bound(28.0 * 1_000_000, 100.0 * 1_000_000)
     pn_bound = bound(pn_bytes, pn_flops)
 
-    # 13. NCE kernels vs the plain version on the card: loss and both
+    # 14. NCE kernels vs the plain version on the card: loss and both
     # gradients; N 1 to 2500 (one tile to 79), D 64 / 200, with and without
     # masked rows and columns, a shard with its row offset, identical rows
     nrng = np.random.default_rng(13)
@@ -667,7 +851,7 @@ def main() -> int:
           f"{nce_grad_err:.3g} (tol {NCE_GRAD_TOL}); one forward and one backward launch "
           f"a case")
 
-    # 14. one train step, card vs CPU: small width, the same seeded weights,
+    # 15. one train step, card vs CPU: small width, the same seeded weights,
     # model in f64 and losses in f32 (the NCE in its kernel on the card), no
     # dropout; in f32 the batch-statistics BatchNorm of ResNet-50 at batch 8
     # magnifies rounding far past these tolerances (tests/test_torch_train.py)
@@ -684,7 +868,7 @@ def main() -> int:
         metrics = steps.make_teacher_train_step(nce_dropout=0.0, use_fused_nce=True)(
             state_s, batch)
         torch.cuda.synchronize()
-        launched = tuple(a - b for a, b in zip(counts()[2:], before[2:]))
+        launched = tuple(a - b for a, b in zip(counts()[2:4], before[2:4]))
         got[where] = ({k: float(v) for k, v in metrics.items()},
                       {k: p.grad.cpu() for k, p in model_s.named_parameters()},
                       {k: v.cpu() for k, v in model_s.state_dict().items() if "running" in k},
@@ -711,7 +895,7 @@ def main() -> int:
           f"max|ref| {grad_err:.3g} (tol {STEP_GRAD_TOL}), running statistics max|d| "
           f"{stat_err:.3g}; the card's step launched the NCE kernels {l_gpu}")
 
-    # 15. the teacher's training at the recipe's width with --fused_nce,
+    # 16. the teacher's training at the recipe's width with --fused_nce,
     # through make_teacher_train_step: the training path's main path
     def recipe_teacher(seed):
         return PoseEstimator(img_feature_dim=1024, shape_feature_dim=TRAIN_SHAPE_DIM,
@@ -728,10 +912,10 @@ def main() -> int:
     train_counts = counts()
     losses = [float(m["loss"]) for m in history]
     pose_losses = [float(m["pose_loss"]) for m in history]
-    if train_counts != (0, 0, TRAIN_STEPS, TRAIN_STEPS):
+    if train_counts != (0, 0, TRAIN_STEPS, TRAIN_STEPS, 0, 0):
         raise RuntimeError(f"teacher training: launches (geodesic, pointnet, NCE forward, "
-                           f"NCE backward) {train_counts}, expected one NCE forward and "
-                           f"backward a step")
+                           f"NCE backward, stem forward, stem backward) {train_counts}, "
+                           f"expected one NCE forward and backward a step")
     if not all(math.isfinite(v) for v in losses + pose_losses) or \
             not (losses[-1] < losses[0] and pose_losses[-1] < pose_losses[0]):
         raise RuntimeError(f"teacher training on one repeated batch: losses {losses}, "
@@ -741,7 +925,7 @@ def main() -> int:
           f"{[round(v, 4) for v in losses]} (pose {[round(v, 4) for v in pose_losses]}); "
           f"NCE launches {train_counts[2]} forward, {train_counts[3]} backward")
 
-    # 16. the trainer: one epoch on in-memory samples (train, both
+    # 17. the trainer: one epoch on in-memory samples (train, both
     # evaluations, checkpoints), then a resume into a second
     with tempfile.TemporaryDirectory() as tmp:
         def loaders():
@@ -759,7 +943,7 @@ def main() -> int:
         torch.cuda.synchronize()
         fit_counts = counts()
         saved = set(os.listdir(os.path.join(tmp, "ckpt")))
-        if fit_counts[0] != 2 or fit_counts[1] < 2 or fit_counts[2:] != (2, 2) or \
+        if fit_counts[0] != 2 or fit_counts[1] < 2 or fit_counts[2:] != (2, 2, 0, 0) or \
                 not {"checkpoint.pth", "checkpoint_img_encoder.pth", "EPOCH"} <= saved:
             raise RuntimeError(f"trainer epoch: launches {fit_counts}, checkpoint files "
                                f"{sorted(saved)}")
@@ -781,13 +965,13 @@ def main() -> int:
             raise RuntimeError(f"trainer resume: state restored {same}, step "
                                f"{resumed.step}, EPOCH {last_epoch}, records {records}")
     phase("trainer", t0, f"epoch 0 at batch 32 (2 steps, 40 + 40 evaluation rows): "
-          f"launches (geodesic, pointnet, NCE forward, NCE backward) {fit_counts}; "
+          f"launches (geodesic, pointnet, NCE forward, NCE backward) {fit_counts[:4]}; "
           f"checkpoints {sorted(saved)}; resumed from them (state equal) into epoch 1; "
           f"train_loss {[round(r['train_loss'], 4) for r in records]} val_nce "
           f"{[round(r['val_nce'], 4) for r in records]}")
     del fit_state, resumed, trainer
 
-    # 17. training times at batch 160 (host clock around synced steps), a
+    # 18. training times at batch 160 (host clock around synced steps), a
     # profile of two steps, and the NCE kernels vs their plain versions
     torch.cuda.synchronize()
     tt = time.perf_counter()
@@ -797,28 +981,13 @@ def main() -> int:
     step_ms = (time.perf_counter() - tt) * 1e3 / TRAIN_STEPS
     phase("time", t0, f"teacher train step f32 batch {TRAIN_BATCH}, --fused_nce: "
           f"{step_ms:.3f} ms/step = {TRAIN_BATCH * 1000.0 / step_ms:.1f} samples/s [{card}]")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tt = time.perf_counter()
-        for _ in range(2):
-            step(state, tb)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - tt) * 1e3
-    # the device's own rows (kernels, copies), as the profiler's "Self CUDA
-    # time total" counts them: an aten op's row repeats its kernels' time
-    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                   and not e.is_user_annotation), key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    rows, device_ms, wall_ms = profile_steps(lambda: step(state, tb))
     nce_ms = sum(e.self_device_time_total for e in rows if "nce_" in e.key) / 1e3
     phase("profile", t0, f"2 train steps: {device_ms:.2f} ms device of {wall_ms:.2f} ms "
           f"wall (busy {device_ms / wall_ms:.3f}); the NCE kernels {nce_ms:.4f} ms "
           f"[{card}]; by self device time:")
-    for e in rows[:16] if device_ms > 0 else []:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
-              f"{100 * e.self_device_time_total / 1e3 / device_ms:5.1f} %  x{e.count:<5d} "
-              f"{e.key[:90]}", flush=True)
+    print_rows(rows, device_ms)
+    del state, tb, step
 
     nce_times = {}
     for n in (TRAIN_BATCH, 4096):
@@ -856,6 +1025,236 @@ def main() -> int:
     fwd_bound = bound(4.0 * 2 * n * d, 2.0 * n * n * d)
     bwd_bound = bound(4.0 * 4 * n * d, 4.0 * n * n * d)
 
+    # 19. one KD step, card vs CPU, at the CPU test's small width: the
+    # student in f64 (the stem's f64 kernel on the card), the frozen
+    # teacher in f32 (the PointNet kernel is f32 only), the losses in f32,
+    # no dropout; 4 samples, the last padded
+    s_small = convert.baseline_state_dict(student_variables(np.random.default_rng(19), 64,
+                                                            0.25, 32))
+    t_small = convert.pose_state_dict(teacher_variables(np.random.default_rng(20), 64, 64))
+    kd_small = kd_batch(np.random.default_rng(21), 4, 32, 100)
+    kd_small["valid"] = np.arange(4) < 3
+    got = {}
+    for where in ("cpu", "cuda"):
+        student_s = BaselineEstimator(img_feature_dim=64, width_mult=0.25, input_dim=32,
+                                      dropout_rate=0.0)
+        student_s.load_state_dict(s_small, strict=True)
+        teacher_s = PoseEstimator(img_feature_dim=64, shape_feature_dim=64)
+        teacher_s.load_state_dict(t_small, strict=True)
+        teacher_s = teacher_s.to(where).eval().requires_grad_(False)
+        state_s = create_train_state(student_s.double().to(where), LR, [100], seed=0)
+        batch = {k: torch.from_numpy(v).to(where) for k, v in kd_small.items()}
+        for k in ("im", "im_flip", "im_rot"):
+            batch[k] = batch[k].double()
+        before = counts()
+        metrics = steps.make_kd_crd_step()(state_s, teacher_s, batch)
+        torch.cuda.synchronize()
+        got[where] = ({k: float(v) for k, v in metrics.items()},
+                      {k: p.grad.cpu() for k, p in student_s.named_parameters()},
+                      {k: v.cpu() for k, v in student_s.state_dict().items() if "running" in k},
+                      tuple(a - b for a, b in zip(counts(), before)))
+    (m_cpu, g_cpu, r_cpu, l_cpu), (m_gpu, g_gpu, r_gpu, l_gpu) = got["cpu"], got["cuda"]
+    if l_gpu != (0, 1, 0, 0, 1, 1) or any(l_cpu):
+        raise RuntimeError(f"KD step launches: card {l_gpu}, CPU {l_cpu}")
+    loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in ("loss", "gt_loss"))
+    largest = max(float(g.abs().max()) for g in g_cpu.values())
+    grad_err = 0.0
+    for k, want in g_cpu.items():
+        if float(want.abs().max()) < 1e-6 * largest:  # a bias before a train-mode BN
+            if float(g_gpu[k].abs().max()) >= 1e-6 * largest:
+                raise RuntimeError(f"KD step: {k} has a gradient on the card only")
+            continue
+        grad_err = max(grad_err, rel_err(g_gpu[k], want))
+    stat_err = max(float((r_gpu[k] - v).abs().max()) for k, v in r_cpu.items())
+    if loss_err > STEP_LOSS_RTOL or grad_err > STEP_GRAD_TOL or stat_err > 1e-5:
+        raise RuntimeError(f"KD step card vs CPU: losses {loss_err:.3g}, gradients "
+                           f"{grad_err:.3g}, running statistics {stat_err:.3g}")
+    phase("KD step", t0, f"card vs CPU at student width 0.25 / feature 64, 32x32, teacher "
+          f"64/64, 4 samples x 3 views, one padded (f64 student, f32 teacher and losses): "
+          f"losses rel {loss_err:.3g} (tol {STEP_LOSS_RTOL}), gradients max|d|/max|ref| "
+          f"{grad_err:.3g} (tol {STEP_GRAD_TOL}), running statistics max|d| {stat_err:.3g}; "
+          f"the card's step launched (pointnet, stem forward, stem backward) "
+          f"{(l_gpu[1], l_gpu[4], l_gpu[5])}; loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f}")
+
+    # 20. the KD --crd student's training at the KD CLI's width, through
+    # make_kd_crd_step: the student path's main path
+    state = convert.pose_state_dict(teacher_variables(np.random.default_rng(5)))
+    with torch.device("meta"):
+        kd_teacher = PoseEstimator()
+    kd_teacher.load_state_dict({k: v.to(dev) for k, v in state.items()}, strict=True,
+                               assign=True)
+    kd_teacher.eval().requires_grad_(False)
+    del state
+
+    def kd_student(seed):
+        return BaselineEstimator(generator=torch.Generator().manual_seed(seed)).to(dev)
+
+    kd_state = create_train_state(kd_student(46), LR, [10**9], seed=46)
+    n_params = sum(p.numel() for p in kd_state.model.parameters())
+    kd_step = steps.make_kd_crd_step()
+    kb = {k: torch.from_numpy(v).to(dev) for k, v in
+          kd_batch(np.random.default_rng(22), KD_BATCH, 224, POINT_NUM).items()}
+    reset_counts()
+    history = [kd_step(kd_state, kd_teacher, kb) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    kd_counts = counts()
+    kd_losses = [float(m["loss"]) for m in history]
+    gt_losses = [float(m["gt_loss"]) for m in history]
+    if kd_counts != (0, TRAIN_STEPS, 0, 0, TRAIN_STEPS, TRAIN_STEPS):
+        raise RuntimeError(f"KD training: launches (geodesic, pointnet, NCE forward, NCE "
+                           f"backward, stem forward, stem backward) {kd_counts}, expected one "
+                           f"pointnet, one stem forward and one stem backward a step")
+    if not all(math.isfinite(v) for v in kd_losses + gt_losses):
+        raise RuntimeError(f"KD training: losses {kd_losses}, gt losses {gt_losses}")
+    phase("KD training", t0, f"student {n_params} params, batch {KD_BATCH} x 3 views, "
+          f"224x224, teacher 1024/1024 with {POINT_NUM} points, {TRAIN_STEPS} steps on one "
+          f"batch: loss {[round(v, 4) for v in kd_losses]} (gt "
+          f"{[round(v, 4) for v in gt_losses]}); launches a step: pointnet "
+          f"{kd_counts[1] // TRAIN_STEPS}, stem forward {kd_counts[4] // TRAIN_STEPS}, stem "
+          f"backward {kd_counts[5] // TRAIN_STEPS}, NCE 0")
+
+    # 21. the KD trainer: one epoch on in-memory samples (train, the
+    # student's evaluation, checkpoints), then a resume into a second
+    with tempfile.TemporaryDirectory() as tmp:
+        def kd_loaders():
+            return (DataLoader(KDMemorySet(2 * KD_BATCH, 23, 224), KD_BATCH, shuffle=True,
+                               drop_last=True, num_workers=2),
+                    DataLoader(KDMemorySet(40, 24, 224, train=False), KD_BATCH,
+                               shuffle=False, num_workers=2))
+
+        fit_state = create_train_state(kd_student(23), LR, [10**9], seed=46)
+        train_l, val_l = kd_loaders()
+        trainer = KDTrainer(fit_state, kd_teacher, train_l, val_l, EVAL_CATEGORIES, tmp)
+        reset_counts()
+        trainer.fit_crd(1)
+        torch.cuda.synchronize()
+        kd_fit_counts = counts()
+        saved = set(os.listdir(os.path.join(tmp, "ckpt")))
+        ckpt_mb = os.path.getsize(trainer.ckpt.path("checkpoint")) / 2**20
+        if kd_fit_counts != (1, 2, 0, 0, 3, 2) or not {"checkpoint.pth", "EPOCH"} <= saved:
+            raise RuntimeError(f"KD trainer epoch: launches {kd_fit_counts}, checkpoint files "
+                               f"{sorted(saved)}")
+        resumed = create_train_state(kd_student(99), LR, [10**9], seed=0)
+        tr = time.perf_counter()
+        resumed.load_state_dict(trainer.ckpt.restore("checkpoint"))
+        restore_s = time.perf_counter() - tr
+        same = all(torch.equal(a, b) for a, b in zip(
+            fit_state.model.state_dict().values(), resumed.model.state_dict().values()))
+        del fit_state, trainer
+        train_l, val_l = kd_loaders()
+        KDTrainer(resumed, kd_teacher, train_l, val_l, EVAL_CATEGORIES, tmp).fit_crd(
+            2, start_epoch=1)
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        with open(os.path.join(tmp, "ckpt", "EPOCH")) as f:
+            last_epoch = f.read()
+        if not same or resumed.step != 4 or last_epoch != "1" or \
+                [r["epoch"] for r in records] != [0, 1] or \
+                not all(math.isfinite(r["train_loss"]) and math.isfinite(r["val_med"])
+                        for r in records):
+            raise RuntimeError(f"KD trainer resume: state restored {same}, step "
+                               f"{resumed.step}, EPOCH {last_epoch}, records {records}")
+    phase("KD trainer", t0, f"epoch 0 at batch {KD_BATCH} (2 steps, 40 evaluation rows): "
+          f"launches (geodesic, pointnet, NCE forward, NCE backward, stem forward, stem "
+          f"backward) {kd_fit_counts}; checkpoints {sorted(saved)} ({ckpt_mb:.1f} MiB a "
+          f"checkpoint.pth, restored in {restore_s:.2f} s); resumed from them (state equal) "
+          f"into epoch 1; train_loss {[round(r['train_loss'], 4) for r in records]} val_med "
+          f"{[round(r['val_med'], 3) for r in records]} train_samples_per_s "
+          f"{[round(r['train_samples_per_s'], 1) for r in records]}")
+    del resumed
+
+    # 22. KD times at batch 46 x 3 (host clock around synced steps), the
+    # step with the plain stem beside it, a profile of two steps, and the
+    # stem kernels vs their plain version
+    def kd_step_ms():
+        torch.cuda.synchronize()
+        tt = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            kd_step(kd_state, kd_teacher, kb)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - tt) * 1e3 / TRAIN_STEPS
+
+    # in turns: kernel, plain, plain, kernel; "plain": the student's stem
+    # swapped for its plain version for these steps only (a measurement)
+    from pose3d_tpu_torch.models import vgg as vgg_model
+    ab = {"kernel": [], "plain": []}
+    for who in ("kernel", "plain", "plain", "kernel"):
+        vgg_model.vgg_stem = vgg_stem.vgg_stem_plain if who == "plain" else vgg_stem.vgg_stem
+        try:
+            ab[who].append(kd_step_ms())
+        finally:
+            vgg_model.vgg_stem = vgg_stem.vgg_stem
+    kd_ms = sum(ab["kernel"]) / 2
+    phase("time", t0, f"KD --crd step f32 batch {KD_BATCH} x 3 views: {kd_ms:.3f} ms/step = "
+          f"{KD_BATCH * 1000.0 / kd_ms:.1f} samples/s (runs {ab['kernel']}); with the plain "
+          f"stem {ab['plain']} ms/step = {KD_BATCH * 2000.0 / sum(ab['plain']):.1f} "
+          f"samples/s [{card}]")
+    rows, device_ms, wall_ms = profile_steps(lambda: kd_step(kd_state, kd_teacher, kb))
+    stem_dev_ms = sum(e.self_device_time_total for e in rows if "stem_" in e.key) / 1e3
+    phase("profile", t0, f"2 KD steps: {device_ms:.2f} ms device of {wall_ms:.2f} ms wall "
+          f"(busy {device_ms / wall_ms:.3f}); the stem kernels {stem_dev_ms:.4f} ms [{card}]; "
+          f"by self device time:")
+    print_rows(rows, device_ms)
+    # the step's parts by CUDA events: the frozen teacher's forward on the
+    # 138 views, and Adam (the last step's gradients, applied again)
+    im3 = torch.cat([kb["im"], kb["im_flip"], kb["im_rot"]])
+    with torch.no_grad():
+        teacher_ms = cuda_ms(lambda: kd_teacher(im3, kb["shape"], view_tile=3), iters=5)
+    adam_ms = cuda_ms(kd_state.optimizer.step, iters=5)
+    phase("time", t0, f"KD step parts: frozen teacher forward {teacher_ms:.3f} ms, Adam over "
+          f"{n_params} parameters {adam_ms:.3f} ms, the rest (student forward and backward, "
+          f"losses) {kd_ms - teacher_ms - adam_ms:.3f} ms of {kd_ms:.3f} [{card}]")
+    del kd_state, kd_teacher, kb, history, im3
+
+    stem_times, stem_bounds = {}, {}
+    for n_s in (3 * KD_BATCH, 256):
+        x_s, w_s, b_s, g_s = stem_inputs(np.random.default_rng(25), n_s, 224, 64, "rand", dev)
+        x_nhwc, w_d, b_d = x_s.permute(0, 2, 3, 1), w_s.detach(), b_s.detach()
+        _, index = vgg_stem.stem_forward(x_nhwc, w_d, b_d, with_index=True)
+        y_plain = vgg_stem.vgg_stem_plain(x_s, w_s, b_s)
+
+        def plain_fwd():
+            with torch.no_grad():
+                vgg_stem.vgg_stem_plain(x_s, w_d, b_d)
+
+        fns = {"kernel forward": lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, True),
+               "kernel backward": lambda: vgg_stem.stem_backward(x_nhwc, index, g_s),
+               "plain forward": plain_fwd,
+               "plain backward": lambda: torch.autograd.grad(y_plain, (w_s, b_s), g_s,
+                                                             retain_graph=True)}
+        runs = {k: [] for k in fns}
+        runs["kernel forward, serving"] = []
+        for order in (("plain", "kernel"), ("kernel", "plain")):
+            for who in order:
+                for part in ("forward", "backward"):
+                    runs[f"{who} {part}"].append(cuda_ms(fns[f"{who} {part}"], 10))
+                if who == "kernel":
+                    runs["kernel forward, serving"].append(cuda_ms(
+                        lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, False), 10))
+        stem_times[n_s] = {k: sum(v) / len(v) for k, v in runs.items()}
+        t = stem_times[n_s]
+        # the bound: each input read once, each output written once; the
+        # weight gradient's products only where this run's outputs pass
+        # the ReLU (the routed position of each)
+        pooled = n_s * 112 * 112 * 64
+        unmasked = int((index < 4).sum())
+        stem_bounds[n_s] = (
+            bound(4.0 * (n_s * 224 * 224 * 3 + 64 * 28 + pooled) + pooled,
+                  2.0 * 27 * 4 * pooled),
+            bound(4.0 * (n_s * 224 * 224 * 3 + pooled + 64 * 28) + pooled,
+                  2.0 * 28 * unmasked))
+        phase("time", t0, f"stem ({n_s}, 224, 224) F 64: kernel forward "
+              f"{runs['kernel forward']} ms (serving, no indices, "
+              f"{runs['kernel forward, serving']}) + backward {runs['kernel backward']} ms; "
+              f"plain forward {runs['plain forward']} + backward {runs['plain backward']} ms; "
+              f"forward+backward {t['kernel forward'] + t['kernel backward']:.4f} vs "
+              f"{t['plain forward'] + t['plain backward']:.4f} ms "
+              f"({(t['plain forward'] + t['plain backward']) / (t['kernel forward'] + t['kernel backward']):.2f}x); "
+              f"bound forward {stem_bounds[n_s][0][0]:.4f} ms ({stem_bounds[n_s][0][1]}), "
+              f"backward {stem_bounds[n_s][1][0]:.4f} ms ({stem_bounds[n_s][1][1]}; "
+              f"{unmasked / pooled:.3f} of the outputs pass the ReLU) [{card}]")
+        del x_s, x_nhwc, index, y_plain, g_s
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -874,7 +1273,15 @@ def main() -> int:
               nce_times[n]["kernel forward"], nce_times[n]["plain forward"], fwd_bound),
         entry("info_nce_backward", "pose3d_tpu_torch/csrc/info_nce.cu",
               "pose3d_tpu/ops/nce_fused.py:134", train_counts[3], nce_err,
-              nce_times[n]["kernel backward"], nce_times[n]["plain backward"], bwd_bound)]}))
+              nce_times[n]["kernel backward"], nce_times[n]["plain backward"], bwd_bound),
+        entry("vgg_stem_forward", "pose3d_tpu_torch/csrc/vgg_stem.cu",
+              "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[4], stem_err,
+              stem_times[3 * KD_BATCH]["kernel forward"],
+              stem_times[3 * KD_BATCH]["plain forward"], stem_bounds[3 * KD_BATCH][0]),
+        entry("vgg_stem_backward", "pose3d_tpu_torch/csrc/vgg_stem.cu",
+              "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[5], stem_err,
+              stem_times[3 * KD_BATCH]["kernel backward"],
+              stem_times[3 * KD_BATCH]["plain backward"], stem_bounds[3 * KD_BATCH][1])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,9 +10,12 @@ CPU tensors.
 Ported so far: the RGB-only student (slice 1) and the frozen PointCloud
 teacher (slice 2) (`models`), their evaluation (`train.steps`,
 `train.evaluate`, `cli.testing`) and single-image serving
-(`cli.inference`), with the geodesic rotation error (`ops.geodesic`) and
-the teacher's PointNet encoder (`ops.pointnet`) in CUDA kernels on the
-card.
+(`cli.inference`), the teacher's contrastive training (slice 3,
+`cli.training`) and the student's KD `--crd` training (slice 4,
+`cli.trainingKD`), with the geodesic rotation error (`ops.geodesic`), the
+teacher's PointNet encoder (`ops.pointnet`), the in-batch infoNCE
+(`ops.nce`) and the student's VGG stem (`ops.vgg_stem`) in CUDA kernels on
+the card.
 
 Importing the package imports nothing: the data layer needs PIL and pandas,
 and the kernels need a card and nvcc, so each is loaded where it is used.

@@ -1,6 +1,7 @@
 """Shared CLI plumbing. Port of `pose3d_tpu/cli/common.py`: the flags of the
 evaluation and serving CLIs, the device, the construction of the student
-and of the PointCloud teacher, and the training datasets and loader.
+and of the PointCloud teacher, and the training datasets (the teacher's
+and the KD regime's) and loader.
 
 Flags of the JAX CLIs whose paths are not ported yet are still accepted
 where a user would pass them, and refused with a message that names
@@ -66,15 +67,16 @@ def num_classes(bin_size: int) -> tuple[int, int, int]:
     return int(360 / bin_size), int(180 / bin_size), int(360 / bin_size)
 
 
-def build_student(opt, checkpoint: str | None,
-                  device: torch.device) -> BaselineEstimator:
+def build_student(opt, checkpoint: str | None, device: torch.device,
+                  img_feature_dim: int | None = None) -> BaselineEstimator:
     """The student of the flags, with weights from `checkpoint` (a
     reference-layout .pth, loaded strictly) or, without one, a seeded
     random init. In eval mode, on `device`."""
     azi, ele, inp = num_classes(opt.bin_size)
     model = BaselineEstimator(
-        img_feature_dim=opt.img_feature_dim, azi_classes=azi, ele_classes=ele,
-        inp_classes=inp, bin_size=opt.bin_size, width_mult=opt.student_width_mult,
+        img_feature_dim=img_feature_dim or opt.img_feature_dim, azi_classes=azi,
+        ele_classes=ele, inp_classes=inp, bin_size=opt.bin_size,
+        width_mult=opt.student_width_mult,
         input_dim=opt.input_dim, generator=torch.Generator().manual_seed(0))
     return _loaded(model, checkpoint, device)
 
@@ -95,9 +97,14 @@ def build_teacher(opt, checkpoint: str | None, device: torch.device,
 
 def _loaded(model, checkpoint: str | None, device: torch.device):
     if checkpoint:
+        if os.path.isdir(checkpoint):
+            raise SystemExit(f"{checkpoint}: a checkpoint directory (the JAX package's "
+                             "orbax format) is not read by pose3d_tpu_torch; see "
+                             "ROADMAP.md Queue 1. Pass a .pth: a reference-layout "
+                             "state_dict or the port's own checkpoint.pth")
         model.load_state_dict(read_state_dict(checkpoint), strict=True)
     else:
-        print("WARNING: no checkpoint given; evaluating random init")
+        print("WARNING: no checkpoint given; the model keeps its seeded random init")
     return model.to(device).eval()
 
 
@@ -135,4 +142,30 @@ def build_train_eval_datasets(opt):
     else:
         raise SystemExit(f"--dataset {opt.dataset}: training on it is not ported to "
                          "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+    return train, val
+
+
+def build_kd_datasets(opt):
+    """The KD `--crd` regime's train and validation sets, as the JAX CLI
+    builds them for its three-view regimes: Pascal3DContrast (three views a
+    sample, with its cloud) on ObjectNet3D's test categories or on
+    Pascal3D's. The validation set evaluates the RGB-only student, so it
+    loads no clouds (JAX loads and ignores them)."""
+    root_dir = os.path.join(opt.data_root, opt.dataset)
+    annotation_file = f"{opt.dataset}.txt"
+    if opt.dataset == "ObjectNet3D":
+        cats, extra = annotations.OBJECTNET3D_TEST_CATS, dict(keypoint=opt.keypoint)
+    elif opt.dataset == "Pascal3D":
+        cats, extra = (["bus", "motorbike"] if opt.novel else None), {}
+    else:
+        raise SystemExit(f"--dataset {opt.dataset}: KD training on it is not ported to "
+                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+    train = datasets.Pascal3DContrast(
+        root_dir, annotation_file, train=True, cat_choice=cats, novel=opt.novel,
+        shot=opt.shot if opt.dataset == "ObjectNet3D" else None, seed=MANUAL_SEED,
+        shape=opt.shape, shape_dir=opt.shape_dir, input_dim=opt.input_dim,
+        point_num=opt.point_num, **extra)
+    val = datasets.Pascal3DContrast(root_dir, annotation_file, train=False, cat_choice=cats,
+                                    novel=opt.novel, shape=None, input_dim=opt.input_dim,
+                                    **extra)
     return train, val

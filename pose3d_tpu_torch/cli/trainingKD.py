@@ -1,0 +1,202 @@
+"""Student KD training CLI. Port of `pose3d_tpu/cli/trainingKD.py` for the
+`--crd` regime: the RGB-only student (VGG-11) distilled from a frozen
+PointCloud teacher on ObjectNet3D or Pascal3D, with the stem's CUDA kernel
+(`csrc/vgg_stem.cu`) in every step and the teacher's PointNet kernel in
+its forward on the card.
+
+    python -m pose3d_tpu_torch.cli.trainingKD --crd --dataset ObjectNet3D \\
+        --shape PointCloud --shape_dir pointcloud --batch_size 46 \\
+        --teacher_model result/PointCloud_ObjectNet3D/ckpt/checkpoint.pth
+
+Runs on the card (`--device cuda`, the default); `--device cpu` runs the
+plain versions. The regime runs 60 epochs (`--n_epoch` overrides), lr 1e-4
+times 0.1 after `--decrease` epochs, counted in optimizer steps as JAX
+does. `--teacher_model` reads a reference-layout .pth or the port's own
+teacher `checkpoint.pth`; `--student_model` warm-starts the student from
+either kind. Writes, under <result_dir>/KD_<dataset>/, training_log.txt
+(a "Student Epoch" line per epoch), config.json, metrics.jsonl and ckpt/
+(checkpoint.pth, best.pth, EPOCH; the testing CLI's `--model` reads
+checkpoint.pth); `--resume` continues from the last saved epoch;
+`--export_torch` writes the final student as a reference-layout .pth.
+The flags of paths not ported yet are refused with a message that names
+ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+from pose3d_tpu_torch.cli import common
+from pose3d_tpu_torch.data.loader import DataLoader
+from pose3d_tpu_torch.train.state import create_train_state
+from pose3d_tpu_torch.train.trainer import KDTrainer
+from pose3d_tpu_torch.utils.logging import TxtLogger
+
+CRD_EPOCHS = 60  # the reference's --crd regime
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--batch_size", type=int, default=16)
+    parser.add_argument("--workers", type=int, default=4)
+    parser.add_argument("--loader", type=str, default="thread", choices=["thread", "shm"],
+                        help="shm: not ported yet, refused (ROADMAP.md)")
+    parser.add_argument("--model", type=str, default=None,
+                        help="not read by the KD CLI: refused (use --student_model "
+                             "or --resume)")
+    # the teacher, 1024/1024 as the reference hard-codes it
+    parser.add_argument("--img_feature_dim", type=int, default=1024)
+    parser.add_argument("--shape_feature_dim", type=int, default=1024)
+    parser.add_argument("--bin_size", type=int, default=15)
+    parser.add_argument("--dataset", type=str, default=None,
+                        choices=["ObjectNet3D", "Pascal3D", "ShapeNetCore", "Pix3D",
+                                 "LineMod"])
+    parser.add_argument("--data_root", type=str, default="data",
+                        help="root containing <dataset>/ trees")
+    parser.add_argument("--shape_dir", type=str, default="Renders_semi_sphere",
+                        choices=["Renders_semi_sphere", "pointcloud"])
+    parser.add_argument("--shape", type=str, default="MultiView",
+                        choices=["MultiView", "PointCloud", "None"],
+                        help="the teacher's shape input: PointCloud; MultiView is not "
+                             "ported yet")
+    parser.add_argument("--novel", action="store_true")
+    parser.add_argument("--keypoint", action="store_true")
+    parser.add_argument("--shot", type=int, default=None)
+    parser.add_argument("--random", action="store_true",
+                        help="--stage 1's azimuth augmentation: refused (ROADMAP.md)")
+    parser.add_argument("--random_range", type=int, default=0,
+                        help="above 0: --stage 1's, refused (ROADMAP.md)")
+    parser.add_argument("--input_dim", type=int, default=224)
+    parser.add_argument("--point_num", type=int, default=2500)
+    parser.add_argument("--lr", type=float, default=1e-4)
+    parser.add_argument("--decrease", type=int, default=44,
+                        help="epoch at which the learning rate drops tenfold")
+    parser.add_argument("--teacher_model", type=str, default=None,
+                        help="the frozen teacher: a reference-layout .pth or the port's "
+                             "teacher checkpoint.pth")
+    parser.add_argument("--student_model", type=str, default=None,
+                        help="optional student warm start (.pth, loaded strictly)")
+    parser.add_argument("--crd", action="store_true",
+                        help="the feature-KD regime (the default when no other is set)")
+    parser.add_argument("--stage", type=int, default=0,
+                        help="1 or 2: not ported yet, refused (ROADMAP.md)")
+    parser.add_argument("--temperature", type=float, default=1.0)
+    parser.add_argument("--weighting", type=str, default=None,
+                        choices=["linear", "square", "sqrt", "sin", "sinsin"],
+                        help="consumed only by --stage 1 --nce pose; with --crd it is "
+                             "ignored with a warning, as in the JAX CLI")
+    parser.add_argument("--n_epoch", type=int, default=None,
+                        help=f"override the regime's {CRD_EPOCHS} epochs")
+    parser.add_argument("--student_feature_dim", type=int, default=2048)
+    parser.add_argument("--student_width_mult", type=float, default=1.0,
+                        help="VGG conv width multiplier of the student")
+    parser.add_argument("--result_dir", type=str, default="result")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue the student from the latest checkpoint")
+    parser.add_argument("--export_torch", type=str, default=None,
+                        help="also write the final student as a reference-layout .pth here")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device (default cuda); cpu runs the plain "
+                             "versions and must be asked for")
+    for flag, what in (("contrast", "the response-KD regime"),
+                       ("vid", "the VID loss variant"),
+                       ("fused_nce", "the stage-1 NCE kernels"),
+                       ("use_memory_bank", "the stage-1 memory bank"),
+                       ("int8_teacher", "an int8 frozen teacher"),
+                       ("device_augment", "on-device photometric augmentation"),
+                       ("device_views", "on-device view synthesis"),
+                       ("device_shapes", "a device-resident cloud bank"),
+                       ("bf16", "bfloat16 compute")):
+        parser.add_argument(f"--{flag}", action="store_true",
+                            help=f"{what}: not ported yet, refused (ROADMAP.md)")
+    parser.add_argument("--tau", type=float, default=None,
+                        help="the stage-1 NCE temperature: refused (ROADMAP.md)")
+    parser.add_argument("--nce", type=str, default="info",
+                        choices=["info", "pose", "multipose"],
+                        help="pose / multipose: --stage 1's, refused (ROADMAP.md)")
+    parser.add_argument("--n_devices", type=int, default=None,
+                        help="more than 1: not ported yet, refused (ROADMAP.md)")
+    parser.add_argument("--cache_decoded_mb", type=float, default=0.0,
+                        help="above 0: not ported yet, refused (ROADMAP.md)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="not ported yet, refused (ROADMAP.md)")
+    opt = parser.parse_args(argv)
+    if opt.shape != "PointCloud":
+        raise SystemExit(f"--shape {opt.shape}: only the PointCloud teacher's KD is ported "
+                         "to pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+    if opt.dataset in (None, "ShapeNetCore", "Pix3D", "LineMod"):
+        raise SystemExit(f"--dataset {opt.dataset}: KD training on it is not ported to "
+                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+    unported = {"--stage 1/2": opt.stage != 0, "--contrast": opt.contrast,
+                "--vid": opt.vid, "--fused_nce": opt.fused_nce,
+                "--use_memory_bank": opt.use_memory_bank, "--tau": opt.tau is not None,
+                "--nce pose/multipose": opt.nce != "info", "--random": opt.random,
+                "--random_range > 0": opt.random_range > 0,
+                "--int8_teacher": opt.int8_teacher, "--device_augment": opt.device_augment,
+                "--device_views": opt.device_views, "--device_shapes": opt.device_shapes,
+                "--bf16": opt.bf16, "--loader shm": opt.loader != "thread",
+                "--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
+                "--cache_decoded_mb > 0": opt.cache_decoded_mb > 0,
+                "--profile_dir": opt.profile_dir is not None, "--model": opt.model is not None}
+    for flag, set_ in unported.items():
+        if set_:
+            raise SystemExit(f"{flag} is not ported to pose3d_tpu_torch's KD training yet; "
+                             "see ROADMAP.md Queue 1")
+    if opt.weighting is not None:
+        print("WARNING: --weighting has no consumer outside --stage 1 --nce pose; "
+              "continuing without pose weighting", file=sys.stderr)
+        opt.weighting = None
+    return opt
+
+
+def main(argv=None):
+    opt = parse_args(argv)
+    print(opt)
+    device = common.setup_device(opt)
+
+    dataset_train, dataset_eval = common.build_kd_datasets(opt)
+    train_loader = common.make_train_loader(dataset_train, opt)
+    eval_loader = DataLoader(dataset_eval, opt.batch_size, shuffle=False,
+                             num_workers=opt.workers, seed=common.MANUAL_SEED)
+
+    teacher = common.build_teacher(opt, opt.teacher_model, device).requires_grad_(False)
+    student = common.build_student(opt, opt.student_model, device,
+                                   img_feature_dim=opt.student_feature_dim)
+    steps_per_epoch = max(len(train_loader), 1)
+    state = create_train_state(student, opt.lr, [opt.decrease * steps_per_epoch],
+                               seed=common.MANUAL_SEED)
+
+    result_path = os.path.join(os.getcwd(), opt.result_dir, f"KD_{opt.dataset}")
+    os.makedirs(result_path, exist_ok=True)
+    log = TxtLogger(os.path.join(result_path, "training_log.txt"))
+    log.line(str(opt) + "\n")
+    with open(os.path.join(result_path, "config.json"), "w") as f:
+        json.dump(vars(opt), f, indent=1)
+
+    trainer = KDTrainer(state, teacher, train_loader, eval_loader,
+                        dataset_eval.category_names, result_path, bin_size=opt.bin_size,
+                        temperature=opt.temperature)
+    start_epoch = 0
+    if opt.resume:
+        latest = trainer.ckpt.latest_epoch()
+        if latest is not None:
+            state.load_state_dict(trainer.ckpt.restore("checkpoint"))
+            start_epoch = latest + 1
+            print(f"resumed the student from epoch {latest}")
+    best = trainer.fit_crd(opt.n_epoch or CRD_EPOCHS, start_epoch=start_epoch)
+
+    if opt.export_torch:
+        torch.save({"state_dict": {k: v.cpu() for k, v in state.model.state_dict().items()}},
+                   opt.export_torch)
+        print(f"torch checkpoint exported to {opt.export_torch}")
+    print(f"best val acc: {best:.2f}")
+    return best
+
+
+if __name__ == "__main__":
+    main()

@@ -17,6 +17,8 @@ with (360/bin, 180/bin, 360/bin) classes.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 from torch import nn
 
@@ -37,7 +39,9 @@ HEADS = ("fc_cls_azi", "fc_cls_ele", "fc_cls_inp",
 
 class BaselineEstimator(nn.Module):
     """RGB-only student. Input (N, H, W, 3) float32; returns
-    ([6 heads], projected_feat)."""
+    ([6 heads], projected_feat). Trains in train mode (batch-statistics
+    BatchNorm with `mask`, classifier dropout at `dropout_rate`; 0 makes
+    the student deterministic, as JAX's parity runs do)."""
 
     def __init__(self, img_feature_dim: int = 2048, azi_classes: int = 24,
                  ele_classes: int = 12, inp_classes: int = 24, bin_size: int = 15,
@@ -59,9 +63,16 @@ class BaselineEstimator(nn.Module):
         self.projector = nn.Sequential(*dense_bn_relu(width, 200, generator),
                                        head_dense(200, 200, generator))
 
-    def forward(self, im: torch.Tensor):
-        x = self.compress(self.img_encoder(im))
-        return [getattr(self, name)(x) for name in HEADS], self.projector(x)
+    def forward(self, im: torch.Tensor, mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None,
+                keep: Sequence[torch.Tensor] | None = None):
+        """`mask`: (N,) bool, the valid rows of a padded batch in train
+        mode (kept out of every BatchNorm's statistics). `generator` /
+        `keep`: the classifier dropout's keep-masks in train mode, drawn
+        from the generator unless given (`VGG.forward`)."""
+        x = run_layers(self.compress, self.img_encoder(im, generator, keep), mask)
+        return ([getattr(self, name)(x) for name in HEADS],
+                run_layers(self.projector, x, mask))
 
     @torch.no_grad()
     def predict_viewpoint(self, im: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Train and evaluation steps. Port of `pose3d_tpu/train/steps.py`:
 `route_info_nce`, `make_teacher_train_step` (the contrastive teacher,
-`nce_variant="info"`) and `make_eval_step` (student and teacher kinds). The
-vanilla kind, the KD steps and the pose-weighted NCE variants come with
-their paths (ROADMAP.md Queue 1)."""
+`nce_variant="info"`), `make_kd_crd_step` (the KD `--crd` student step,
+`loss_variant="crd"`) and `make_eval_step` (student and teacher kinds).
+The vanilla kind, the stage-1/2 steps, the other KD loss variants and the
+pose-weighted NCE variants come with their paths (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.losses.binned import pose_loss, pose_loss_per_sample
+from pose3d_tpu_torch.losses.kd import kd_loss_with_features
 from pose3d_tpu_torch.losses.nce import info_nce_kd, info_nce_kd_per_sample
 from pose3d_tpu_torch.ops import nce
 from pose3d_tpu_torch.ops.augment import dewire
@@ -92,6 +94,59 @@ def make_teacher_train_step(bin_size: int = 15, nce_dropout: float = NCE_DROPOUT
                                         valid=valid)
         return {"loss": loss.detach(), "pose_loss": gt.detach(),
                 "nce_loss": nce_loss.detach(), "acc_rot": acc}
+
+    return step
+
+
+def make_kd_crd_step(bin_size: int = 15, temperature: float = 1.0) -> Callable:
+    """The KD `--crd` student step (JAX's `make_kd_crd_step`,
+    `loss_variant="crd"`): the three views of each sample through the
+    student in train mode, the frozen teacher's responses and projector
+    features on them, then 0.25 * the pose loss + 0.75 * the six heads' KL
+    + 0.75 * the features' KL (`losses.kd.kd_loss_with_features`, at
+    `temperature`); one Adam update and one schedule step. JAX's
+    `device_augment`, `device_views`, `int8_teacher` and `with_shape_bank`
+    are not taken (the CLI refuses them; ROADMAP.md).
+
+    Returns step(state, teacher, batch, keep=None) -> {'loss', 'gt_loss',
+    'acc_rot'} (0-d tensors on the student's device, no host sync).
+    `batch` holds 'im', 'im_flip', 'im_rot' (N, H, W, 3) float32 or uint8
+    (the u8 wire), 'label', 'label_flip', 'label_rot' (N, 3), 'shape'
+    (N, P, 3) the samples' clouds and, for a padded batch, 'valid' (N,)
+    bool, all on the student's device. The views are stacked [im, im_flip,
+    im_rot] and their rows masked by `valid` three times over. The teacher
+    (a `PoseEstimator`, frozen) runs in eval mode without a gradient, in
+    its own dtype, with `view_tile=3`: each cloud is encoded once for its
+    three views. The classifier dropout's keep-masks come from
+    `state.generator` unless `keep` (two (3N, 4096) bool masks) is given.
+    """
+    def step(state: TrainState, teacher, batch: dict, keep=None) -> dict:
+        model = state.model
+        model.train()
+        teacher.eval()
+        valid = batch.get("valid")
+        valid3 = None if valid is None else torch.cat([valid] * 3)
+        im = dewire(torch.cat([batch["im"], batch["im_flip"], batch["im_rot"]]))
+        label = torch.cat([batch["label"], batch["label_flip"], batch["label_rot"]])
+        s_out, s_feat = model(im, mask=valid3, generator=state.generator, keep=keep)
+        t_dtype = next(teacher.parameters()).dtype
+        with torch.no_grad():
+            t_out, _, t_feat = teacher(im.to(t_dtype), batch["shape"].to(t_dtype),
+                                       view_tile=3)
+        # the losses in float32 whatever the models' dtypes, as JAX's step
+        s_out, t_out = [o.float() for o in s_out], [o.float() for o in t_out]
+        gt = pose_loss(s_out, label, bin_size, valid=valid3)
+        loss = kd_loss_with_features(s_out, t_out, s_feat.float(), t_feat.float(), gt,
+                                     temperature=temperature, valid=valid3)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        with torch.no_grad():
+            preds = geometry.decode_predictions(s_out[:3], s_out[3:], bin_size)
+            acc = geometry.rotation_acc(preds, label.to(torch.float32), valid=valid3)
+        return {"loss": loss.detach(), "gt_loss": gt.detach(), "acc_rot": acc}
 
     return step
 

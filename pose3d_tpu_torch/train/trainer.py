@@ -1,6 +1,7 @@
-"""The teacher's epoch loop: loader, train step, evaluation, checkpoints and
-logs. Port of `pose3d_tpu/train/trainer.py` (`_device_batch`,
-`_DeferredMeters`, `_Base._eval`, `TeacherTrainer.fit`).
+"""The epoch loops: loader, train step, evaluation, checkpoints and logs.
+Port of `pose3d_tpu/train/trainer.py` (`_device_batch`, `_DeferredMeters`,
+`_Base._eval`, `TeacherTrainer.fit`, and `KDTrainer.fit_crd` with its
+`_student_loop`).
 
 Host batches reach the card off the consumer thread: a feeder thread pins
 each batch and starts its host-to-device copies (`non_blocking`) on a side
@@ -209,4 +210,71 @@ class TeacherTrainer:
                                 "train_samples": train_loss.count,
                                 "per_category_acc": result.per_category_acc})
             plot_curves(self.result_path, losses, accuracies, epoch)
+        return best_acc
+
+
+# a KD batch: the three views of each sample, their labels and the cloud
+KD_VIEW_KEYS = ("im", "shape", "label", "im_flip", "label_flip", "im_rot", "label_rot")
+
+
+class KDTrainer:
+    """The KD `--crd` student (the reference's trainingKD.py --crd recipe):
+    per epoch a train sweep of `make_kd_crd_step` against the frozen
+    `teacher`, the student's per-category evaluation on `eval_loader`, the
+    checkpoints (the student's whole train state: its "model" entry is the
+    reference-layout state_dict the testing CLI's `--model` loads), one log
+    line and one metrics record with the sustained train samples/s. The
+    stage-2 and contrast regimes of JAX's KDTrainer come with their paths
+    (ROADMAP.md Queue 1 item 8)."""
+
+    def __init__(self, state: TrainState, teacher, train_loader, eval_loader,
+                 category_names: list[str], result_path: str, bin_size: int = 15,
+                 temperature: float = 1.0):
+        self.state = state
+        self.teacher = teacher
+        self.device = next(state.model.parameters()).device
+        self.train_loader = train_loader
+        self.eval_loader = eval_loader
+        self.category_names = category_names
+        self.result_path = result_path
+        os.makedirs(result_path, exist_ok=True)
+        self.log = TxtLogger(os.path.join(result_path, "training_log.txt"))
+        self.metrics = MetricsWriter(os.path.join(result_path, "metrics.jsonl"))
+        self.ckpt = Checkpointer(os.path.join(result_path, "ckpt"))
+        self.kd_step = steps_lib.make_kd_crd_step(bin_size, temperature)
+        self.eval_step = steps_lib.make_eval_step(state.model, "student", bin_size)
+
+    def fit_crd(self, epochs: int, start_epoch: int = 0) -> float:
+        """JAX's fit_crd with its `_student_loop`."""
+        best_acc = 0.0
+        for epoch in range(start_epoch, epochs):
+            self.train_loader.set_epoch(epoch)
+            loss_m, acc_m = AverageValueMeter(), AverageValueMeter()
+            meters = DeferredMeters(loss_m, acc_m)
+            t0 = time.time()
+            for db, valid in Prefetcher(self.train_loader, KD_VIEW_KEYS, self.device):
+                meters.push(self.kd_step(self.state, self.teacher, db), int(valid.sum()))
+            # the flush waits for the last step, so train_seconds holds the
+            # device's time: the sustained samples/s is train_samples over it
+            meters.flush()
+            train_seconds = time.time() - t0
+
+            names = getattr(getattr(self.eval_loader, "dataset", None), "category_names",
+                            self.category_names)
+            result = evaluate_categories(self.eval_step, self.eval_loader, names, self.device)
+            is_best = result.mean_acc > best_acc
+            best_acc = max(best_acc, result.mean_acc)
+            self.ckpt.save_epoch(epoch, self.state.state_dict(), is_best=is_best)
+
+            self.log.line(
+                "Student Epoch: %03d || train_loss %.2f || train_acc %.2f -- "
+                "val_acc %.2f -- val_med %.2f \n" %
+                (epoch + 1, loss_m.avg, acc_m.avg, result.mean_acc, result.mean_med))
+            self.metrics.write({"kind": "crd_epoch", "epoch": epoch,
+                                "train_loss": loss_m.avg, "train_acc": acc_m.avg,
+                                "val_acc": result.mean_acc, "val_med": result.mean_med,
+                                "epoch_seconds": time.time() - t0,
+                                "train_seconds": train_seconds,
+                                "train_samples": loss_m.count,
+                                "train_samples_per_s": loss_m.count / max(train_seconds, 1e-9)})
         return best_acc

@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from pose3d_tpu_torch import geometry
-from pose3d_tpu_torch.models.estimators import PoseEstimator
-from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet
+from pose3d_tpu_torch.models.estimators import BaselineEstimator, PoseEstimator
+from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet, vgg_stem
 
 
 @pytest.fixture
@@ -223,3 +223,85 @@ def test_nce_kernel_is_deterministic_and_checks_its_inputs(cuda):
     with pytest.raises(ValueError, match="D <= 512"):
         wide = torch.zeros((4, 513), device=cuda)
         nce.fused_info_nce(wide, wide)
+
+
+def _stem_inputs(n, hw, f, kind, device, dtype=torch.float32, seed=0):
+    """NCHW image (a channels-last view of NHWC memory), weight, bias and
+    an upstream gradient: random ("rand"), ties in every pooling window (an
+    image constant on each 2x2 cell, the kernel's centre tap only), or
+    every output masked by the ReLU ("negative")."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "ties":
+        x = torch.randn((n, hw // 2, hw // 2, 3), generator=g)
+        x = x.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        w = torch.zeros((f, 3, 3, 3))
+        w[:, :, 1, 1] = torch.randn((f, 3), generator=g)
+    else:
+        x = torch.randn((n, hw, hw, 3), generator=g)
+        w = torch.randn((f, 3, 3, 3), generator=g) * (2.0 / 27) ** 0.5
+        if kind == "negative":  # positive weights on a negative image
+            x, w = -100.0 - x.abs(), w.abs()
+    b = torch.randn(f, generator=g) * 0.1
+    cot = torch.randn((n, f, hw // 2, hw // 2), generator=g)
+    return (x.to(device, dtype).permute(0, 3, 1, 2), w.to(device, dtype).requires_grad_(),
+            b.to(device, dtype).requires_grad_(), cot.to(device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hw,f,kind,dtype", [
+    (1, 224, 64, "rand", torch.float32), (7, 64, 16, "rand", torch.float32),
+    (7, 30, 64, "rand", torch.float32), (2, 31, 16, "rand", torch.float32),
+    (3, 48, 64, "ties", torch.float32), (3, 48, 64, "negative", torch.float32),
+    (2, 32, 24, "rand", torch.float32), (4, 32, 16, "rand", torch.float64)])
+def test_vgg_stem_kernel_matches_plain_on_cuda(cuda, n, hw, f, kind, dtype):
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, b, cot = _stem_inputs(n, hw, f, kind, cuda, dtype)
+    before = vgg_stem.stem_forward.launches, vgg_stem.stem_backward.launches
+    y = vgg_stem.vgg_stem(x, w, b)
+    dw, db = torch.autograd.grad(y, (w, b), cot)
+    torch.cuda.synchronize()
+    assert (vgg_stem.stem_forward.launches, vgg_stem.stem_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert y.shape == (n, f, hw // 2, hw // 2)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    y_ref = vgg_stem.vgg_stem_plain(x, w, b)
+    dw_ref, db_ref = torch.autograd.grad(y_ref, (w, b), cot)
+    # f32 sums of 27 products, and of the gradient over the image, in
+    # another order; the floor keeps the all-masked case's zeros exact
+    assert float((y - y_ref).abs().max()) <= 1e-5 * max(float(y_ref.abs().max()), 1e-6)
+    for got, want in ((dw, dw_ref), (db, db_ref)):
+        assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1e-6)
+    if kind == "negative":
+        assert float(y.abs().max()) == 0.0 and float(dw.abs().max()) == 0.0
+    y2 = vgg_stem.vgg_stem(x, w, b)
+    assert torch.equal(y, y2) and all(torch.equal(a, c) for a, c in zip(
+        (dw, db), torch.autograd.grad(y2, (w, b), cot)))
+
+
+@pytest.mark.cuda
+def test_vgg_stem_kernel_checks_its_inputs(cuda):
+    x, w, b, _ = _stem_inputs(2, 16, 16, "rand", cuda)
+    # an NCHW-contiguous image is read through one copy; the result agrees
+    with torch.no_grad():
+        assert torch.equal(vgg_stem.vgg_stem(x.contiguous(), w, b), vgg_stem.vgg_stem(x, w, b))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        vgg_stem.vgg_stem(x, w[:12], b[:12])
+    with pytest.raises(TypeError, match="float32 or float64"):
+        vgg_stem.vgg_stem(x.half(), w.detach().half(), b.detach().half())
+    with pytest.raises(ValueError, match="no gradient for the image"):
+        vgg_stem.vgg_stem(x.clone().requires_grad_(), w, b)
+    # without a gradient wanted no window indices are written, nothing is kept
+    before = vgg_stem.stem_backward.launches
+    with torch.no_grad():
+        assert not vgg_stem.vgg_stem(x, w, b).requires_grad
+    assert vgg_stem.stem_backward.launches == before
+
+
+def test_cpu_student_forward_makes_no_stem_launch():
+    model = BaselineEstimator(img_feature_dim=32, width_mult=0.25, input_dim=32,
+                              generator=torch.Generator().manual_seed(0)).eval()
+    before = vgg_stem.stem_forward.launches, vgg_stem.stem_backward.launches
+    heads, proj = model(torch.rand((2, 32, 32, 3)))
+    proj.sum().backward()
+    assert (vgg_stem.stem_forward.launches, vgg_stem.stem_backward.launches) == before
+    assert model.img_encoder.features[0].weight.grad is not None

@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from pose3d_tpu_torch import geometry
-from pose3d_tpu_torch.cli import inference, testing, training
-from pose3d_tpu_torch.ops import geodesic, pointnet
+from pose3d_tpu_torch.cli import inference, testing, training, trainingKD
+from pose3d_tpu_torch.ops import geodesic, pointnet, vgg_stem
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -38,8 +38,9 @@ def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
     # every module: data (PLY reader included), models (ResNet, PointNet,
-    # DeformNet), both kernels' wrappers, losses and CLIs
-    assert int(proc.stdout) >= 30
+    # DeformNet), the kernels' wrappers (the VGG stem's included), losses
+    # (KD's included) and CLIs (KD training's included)
+    assert int(proc.stdout) >= 33
 
 
 def test_geodesic_on_cpu_takes_the_plain_version(rng):
@@ -141,3 +142,21 @@ def test_training_cli_refuses_unported_flags(argv):
     with pytest.raises(SystemExit, match="ROADMAP"):
         training.main(["--dataset", "ObjectNet3D", "--shape", "PointCloud", "--device", "cpu"]
                       + argv)
+
+
+def test_vgg_stem_on_cpu_takes_the_plain_version(rng):
+    x = torch.from_numpy(rng.standard_normal((2, 3, 12, 12)).astype("float32"))
+    w = torch.from_numpy(rng.standard_normal((16, 3, 3, 3)).astype("float32"))
+    b = torch.from_numpy(rng.standard_normal(16).astype("float32"))
+    before = vgg_stem.stem_forward.launches
+    out = vgg_stem.vgg_stem(x, w, b)
+    assert vgg_stem.stem_forward.launches == before
+    assert torch.equal(out, vgg_stem.vgg_stem_plain(x, w, b))
+
+
+def test_kd_cli_default_device_refuses_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        trainingKD.main(["--crd", "--dataset", "ObjectNet3D", "--shape", "PointCloud",
+                         "--data_root", str(tmp_path)])
