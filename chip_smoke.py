@@ -15,13 +15,18 @@ width with random weights from a seed:
     width (ResNet-50, img_feature_dim 1024, shape_feature_dim 256,
     DeformNet bottleneck 1280, batch 160, 224x224, 2,500 points, Adam lr
     1e-4, weight decay 5e-4): train steps whose infoNCE runs forward and
-    backward in the NCE kernels, then the trainer's epoch loop (train, both
-    evaluations, checkpoints, resume);
+    backward in the NCE kernels and whose train-mode PointNet runs in its
+    kernels, then the trainer's epoch loop (train, both evaluations,
+    checkpoints, resume);
   * the KD --crd student's training at the KD CLI's width (the student
     above, the frozen teacher above, batch 46 samples x 3 views, 224x224,
     2,500 points, Adam lr 1e-4): train steps whose student stem runs
     forward and backward in the VGG stem kernels and whose teacher encodes
-    the clouds in the PointNet kernel, then the KD trainer's epoch loop.
+    the clouds in the PointNet kernel, then the KD trainer's epoch loop;
+  * KD --stage 1 (the student above and the vanilla teacher: ResNet-18,
+    img_feature_dim 1024, shape_feature_dim 256, 2,500 points; batch 46,
+    Adam lr 1e-4, tau 0.5, --fused_nce): train steps through the stem, NCE
+    and train-mode PointNet kernels, then the stage-1 trainer's epoch loop.
 The student's stem (conv3x3 + ReLU + 2x2 pool) runs in the VGG stem
 kernel in every student forward. Phases:
 
@@ -32,12 +37,16 @@ kernel in every student forward. Phases:
   12 view_tile    13 serving times
   14 NCE kernel vs plain    15 train step, card vs CPU
   16 teacher training at full width    17 trainer epoch and resume
-  18 training times and profile
+  18 training times (with and without the train-mode PointNet kernels)
+     and profile
   19 KD step, card vs CPU    20 KD training at full width
   21 KD trainer epoch and resume    22 KD times and profile
-Each path (7-8, 10-11, 16-17 and 20-21) is driven with the kernels'
-launch counts set to 0 just before it and read just after it; 16 and 20
-are the two training paths' main paths.
+  23 train-mode PointNet kernels vs plain    24 stage-1 training at full
+  width    25 stage-1 trainer epoch and resume    26 stage-1 times and
+  profile    27 train-mode PointNet times
+Each path (7-8, 10-11, 16-17, 20-21 and 24-25) is driven with the
+kernels' launch counts set to 0 just before it and read just after it;
+16, 20 and 24 are the three training paths' main paths.
 
 Each phase prints a line; any failure raises and exits non-zero. Before the
 last line come the card's name and power limit (nvidia-smi) and one JSON
@@ -80,6 +89,18 @@ TRAIN_BATCH, TRAIN_SHAPE_DIM, TRAIN_STEPS, LR = 160, 256, 6, 1e-4
 # its max|ref|
 STEM_Y_TOL, STEM_GRAD_TOL = 1e-5, 1e-4
 KD_BATCH = 46  # samples a KD step (x 3 views: 138 student rows), bench.py's
+# the train-mode PointNet kernel vs the plain version in float64 on the
+# kernel's inputs: outputs and statistics over their max|ref| (f32 sums of
+# up to 400,000 points in another order); gradients over their max|ref|;
+# the dense biases' gradients (zero in exact arithmetic) over the largest
+# weight gradient; how far below the f64 maximum an argmax point may lie (a
+# near tie that f32 rounding decides otherwise), over max|out|; how far
+# from 0 a ReLU input may lie where the kernels decide it otherwise than
+# f64, over its channel's max|input| (4 f32 ulps); and how many such
+# decisions they may make: twice the f32 plain version's, plus 2
+PT_OUT_TOL, PT_GRAD_TOL, PT_BIAS_TOL, PT_TIE_TOL = 1e-5, 1e-3, 1e-2, 1e-5
+PT_RELU_TOL = 2.0**-21
+STAGE1_SHAPE_DIM = 256  # PoseEstimatorVanilla's shape_feature_dim
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
@@ -140,79 +161,115 @@ def student_variables(rng: np.random.Generator, img_feature_dim: int = 2048,
     return {"params": params, "batch_stats": stats}
 
 
+class _Init:
+    """Seeded numpy initialisers for the hand-written variable trees below:
+    kernels He-scaled by `gain`, biases small, BatchNorm statistics random."""
+
+    def __init__(self, rng: np.random.Generator):
+        self.rng = rng
+
+    def normal(self, shape, std):
+        return std * self.rng.standard_normal(shape, dtype=np.float32)
+
+    def dense(self, fan_in, out, gain=2.0):
+        return {"kernel": self.normal((fan_in, out), math.sqrt(gain / fan_in)),
+                "bias": self.normal((out,), 0.01)}
+
+    def bn(self, width):
+        return ({"scale": 1.0 + self.normal((width,), 0.1), "bias": self.normal((width,), 0.1)},
+                {"mean": self.normal((width,), 0.1),
+                 "var": self.rng.uniform(0.5, 1.5, width).astype(np.float32)})
+
+    def convbn(self, k, cin, cout, gain):
+        p, s = self.bn(cout)
+        return ({"Conv_0": {"kernel": self.normal((k, k, cin, cout),
+                                                  math.sqrt(gain / (k * k * cin)))},
+                 "BatchNorm_0": p}, {"BatchNorm_0": s})
+
+    def resnet(self, stages, bottleneck: bool, out_dim: int):
+        """ResNet_0's (params, batch_stats): the last conv of each residual
+        branch and the projection have gain 0.25, so that the residual
+        stream keeps its scale through the blocks (with gain 1 the image
+        feature grows to about 70)."""
+        params, stats = {}, {}
+        params["ConvBN_0"], stats["ConvBN_0"] = self.convbn(7, 3, 64, 2.0)
+        channels, k = 64, 0
+        expansion = 4 if bottleneck else 1
+        for i, n_blocks in enumerate(stages):
+            width = 64 * 2**i
+            for j in range(n_blocks):
+                if bottleneck:
+                    convs = [(1, channels, width, 2.0), (3, width, width, 2.0),
+                             (1, width, 4 * width, 0.25)]
+                else:
+                    convs = [(3, channels, width, 2.0), (3, width, width, 0.25)]
+                if channels != expansion * width or (j == 0 and i > 0):  # a projection
+                    convs.append((1, channels, expansion * width, 0.25))
+                block, block_stats = {}, {}
+                for c, args in enumerate(convs):
+                    block[f"ConvBN_{c}"], block_stats[f"ConvBN_{c}"] = self.convbn(*args)
+                name = f"{'Bottleneck' if bottleneck else 'BasicBlock'}_{k}"
+                params[name], stats[name] = block, block_stats
+                channels, k = expansion * width, k + 1
+        params["Dense_0"] = self.dense(channels, out_dim, gain=1.0)
+        return params, stats
+
+    def pointnet(self, d):
+        params, stats = {}, {}
+        widths = (3, 64, 128, d)
+        for i in range(3):
+            params[f"Dense_{i}"] = self.dense(widths[i], widths[i + 1])
+            params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"] = self.bn(widths[i + 1])
+        return params, stats
+
+    def heads(self, width):
+        return {f"Dense_{i}": self.dense(width, HEAD_BINS[i % 3], gain=1.0) for i in range(6)}
+
+    def dense_bn_relu(self, params, stats, start, widths):
+        for i, (fan_in, out) in enumerate(zip(widths[:-1], widths[1:])):
+            p, s = self.bn(out)
+            params[f"DenseBNRelu_{start + i}"] = {"Dense_0": self.dense(fan_in, out),
+                                                  "BatchNorm_0": p}
+            stats[f"DenseBNRelu_{start + i}"] = {"BatchNorm_0": s}
+
+
 def teacher_variables(rng: np.random.Generator, img_feature_dim: int = 1024,
                       shape_feature_dim: int = 1024) -> dict:
     """Seeded numpy {"params", "batch_stats"} with the shapes of the JAX
     `pose3d_tpu.models.estimators.PoseEstimator(shape="PointCloud")`, written
     out by hand like `student_variables` (tests/test_torch_teacher.py holds
-    them against jax.eval_shape). Convs followed by a ReLU are He-scaled
-    (gain 2); the last conv of each residual branch and the projection have
-    gain 0.25, so the residual stream keeps its scale through the 16 blocks
-    (with gain 1 the image feature grows to about 70), and the DeformNet's
-    last layer too, so that most of the fused feature stays off tanh's
-    flat ends."""
-
-    def normal(shape, std):
-        return std * rng.standard_normal(shape, dtype=np.float32)
-
-    def dense(fan_in, out, gain=2.0):
-        return {"kernel": normal((fan_in, out), math.sqrt(gain / fan_in)),
-                "bias": normal((out,), 0.01)}
-
-    def bn(width):
-        return ({"scale": 1.0 + normal((width,), 0.1), "bias": normal((width,), 0.1)},
-                {"mean": normal((width,), 0.1),
-                 "var": rng.uniform(0.5, 1.5, width).astype(np.float32)})
-
-    def convbn(k, cin, cout, gain):
-        p, s = bn(cout)
-        return ({"Conv_0": {"kernel": normal((k, k, cin, cout),
-                                             math.sqrt(gain / (k * k * cin)))},
-                 "BatchNorm_0": p}, {"BatchNorm_0": s})
-
-    def put(params, stats, name, pair):
-        params[name], stats[name] = pair
-
-    resnet, resnet_stats = {}, {}
-    put(resnet, resnet_stats, "ConvBN_0", convbn(7, 3, 64, 2.0))
-    channels, k = 64, 0
-    for i, n_blocks in enumerate(RESNET50_STAGES):
-        width = 64 * 2**i
-        for j in range(n_blocks):
-            block, block_stats = {}, {}
-            put(block, block_stats, "ConvBN_0", convbn(1, channels, width, 2.0))
-            put(block, block_stats, "ConvBN_1", convbn(3, width, width, 2.0))
-            put(block, block_stats, "ConvBN_2", convbn(1, width, 4 * width, 0.25))
-            if j == 0:  # stride 2, or 64 -> 256 channels: a projection
-                put(block, block_stats, "ConvBN_3", convbn(1, channels, 4 * width, 0.25))
-            resnet[f"Bottleneck_{k}"], resnet_stats[f"Bottleneck_{k}"] = block, block_stats
-            channels, k = 4 * width, k + 1
-    resnet["Dense_0"] = dense(channels, img_feature_dim, gain=1.0)
-
-    pointnet, pointnet_stats = {}, {}
-    widths = (3, 64, 128, shape_feature_dim)
-    for i in range(3):
-        pointnet[f"Dense_{i}"] = dense(widths[i], widths[i + 1])
-        put(pointnet, pointnet_stats, f"BatchNorm_{i}", bn(widths[i + 1]))
-
+    them against jax.eval_shape). The DeformNet's last layer has gain 0.25,
+    so that most of the fused feature stays off tanh's flat ends."""
+    init = _Init(rng)
+    resnet, resnet_stats = init.resnet(RESNET50_STAGES, True, img_feature_dim)
+    pointnet, pointnet_stats = init.pointnet(shape_feature_dim)
     b = shape_feature_dim + img_feature_dim
     deform, deform_stats = {}, {}
-    for i, (fan_in, out) in enumerate(((b, b), (b, b // 2), (b // 2, b // 4))):
-        p, s = bn(out)
-        deform[f"DenseBNRelu_{i}"] = {"Dense_0": dense(fan_in, out), "BatchNorm_0": p}
-        deform_stats[f"DenseBNRelu_{i}"] = {"BatchNorm_0": s}
-    deform["Dense_0"] = dense(b // 4, 200, gain=0.25)
-
+    init.dense_bn_relu(deform, deform_stats, 0, (b, b, b // 2, b // 4))
+    deform["Dense_0"] = init.dense(b // 4, 200, gain=0.25)
     params = {"ResNet_0": resnet, "ShapeEncoderPC_0": pointnet, "DeformNet_0": deform,
-              "_SixHeads_0": {f"Dense_{i}": dense(200, HEAD_BINS[i % 3], gain=1.0)
-                              for i in range(6)}}
+              "_SixHeads_0": init.heads(200)}
     stats = {"ResNet_0": resnet_stats, "ShapeEncoderPC_0": pointnet_stats,
              "DeformNet_0": deform_stats}
-    for i, (fan_in, out) in enumerate(((img_feature_dim, 800), (800, 400))):
-        p, s = bn(out)
-        params[f"DenseBNRelu_{i}"] = {"Dense_0": dense(fan_in, out), "BatchNorm_0": p}
-        stats[f"DenseBNRelu_{i}"] = {"BatchNorm_0": s}
-    params["Dense_0"] = dense(400, 200, gain=1.0)
+    init.dense_bn_relu(params, stats, 0, (img_feature_dim, 800, 400))
+    params["Dense_0"] = init.dense(400, 200, gain=1.0)
+    return {"params": params, "batch_stats": stats}
+
+
+def vanilla_variables(rng: np.random.Generator, img_feature_dim: int = 1024,
+                      shape_feature_dim: int = 256) -> dict:
+    """Seeded numpy {"params", "batch_stats"} with the shapes of the JAX
+    `PoseEstimatorVanilla(shape="PointCloud")`: ResNet-18, the PointNet, the
+    compress MLP and the six heads (tests/test_torch_stage1.py holds them
+    against jax.eval_shape)."""
+    init = _Init(rng)
+    resnet, resnet_stats = init.resnet((2, 2, 2, 2), False, img_feature_dim)
+    pointnet, pointnet_stats = init.pointnet(shape_feature_dim)
+    params = {"ResNet_0": resnet, "ShapeEncoderPC_0": pointnet}
+    stats = {"ResNet_0": resnet_stats, "ShapeEncoderPC_0": pointnet_stats}
+    init.dense_bn_relu(params, stats, 0,
+                       (shape_feature_dim + img_feature_dim, 800, 400, 200))
+    params["_SixHeads_0"] = init.heads(200)
     return {"params": params, "batch_stats": stats}
 
 
@@ -287,6 +344,31 @@ def check_eval(result, geometry, name: str) -> None:
                 abs(med - result.per_category_med[cat]) > 1e-3:
             raise RuntimeError(f"{name} {cat}: card Acc/Med {result.per_category_acc[cat]}/"
                                f"{result.per_category_med[cat]} vs CPU {acc}/{med}")
+
+
+def steps_ms(run_step, steps: int = TRAIN_STEPS) -> float:
+    """Host-clock ms a step of `steps` synced calls of run_step()."""
+    torch.cuda.synchronize()
+    tt = time.perf_counter()
+    for _ in range(steps):
+        run_step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - tt) * 1e3 / steps
+
+
+def ab_times(module, name: str, plain, run) -> dict:
+    """run() with `module.<name>` as it is ("kernel") and swapped for
+    `plain` ("plain"), in turns kernel, plain, plain, kernel: the swap is a
+    measurement only and is undone at once."""
+    kernel = getattr(module, name)
+    ab = {"kernel": [], "plain": []}
+    for who in ("kernel", "plain", "plain", "kernel"):
+        setattr(module, name, plain if who == "plain" else kernel)
+        try:
+            ab[who].append(run())
+        finally:
+            setattr(module, name, kernel)
+    return ab
 
 
 def profile_steps(run_step, steps: int = 2):
@@ -463,6 +545,131 @@ def kd_batch(rng: np.random.Generator, n: int, dim: int, points: int) -> dict:
     return batch
 
 
+def pt_inputs(rng: np.random.Generator, n: int, p: int, d: int, dev,
+              dtype=torch.float32, masked=False, ties=False, gamma0=False):
+    """One case of the train-mode PointNet: clouds of varied extents (with
+    `ties`, every point of cloud 0 the same, so that each of its outputs
+    ties over all its points), He-scaled (weight (out, in), bias, gamma,
+    beta) layers (with `gamma0`, gamma3 = 0 in channel 0: every point ties
+    there), the (N,) validity (with `masked`, the last quarter of the
+    clouds padded) and an upstream gradient."""
+    pts = rng.uniform(0, 1, (n, p, 3)) * rng.uniform(0.2, 1.0, (n, 1, 3))
+    if ties:
+        pts[0] = pts[0, :1]
+    layers = []
+    for fan_in, out in ((3, 64), (64, 128), (128, d)):
+        layers.append([rng.standard_normal((out, fan_in)) * math.sqrt(2.0 / fan_in),
+                       0.1 * rng.standard_normal(out), 1.0 + 0.1 * rng.standard_normal(out),
+                       0.1 * rng.standard_normal(out)])
+    if gamma0:
+        layers[2][2][0] = 0.0
+    as_dev = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+    valid = torch.from_numpy(np.arange(n) < n - max(1, n // 4)).to(dev) if masked else None
+    return (as_dev(pts), [[as_dev(a) for a in layer] for layer in layers], valid,
+            as_dev(rng.standard_normal((n, d))))
+
+
+def pt_reference(pts, layers, valid, index, masks=None):
+    """The plain version's function in the inputs' dtype, with its max taken
+    at the points `index` (N, D) and, with `masks`, its ReLUs opened there
+    (`forward_parts`). Returns (out (N, D), (y1, y2) the ReLUs' inputs)."""
+    from pose3d_tpu_torch.tools.pointnet_train_precision import forward_parts
+
+    y3, pre, _ = forward_parts(pts, layers, valid, masks)
+    return y3.gather(1, index.to(torch.int64)[:, None, :])[:, 0], pre
+
+
+def relu_flips(h_pairs, pre_ref) -> tuple[int, float]:
+    """ReLU decisions ((h > 0) of each layer) that differ from float64's,
+    and the largest |float64 ReLU input| among them over its channel's
+    max|input|: how close to 0 the inputs lie where the two part ways."""
+    flips, gap = 0, 0.0
+    for open_, y in zip(h_pairs, pre_ref):
+        differ = open_ != (y > 0)
+        flips += int(differ.sum())
+        if bool(differ.any()):
+            rel = y.abs() / y.abs().amax((0, 1)).clamp_min(1e-30)
+            gap = max(gap, float(rel[differ].max()))
+    return flips, gap
+
+
+def pt_kernel_vs_plain(pt, pts, layers, valid, g) -> dict:
+    """The train-mode PointNet's kernels (forward and backward, twice, and
+    one use under autograd) against the plain version in float64 on the
+    same inputs, at its own max and ReLU decisions. Returns
+    out / stats: errors over max|ref|; own_grads: the 12 gradients'
+    errors against the plain version's own (the weights', gammas' and
+    betas', over max|ref|); grads: the same against float64 at the
+    kernels' argmax points and ReLU decisions, which part from float64's
+    only where tie_gap and relu_gap bound them: a ReLU input within f32
+    rounding of 0, or a near tie, may go either way, and where it routes a
+    maximum's gradient that moves a gradient by about 1e-3 of its largest
+    entry; bias: the dense biases' gradients over the largest weight
+    gradient; tie_gap: how far below the f64 maximum the kernels' argmax
+    points lie, over max|out|; moved: argmax entries other than f64's;
+    relu_gap, flips: `relu_flips` of the kernels' decisions; plain_flips
+    and plain_own_grads: the f32 plain version's ReLU decisions that differ
+    from f64's and its gradients' errors against f64's own, on the card;
+    max_d: the largest |difference|; same: the same bits on a second run
+    and under autograd; launches: (forward, backward) calls of the autograd
+    use."""
+    d = layers[2][0].shape[0]
+    prm = pt.pack_params(layers)
+    runs = []
+    for _ in range(2):
+        out, stats, idx, h1, h2 = pt.train_forward(pts, prm, d, valid)
+        runs.append((out, stats, idx, pt.train_backward(pts, prm, d, valid, stats, idx, h1,
+                                                        h2, g)))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    out, stats, idx, grads = runs[0]
+    opened = (h1 > 0, h2 > 0)
+    del h1, h2
+    grads = pt.unpack_grads(grads, d)
+    tracked = [[t.clone().requires_grad_() for t in layer] for layer in layers]
+    before = (pt.train_forward.launches, pt.train_backward.launches)
+    out_a, _ = pt.pointnet_train(pts, tracked, valid)
+    grads_a = torch.autograd.grad(out_a, [t for layer in tracked for t in layer], g)
+    launches = (pt.train_forward.launches - before[0], pt.train_backward.launches - before[1])
+    same = same and torch.equal(out_a, out) and all(torch.equal(a, b)
+                                                    for a, b in zip(grads_a, grads))
+    del out_a, grads_a
+
+    flat = lambda ls: [t for layer in ls for t in layer]
+    pts64 = pts.double()
+    own = [[t.double().requires_grad_() for t in layer] for layer in layers]
+    best, stats_r, idx_r = pt.pointnet_train_plain(pts64, own, valid)
+    grads_o = torch.autograd.grad(best, flat(own), g.double())
+    best = best.detach()
+    own32 = [[t.clone().requires_grad_() for t in layer] for layer in layers]
+    grads_32 = torch.autograd.grad(pt.pointnet_train_plain(pts, own32, valid)[0], flat(own32), g)
+    with torch.no_grad():
+        at_idx, pre64 = pt_reference(pts64, own, valid, idx)
+        _, pre32 = pt_reference(pts, layers, valid, idx)
+        flips, relu_gap = relu_flips(opened, pre64)
+        plain_flips, _ = relu_flips([y > 0 for y in pre32], pre64)
+    del pre64, pre32
+    pinned = [[t.double().requires_grad_() for t in layer] for layer in layers]
+    out_r, _ = pt_reference(pts64, pinned, valid, idx, masks=opened)
+    grads_r = torch.autograd.grad(out_r, flat(pinned), g.double())
+    scale = lambda r: max(float(r.detach().abs().max()), 1e-30)
+    diff = lambda a, r: float((a.double() - r.detach()).abs().max())
+    grad_err = lambda got, ref: max(diff(a, r) / scale(r) for i, (a, r) in
+                                    enumerate(zip(got, ref)) if i % 4 != 1)
+    largest = max(scale(grads_r[4 * i]) for i in range(3))
+    return {
+        "out": diff(out, best) / scale(best),
+        "stats": max(diff(a, r) / scale(r) for pair, pair_r in
+                     zip(pt.split_stats(stats, d), stats_r) for a, r in zip(pair, pair_r)),
+        "grads": grad_err(grads, grads_r), "own_grads": grad_err(grads, grads_o),
+        "plain_own_grads": grad_err(grads_32, grads_o),
+        "bias": max(float(a.abs().max()) for a in grads[1::4]) / largest,
+        "tie_gap": float((best - at_idx).max()) / scale(best),
+        "moved": int((idx.long() != idx_r).sum()),
+        "relu_gap": relu_gap, "flips": flips, "plain_flips": plain_flips,
+        "max_d": max([diff(out, best)] + [diff(a, r) for a, r in zip(grads, grads_r)]),
+        "same": same, "launches": launches}
+
+
 class KDMemorySet(MemorySet):
     """KD samples (three views, labels, a cloud) held in memory, or, with
     `train` False, evaluation samples (one view, no cloud)."""
@@ -482,9 +689,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     from pose3d_tpu_torch import geometry
-    from pose3d_tpu_torch.models.estimators import BaselineEstimator, PoseEstimator
+    from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator,
+                                                    PoseEstimatorVanilla)
     from pose3d_tpu_torch.data.loader import DataLoader
-    from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet, vgg_stem
+    from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet, pointnet_train, vgg_stem
     from pose3d_tpu_torch.train import convert, steps
     from pose3d_tpu_torch.train.evaluate import evaluate_categories
     from pose3d_tpu_torch.train.state import create_train_state
@@ -494,13 +702,15 @@ def main() -> int:
         geodesic.rotation_err.launches = pointnet.pointnet_eval.launches = 0
         nce.nce_forward.launches = nce.nce_backward.launches = 0
         vgg_stem.stem_forward.launches = vgg_stem.stem_backward.launches = 0
+        pointnet_train.train_forward.launches = pointnet_train.train_backward.launches = 0
 
     def counts():
         """(geodesic, pointnet, NCE forward, NCE backward, stem forward,
-        stem backward) launches."""
+        stem backward, train-mode pointnet forward, its backward) launches."""
         return (geodesic.rotation_err.launches, pointnet.pointnet_eval.launches,
                 nce.nce_forward.launches, nce.nce_backward.launches,
-                vgg_stem.stem_forward.launches, vgg_stem.stem_backward.launches)
+                vgg_stem.stem_forward.launches, vgg_stem.stem_backward.launches,
+                pointnet_train.train_forward.launches, pointnet_train.train_backward.launches)
 
     card = card_line()
     dev = torch.device("cuda")
@@ -512,20 +722,23 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     tb = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         libs = list(pool.map(_build.build, ("geodesic", "pointnet_eval", "info_nce",
-                                            "vgg_stem")))
+                                            "vgg_stem", "pointnet_train")))
     build_s = time.perf_counter() - tb
     for lib in libs:
         with open(lib[:-3] + ".log") as f:
             ptxas = " | ".join(line.strip() for line in f
                                if "ptxas info" in line or "spill" in line)
         phase("build", t0, f"nvcc {lib}; {ptxas}")
-    phase("build", t0, f"four libraries in {build_s:.2f} s; pointnet_eval_kernel: "
+    phase("build", t0, f"five libraries in {build_s:.2f} s; pointnet_eval_kernel: "
           f"{pointnet.shared_memory_bytes()} bytes of dynamic shared memory a block; "
           f"info_nce at D 200 (forward, backward): {nce.shared_memory_bytes(200)} bytes; "
           f"vgg_stem at F 64 (forward, weight gradient): "
-          f"{vgg_stem.shared_memory_bytes(64)} bytes")
+          f"{vgg_stem.shared_memory_bytes(64)} bytes; pointnet_train's largest block "
+          f"(f32, f64): {pointnet_train.shared_memory_bytes()}, "
+          f"{pointnet_train.shared_memory_bytes(torch.float64)} bytes; its CUDA launches a "
+          f"forward and a backward call: {pointnet_train.kernel_launches_per_call()}")
 
     # 3. geodesic kernel vs plain version on the card, 1,000,003 rows + edge rows
     rng = np.random.default_rng(0)
@@ -593,7 +806,7 @@ def main() -> int:
         y_err, grad_err, max_d, same, y_max = stem_kernel_vs_plain(vgg_stem, x_s, w_s, b_s,
                                                                    g_s)
         torch.cuda.synchronize()
-        launched = tuple(a - b for a, b in zip(counts()[4:], before[4:]))
+        launched = tuple(a - b for a, b in zip(counts()[4:6], before[4:6]))
         if launched != (2, 2) or not same or (kind == "negative") != (y_max == 0.0):
             raise RuntimeError(f"stem case {(n_c, hw, f_c, kind)}: launches (forward, "
                                f"backward) {launched} for two runs, bits equal {same}, "
@@ -645,7 +858,7 @@ def main() -> int:
     # 7. serving: NHWC batch -> forward -> inference decoder
     vp = model.predict_viewpoint(x.to(dev))
     torch.cuda.synchronize()
-    serving_stem = counts()[4:]
+    serving_stem = counts()[4:6]
     if vp.shape != (64, 3) or not bool(((vp >= 0) & (vp <= 360)).all()):
         raise RuntimeError(f"serving output {tuple(vp.shape)} outside [0, 360]")
     vp_d = float((vp - vp_plain).abs().max())
@@ -868,14 +1081,16 @@ def main() -> int:
         metrics = steps.make_teacher_train_step(nce_dropout=0.0, use_fused_nce=True)(
             state_s, batch)
         torch.cuda.synchronize()
-        launched = tuple(a - b for a, b in zip(counts()[2:4], before[2:4]))
+        launched = tuple(a - b for a, b in zip(counts()[2:], before[2:]))
+        launched = launched[:2] + launched[4:]  # NCE and train-mode pointnet
         got[where] = ({k: float(v) for k, v in metrics.items()},
                       {k: p.grad.cpu() for k, p in model_s.named_parameters()},
                       {k: v.cpu() for k, v in model_s.state_dict().items() if "running" in k},
                       launched)
     (m_cpu, g_cpu, r_cpu, l_cpu), (m_gpu, g_gpu, r_gpu, l_gpu) = got["cpu"], got["cuda"]
-    if l_gpu != (1, 1) or l_cpu != (0, 0):
-        raise RuntimeError(f"train step NCE launches: card {l_gpu}, CPU {l_cpu}")
+    if l_gpu != (1, 1, 1, 1) or any(l_cpu):
+        raise RuntimeError(f"train step (NCE, train-mode pointnet) forward and backward "
+                           f"launches: card {l_gpu}, CPU {l_cpu}")
     loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
                    for k in ("loss", "pose_loss", "nce_loss"))
     largest = max(float(g.abs().max()) for g in g_cpu.values())
@@ -893,7 +1108,8 @@ def main() -> int:
     phase("train step", t0, f"card vs CPU at width 64, 64x64, batch 8 (f64 model, f32 "
           f"losses): losses rel {loss_err:.3g} (tol {STEP_LOSS_RTOL}), gradients max|d|/"
           f"max|ref| {grad_err:.3g} (tol {STEP_GRAD_TOL}), running statistics max|d| "
-          f"{stat_err:.3g}; the card's step launched the NCE kernels {l_gpu}")
+          f"{stat_err:.3g}; the card's step launched (NCE forward, backward, train-mode "
+          f"pointnet forward, backward, the last in f64) {l_gpu}")
 
     # 16. the teacher's training at the recipe's width with --fused_nce,
     # through make_teacher_train_step: the training path's main path
@@ -912,10 +1128,11 @@ def main() -> int:
     train_counts = counts()
     losses = [float(m["loss"]) for m in history]
     pose_losses = [float(m["pose_loss"]) for m in history]
-    if train_counts != (0, 0, TRAIN_STEPS, TRAIN_STEPS, 0, 0):
+    if train_counts != (0, 0) + (TRAIN_STEPS,) * 2 + (0, 0) + (TRAIN_STEPS,) * 2:
         raise RuntimeError(f"teacher training: launches (geodesic, pointnet, NCE forward, "
-                           f"NCE backward, stem forward, stem backward) {train_counts}, "
-                           f"expected one NCE forward and backward a step")
+                           f"NCE backward, stem forward, stem backward, train-mode pointnet "
+                           f"forward, backward) {train_counts}, expected one NCE and one "
+                           f"train-mode pointnet forward and backward a step")
     if not all(math.isfinite(v) for v in losses + pose_losses) or \
             not (losses[-1] < losses[0] and pose_losses[-1] < pose_losses[0]):
         raise RuntimeError(f"teacher training on one repeated batch: losses {losses}, "
@@ -923,7 +1140,8 @@ def main() -> int:
     phase("teacher training", t0, f"{n_params} params, batch {TRAIN_BATCH}, 224x224, "
           f"{POINT_NUM} points, {TRAIN_STEPS} steps on one batch: loss "
           f"{[round(v, 4) for v in losses]} (pose {[round(v, 4) for v in pose_losses]}); "
-          f"NCE launches {train_counts[2]} forward, {train_counts[3]} backward")
+          f"NCE launches {train_counts[2]} forward, {train_counts[3]} backward; train-mode "
+          f"pointnet launches {train_counts[6]} forward, {train_counts[7]} backward")
 
     # 17. the trainer: one epoch on in-memory samples (train, both
     # evaluations, checkpoints), then a resume into a second
@@ -943,7 +1161,7 @@ def main() -> int:
         torch.cuda.synchronize()
         fit_counts = counts()
         saved = set(os.listdir(os.path.join(tmp, "ckpt")))
-        if fit_counts[0] != 2 or fit_counts[1] < 2 or fit_counts[2:] != (2, 2, 0, 0) or \
+        if fit_counts[0] != 2 or fit_counts[1] < 2 or fit_counts[2:] != (2, 2, 0, 0, 2, 2) or \
                 not {"checkpoint.pth", "checkpoint_img_encoder.pth", "EPOCH"} <= saved:
             raise RuntimeError(f"trainer epoch: launches {fit_counts}, checkpoint files "
                                f"{sorted(saved)}")
@@ -965,27 +1183,34 @@ def main() -> int:
             raise RuntimeError(f"trainer resume: state restored {same}, step "
                                f"{resumed.step}, EPOCH {last_epoch}, records {records}")
     phase("trainer", t0, f"epoch 0 at batch 32 (2 steps, 40 + 40 evaluation rows): "
-          f"launches (geodesic, pointnet, NCE forward, NCE backward) {fit_counts[:4]}; "
+          f"launches (geodesic, pointnet, NCE forward, NCE backward, train-mode pointnet "
+          f"forward, backward) {fit_counts[:4] + fit_counts[6:]}; "
           f"checkpoints {sorted(saved)}; resumed from them (state equal) into epoch 1; "
           f"train_loss {[round(r['train_loss'], 4) for r in records]} val_nce "
           f"{[round(r['val_nce'], 4) for r in records]}")
     del fit_state, resumed, trainer
 
-    # 18. training times at batch 160 (host clock around synced steps), a
-    # profile of two steps, and the NCE kernels vs their plain versions
-    torch.cuda.synchronize()
-    tt = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        step(state, tb)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - tt) * 1e3 / TRAIN_STEPS
+    # 18. training times at batch 160 (host clock around synced steps), the
+    # step with the plain train-mode PointNet beside it, a profile of two
+    # steps, and the NCE kernels vs their plain versions
+    from pose3d_tpu_torch.models import pointnet as pointnet_model
+
+    def plain_pointnet_train(points, layers, valid=None):
+        return pointnet_train.pointnet_train_plain(points, layers, valid)[:2]
+
+    ab = ab_times(pointnet_model, "pointnet_train", plain_pointnet_train,
+                  lambda: steps_ms(lambda: step(state, tb)))
+    step_ms = sum(ab["kernel"]) / 2
     phase("time", t0, f"teacher train step f32 batch {TRAIN_BATCH}, --fused_nce: "
-          f"{step_ms:.3f} ms/step = {TRAIN_BATCH * 1000.0 / step_ms:.1f} samples/s [{card}]")
+          f"{step_ms:.3f} ms/step = {TRAIN_BATCH * 1000.0 / step_ms:.1f} samples/s (runs "
+          f"{ab['kernel']}); with the plain train-mode PointNet {ab['plain']} ms/step = "
+          f"{TRAIN_BATCH * 2000.0 / sum(ab['plain']):.1f} samples/s [{card}]")
     rows, device_ms, wall_ms = profile_steps(lambda: step(state, tb))
     nce_ms = sum(e.self_device_time_total for e in rows if "nce_" in e.key) / 1e3
+    pt_ms = sum(e.self_device_time_total for e in rows if "pnt_" in e.key) / 1e3
     phase("profile", t0, f"2 train steps: {device_ms:.2f} ms device of {wall_ms:.2f} ms "
-          f"wall (busy {device_ms / wall_ms:.3f}); the NCE kernels {nce_ms:.4f} ms "
-          f"[{card}]; by self device time:")
+          f"wall (busy {device_ms / wall_ms:.3f}); the NCE kernels {nce_ms:.4f} ms, the "
+          f"train-mode pointnet kernels {pt_ms:.4f} ms [{card}]; by self device time:")
     print_rows(rows, device_ms)
     del state, tb, step
 
@@ -1054,7 +1279,7 @@ def main() -> int:
                       {k: v.cpu() for k, v in student_s.state_dict().items() if "running" in k},
                       tuple(a - b for a, b in zip(counts(), before)))
     (m_cpu, g_cpu, r_cpu, l_cpu), (m_gpu, g_gpu, r_gpu, l_gpu) = got["cpu"], got["cuda"]
-    if l_gpu != (0, 1, 0, 0, 1, 1) or any(l_cpu):
+    if l_gpu != (0, 1, 0, 0, 1, 1, 0, 0) or any(l_cpu):
         raise RuntimeError(f"KD step launches: card {l_gpu}, CPU {l_cpu}")
     loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in ("loss", "gt_loss"))
     largest = max(float(g.abs().max()) for g in g_cpu.values())
@@ -1100,7 +1325,7 @@ def main() -> int:
     kd_counts = counts()
     kd_losses = [float(m["loss"]) for m in history]
     gt_losses = [float(m["gt_loss"]) for m in history]
-    if kd_counts != (0, TRAIN_STEPS, 0, 0, TRAIN_STEPS, TRAIN_STEPS):
+    if kd_counts != (0, TRAIN_STEPS, 0, 0, TRAIN_STEPS, TRAIN_STEPS, 0, 0):
         raise RuntimeError(f"KD training: launches (geodesic, pointnet, NCE forward, NCE "
                            f"backward, stem forward, stem backward) {kd_counts}, expected one "
                            f"pointnet, one stem forward and one stem backward a step")
@@ -1131,7 +1356,7 @@ def main() -> int:
         kd_fit_counts = counts()
         saved = set(os.listdir(os.path.join(tmp, "ckpt")))
         ckpt_mb = os.path.getsize(trainer.ckpt.path("checkpoint")) / 2**20
-        if kd_fit_counts != (1, 2, 0, 0, 3, 2) or not {"checkpoint.pth", "EPOCH"} <= saved:
+        if kd_fit_counts != (1, 2, 0, 0, 3, 2, 0, 0) or not {"checkpoint.pth", "EPOCH"} <= saved:
             raise RuntimeError(f"KD trainer epoch: launches {kd_fit_counts}, checkpoint files "
                                f"{sorted(saved)}")
         resumed = create_train_state(kd_student(99), LR, [10**9], seed=0)
@@ -1166,24 +1391,9 @@ def main() -> int:
     # 22. KD times at batch 46 x 3 (host clock around synced steps), the
     # step with the plain stem beside it, a profile of two steps, and the
     # stem kernels vs their plain version
-    def kd_step_ms():
-        torch.cuda.synchronize()
-        tt = time.perf_counter()
-        for _ in range(TRAIN_STEPS):
-            kd_step(kd_state, kd_teacher, kb)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - tt) * 1e3 / TRAIN_STEPS
-
-    # in turns: kernel, plain, plain, kernel; "plain": the student's stem
-    # swapped for its plain version for these steps only (a measurement)
     from pose3d_tpu_torch.models import vgg as vgg_model
-    ab = {"kernel": [], "plain": []}
-    for who in ("kernel", "plain", "plain", "kernel"):
-        vgg_model.vgg_stem = vgg_stem.vgg_stem_plain if who == "plain" else vgg_stem.vgg_stem
-        try:
-            ab[who].append(kd_step_ms())
-        finally:
-            vgg_model.vgg_stem = vgg_stem.vgg_stem
+    ab = ab_times(vgg_model, "vgg_stem", vgg_stem.vgg_stem_plain,
+                  lambda: steps_ms(lambda: kd_step(kd_state, kd_teacher, kb)))
     kd_ms = sum(ab["kernel"]) / 2
     phase("time", t0, f"KD --crd step f32 batch {KD_BATCH} x 3 views: {kd_ms:.3f} ms/step = "
           f"{KD_BATCH * 1000.0 / kd_ms:.1f} samples/s (runs {ab['kernel']}); with the plain "
@@ -1255,6 +1465,199 @@ def main() -> int:
               f"{unmasked / pooled:.3f} of the outputs pass the ReLU) [{card}]")
         del x_s, x_nhwc, index, y_plain, g_s
 
+    # 23. the train-mode PointNet kernels vs the plain version in float64
+    # on the card: the output, the three statistics and the 12 parameter
+    # gradients; N 1 / 7 / 160 x P 100 / 2500 x D 64 / 256 / 1024, a masked
+    # batch, a cloud of one repeated point (exact ties), gamma3 = 0 in a
+    # channel, and the f64 instantiation
+    prng = np.random.default_rng(23)
+    cases = [(n_c, p_c, d_c, {}) for n_c in (1, 7, TRAIN_BATCH) for p_c in (100, POINT_NUM)
+             for d_c in (64, 256, 1024)]
+    cases += [(KD_BATCH, POINT_NUM, 256, {"masked": True}), (7, POINT_NUM, 256, {"ties": True}),
+              (7, POINT_NUM, 256, {"gamma0": True}),
+              (8, 500, 256, {"masked": True, "dtype": torch.float64})]
+    worst = {k: 0.0 for k in ("out", "stats", "grads", "own_grads", "plain_own_grads", "bias",
+                              "tie_gap", "relu_gap", "max_d")}
+    total = {k: 0 for k in ("moved", "flips", "plain_flips")}
+    for n_c, p_c, d_c, kw in cases:
+        res = pt_kernel_vs_plain(pointnet_train, *pt_inputs(prng, n_c, p_c, d_c, dev, **kw))
+        torch.cuda.synchronize()
+        if not res["same"] or res["launches"] != (1, 1) or res["out"] > PT_OUT_TOL or \
+                res["stats"] > PT_OUT_TOL or res["grads"] > PT_GRAD_TOL or \
+                res["bias"] > PT_BIAS_TOL or res["tie_gap"] > PT_TIE_TOL or \
+                res["relu_gap"] > PT_RELU_TOL or res["flips"] > 2 * res["plain_flips"] + 2:
+            raise RuntimeError(f"train-mode pointnet kernels vs plain at {(n_c, p_c, d_c, kw)}: "
+                               f"{res}")
+        worst = {k: max(v, res[k]) for k, v in worst.items()}
+        total = {k: v + res[k] for k, v in total.items()}
+    pt_err = worst["max_d"]
+    phase("pointnet_train", t0, f"kernels vs the plain version in f64 in {len(cases)} cases "
+          f"(N 1/7/160 x P 100/2500 x D 64/256/1024, masked, tied points, gamma3 = 0, f64): "
+          f"output {worst['out']:.3g} and statistics {worst['stats']:.3g} of max|ref| (tol "
+          f"{PT_OUT_TOL}); {total['flips']} ReLU decisions other than f64's (the f32 plain "
+          f"version: {total['plain_flips']}), their inputs at most {worst['relu_gap']:.3g} of "
+          f"the channel's scale from 0 (tol {PT_RELU_TOL:.3g}), and {total['moved']} argmax "
+          f"entries, at most {worst['tie_gap']:.3g} below the maximum (tol {PT_TIE_TOL}); at "
+          f"those decisions the gradients {worst['grads']:.3g} of max|ref| (tol {PT_GRAD_TOL}), "
+          f"at f64's own {worst['own_grads']:.3g} (the f32 plain version at its own: "
+          f"{worst['plain_own_grads']:.3g}); dense biases' gradients {worst['bias']:.3g} of the "
+          f"largest weight gradient (tol {PT_BIAS_TOL}); one forward and one backward call a "
+          f"use, the same bits on a second run")
+
+    # 24. KD --stage 1 at full width through make_stage1_step: the student
+    # above (feature 2048, 224x224, its stem in its kernel) and the vanilla
+    # teacher (ResNet-18, img feature 1024, shape feature 256, 2,500 points,
+    # the PointNet in its train-mode kernel), batch 46, Adam lr 1e-4, tau
+    # 0.5, both NCE directions in the NCE kernels: the stage-1 path's main path
+    def stage1_states(seed):
+        teacher = PoseEstimatorVanilla(img_feature_dim=1024, shape_feature_dim=STAGE1_SHAPE_DIM,
+                                       generator=torch.Generator().manual_seed(seed)).to(dev)
+        student = BaselineEstimator(generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+        return (create_train_state(teacher, LR, [10**9], seed=seed),
+                create_train_state(student, LR, [10**9], seed=seed + 1))
+
+    t1, s1 = stage1_states(46)
+    n_teacher = sum(p.numel() for p in t1.model.parameters())
+    n_params = sum(p.numel() for p in s1.model.parameters())
+    s1_step = steps.make_stage1_step(tau=0.5, use_fused_nce=True)
+    sb = {k: torch.from_numpy(v).to(dev) for k, v in
+          train_batch(np.random.default_rng(26), KD_BATCH, 224, POINT_NUM).items()}
+    reset_counts()
+    history = [s1_step(t1, s1, sb) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    s1_counts = counts()
+    s1_losses = [float(m["loss"]) for m in history]
+    t_losses = [float(m["teacher_loss"]) for m in history]
+    if s1_counts != (0, 0) + (2 * TRAIN_STEPS,) * 2 + (TRAIN_STEPS,) * 4:
+        raise RuntimeError(f"stage 1: launches (geodesic, pointnet, NCE forward, NCE backward, "
+                           f"stem forward, stem backward, train-mode pointnet forward, "
+                           f"backward) {s1_counts}, expected two NCE and one of each other "
+                           f"kernel forward and backward a step")
+    if not all(math.isfinite(v) for v in s1_losses + t_losses) or \
+            not t_losses[-1] < t_losses[0]:
+        raise RuntimeError(f"stage 1 on one repeated batch: losses {s1_losses}, teacher "
+                           f"losses {t_losses}")
+    phase("stage 1 training", t0, f"vanilla teacher {n_teacher} params (1024/"
+          f"{STAGE1_SHAPE_DIM}), student {n_params} params, batch {KD_BATCH}, 224x224, "
+          f"{POINT_NUM} points, {TRAIN_STEPS} steps on one batch: loss "
+          f"{[round(v, 4) for v in s1_losses]} (teacher {[round(v, 4) for v in t_losses]}); "
+          f"launches a step: NCE {s1_counts[2] // TRAIN_STEPS} forward, "
+          f"{s1_counts[3] // TRAIN_STEPS} backward; stem {s1_counts[4] // TRAIN_STEPS} and "
+          f"{s1_counts[5] // TRAIN_STEPS}; train-mode pointnet {s1_counts[6] // TRAIN_STEPS} "
+          f"and {s1_counts[7] // TRAIN_STEPS}")
+
+    # 25. the stage-1 trainer: one epoch on in-memory samples (train, the
+    # vanilla teacher's evaluation, a checkpoint of both train states),
+    # then a resume of both into a second
+    with tempfile.TemporaryDirectory() as tmp:
+        def s1_trainer(teacher_state, student_state):
+            return KDTrainer(student_state, None,
+                             DataLoader(MemorySet(2 * KD_BATCH, 27, 224), KD_BATCH, shuffle=True,
+                                        drop_last=True, num_workers=2),
+                             DataLoader(MemorySet(40, 28, 224), KD_BATCH, shuffle=False,
+                                        num_workers=2),
+                             EVAL_CATEGORIES, tmp, teacher_state=teacher_state, tau=0.5,
+                             use_fused_nce=True)
+
+        ft, fs = stage1_states(27)
+        trainer = s1_trainer(ft, fs)
+        reset_counts()
+        trainer.fit_stage1(1)
+        torch.cuda.synchronize()
+        s1_fit_counts = counts()
+        saved = set(os.listdir(os.path.join(tmp, "ckpt")))
+        ckpt_mb = os.path.getsize(trainer.ckpt.path("checkpoint")) / 2**20
+        if s1_fit_counts != (1, 1, 4, 4, 2, 2, 2, 2) or not {"checkpoint.pth", "EPOCH"} <= saved:
+            raise RuntimeError(f"stage-1 trainer epoch: launches {s1_fit_counts}, checkpoint "
+                               f"files {sorted(saved)}")
+        tr = time.perf_counter()
+        restored = trainer.ckpt.restore("checkpoint")
+        restore_s = time.perf_counter() - tr
+        same = all(torch.equal(v.cpu(), restored[role]["model"][k])
+                   for role, st in (("teacher", ft), ("student", fs))
+                   for k, v in st.model.state_dict().items())
+        del ft, fs, trainer, restored
+        rt, rs = stage1_states(99)
+        s1_trainer(rt, rs).fit_stage1(2, start_epoch=1)
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        with open(os.path.join(tmp, "ckpt", "EPOCH")) as f:
+            last_epoch = f.read()
+        if not same or (rt.step, rs.step) != (4, 4) or last_epoch != "1" or \
+                [r["epoch"] for r in records] != [0, 1] or \
+                not all(math.isfinite(r["train_loss"]) and math.isfinite(r["val_med"])
+                        for r in records):
+            raise RuntimeError(f"stage-1 trainer resume: checkpoint equal {same}, steps "
+                               f"{(rt.step, rs.step)}, EPOCH {last_epoch}, records {records}")
+    phase("stage-1 trainer", t0, f"epoch 0 at batch {KD_BATCH} (2 steps, 40 evaluation rows of "
+          f"the vanilla teacher): launches {s1_fit_counts}; checkpoints {sorted(saved)} "
+          f"({ckpt_mb:.1f} MiB a checkpoint.pth of both train states, read in {restore_s:.2f} "
+          f"s, equal to the states); both resumed into epoch 1; train_loss "
+          f"{[round(r['train_loss'], 4) for r in records]} val_med "
+          f"{[round(r['val_med'], 3) for r in records]} train_samples_per_s "
+          f"{[round(r['train_samples_per_s'], 1) for r in records]}")
+    del rt, rs
+
+    # 26. stage-1 times at batch 46 (host clock around synced steps) and a
+    # profile of two steps
+    s1_ms = steps_ms(lambda: s1_step(t1, s1, sb))
+    phase("time", t0, f"KD --stage 1 step f32 batch {KD_BATCH}, --fused_nce: {s1_ms:.3f} "
+          f"ms/step = {KD_BATCH * 1000.0 / s1_ms:.1f} samples/s [{card}]")
+    rows, device_ms, wall_ms = profile_steps(lambda: s1_step(t1, s1, sb))
+    pt_dev_ms = sum(e.self_device_time_total for e in rows if "pnt_" in e.key) / 1e3
+    phase("profile", t0, f"2 stage-1 steps: {device_ms:.2f} ms device of {wall_ms:.2f} ms wall "
+          f"(busy {device_ms / wall_ms:.3f}); the train-mode pointnet kernels {pt_dev_ms:.4f} "
+          f"ms [{card}]; by self device time:")
+    print_rows(rows, device_ms)
+    del t1, s1, sb, history
+
+    # 27. the train-mode PointNet kernels vs the plain version at the two
+    # paths' shapes: the teacher step's (160, 2500, 256) and stage 1's
+    # (46, 2500, 256), in turns plain, kernel, kernel, plain
+    pt_times, pt_bounds = {}, {}
+    for n_c in (TRAIN_BATCH, KD_BATCH):
+        d_c = TRAIN_SHAPE_DIM
+        pts_c, layers_c, _, g_c = pt_inputs(np.random.default_rng(29), n_c, POINT_NUM, d_c, dev)
+        prm = pointnet_train.pack_params(layers_c)
+        _, stats_c, idx_c, h1_c, h2_c = pointnet_train.train_forward(pts_c, prm, d_c, None)
+        tracked = [[t.clone().requires_grad_() for t in layer] for layer in layers_c]
+        flat = [t for layer in tracked for t in layer]
+        out_p = pointnet_train.pointnet_train_plain(pts_c, tracked)[0]
+
+        def plain_fwd():
+            with torch.no_grad():
+                pointnet_train.pointnet_train_plain(pts_c, tracked)
+
+        fns = {"kernel forward": lambda: pointnet_train.train_forward(pts_c, prm, d_c, None),
+               "kernel backward": lambda: pointnet_train.train_backward(
+                   pts_c, prm, d_c, None, stats_c, idx_c, h1_c, h2_c, g_c),
+               "plain forward": plain_fwd,
+               "plain backward": lambda: torch.autograd.grad(out_p, flat, g_c,
+                                                             retain_graph=True)}
+        runs = {k: [] for k in fns}
+        for order in (("plain", "kernel"), ("kernel", "plain")):
+            for who in order:
+                for part in ("forward", "backward"):
+                    runs[f"{who} {part}"].append(cuda_ms(fns[f"{who} {part}"], 10))
+        pt_times[n_c] = t = {k: sum(v) / len(v) for k, v in runs.items()}
+        # the bound: the points, parameters and outputs (features, argmax
+        # indices, statistics) and, backward, the upstream gradient and the
+        # parameters' gradients, each moved once; the layers' useful FLOPs
+        rows_c, n_stats = n_c * POINT_NUM, 2 * (64 + 128 + d_c)
+        flops_f = 2.0 * rows_c * (3 * 64 + 64 * 128 + 128 * d_c)
+        flops_b = 2.0 * rows_c * (3 * 64 + 2 * 64 * 128 + 2 * 128 * d_c)
+        pt_bounds[n_c] = (
+            bound(4.0 * (3 * rows_c + prm.numel() + 2 * n_c * d_c + n_stats), flops_f),
+            bound(4.0 * (3 * rows_c + 2 * prm.numel() + 2 * n_c * d_c + n_stats), flops_b))
+        phase("time", t0, f"train-mode pointnet ({n_c}, {POINT_NUM}, {d_c}): kernel forward "
+              f"{runs['kernel forward']} + backward {runs['kernel backward']} ms; plain forward "
+              f"{runs['plain forward']} + backward {runs['plain backward']} ms; forward+backward "
+              f"{t['kernel forward'] + t['kernel backward']:.4f} vs "
+              f"{t['plain forward'] + t['plain backward']:.4f} ms; bound forward "
+              f"{pt_bounds[n_c][0][0]:.4f} ms ({pt_bounds[n_c][0][1]}), backward "
+              f"{pt_bounds[n_c][1][0]:.4f} ms ({pt_bounds[n_c][1][1]}) [{card}]")
+        del pts_c, layers_c, g_c, h1_c, h2_c, tracked, flat, out_p
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1281,7 +1684,15 @@ def main() -> int:
         entry("vgg_stem_backward", "pose3d_tpu_torch/csrc/vgg_stem.cu",
               "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[5], stem_err,
               stem_times[3 * KD_BATCH]["kernel backward"],
-              stem_times[3 * KD_BATCH]["plain backward"], stem_bounds[3 * KD_BATCH][1])]}))
+              stem_times[3 * KD_BATCH]["plain backward"], stem_bounds[3 * KD_BATCH][1]),
+        entry("pointnet_train_forward", "pose3d_tpu_torch/csrc/pointnet_train.cu",
+              "pose3d_tpu/ops/pointnet_train_fused.py:372", train_counts[6], pt_err,
+              pt_times[TRAIN_BATCH]["kernel forward"], pt_times[TRAIN_BATCH]["plain forward"],
+              pt_bounds[TRAIN_BATCH][0]),
+        entry("pointnet_train_backward", "pose3d_tpu_torch/csrc/pointnet_train.cu",
+              "pose3d_tpu/ops/pointnet_train_fused.py:372", train_counts[7], pt_err,
+              pt_times[TRAIN_BATCH]["kernel backward"], pt_times[TRAIN_BATCH]["plain backward"],
+              pt_bounds[TRAIN_BATCH][1])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

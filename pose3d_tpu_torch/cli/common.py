@@ -1,7 +1,7 @@
 """Shared CLI plumbing. Port of `pose3d_tpu/cli/common.py`: the flags of the
-evaluation and serving CLIs, the device, the construction of the student
-and of the PointCloud teacher, and the training datasets (the teacher's
-and the KD regime's) and loader.
+evaluation and serving CLIs, the device, the construction of the student,
+of the PointCloud teacher and of the vanilla teacher, and the training
+datasets (the teacher's and the KD regimes') and loader.
 
 Flags of the JAX CLIs whose paths are not ported yet are still accepted
 where a user would pass them, and refused with a message that names
@@ -17,7 +17,8 @@ import torch
 
 from pose3d_tpu_torch.data import annotations, datasets
 from pose3d_tpu_torch.data.loader import DataLoader
-from pose3d_tpu_torch.models.estimators import BaselineEstimator, PoseEstimator
+from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator,
+                                                PoseEstimatorVanilla)
 from pose3d_tpu_torch.train.convert import read_state_dict
 
 MANUAL_SEED = 46  # the reference's fixed seed
@@ -95,6 +96,17 @@ def build_teacher(opt, checkpoint: str | None, device: torch.device,
     return _loaded(model, checkpoint, device)
 
 
+def build_vanilla(opt, device: torch.device) -> PoseEstimatorVanilla:
+    """The KD `--stage 1` vanilla PointCloud teacher of the flags
+    (ResNet-18, PointNet, compress MLP), from a seeded random init, on
+    `device`: stage 1 trains it from scratch, as JAX's CLI does."""
+    azi, ele, inp = num_classes(opt.bin_size)
+    return PoseEstimatorVanilla(
+        img_feature_dim=opt.img_feature_dim, shape_feature_dim=opt.shape_feature_dim,
+        azi_classes=azi, ele_classes=ele, inp_classes=inp, bin_size=opt.bin_size,
+        generator=torch.Generator().manual_seed(1)).to(device)
+
+
 def _loaded(model, checkpoint: str | None, device: torch.device):
     if checkpoint:
         if os.path.isdir(checkpoint):
@@ -146,11 +158,13 @@ def build_train_eval_datasets(opt):
 
 
 def build_kd_datasets(opt):
-    """The KD `--crd` regime's train and validation sets, as the JAX CLI
-    builds them for its three-view regimes: Pascal3DContrast (three views a
-    sample, with its cloud) on ObjectNet3D's test categories or on
-    Pascal3D's. The validation set evaluates the RGB-only student, so it
-    loads no clouds (JAX loads and ignores them)."""
+    """The KD regimes' train and validation sets, as the JAX CLI builds
+    them. `--crd`: Pascal3DContrast (three views a sample, with its cloud)
+    on ObjectNet3D's test categories or on Pascal3D's; the validation set
+    evaluates the RGB-only student, so it loads no clouds (JAX loads and
+    ignores them). `--stage 1`: plain Pascal3D samples with their clouds,
+    train (with `--random` / `--random_range`) and validation, since the
+    vanilla teacher is what stage 1 evaluates."""
     root_dir = os.path.join(opt.data_root, opt.dataset)
     annotation_file = f"{opt.dataset}.txt"
     if opt.dataset == "ObjectNet3D":
@@ -160,6 +174,13 @@ def build_kd_datasets(opt):
     else:
         raise SystemExit(f"--dataset {opt.dataset}: KD training on it is not ported to "
                          "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+    if opt.stage == 1:
+        shape = dict(shape=opt.shape, shape_dir=opt.shape_dir, input_dim=opt.input_dim,
+                     point_num=opt.point_num, cat_choice=cats, novel=opt.novel, **extra)
+        return (datasets.Pascal3D(root_dir, annotation_file, train=True, random=opt.random,
+                                  random_range=opt.random_range, **shape),
+                datasets.Pascal3D(root_dir, annotation_file, train=False, random=False,
+                                  **shape))
     train = datasets.Pascal3DContrast(
         root_dir, annotation_file, train=True, cat_choice=cats, novel=opt.novel,
         shot=opt.shot if opt.dataset == "ObjectNet3D" else None, seed=MANUAL_SEED,

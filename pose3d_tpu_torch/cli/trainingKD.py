@@ -1,23 +1,33 @@
-"""Student KD training CLI. Port of `pose3d_tpu/cli/trainingKD.py` for the
-`--crd` regime: the RGB-only student (VGG-11) distilled from a frozen
-PointCloud teacher on ObjectNet3D or Pascal3D, with the stem's CUDA kernel
-(`csrc/vgg_stem.cu`) in every step and the teacher's PointNet kernel in
-its forward on the card.
+"""Student KD training CLI. Port of `pose3d_tpu/cli/trainingKD.py` for two
+regimes, on ObjectNet3D or Pascal3D:
+  * `--crd`: the RGB-only student (VGG-11) distilled from a frozen
+    PointCloud teacher, with the stem's CUDA kernel (`csrc/vgg_stem.cu`) in
+    every step and the teacher's PointNet kernel in its forward on the card;
+  * `--stage 1`: the vanilla PointCloud teacher (ResNet-18, PointNet,
+    compress MLP) and the student trained together from scratch, with the
+    teacher's pose loss and the symmetric infoNCE-KD at `--tau` (its two
+    directions in the NCE kernels with `--fused_nce`), the train-mode
+    PointNet kernel (`csrc/pointnet_train.cu`) in every step.
 
     python -m pose3d_tpu_torch.cli.trainingKD --crd --dataset ObjectNet3D \\
         --shape PointCloud --shape_dir pointcloud --batch_size 46 \\
         --teacher_model result/PointCloud_ObjectNet3D/ckpt/checkpoint.pth
+    python -m pose3d_tpu_torch.cli.trainingKD --stage 1 --fused_nce \\
+        --dataset ObjectNet3D --shape PointCloud --shape_dir pointcloud \\
+        --batch_size 46 --shape_feature_dim 256
 
 Runs on the card (`--device cuda`, the default); `--device cpu` runs the
-plain versions. The regime runs 60 epochs (`--n_epoch` overrides), lr 1e-4
-times 0.1 after `--decrease` epochs, counted in optimizer steps as JAX
-does. `--teacher_model` reads a reference-layout .pth or the port's own
-teacher `checkpoint.pth`; `--student_model` warm-starts the student from
-either kind. Writes, under <result_dir>/KD_<dataset>/, training_log.txt
-(a "Student Epoch" line per epoch), config.json, metrics.jsonl and ckpt/
-(checkpoint.pth, best.pth, EPOCH; the testing CLI's `--model` reads
-checkpoint.pth); `--resume` continues from the last saved epoch;
-`--export_torch` writes the final student as a reference-layout .pth.
+plain versions. `--crd` runs 60 epochs and `--stage 1` 300 (`--n_epoch`
+overrides), lr 1e-4 times 0.1 after `--decrease` epochs, counted in
+optimizer steps as JAX does. `--teacher_model` (--crd) reads a
+reference-layout .pth or the port's own teacher `checkpoint.pth`;
+`--student_model` warm-starts the student from either kind. Writes, under
+<result_dir>/KD_<dataset>/, training_log.txt (a "Student Epoch" line per
+epoch), config.json, metrics.jsonl and ckpt/ (checkpoint.pth, best.pth,
+EPOCH; --crd's checkpoint.pth is what the testing CLI's `--model` reads,
+--stage 1's holds both train states under "teacher" and "student");
+`--resume` continues from the last saved epoch; `--export_torch` writes
+the final student as a reference-layout .pth.
 The flags of paths not ported yet are refused with a message that names
 ROADMAP.md.
 """
@@ -37,7 +47,7 @@ from pose3d_tpu_torch.train.state import create_train_state
 from pose3d_tpu_torch.train.trainer import KDTrainer
 from pose3d_tpu_torch.utils.logging import TxtLogger
 
-CRD_EPOCHS = 60  # the reference's --crd regime
+EPOCHS = {"crd": 60, "stage1": 300}  # the reference's regimes
 
 
 def parse_args(argv=None):
@@ -68,36 +78,38 @@ def parse_args(argv=None):
     parser.add_argument("--keypoint", action="store_true")
     parser.add_argument("--shot", type=int, default=None)
     parser.add_argument("--random", action="store_true",
-                        help="--stage 1's azimuth augmentation: refused (ROADMAP.md)")
+                        help="--stage 1's azimuth augmentation of the train set")
     parser.add_argument("--random_range", type=int, default=0,
-                        help="above 0: --stage 1's, refused (ROADMAP.md)")
+                        help="--stage 1's azimuth range of --random")
     parser.add_argument("--input_dim", type=int, default=224)
     parser.add_argument("--point_num", type=int, default=2500)
     parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--decrease", type=int, default=44,
                         help="epoch at which the learning rate drops tenfold")
     parser.add_argument("--teacher_model", type=str, default=None,
-                        help="the frozen teacher: a reference-layout .pth or the port's "
-                             "teacher checkpoint.pth")
+                        help="--crd's frozen teacher: a reference-layout .pth or the "
+                             "port's teacher checkpoint.pth (--stage 1 trains its own)")
     parser.add_argument("--student_model", type=str, default=None,
                         help="optional student warm start (.pth, loaded strictly)")
     parser.add_argument("--crd", action="store_true",
                         help="the feature-KD regime (the default when no other is set)")
     parser.add_argument("--stage", type=int, default=0,
-                        help="1 or 2: not ported yet, refused (ROADMAP.md)")
+                        help="1: the vanilla teacher and the student trained together; "
+                             "2: not ported yet, refused (ROADMAP.md)")
     parser.add_argument("--temperature", type=float, default=1.0)
     parser.add_argument("--weighting", type=str, default=None,
                         choices=["linear", "square", "sqrt", "sin", "sinsin"],
                         help="consumed only by --stage 1 --nce pose; with --crd it is "
                              "ignored with a warning, as in the JAX CLI")
     parser.add_argument("--n_epoch", type=int, default=None,
-                        help=f"override the regime's {CRD_EPOCHS} epochs")
+                        help=f"override the regime's epochs ({EPOCHS})")
     parser.add_argument("--student_feature_dim", type=int, default=2048)
     parser.add_argument("--student_width_mult", type=float, default=1.0,
                         help="VGG conv width multiplier of the student")
     parser.add_argument("--result_dir", type=str, default="result")
     parser.add_argument("--resume", action="store_true",
-                        help="continue the student from the latest checkpoint")
+                        help="continue from the latest checkpoint (--stage 1: both "
+                             "models)")
     parser.add_argument("--export_torch", type=str, default=None,
                         help="also write the final student as a reference-layout .pth here")
     parser.add_argument("--device", type=str, default="cuda",
@@ -105,7 +117,6 @@ def parse_args(argv=None):
                              "versions and must be asked for")
     for flag, what in (("contrast", "the response-KD regime"),
                        ("vid", "the VID loss variant"),
-                       ("fused_nce", "the stage-1 NCE kernels"),
                        ("use_memory_bank", "the stage-1 memory bank"),
                        ("int8_teacher", "an int8 frozen teacher"),
                        ("device_augment", "on-device photometric augmentation"),
@@ -114,11 +125,14 @@ def parse_args(argv=None):
                        ("bf16", "bfloat16 compute")):
         parser.add_argument(f"--{flag}", action="store_true",
                             help=f"{what}: not ported yet, refused (ROADMAP.md)")
+    parser.add_argument("--fused_nce", action="store_true",
+                        help="--stage 1: both NCE directions in the NCE kernels")
     parser.add_argument("--tau", type=float, default=None,
-                        help="the stage-1 NCE temperature: refused (ROADMAP.md)")
+                        help="--stage 1's NCE temperature (default 0.5)")
     parser.add_argument("--nce", type=str, default="info",
                         choices=["info", "pose", "multipose"],
-                        help="pose / multipose: --stage 1's, refused (ROADMAP.md)")
+                        help="pose / multipose: --stage 1's pose-weighted NCE, not ported "
+                             "yet, refused (ROADMAP.md)")
     parser.add_argument("--n_devices", type=int, default=None,
                         help="more than 1: not ported yet, refused (ROADMAP.md)")
     parser.add_argument("--cache_decoded_mb", type=float, default=0.0,
@@ -132,11 +146,21 @@ def parse_args(argv=None):
     if opt.dataset in (None, "ShapeNetCore", "Pix3D", "LineMod"):
         raise SystemExit(f"--dataset {opt.dataset}: KD training on it is not ported to "
                          "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
-    unported = {"--stage 1/2": opt.stage != 0, "--contrast": opt.contrast,
-                "--vid": opt.vid, "--fused_nce": opt.fused_nce,
-                "--use_memory_bank": opt.use_memory_bank, "--tau": opt.tau is not None,
-                "--nce pose/multipose": opt.nce != "info", "--random": opt.random,
-                "--random_range > 0": opt.random_range > 0,
+    if opt.stage not in (0, 1):
+        raise SystemExit(f"--stage {opt.stage} is not ported to pose3d_tpu_torch's KD "
+                         "training yet; see ROADMAP.md Queue 1")
+    stage1_only = {"--fused_nce": opt.fused_nce, "--tau": opt.tau is not None,
+                   "--random": opt.random, "--random_range > 0": opt.random_range > 0}
+    for flag, set_ in stage1_only.items():
+        if set_ and opt.stage != 1:
+            raise SystemExit(f"{flag} applies to --stage 1 only; the --crd regime has no "
+                             "use for it (ROADMAP.md Queue 1 lists the ported regimes)")
+    if opt.stage == 1 and opt.teacher_model is not None:
+        raise SystemExit("--teacher_model: --stage 1 trains its vanilla teacher from "
+                         "scratch (ROADMAP.md Queue 1 lists the ported regimes)")
+    unported = {"--contrast": opt.contrast, "--vid": opt.vid,
+                "--use_memory_bank": opt.use_memory_bank,
+                "--nce pose/multipose": opt.nce != "info",
                 "--int8_teacher": opt.int8_teacher, "--device_augment": opt.device_augment,
                 "--device_views": opt.device_views, "--device_shapes": opt.device_shapes,
                 "--bf16": opt.bf16, "--loader shm": opt.loader != "thread",
@@ -147,6 +171,8 @@ def parse_args(argv=None):
         if set_:
             raise SystemExit(f"{flag} is not ported to pose3d_tpu_torch's KD training yet; "
                              "see ROADMAP.md Queue 1")
+    if opt.tau is None:
+        opt.tau = 0.5
     if opt.weighting is not None:
         print("WARNING: --weighting has no consumer outside --stage 1 --nce pose; "
               "continuing without pose weighting", file=sys.stderr)
@@ -164,12 +190,18 @@ def main(argv=None):
     eval_loader = DataLoader(dataset_eval, opt.batch_size, shuffle=False,
                              num_workers=opt.workers, seed=common.MANUAL_SEED)
 
-    teacher = common.build_teacher(opt, opt.teacher_model, device).requires_grad_(False)
     student = common.build_student(opt, opt.student_model, device,
                                    img_feature_dim=opt.student_feature_dim)
     steps_per_epoch = max(len(train_loader), 1)
-    state = create_train_state(student, opt.lr, [opt.decrease * steps_per_epoch],
-                               seed=common.MANUAL_SEED)
+    milestones = [opt.decrease * steps_per_epoch]
+    state = create_train_state(student, opt.lr, milestones, seed=common.MANUAL_SEED)
+    if opt.stage == 1:
+        teacher = None
+        teacher_state = create_train_state(common.build_vanilla(opt, device), opt.lr,
+                                           milestones, seed=common.MANUAL_SEED + 1)
+    else:
+        teacher = common.build_teacher(opt, opt.teacher_model, device).requires_grad_(False)
+        teacher_state = None
 
     result_path = os.path.join(os.getcwd(), opt.result_dir, f"KD_{opt.dataset}")
     os.makedirs(result_path, exist_ok=True)
@@ -180,15 +212,19 @@ def main(argv=None):
 
     trainer = KDTrainer(state, teacher, train_loader, eval_loader,
                         dataset_eval.category_names, result_path, bin_size=opt.bin_size,
-                        temperature=opt.temperature)
+                        temperature=opt.temperature, teacher_state=teacher_state,
+                        tau=opt.tau, use_fused_nce=opt.fused_nce)
     start_epoch = 0
-    if opt.resume:
-        latest = trainer.ckpt.latest_epoch()
+    latest = trainer.ckpt.latest_epoch() if opt.resume else None
+    if latest is not None:
+        start_epoch = latest + 1
+        print(f"resuming from epoch {latest}")
+    if opt.stage == 1:  # fit_stage1 restores both train states itself
+        best = trainer.fit_stage1(opt.n_epoch or EPOCHS["stage1"], start_epoch=start_epoch)
+    else:
         if latest is not None:
             state.load_state_dict(trainer.ckpt.restore("checkpoint"))
-            start_epoch = latest + 1
-            print(f"resumed the student from epoch {latest}")
-    best = trainer.fit_crd(opt.n_epoch or CRD_EPOCHS, start_epoch=start_epoch)
+        best = trainer.fit_crd(opt.n_epoch or EPOCHS["crd"], start_epoch=start_epoch)
 
     if opt.export_torch:
         torch.save({"state_dict": {k: v.cpu() for k, v in state.model.state_dict().items()}},

@@ -1,5 +1,6 @@
 """The pose estimators. Port of `pose3d_tpu/models/estimators.py`
-(`_SixHeads`, `BaselineEstimator`, `PoseEstimator` with a point cloud).
+(`_SixHeads`, `BaselineEstimator`, `PoseEstimator` and
+`PoseEstimatorVanilla`, each with a point cloud).
 
   * BaselineEstimator, the RGB-only student: vgg11(img_feature_dim) ->
     compress MLP img_feature_dim -> 800 -> 400 -> 200 (BN + ReLU each) ->
@@ -10,6 +11,10 @@
     DeformNet -> the 200-d fused feature; six heads on it; projector
     img_feature -> 800 -> 400 (BN + ReLU each) -> 200. Forward returns
     ([6 heads], fused, projector(img_feature)).
+  * PoseEstimatorVanilla, the KD `--stage 1` teacher: resnet18 (its head's
+    output is the image feature) and ShapeEncoderPC, concat (shape, image)
+    -> compress MLP -> 800 -> 400 -> 200 (BN + ReLU each) -> six heads.
+    Forward returns ([6 heads], compress(x)).
 
 Heads in the order [cls_azi, cls_ele, cls_inp, reg_azi, reg_ele, reg_inp]
 with (360/bin, 180/bin, 360/bin) classes.
@@ -26,7 +31,7 @@ from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.models.common import dense_bn_relu, head_dense, run_layers
 from pose3d_tpu_torch.models.deformnet import DeformNet
 from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
-from pose3d_tpu_torch.models.resnet import resnet50
+from pose3d_tpu_torch.models.resnet import resnet18, resnet50
 from pose3d_tpu_torch.models.vgg import vgg11
 
 COMPRESS_WIDTHS = (800, 400, 200)
@@ -134,5 +139,52 @@ class PoseEstimator(nn.Module):
         """Serving: NHWC images and their clouds -> (N, 3) degrees through the
         inference decoder, in canonical label convention. Call in eval mode."""
         outputs, _, _ = self(im, shape)
+        return geometry.decode_predictions_inference(outputs[:3], outputs[3:],
+                                                     self.bin_size)
+
+
+class PoseEstimatorVanilla(nn.Module):
+    """The vanilla PointCloud teacher of KD `--stage 1`. Inputs im
+    (N, H, W, 3) and shape (N', P, 3) float32; returns ([6 heads],
+    compressed_200d). Trains in train mode (batch-statistics BatchNorm,
+    with `mask`; the PointNet in its train-mode kernel on the card)."""
+
+    def __init__(self, shape: str = "PointCloud", img_feature_dim: int = 1024,
+                 shape_feature_dim: int = 256, azi_classes: int = 24,
+                 ele_classes: int = 12, inp_classes: int = 24, bin_size: int = 15,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if shape != "PointCloud":
+            raise NotImplementedError(f"PoseEstimatorVanilla(shape={shape!r}) is not ported "
+                                      "to pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+        self.bin_size = bin_size
+        self.img_encoder = resnet18(num_classes=img_feature_dim, generator=generator)
+        self.shape_encoder = ShapeEncoderPC(shape_feature_dim, generator=generator)
+        layers: list[nn.Module] = []
+        width = shape_feature_dim + img_feature_dim
+        for out in COMPRESS_WIDTHS:
+            layers += dense_bn_relu(width, out, generator)
+            width = out
+        self.compress = nn.Sequential(*layers)
+        for name, n in zip(HEADS, (azi_classes, ele_classes, inp_classes) * 2):
+            setattr(self, name, head_dense(width, n, generator))
+
+    def forward(self, im: torch.Tensor, shape: torch.Tensor, view_tile: int = 1,
+                mask: torch.Tensor | None = None):
+        """view_tile and mask as `PoseEstimator.forward` takes them
+        (view_tile > 1 in eval mode only)."""
+        if view_tile > 1 and self.training:
+            raise ValueError("view_tile tiling is only exact with eval-mode BatchNorm")
+        _, img_feature = self.img_encoder(im, mask)
+        shape_feature = self.shape_encoder(shape, mask)
+        if view_tile > 1:
+            shape_feature = shape_feature.repeat(view_tile, 1)
+        x = run_layers(self.compress, torch.cat([shape_feature, img_feature], dim=-1), mask)
+        return [getattr(self, name)(x) for name in HEADS], x
+
+    @torch.no_grad()
+    def predict_viewpoint(self, im: torch.Tensor, shape: torch.Tensor) -> torch.Tensor:
+        """Serving: as `PoseEstimator.predict_viewpoint`. Call in eval mode."""
+        outputs, _ = self(im, shape)
         return geometry.decode_predictions_inference(outputs[:3], outputs[3:],
                                                      self.bin_size)

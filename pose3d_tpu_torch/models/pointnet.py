@@ -13,22 +13,23 @@ forward computes (x W + b - mean) * rsqrt(var + eps) * scale + shift
 unfolded, so the two round differently and agree to float32 tolerance.
 It is the frozen teacher's forward and is not differentiated.
 
-The train forward is JAX's `dense_bn_forward` in plain PyTorch with
-autograd, on channels-last (N, P, C) activations: per channel, statistics
-over the valid clouds' points, variance E[x^2] - E[x]^2 clamped at 0, the
-running statistics updated toward it; then the max over the points. The
-fused train-mode kernel (`pose3d_tpu/ops/pointnet_train_fused.py`) is not
-ported yet (ROADMAP.md Queue 2 item 3).
+The train forward runs `ops.pointnet_train.pointnet_train`: the CUDA
+kernels of `csrc/pointnet_train.cu` (forward and parameter gradient) on the
+card, masked batches included, and the plain version on the CPU. Per
+channel, statistics over the valid clouds' points, variance E[x^2] - E[x]^2
+clamped at 0, the running statistics updated toward it (flax's update);
+then the max over the points, whose gradient goes to the first point that
+takes it.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from pose3d_tpu_torch.models.common import BatchNorm, batch_stats
+from pose3d_tpu_torch.models.common import BatchNorm
 from pose3d_tpu_torch.ops.pointnet import HIDDEN, fold_pointnet_params, pointnet_eval
+from pose3d_tpu_torch.ops.pointnet_train import pointnet_train
 
 
 class ShapeEncoderPC(nn.Module):
@@ -49,13 +50,10 @@ class ShapeEncoderPC(nn.Module):
         if not self.training:
             with torch.no_grad():
                 return pointnet_eval(points, fold_pointnet_params(self.state_dict()))
-        x = points
-        for i in (1, 2, 3):
-            conv, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")
-            x = F.linear(x, conv.weight[:, :, 0], conv.bias)
-            mean, var = batch_stats(x, (0, 1), mask)
-            bn.update_running(mean, var)
-            x = bn.normalize(x, mean, var, channel_dim=-1)
-            if i < 3:
-                x = torch.relu(x)
-        return x.amax(dim=1)
+        layers = [(getattr(self, f"conv{i}").weight[:, :, 0], getattr(self, f"conv{i}").bias,
+                   getattr(self, f"bn{i}").weight, getattr(self, f"bn{i}").bias)
+                  for i in (1, 2, 3)]
+        out, stats = pointnet_train(points, layers, mask)
+        for i, (mean, var) in enumerate(stats, 1):
+            getattr(self, f"bn{i}").update_running(mean, var)
+        return out

@@ -1,10 +1,11 @@
 """Weights bridge from the JAX package, and the reader of reference `.pth` files.
 
-`baseline_state_dict` and `pose_state_dict` turn the JAX `BaselineEstimator`'s
-and PointCloud `PoseEstimator`'s {"params", "batch_stats"} trees (numpy
-arrays) into the port's state_dicts, mirroring
-`pose3d_tpu/train/torch_export.py export_baseline_estimator` and
-`export_pose_estimator`:
+`baseline_state_dict`, `pose_state_dict` and `pose_vanilla_state_dict` turn
+the JAX `BaselineEstimator`'s, PointCloud `PoseEstimator`'s and PointCloud
+`PoseEstimatorVanilla`'s {"params", "batch_stats"} trees (numpy arrays)
+into the port's state_dicts, mirroring
+`pose3d_tpu/train/torch_export.py export_baseline_estimator`,
+`export_pose_estimator` and `export_pose_estimator_vanilla`:
   flax Dense kernel (in, out)        -> Linear weight (out, in), or Conv1d
                                         weight (out, in, 1) in the PointNet
                                         and the DeformNet
@@ -13,8 +14,8 @@ arrays) into the port's state_dicts, mirroring
                                      -> weight/bias/running_mean/running_var
   classifier.0's input axis          -> permuted from flax's (H, W, C)
                                         flatten to torch's (C, H, W)
-The results load into `models.estimators.BaselineEstimator` and
-`PoseEstimator` with strict=True.
+The results load into `models.estimators.BaselineEstimator`,
+`PoseEstimator` and `PoseEstimatorVanilla` with strict=True.
 """
 
 from __future__ import annotations
@@ -121,6 +122,14 @@ def _resnet(params, stats, sd, prefix, stage_sizes, block, n_convs):
     _linear(params["Dense_0"], sd, f"{prefix}.fc")
 
 
+def _pointnet(params, stats, sd):
+    pc, pc_stats = params["ShapeEncoderPC_0"], stats["ShapeEncoderPC_0"]
+    for i in range(3):
+        _conv1d(pc[f"Dense_{i}"], sd, f"shape_encoder.conv{i + 1}")
+        _bn(pc[f"BatchNorm_{i}"], pc_stats[f"BatchNorm_{i}"], sd,
+            f"shape_encoder.bn{i + 1}")
+
+
 def pose_state_dict(variables) -> dict[str, torch.Tensor]:
     """JAX PoseEstimator(shape="PointCloud") variables (numpy) -> the port's
     state_dict."""
@@ -128,11 +137,7 @@ def pose_state_dict(variables) -> dict[str, torch.Tensor]:
     sd: dict = {}
     _resnet(params["ResNet_0"], stats["ResNet_0"], sd, "img_encoder", (3, 4, 6, 3),
             "Bottleneck", 3)
-    pc, pc_stats = params["ShapeEncoderPC_0"], stats["ShapeEncoderPC_0"]
-    for i in range(3):
-        _conv1d(pc[f"Dense_{i}"], sd, f"shape_encoder.conv{i + 1}")
-        _bn(pc[f"BatchNorm_{i}"], pc_stats[f"BatchNorm_{i}"], sd,
-            f"shape_encoder.bn{i + 1}")
+    _pointnet(params, stats, sd)
     deform, deform_stats = params["DeformNet_0"], stats["DeformNet_0"]
     for i in range(3):
         sub = f"DenseBNRelu_{i}"
@@ -144,6 +149,21 @@ def pose_state_dict(variables) -> dict[str, torch.Tensor]:
         _linear(params["_SixHeads_0"][f"Dense_{i}"], sd, name)
     _mlp(params, stats, sd, "projector", 0, 2)
     _linear(params["Dense_0"], sd, "projector.6")
+    return _to_tensors(sd)
+
+
+def pose_vanilla_state_dict(variables) -> dict[str, torch.Tensor]:
+    """JAX PoseEstimatorVanilla(shape="PointCloud") variables (numpy) -> the
+    port's state_dict: a ResNet-18 of basic blocks, the PointNet, the
+    compress MLP (Linear 0/3/6, BatchNorm 1/4/7) and the six heads."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    _resnet(params["ResNet_0"], stats["ResNet_0"], sd, "img_encoder", (2, 2, 2, 2),
+            "BasicBlock", 2)
+    _pointnet(params, stats, sd)
+    _mlp(params, stats, sd, "compress", 0, 3)
+    for i, name in enumerate(HEADS):
+        _linear(params["_SixHeads_0"][f"Dense_{i}"], sd, name)
     return _to_tensors(sd)
 
 

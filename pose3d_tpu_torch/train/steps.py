@@ -1,9 +1,11 @@
 """Train and evaluation steps. Port of `pose3d_tpu/train/steps.py`:
 `route_info_nce`, `make_teacher_train_step` (the contrastive teacher,
 `nce_variant="info"`), `make_kd_crd_step` (the KD `--crd` student step,
-`loss_variant="crd"`) and `make_eval_step` (student and teacher kinds).
-The vanilla kind, the stage-1/2 steps, the other KD loss variants and the
-pose-weighted NCE variants come with their paths (ROADMAP.md Queue 1)."""
+`loss_variant="crd"`), `make_stage1_step` (KD `--stage 1`, the vanilla
+teacher and the student trained together, without the memory bank) and
+`make_eval_step` (student, teacher and vanilla kinds). The stage-2 step,
+the other KD loss variants, the memory bank and the pose-weighted NCE
+variants come with their paths (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
@@ -151,6 +153,74 @@ def make_kd_crd_step(bin_size: int = 15, temperature: float = 1.0) -> Callable:
     return step
 
 
+def make_stage1_step(bin_size: int = 15, tau: float = 0.5, nce_weight: float = 0.75,
+                     use_fused_nce: bool = False) -> Callable:
+    """KD `--stage 1` (JAX's `make_stage1_step` with `nce_variant="info"`
+    and no memory bank): the vanilla teacher (`PoseEstimatorVanilla`) and
+    the student both in train mode with `mask=valid`; the teacher's 4-term
+    pose loss plus nce_weight * (0.5 NCE(s -> t) + 0.5 NCE(t -> s)), the
+    symmetric infoNCE-KD at `tau` with key dropout 0.3, each direction
+    through `route_info_nce`; one Adam update and one schedule step for
+    each model.
+
+    Returns step(teacher_state, student_state, batch, keep=None,
+    student_keep=None) -> {'loss', 'teacher_loss', 'acc_rot'} (0-d tensors
+    on the models' device, no host sync; acc_rot is the teacher's).
+    `batch` holds 'im' (N, H, W, 3) float32 or uint8 (the u8 wire),
+    'shape' (N, P, 3), 'label' (N, 3) and, for a padded batch, 'valid'
+    (N,) bool. Each model takes the images in its own dtype. The two NCE
+    keep-masks (`keep`, two (N, 200) bool) and the student's classifier
+    dropout masks (`student_keep`, as `BaselineEstimator.forward` takes
+    them) are drawn from `student_state.generator` unless given, as a test
+    does to hand JAX's masks in.
+    """
+    def step(teacher_state: TrainState, student_state: TrainState, batch: dict,
+             keep=None, student_keep=None) -> dict:
+        teacher, student = teacher_state.model, student_state.model
+        teacher.train()
+        student.train()
+        valid = batch.get("valid")
+        im = dewire(batch["im"])
+        s_dtype = next(student.parameters()).dtype
+        t_dtype = next(teacher.parameters()).dtype
+        s_out, s_feat = student(im.to(s_dtype), mask=valid, generator=student_state.generator,
+                                keep=student_keep)
+        t_out, t_feat = teacher(im.to(t_dtype), batch["shape"].to(t_dtype), mask=valid)
+        # the losses in float32 whatever the models' dtypes, as JAX's step
+        t_out = [o.float() for o in t_out]
+        s_feat, t_feat = s_feat.float(), t_feat.float()
+        teacher_loss = pose_loss(t_out, batch["label"], bin_size, valid=valid)
+        if keep is None:
+            keep = [torch.rand(t_feat.shape, generator=student_state.generator,
+                               device=t_feat.device) < 1.0 - NCE_DROPOUT for _ in range(2)]
+        nce_s2t = route_info_nce(s_feat, t_feat, tau, keep[0], NCE_DROPOUT, valid,
+                                 use_fused_nce)
+        nce_t2s = route_info_nce(t_feat, s_feat, tau, keep[1], NCE_DROPOUT, valid,
+                                 use_fused_nce)
+        loss = teacher_loss + nce_weight * (0.5 * nce_s2t + 0.5 * nce_t2s)
+        for state in (teacher_state, student_state):
+            state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        for state in (teacher_state, student_state):
+            # the student's heads take no part in the loss: as JAX's
+            # optimizer, Adam still updates them (weight decay on a zero
+            # gradient), which torch's skips for a missing gradient
+            for p in state.model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            state.optimizer.step()
+            state.scheduler.step()
+            state.step += 1
+        with torch.no_grad():
+            preds = geometry.decode_predictions(t_out[:3], t_out[3:], bin_size)
+            acc = geometry.rotation_acc(preds, batch["label"].to(torch.float32),
+                                        valid=valid)
+        return {"loss": loss.detach(), "teacher_loss": teacher_loss.detach(),
+                "acc_rot": acc}
+
+    return step
+
+
 @functools.cache
 def fixed_keep_mask(n: int, width: int, device) -> torch.Tensor:
     """The validation NCE's dropout keep-mask for a batch of n rows: drawn
@@ -168,14 +238,15 @@ def make_eval_step(model, kind: str, bin_size: int = 15) -> Callable:
     tensors on the model's device.
 
     `batch` holds 'im' (N, H, W, 3) float32 and 'label' (N, 3) integer
-    tensors on the model's device; the teacher also takes 'shape' (N, P, 3)
+    tensors on the model's device; the teacher and the vanilla teacher
+    (`PoseEstimatorVanilla`, kind "vanilla") also take 'shape' (N, P, 3)
     float32 and, optionally, 'valid' (N,) bool, which keeps padded rows out
-    of the NCE's keys. The model runs in eval mode (BatchNorm running
+    of the teacher's NCE keys. The model runs in eval mode (BatchNorm running
     statistics, no dropout) and the train/val decoder
     (bin + tanh(d)/2 + 0.5) * bin_size decodes the predictions. The
     teacher's NCE drops out its keys with `fixed_keep_mask`.
     """
-    if kind not in ("student", "teacher"):
+    if kind not in ("student", "teacher", "vanilla"):
         raise NotImplementedError(f"eval step kind {kind!r} is not ported yet; "
                                   "see ROADMAP.md Queue 1")
 
@@ -184,6 +255,8 @@ def make_eval_step(model, kind: str, bin_size: int = 15) -> Callable:
         model.eval()
         if kind == "student":
             outputs, _ = model(batch["im"])
+        elif kind == "vanilla":
+            outputs, _ = model(batch["im"], batch["shape"])
         else:
             outputs, fused, img_proj = model(batch["im"], batch["shape"])
         per_sample = pose_loss_per_sample(outputs, batch["label"], bin_size)

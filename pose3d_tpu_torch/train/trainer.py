@@ -1,7 +1,7 @@
 """The epoch loops: loader, train step, evaluation, checkpoints and logs.
 Port of `pose3d_tpu/train/trainer.py` (`_device_batch`, `_DeferredMeters`,
 `_Base._eval`, `TeacherTrainer.fit`, and `KDTrainer.fit_crd` with its
-`_student_loop`).
+`_student_loop` and `KDTrainer.fit_stage1`).
 
 Host batches reach the card off the consumer thread: a feeder thread pins
 each batch and starts its host-to-device copies (`non_blocking`) on a side
@@ -218,20 +218,28 @@ KD_VIEW_KEYS = ("im", "shape", "label", "im_flip", "label_flip", "im_rot", "labe
 
 
 class KDTrainer:
-    """The KD `--crd` student (the reference's trainingKD.py --crd recipe):
-    per epoch a train sweep of `make_kd_crd_step` against the frozen
-    `teacher`, the student's per-category evaluation on `eval_loader`, the
-    checkpoints (the student's whole train state: its "model" entry is the
-    reference-layout state_dict the testing CLI's `--model` loads), one log
-    line and one metrics record with the sustained train samples/s. The
-    stage-2 and contrast regimes of JAX's KDTrainer come with their paths
-    (ROADMAP.md Queue 1 item 8)."""
+    """The KD regimes of the reference's trainingKD.py:
+      * `fit_crd` (--crd): per epoch a train sweep of `make_kd_crd_step`
+        against the frozen `teacher`, the student's per-category evaluation
+        on `eval_loader`, the checkpoints (the student's whole train state:
+        its "model" entry is the reference-layout state_dict the testing
+        CLI's `--model` loads), one log line and one metrics record with
+        the sustained train samples/s;
+      * `fit_stage1` (--stage 1): the vanilla teacher (`teacher_state`) and
+        the student trained together by `make_stage1_step`; per epoch the
+        teacher's per-category evaluation, a checkpoint of both train
+        states, the log line and the metrics record.
+    The stage-2 and contrast regimes of JAX's KDTrainer come with their
+    paths (ROADMAP.md Queue 1 item 8)."""
 
     def __init__(self, state: TrainState, teacher, train_loader, eval_loader,
                  category_names: list[str], result_path: str, bin_size: int = 15,
-                 temperature: float = 1.0):
+                 temperature: float = 1.0, teacher_state: TrainState | None = None,
+                 tau: float = 0.5, use_fused_nce: bool = False):
         self.state = state
         self.teacher = teacher
+        self.teacher_state = teacher_state
+        self.bin_size, self.tau, self.use_fused_nce = bin_size, tau, use_fused_nce
         self.device = next(state.model.parameters()).device
         self.train_loader = train_loader
         self.eval_loader = eval_loader
@@ -246,14 +254,42 @@ class KDTrainer:
 
     def fit_crd(self, epochs: int, start_epoch: int = 0) -> float:
         """JAX's fit_crd with its `_student_loop`."""
+        return self._fit("crd", epochs, start_epoch, KD_VIEW_KEYS,
+                         lambda db: self.kd_step(self.state, self.teacher, db), self.eval_step,
+                         self.state.state_dict)
+
+    def fit_stage1(self, epochs: int, start_epoch: int = 0) -> float:
+        """JAX's fit_stage1 without the memory bank. From start_epoch > 0
+        both train states are restored from `checkpoint.pth` first."""
+        if self.teacher_state is None:
+            raise ValueError("stage 1 trains the teacher too: pass teacher_state")
+        if start_epoch > 0 and self.ckpt.exists("checkpoint"):
+            restored = self.ckpt.restore("checkpoint")
+            self.teacher_state.load_state_dict(restored["teacher"])
+            self.state.load_state_dict(restored["student"])
+        step = steps_lib.make_stage1_step(self.bin_size, self.tau,
+                                          use_fused_nce=self.use_fused_nce)
+        eval_step = steps_lib.make_eval_step(self.teacher_state.model, "vanilla",
+                                             self.bin_size)
+        return self._fit("stage1", epochs, start_epoch, ("im", "shape", "label"),
+                         lambda db: step(self.teacher_state, self.state, db), eval_step,
+                         lambda: {"teacher": self.teacher_state.state_dict(),
+                                  "student": self.state.state_dict()})
+
+    def _fit(self, kind: str, epochs: int, start_epoch: int, keys, run_step, eval_step,
+             checkpoint) -> float:
+        """The regimes' epoch loop: a train sweep of `run_step` over the
+        device batches of `keys`, the per-category evaluation by
+        `eval_step`, the save of `checkpoint()`, one log line and one
+        metrics record with the sustained train samples/s."""
         best_acc = 0.0
         for epoch in range(start_epoch, epochs):
             self.train_loader.set_epoch(epoch)
             loss_m, acc_m = AverageValueMeter(), AverageValueMeter()
             meters = DeferredMeters(loss_m, acc_m)
             t0 = time.time()
-            for db, valid in Prefetcher(self.train_loader, KD_VIEW_KEYS, self.device):
-                meters.push(self.kd_step(self.state, self.teacher, db), int(valid.sum()))
+            for db, valid in Prefetcher(self.train_loader, keys, self.device):
+                meters.push(run_step(db), int(valid.sum()))
             # the flush waits for the last step, so train_seconds holds the
             # device's time: the sustained samples/s is train_samples over it
             meters.flush()
@@ -261,16 +297,16 @@ class KDTrainer:
 
             names = getattr(getattr(self.eval_loader, "dataset", None), "category_names",
                             self.category_names)
-            result = evaluate_categories(self.eval_step, self.eval_loader, names, self.device)
+            result = evaluate_categories(eval_step, self.eval_loader, names, self.device)
             is_best = result.mean_acc > best_acc
             best_acc = max(best_acc, result.mean_acc)
-            self.ckpt.save_epoch(epoch, self.state.state_dict(), is_best=is_best)
+            self.ckpt.save_epoch(epoch, checkpoint(), is_best=is_best)
 
             self.log.line(
                 "Student Epoch: %03d || train_loss %.2f || train_acc %.2f -- "
                 "val_acc %.2f -- val_med %.2f \n" %
                 (epoch + 1, loss_m.avg, acc_m.avg, result.mean_acc, result.mean_med))
-            self.metrics.write({"kind": "crd_epoch", "epoch": epoch,
+            self.metrics.write({"kind": f"{kind}_epoch", "epoch": epoch,
                                 "train_loss": loss_m.avg, "train_acc": acc_m.avg,
                                 "val_acc": result.mean_acc, "val_med": result.mean_med,
                                 "epoch_seconds": time.time() - t0,

@@ -398,7 +398,8 @@ def test_kd_cli_two_epochs_resume_and_testing(fixture_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--stage", "1"], ["--stage", "2"], ["--contrast"], ["--vid"], ["--int8_teacher"],
+    ["--stage", "1", "--nce", "multipose"], ["--stage", "2"], ["--contrast"], ["--vid"],
+    ["--int8_teacher"],
     ["--device_augment"], ["--device_views"], ["--device_shapes"], ["--use_memory_bank"],
     ["--fused_nce"], ["--bf16"], ["--n_devices", "2"], ["--profile_dir", "trace"],
     ["--tau", "0.5"], ["--nce", "pose"], ["--random"], ["--random_range", "2"],

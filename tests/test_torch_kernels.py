@@ -6,13 +6,23 @@ machine run them with
 (`--noconftest`: tests/conftest.py sets up JAX, which that machine lacks).
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
 from pose3d_tpu_torch import geometry
-from pose3d_tpu_torch.models.estimators import BaselineEstimator, PoseEstimator
-from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet, vgg_stem
+from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator,
+                                                PoseEstimatorVanilla)
+from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
+from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet, pointnet_train, vgg_stem
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -305,3 +315,71 @@ def test_cpu_student_forward_makes_no_stem_launch():
     proj.sum().backward()
     assert (vgg_stem.stem_forward.launches, vgg_stem.stem_backward.launches) == before
     assert model.img_encoder.features[0].weight.grad is not None
+
+
+# --- the train-mode PointNet ------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,d,kw", [
+    (1, 100, 64, {}), (7, 2500, 256, {}), (7, 100, 1024, {}), (46, 2500, 256, {}),
+    (5, 40, 256, {}), (46, 700, 256, {"masked": True}), (7, 500, 256, {"ties": True}),
+    (7, 500, 256, {"gamma0": True}), (8, 300, 128, {"masked": True, "dtype": torch.float64})])
+def test_pointnet_train_kernels_match_plain_on_cuda(cuda, n, p, d, kw):
+    """Against the plain version in f64, with chip_smoke.py's tolerances."""
+    res = chip_smoke.pt_kernel_vs_plain(pointnet_train, *chip_smoke.pt_inputs(
+        np.random.default_rng(n * p + d), n, p, d, cuda, **kw))
+    assert res["same"] and res["launches"] == (1, 1), res
+    assert res["out"] <= chip_smoke.PT_OUT_TOL and res["stats"] <= chip_smoke.PT_OUT_TOL, res
+    assert res["grads"] <= chip_smoke.PT_GRAD_TOL and res["bias"] <= chip_smoke.PT_BIAS_TOL, res
+    assert res["tie_gap"] <= chip_smoke.PT_TIE_TOL, res
+    assert res["relu_gap"] <= chip_smoke.PT_RELU_TOL, res
+    assert res["flips"] <= 2 * res["plain_flips"] + 2, res
+
+
+@pytest.mark.cuda
+def test_pointnet_train_kernels_check_their_inputs(cuda):
+    pts, layers, _, _ = chip_smoke.pt_inputs(np.random.default_rng(0), 2, 50, 96, cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        pointnet_train.pointnet_train(pts, layers)
+    pts, layers, _, _ = chip_smoke.pt_inputs(np.random.default_rng(0), 2, 50, 64, cuda)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        pointnet_train.pointnet_train(pts.half(), [[t.half() for t in layer]
+                                                   for layer in layers])
+    # a non-contiguous cloud is read through one copy; the result agrees
+    strided = pts.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(pointnet_train.pointnet_train(strided, layers)[0],
+                       pointnet_train.pointnet_train(pts, layers)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_shape_encoder_train_mode_launches_the_kernels(cuda, masked):
+    """Train mode on the card runs the train-mode kernels, masked batches
+    included, and moves the running statistics as on the CPU."""
+    torch.manual_seed(0)
+    enc_cpu = ShapeEncoderPC(64, generator=torch.Generator().manual_seed(0))
+    enc = ShapeEncoderPC(64, generator=torch.Generator().manual_seed(0)).to(cuda)
+    pts = torch.rand((6, 200, 3))
+    valid = (torch.arange(6) < 4) if masked else None
+    before = (pointnet_train.train_forward.launches, pointnet_train.train_backward.launches)
+    out = enc.train()(pts.to(cuda), None if valid is None else valid.to(cuda))
+    out.sum().backward()
+    assert (pointnet_train.train_forward.launches - before[0],
+            pointnet_train.train_backward.launches - before[1]) == (1, 1)
+    want = enc_cpu.train()(pts, valid)
+    want.sum().backward()
+    torch.testing.assert_close(out.detach().cpu(), want.detach(), rtol=1e-4, atol=1e-5)
+    for (name, a), b in zip(enc.state_dict().items(), enc_cpu.state_dict().values()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6, msg=name)
+
+
+def test_cpu_vanilla_teacher_train_forward_makes_no_kernel_launch():
+    model = PoseEstimatorVanilla(img_feature_dim=32, shape_feature_dim=64,
+                                 generator=torch.Generator().manual_seed(0)).train()
+    before = (pointnet_train.train_forward.launches, pointnet_train.train_backward.launches,
+              pointnet.pointnet_eval.launches)
+    heads, x = model(torch.rand((3, 32, 32, 3)), torch.rand((3, 50, 3)))
+    x.sum().backward()
+    assert before == (pointnet_train.train_forward.launches,
+                      pointnet_train.train_backward.launches, pointnet.pointnet_eval.launches)
+    assert model.shape_encoder.conv3.weight.grad is not None and x.shape == (3, 200)
