@@ -617,9 +617,9 @@ def pt_kernel_vs_plain(pt, pts, layers, valid, g) -> dict:
     prm = pt.pack_params(layers)
     runs = []
     for _ in range(2):
-        out, stats, idx, h1, h2 = pt.train_forward(pts, prm, d, valid)
+        out, stats, idx, h1, h2, gram = pt.train_forward(pts, prm, d, valid)
         runs.append((out, stats, idx, pt.train_backward(pts, prm, d, valid, stats, idx, h1,
-                                                        h2, g)))
+                                                        h2, gram, g)))
     same = all(torch.equal(a, b) for a, b in zip(*runs))
     out, stats, idx, grads = runs[0]
     opened = (h1 > 0, h2 > 0)
@@ -1619,7 +1619,8 @@ def main() -> int:
         d_c = TRAIN_SHAPE_DIM
         pts_c, layers_c, _, g_c = pt_inputs(np.random.default_rng(29), n_c, POINT_NUM, d_c, dev)
         prm = pointnet_train.pack_params(layers_c)
-        _, stats_c, idx_c, h1_c, h2_c = pointnet_train.train_forward(pts_c, prm, d_c, None)
+        _, stats_c, idx_c, h1_c, h2_c, gram_c = pointnet_train.train_forward(pts_c, prm, d_c,
+                                                                            None)
         tracked = [[t.clone().requires_grad_() for t in layer] for layer in layers_c]
         flat = [t for layer in tracked for t in layer]
         out_p = pointnet_train.pointnet_train_plain(pts_c, tracked)[0]
@@ -1630,7 +1631,7 @@ def main() -> int:
 
         fns = {"kernel forward": lambda: pointnet_train.train_forward(pts_c, prm, d_c, None),
                "kernel backward": lambda: pointnet_train.train_backward(
-                   pts_c, prm, d_c, None, stats_c, idx_c, h1_c, h2_c, g_c),
+                   pts_c, prm, d_c, None, stats_c, idx_c, h1_c, h2_c, gram_c, g_c),
                "plain forward": plain_fwd,
                "plain backward": lambda: torch.autograd.grad(out_p, flat, g_c,
                                                              retain_graph=True)}
@@ -1642,10 +1643,12 @@ def main() -> int:
         pt_times[n_c] = t = {k: sum(v) / len(v) for k, v in runs.items()}
         # the bound: the points, parameters and outputs (features, argmax
         # indices, statistics) and, backward, the upstream gradient and the
-        # parameters' gradients, each moved once; the layers' useful FLOPs
+        # parameters' gradients, each moved once; the layers' useful FLOPs:
+        # forward the three layers, backward layers 1-2 and, for layer 3,
+        # M h2 (128 x 128) a point, its Gram form (csrc/pointnet_train.cu)
         rows_c, n_stats = n_c * POINT_NUM, 2 * (64 + 128 + d_c)
         flops_f = 2.0 * rows_c * (3 * 64 + 64 * 128 + 128 * d_c)
-        flops_b = 2.0 * rows_c * (3 * 64 + 2 * 64 * 128 + 2 * 128 * d_c)
+        flops_b = 2.0 * rows_c * (3 * 64 + 2 * 64 * 128 + 128 * 128)
         pt_bounds[n_c] = (
             bound(4.0 * (3 * rows_c + prm.numel() + 2 * n_c * d_c + n_stats), flops_f),
             bound(4.0 * (3 * rows_c + 2 * prm.numel() + 2 * n_c * d_c + n_stats), flops_b))
@@ -1655,8 +1658,9 @@ def main() -> int:
               f"{t['kernel forward'] + t['kernel backward']:.4f} vs "
               f"{t['plain forward'] + t['plain backward']:.4f} ms; bound forward "
               f"{pt_bounds[n_c][0][0]:.4f} ms ({pt_bounds[n_c][0][1]}), backward "
-              f"{pt_bounds[n_c][1][0]:.4f} ms ({pt_bounds[n_c][1][1]}) [{card}]")
-        del pts_c, layers_c, g_c, h1_c, h2_c, tracked, flat, out_p
+              f"{pt_bounds[n_c][1][0]:.4f} ms ({pt_bounds[n_c][1][1]}); CUDA launches a forward "
+              f"and a backward call: {pointnet_train.kernel_launches_per_call()} [{card}]")
+        del pts_c, layers_c, g_c, h1_c, h2_c, gram_c, tracked, flat, out_p
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

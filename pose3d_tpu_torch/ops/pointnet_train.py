@@ -19,6 +19,11 @@ differentiated by autograd. A CUDA tensor goes through `_PointNetTrain`,
 whose forward and backward launch the kernels (`train_forward`,
 `train_backward`, one count each a call), or the call raises: there is no
 fallback. The kernels take float32 or float64 and D a multiple of 64.
+
+The kernels compute layer 3's statistics and gradients from h2's Gram sums
+(G = sum h2 h2^T, s = sum h2 over the valid clouds' points), which the
+forward keeps for the backward; only the max computes the D-wide layer
+over the points (`csrc/pointnet_train.cu`'s header has the forms).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from pose3d_tpu_torch.ops import _build
 
 HIDDEN = (64, 128)
 CHUNK_D = 64  # csrc/pointnet_train.cu kChunk: D a multiple of it
+GRAM_SIZE = HIDDEN[1] * (HIDDEN[1] + 1)  # G (128 x 128) and s (128), float64
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 Layer = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -67,10 +73,10 @@ def _lib():
     # pointers and the stream are 64-bit: ctypes' default int would cut them
     for suffix in _SUFFIX.values():
         fwd = getattr(lib, f"pointnet_train_forward_{suffix}")
-        fwd.argtypes = [p, p, i64, i64, i64] + [p] * 8 + [ctypes.c_int, p]
+        fwd.argtypes = [p, p, i64, i64, i64] + [p] * 9 + [ctypes.c_int, p]
         fwd.restype = ctypes.c_int
         bwd = getattr(lib, f"pointnet_train_backward_{suffix}")
-        bwd.argtypes = [p, p, i64, i64, i64] + [p] * 8 + [ctypes.c_int, p]
+        bwd.argtypes = [p, p, i64, i64, i64] + [p] * 10 + [ctypes.c_int, p]
         bwd.restype = ctypes.c_int
     lib.pointnet_train_workspace.argtypes = [i64, i64, i64, ctypes.c_int, ctypes.c_int]
     lib.pointnet_train_workspace.restype = i64
@@ -124,13 +130,16 @@ def train_forward(points: torch.Tensor, prm: torch.Tensor, d: int,
     """Launch the forward kernels on CUDA tensors (checked by the caller):
     points (N, P, 3) contiguous, prm from `pack_params`, valid (N,) bool or
     None. Returns (out (N, D), stats (2 (64 + 128 + D),): mu1, var1, mu2,
-    var2, mu3, var3, idx (N, D) int32, h1 (N, P, 64), h2 (N, P, 128))."""
+    var2, mu3, var3, idx (N, D) int32, and for the backward h1 (N, P, 64),
+    h2 (N, P, 128) and gram (GRAM_SIZE,) float64: G = sum h2 h2^T and
+    s = sum h2 over the valid clouds' points)."""
     n, p, _ = points.shape
     sms = _sm_count(points.device)
     lib = _lib()
     new = functools.partial(torch.empty, dtype=points.dtype, device=points.device)
     out, stats = new((n, d)), new(2 * (sum(HIDDEN) + d))
     h1, h2 = new((n, p, HIDDEN[0])), new((n, p, HIDDEN[1]))
+    gram = torch.empty(GRAM_SIZE, dtype=torch.float64, device=points.device)
     ws = new(lib.pointnet_train_workspace(n, p, d, sms, 0))
     idx = torch.empty((n, d), dtype=torch.int32, device=points.device)
     iws = torch.empty(lib.pointnet_train_workspace(n, p, d, sms, 1), dtype=torch.int32,
@@ -138,12 +147,12 @@ def train_forward(points: torch.Tensor, prm: torch.Tensor, d: int,
     fn = getattr(lib, f"pointnet_train_forward_{_SUFFIX[points.dtype]}")
     with torch.cuda.device(points.device):
         err = fn(points.data_ptr(), _ptr(valid), n, p, d, prm.data_ptr(), stats.data_ptr(),
-                 out.data_ptr(), idx.data_ptr(), h1.data_ptr(), h2.data_ptr(), ws.data_ptr(),
-                 iws.data_ptr(), sms, torch.cuda.current_stream().cuda_stream)
+                 out.data_ptr(), idx.data_ptr(), h1.data_ptr(), h2.data_ptr(), gram.data_ptr(),
+                 ws.data_ptr(), iws.data_ptr(), sms, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"pointnet_train forward kernel launch failed: cudaError_t {err}")
     train_forward.launches += 1
-    return out, stats, idx, h1, h2
+    return out, stats, idx, h1, h2, gram
 
 
 train_forward.launches = 0
@@ -151,7 +160,8 @@ train_forward.launches = 0
 
 def train_backward(points: torch.Tensor, prm: torch.Tensor, d: int,
                    valid: torch.Tensor | None, stats: torch.Tensor, idx: torch.Tensor,
-                   h1: torch.Tensor, h2: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+                   h1: torch.Tensor, h2: torch.Tensor, gram: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
     """Launch the backward kernels: the gradient of sum(out * g) with
     respect to the packed parameters, in `pack_params`' layout."""
     n, p, _ = points.shape
@@ -161,11 +171,14 @@ def train_backward(points: torch.Tensor, prm: torch.Tensor, d: int,
     grads = torch.empty_like(prm)
     ws = torch.empty(lib.pointnet_train_workspace(n, p, d, sms, 2), dtype=points.dtype,
                      device=points.device)
+    dws = torch.empty(lib.pointnet_train_workspace(n, p, d, sms, 3), dtype=torch.float64,
+                      device=points.device)
     fn = getattr(lib, f"pointnet_train_backward_{_SUFFIX[points.dtype]}")
     with torch.cuda.device(points.device):
         err = fn(points.data_ptr(), _ptr(valid), n, p, d, prm.data_ptr(), stats.data_ptr(),
-                 idx.data_ptr(), h1.data_ptr(), h2.data_ptr(), g.data_ptr(), grads.data_ptr(),
-                 ws.data_ptr(), sms, torch.cuda.current_stream().cuda_stream)
+                 gram.data_ptr(), idx.data_ptr(), h1.data_ptr(), h2.data_ptr(), g.data_ptr(),
+                 grads.data_ptr(), ws.data_ptr(), dws.data_ptr(), sms,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"pointnet_train backward kernel launch failed: cudaError_t {err}")
     train_backward.launches += 1
@@ -184,23 +197,24 @@ def split_stats(stats: torch.Tensor, d: int) -> Stats:
 
 class _PointNetTrain(torch.autograd.Function):
     """The kernels under autograd: the forward keeps the packed parameters,
-    the statistics, the argmax indices and h1, h2; the backward launches
-    the gradient passes with the upstream gradient of the features."""
+    the statistics, the argmax indices, h1, h2 and h2's Gram sums; the
+    backward launches the gradient passes with the upstream gradient of the
+    features."""
 
     @staticmethod
     def forward(ctx, points, valid, *flat):
         d = flat[8].shape[0]
         prm = pack_params([flat[4 * i:4 * i + 4] for i in range(3)])
-        out, stats, idx, h1, h2 = train_forward(points, prm, d, valid)
-        ctx.save_for_backward(points, prm, stats, idx, h1, h2)
+        out, stats, idx, h1, h2, gram = train_forward(points, prm, d, valid)
+        ctx.save_for_backward(points, prm, stats, idx, h1, h2, gram)
         ctx.valid, ctx.d = valid, d
         ctx.mark_non_differentiable(stats)
         return out, stats
 
     @staticmethod
     def backward(ctx, g, _g_stats):
-        points, prm, stats, idx, h1, h2 = ctx.saved_tensors
-        grads = train_backward(points, prm, ctx.d, ctx.valid, stats, idx, h1, h2, g)
+        points, prm, stats, idx, h1, h2, gram = ctx.saved_tensors
+        grads = train_backward(points, prm, ctx.d, ctx.valid, stats, idx, h1, h2, gram, g)
         return (None, None, *unpack_grads(grads, ctx.d))
 
 

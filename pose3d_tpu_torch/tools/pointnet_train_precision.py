@@ -11,8 +11,8 @@ decisions (h1, h2 > 0) that differ from float64's, and at up to 8 of them
 the float64 ReLU input and the kernels' output, both over the channel's
 max|input|. The f32 plain version's errors and decisions on the same inputs
 come first. With --source, another version of csrc/pointnet_train.cu (an
-earlier commit's, from `git show`) is built beside this one and measured
-on the same inputs. Needs a CUDA device and nvcc.
+earlier commit's, from `git show`, with or without the Gram sums in its
+entry point) is built beside this one and measured on the same inputs. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -85,19 +85,66 @@ def flips(h_pairs, pre_ref) -> tuple[int, list]:
     return count, shown
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Build another version of csrc/pointnet_train.cu and bind it as the
-    wrapper binds its own."""
+def with_lib(lib: ctypes.CDLL):
+    """The wrapper's forward on another build of its own interface:
+    (points, prm, d) -> (stats, h1, h2)."""
+    def run(pts, prm, d):
+        own = pt._lib
+        pt._lib = lambda: lib
+        try:
+            _, stats, _, h1, h2, _ = pt.train_forward(pts, prm, d, None)
+        finally:
+            pt._lib = own
+        return stats, h1, h2
+    return run
+
+
+def without_gram(lib: ctypes.CDLL):
+    """The forward of a version whose entry point keeps no Gram sums
+    (csrc/pointnet_train.cu before the Gram form of layer 3), called as
+    its wrapper called it."""
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn = lib.pointnet_train_forward_f32
+    fn.argtypes = [vp, vp, i64, i64, i64] + [vp] * 8 + [ctypes.c_int, vp]
+    fn.restype = ctypes.c_int
+    lib.pointnet_train_workspace.argtypes = [i64, i64, i64, ctypes.c_int, ctypes.c_int]
+    lib.pointnet_train_workspace.restype = i64
+
+    def run(pts, prm, d):
+        n, p, _ = pts.shape
+        sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
+        new = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype,
+                                                              device=pts.device)
+        stats, out, idx = new(2 * (64 + 128 + d)), new(n, d), new(n, d, dtype=torch.int32)
+        h1, h2 = new(n, p, 64), new(n, p, 128)
+        ws = new(lib.pointnet_train_workspace(n, p, d, sms, 0))
+        iws = new(lib.pointnet_train_workspace(n, p, d, sms, 1), dtype=torch.int32)
+        err = fn(pts.data_ptr(), None, n, p, d, prm.data_ptr(), stats.data_ptr(), out.data_ptr(),
+                 idx.data_ptr(), h1.data_ptr(), h2.data_ptr(), ws.data_ptr(), iws.data_ptr(),
+                 sms, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"forward kernel launch failed: cudaError_t {err}")
+        return stats, h1, h2
+    return run
+
+
+def load(source: str):
+    """Build another version of csrc/pointnet_train.cu; return its forward
+    as `with_lib` returns it."""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     out = os.path.join(_build.BUILD_DIR, "libpointnet_train_other.so")
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, source],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    with open(source) as f:
+        has_gram = "double* gram" in f.read()
+    if not has_gram:
+        return without_gram(ctypes.CDLL(out))
     load_own = _build.load
     _build.load = lambda name: ctypes.CDLL(out)
     try:
-        return pt._lib.__wrapped__()
+        return with_lib(pt._lib.__wrapped__())
     finally:
         _build.load = load_own
 
@@ -109,10 +156,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("pointnet_train_precision: no CUDA device")
     dev = torch.device("cuda")
-    builds = {"this source": pt._lib()}
+    builds = {"this source": with_lib(pt._lib())}
     if args.source:
         builds[args.source] = load(args.source)
-    own_lib = pt._lib
     for seed, (n, p, d) in enumerate(CASES):
         pts, layers = inputs(seed, n, p, d, dev)
         _, pre64, stats64 = forward_parts(pts.double(), [[t.double() for t in l] for l in layers])
@@ -122,12 +168,8 @@ def main() -> None:
                           "stats": stat_errors(stats32, stats64), "flips": count}), flush=True)
         del pre32
         prm = pt.pack_params(layers)
-        for name, lib in builds.items():
-            pt._lib = lambda lib=lib: lib
-            try:
-                _, stats, _, h1, h2 = pt.train_forward(pts, prm, d, None)
-            finally:
-                pt._lib = own_lib
+        for name, forward in builds.items():
+            stats, h1, h2 = forward(pts, prm, d)
             count, shown = flips((h1, h2), pre64)
             print(json.dumps({"case": [n, p, d], "build": name,
                               "stats": stat_errors(pt.split_stats(stats, d), stats64),

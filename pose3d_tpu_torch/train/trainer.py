@@ -153,7 +153,7 @@ class TeacherTrainer:
         return evaluate_categories(self.eval_step, loader, names, self.device)
 
     def fit(self, epochs: int, start_epoch: int = 0) -> float:
-        best_acc = 0.0
+        best_acc = self.ckpt.best_acc() if start_epoch > 0 else 0.0
         losses = np.zeros((epochs, 2))
         accuracies = np.zeros((epochs, 2))
         for epoch in range(start_epoch, epochs):
@@ -190,7 +190,7 @@ class TeacherTrainer:
             accuracies[epoch] = [train_acc.avg, eval_acc]
 
             # the whole train state, and the image encoder alone
-            self.ckpt.save_epoch(epoch, self.state.state_dict(), is_best=is_best)
+            self.ckpt.save_epoch(epoch, self.state.state_dict(), best_acc, is_best=is_best)
             img_encoder = {"model": self.state.model.img_encoder.state_dict()}
             self.ckpt.save("checkpoint_img_encoder", img_encoder)
             if is_best:
@@ -282,7 +282,7 @@ class KDTrainer:
         device batches of `keys`, the per-category evaluation by
         `eval_step`, the save of `checkpoint()`, one log line and one
         metrics record with the sustained train samples/s."""
-        best_acc = 0.0
+        best_acc = self.ckpt.best_acc() if start_epoch > 0 else 0.0
         for epoch in range(start_epoch, epochs):
             self.train_loader.set_epoch(epoch)
             loss_m, acc_m = AverageValueMeter(), AverageValueMeter()
@@ -300,7 +300,7 @@ class KDTrainer:
             result = evaluate_categories(eval_step, self.eval_loader, names, self.device)
             is_best = result.mean_acc > best_acc
             best_acc = max(best_acc, result.mean_acc)
-            self.ckpt.save_epoch(epoch, checkpoint(), is_best=is_best)
+            self.ckpt.save_epoch(epoch, checkpoint(), best_acc, is_best=is_best)
 
             self.log.line(
                 "Student Epoch: %03d || train_loss %.2f || train_acc %.2f -- "

@@ -337,6 +337,27 @@ def test_pointnet_train_kernels_match_plain_on_cuda(cuda, n, p, d, kw):
 
 
 @pytest.mark.cuda
+def test_pointnet_train_launches_per_call(cuda):
+    """Layer 3 in its Gram form: 9 CUDA launches a forward call and 10 a
+    backward call, as the library says and as the profiler counts them."""
+    assert pointnet_train.kernel_launches_per_call() == (9, 10)
+    pts, layers, _, g = chip_smoke.pt_inputs(np.random.default_rng(1), 3, 300, 128, cuda)
+    prm = pointnet_train.pack_params(layers)
+    counted = []
+    for part in ("forward", "backward"):
+        saved = pointnet_train.train_forward(pts, prm, 128, None)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            if part == "forward":
+                pointnet_train.train_forward(pts, prm, 128, None)
+            else:
+                pointnet_train.train_backward(pts, prm, 128, None, *saved[1:], g)
+            torch.cuda.synchronize()
+        counted.append(sum(e.count for e in prof.key_averages() if "pnt_" in e.key))
+    assert tuple(counted) == (9, 10)
+
+
+@pytest.mark.cuda
 def test_pointnet_train_kernels_check_their_inputs(cuda):
     pts, layers, _, _ = chip_smoke.pt_inputs(np.random.default_rng(0), 2, 50, 96, cuda)
     with pytest.raises(ValueError, match="multiple of 64"):

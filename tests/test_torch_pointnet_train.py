@@ -21,6 +21,7 @@ import torch
 import pose3d_tpu.ops.pointnet_train_fused as ptf
 from pose3d_tpu.models.pointnet import ShapeEncoderPC as JaxShapeEncoderPC
 from pose3d_tpu.models.pointnet import dense_bn_forward
+from pose3d_tpu_torch.models.common import batch_stats
 from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
 from pose3d_tpu_torch.ops import pointnet, pointnet_train
 from pose3d_tpu_torch.train import convert
@@ -260,3 +261,82 @@ def test_rejects_devices_without_a_kernel(rng):
         pointnet_train.pointnet_train(torch.zeros((2, 10, 3), device="meta"), layers)
     with pytest.raises(ValueError, match="different devices"):
         pointnet_train.pointnet_train(torch.zeros((2, 10, 3)), layers)
+
+
+# --- layer 3 from h2's Gram matrix (csrc/pointnet_train.cu's algebra) -------
+
+def _gram_closed_forms(h2, w3, b3, gamma, beta, valid, index, g):
+    """Layer 3's statistics and gradients from G = sum h2 h2^T, s = sum h2
+    and m over the valid rows, and the argmax index: the kernels' formulas
+    (csrc/pointnet_train.cu's header), in the inputs' dtype. w3 is
+    (D, 128), out x in. Returns (mu3, var3, dW3 (D, 128), db3, dh2)."""
+    rows = h2 if valid is None else h2[valid]
+    flat = rows.reshape(-1, h2.shape[-1])
+    gram, s, m = flat.T @ flat, flat.sum(0), flat.shape[0]
+    w = w3.T                                        # (128, D), in x out
+    hbar = s / m
+    mu = hbar @ w + b3
+    cov = gram / m - torch.outer(hbar, hbar)
+    var = torch.einsum("kc,kl,lc->c", w, cov, w).clamp_min(0)
+    r = torch.rsqrt(var + 1e-5)
+    n = h2.shape[0]
+    at = h2[torch.arange(n)[:, None], index]        # (N, D, 128): h2 at each argmax
+    xhat = (torch.einsum("ndk,kd->nd", at, w) + b3 - mu) * r
+    dbeta, dgamma = g.sum(0), (g * xhat).sum(0)
+    u, v = gamma * r * dbeta / m, gamma * r * dgamma / m
+    rv, shift = r * v, b3 - mu
+    big_s = torch.einsum("nd,ndk->kd", gamma * r * g, at)
+    dw3 = big_s - torch.outer(s, u) - (gram @ w + torch.outer(s, shift)) * rv
+    db3 = gamma * r * dbeta - m * u - rv * (s @ w + m * shift)
+    mat, k0 = (w * rv) @ w.T, w @ (u + rv * shift)
+    dh2 = torch.zeros_like(h2)
+    dh2.index_put_((torch.arange(n)[:, None].expand_as(index), index),
+                   (gamma * r * g)[..., None] * w.T, accumulate=True)
+    keep = torch.ones(n, dtype=h2.dtype) if valid is None else valid.to(h2.dtype)
+    dh2 = dh2 - keep[:, None, None] * (k0 + h2 @ mat)
+    return mu, var, dw3.T, db3, dh2
+
+
+@pytest.mark.parametrize("d,case", [(64, "plain"), (256, "plain"), (64, "masked"),
+                                    (256, "masked"), (256, "ties")])
+def test_layer3_from_the_gram_matrix_matches_autograd(d, case):
+    """In f64 on a ragged (5, 40) batch: mu3 and var3 from G, s and m, and
+    dW3, db3 and dh2 from the closed forms with the argmax index, against
+    the plain version's statistics and autograd (dh2 with h2 as a leaf),
+    within 1e-10 of max|ref|."""
+    rng = np.random.default_rng(d + len(case))
+    pts = rng.random((5, 40, 3)) * rng.uniform(0.2, 1.0, (5, 1, 3))
+    if case == "ties":
+        pts[0] = pts[0, :1]
+    layers = [[torch.from_numpy(np.ascontiguousarray(a).astype(np.float64)).requires_grad_()
+               for a in (dense["kernel"].T, dense["bias"], bn["scale"], bn["bias"])]
+              for dense, bn in _params(rng, d)]
+    valid = torch.from_numpy(np.arange(5) < 3) if case == "masked" else None
+    g = torch.from_numpy(rng.standard_normal((5, d)))
+    pts = torch.from_numpy(pts)
+    out, stats, index = pointnet_train.pointnet_train_plain(pts, layers, valid)
+    want_w3, want_b3 = torch.autograd.grad(out, layers[2][:2], g)
+
+    x = pts  # layers 1-2 as the plain version runs them, then h2 as a leaf
+    for w, b, gamma, beta in layers[:2]:
+        x = torch.nn.functional.linear(x, w, b)
+        mean, var = batch_stats(x, (0, 1), valid)
+        x = torch.relu((x - mean) * (torch.rsqrt(var + 1e-5) * gamma) + beta)
+    h2 = x.detach().requires_grad_()
+    w3, b3, gamma3, beta3 = layers[2]
+    y = torch.nn.functional.linear(h2, w3, b3)
+    mean, var = batch_stats(y, (0, 1), valid)
+    y = (y - mean) * (torch.rsqrt(var + 1e-5) * gamma3) + beta3
+    leaf_out = y.gather(1, index[:, None, :])[:, 0]
+    assert torch.equal(leaf_out, out.detach())
+    (want_dh2,) = torch.autograd.grad(leaf_out, h2, g)
+
+    with torch.no_grad():
+        got = _gram_closed_forms(h2, w3, b3, gamma3, beta3, valid, index, g)
+    want = (*stats[2], want_w3, want_b3, want_dh2)
+    scale = max(float(want_w3.abs().max()), 1e-30)
+    for name, a, ref in zip(("mu3", "var3", "dW3", "db3", "dh2"), got, want):
+        ref = ref.detach()
+        # db3 is 0 in exact arithmetic: held against the weight gradient's scale
+        tol = 1e-10 * (scale if name == "db3" else float(ref.abs().max()))
+        assert float((a - ref).abs().max()) <= tol, name

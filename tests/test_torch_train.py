@@ -23,6 +23,7 @@ takes (with its L2 term): the first step is lr g / (|g| + eps), so where
 |g| is near eps rounding flips its sign.
 """
 
+import dataclasses
 import functools
 import importlib.util
 import json
@@ -55,6 +56,7 @@ from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
 from pose3d_tpu_torch.ops import nce
 from pose3d_tpu_torch.ops.augment import dewire
 from pose3d_tpu_torch.train import convert, steps
+from pose3d_tpu_torch.train import trainer as trainer_lib
 from pose3d_tpu_torch.train.ckpt import Checkpointer
 from pose3d_tpu_torch.train.state import create_train_state, multistep_lr, torch_style_adam
 
@@ -337,14 +339,14 @@ def test_train_state_checkpoint_round_trip(tmp_path):
     state.scheduler.step()
     state.step = 1
     ckpt = Checkpointer(str(tmp_path))
-    ckpt.save_epoch(0, state.state_dict(), is_best=True)
+    ckpt.save_epoch(0, state.state_dict(), 12.5, is_best=True)
     draw = torch.rand(4, generator=state.generator)
 
     other = create_train_state(PoseEstimator(img_feature_dim=32, shape_feature_dim=32),
                                LR, [2], seed=9)
     saved = ckpt.restore("checkpoint")
     other.load_state_dict(saved)
-    assert ckpt.latest_epoch() == 0 and ckpt.exists("best")
+    assert ckpt.latest_epoch() == 0 and ckpt.exists("best") and ckpt.best_acc() == 12.5
     assert other.step == 1
     for a, b in zip(model.state_dict().values(), other.model.state_dict().values()):
         assert torch.equal(a, b)
@@ -434,6 +436,28 @@ def test_training_cli_two_epochs_then_resume(fixture_dir, monkeypatch):
                            str(run / "ckpt" / "checkpoint.pth"), "--device", "cpu",
                            "--output_dir", str(fixture_dir / "preds")])
     assert len(result.cat_ids) == 6
+
+
+def test_resume_into_a_worse_epoch_keeps_the_best(fixture_dir, monkeypatch):
+    """Epochs scoring 40, 60, then (resumed) 50: the resumed epoch is not
+    the best, so best.pth keeps epoch 1's state and the run returns 60."""
+    monkeypatch.chdir(fixture_dir)
+    scores = [40.0, 60.0, 50.0]
+    evaluate = trainer_lib.TeacherTrainer._eval
+
+    def scripted(self, loader):
+        return dataclasses.replace(evaluate(self, loader),
+                                   mean_acc=scores[self.train_loader.epoch])
+
+    monkeypatch.setattr(trainer_lib.TeacherTrainer, "_eval", scripted)
+    flags = CLI_FLAGS + ["--data_root", str(fixture_dir / "data"), "--result_dir",
+                         str(fixture_dir / "worse")]
+    assert training.main(flags + ["--n_epoch", "2"]) == 60.0
+    ckpt = fixture_dir / "worse" / "PointCloud_ObjectNet3D" / "ckpt"
+    best = (ckpt / "best.pth").read_bytes()
+    assert training.main(flags + ["--n_epoch", "3", "--resume"]) == 60.0
+    assert (ckpt / "EPOCH").read_text() == "2"
+    assert (ckpt / "best.pth").read_bytes() == best
 
 
 def test_training_cli_masked_batch_on_a_small_set(fixture_dir, monkeypatch, tmp_path):
