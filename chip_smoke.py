@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (pose3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--stem-source OTHER.cu ...]
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch version on the card, and drives the port's paths once at full
@@ -31,7 +31,8 @@ The student's stem (conv3x3 + ReLU + 2x2 pool) runs in the VGG stem
 kernel in every student forward. Phases:
 
   1 device    2 build    3 geodesic kernel vs plain
-  4 pointnet kernel vs plain    5 VGG stem kernel vs plain
+  4 pointnet kernel vs plain    5 VGG stem kernel vs plain (and HMMA in
+     the f32 forward's SASS only)
   6 student at full width    7 student serving    8 student evaluation
   9 teacher at full width    10 teacher serving    11 teacher evaluation
   12 view_tile    13 serving times
@@ -48,6 +49,11 @@ Each path (7-8, 10-11, 16-17, 20-21 and 24-25) is driven with the
 kernels' launch counts set to 0 just before it and read just after it;
 16, 20 and 24 are the three training paths' main paths.
 
+With --stem-source (repeatable), another version of csrc/vgg_stem.cu with
+the same C interface (an earlier commit's, from `git show`) is built too,
+and phase 22 times its stem kernels and the KD step through them in turns
+with this source's.
+
 Each phase prints a line; any failure raises and exits non-zero. Before the
 last line come the card's name and power limit (nvidia-smi) and one JSON
 line {"kernels": [...]}; the last line is
@@ -58,6 +64,8 @@ before printing any result.
 
 from __future__ import annotations
 
+import argparse
+import functools
 import json
 import math
 import os
@@ -102,8 +110,14 @@ PT_OUT_TOL, PT_GRAD_TOL, PT_BIAS_TOL, PT_TIE_TOL = 1e-5, 1e-3, 1e-2, 1e-5
 PT_RELU_TOL = 2.0**-21
 STAGE1_SHAPE_DIM = 256  # PoseEstimatorVanilla's shape_feature_dim
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores
-HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# outside the tensor cores, dense TF32 FLOP/s on the tensor cores
+HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
+# the f32 stem forward's split-TF32 product: three TF32 products per f32 one
+STEM_TF32_PRODUCTS = 3
+# the split-TF32 window sums' error over max|x| sum|w| that the kernel's
+# margin for making a routing decision again (kNear, twice this) assumes
+STEM_SPLIT_ERR = 2.0**-15
+IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 EVAL_CATEGORIES = ["bed", "bookshelf", "calculator"]
 EVAL_COUNTS = [64] * 8 + [37]  # 8 full batches of 64 + a ragged 37 padded to 64
 EDGE_ROWS = (  # (pred, label): identical triples (0 deg) and 180 deg apart,
@@ -401,10 +415,11 @@ def rel_err(got, want) -> float:
     return float((got.cpu() - want.cpu()).abs().max() / want.abs().max())
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, flops: float, flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
     """The least time the card could take, in ms: the larger of the bytes
-    over the HBM rate and the f32 operations over the f32 CUDA-core rate."""
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    over the HBM rate and the operations over their rate (by default f32
+    on the CUDA cores)."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -479,14 +494,28 @@ class MemorySet:
 
 
 def stem_inputs(rng: np.random.Generator, n: int, hw: int, f: int, kind: str, dev,
-                dtype=torch.float32):
+                dtype=torch.float32, bars: float = 0.5):
     """The stem's inputs, as the student hands them over: an NCHW view of
     NHWC memory, the (F, 3, 3, 3) weight and bias (both needing a
     gradient), and an upstream gradient. `kind`: random, "ties" (an image
     constant on each 2x2 cell and the kernel's centre tap only: every
     pooling window ties, and the off-centre taps' gradient shows which
-    position took it) or "negative" (every output masked by the ReLU)."""
-    if kind == "ties":
+    position took it), "negative" (every output masked by the ReLU) or
+    "bars" (random, with `bars` of the rows, or in odd images of the
+    columns, a constant colour split between the two edges: resize_pad's
+    black padding of a crop that is not square, normalised and lit as the
+    training data is; the windows inside a bar are equal)."""
+    if kind == "bars":
+        x = rng.standard_normal((n, hw, hw, 3), dtype=np.float32)
+        cut = int(hw * bars / 2)
+        for i in range(n):
+            colour = (-np.asarray(IMAGENET_MEAN) / np.asarray(IMAGENET_STD)
+                      + rng.normal(0.0, 0.05, 3)).astype(np.float32)
+            view = x[i] if i % 2 == 0 else x[i].transpose(1, 0, 2)
+            view[:cut] = colour
+            view[hw - cut:] = colour
+        w = rng.standard_normal((f, 3, 3, 3)) * math.sqrt(2.0 / 27)
+    elif kind == "ties":
         cells = rng.standard_normal((n, hw // 2, hw // 2, 3))
         x = np.repeat(np.repeat(cells, 2, axis=1), 2, axis=2)
         w = np.zeros((f, 3, 3, 3))
@@ -520,6 +549,124 @@ def stem_kernel_vs_plain(vgg_stem, x, w, b, g):
     scaled = [e / max(float(want.abs().max()), 1e-6) for e, want in zip(errs, refs)]
     same = all(torch.equal(a, c) for a, c in zip(*runs))
     return scaled[0], max(scaled[1:]), max(errs), same, float(runs[0][0].max())
+
+
+def stem_split_error(vgg_stem, x, w, b) -> tuple[float, bool]:
+    """The f32 serving forward on the card (its window sums as split TF32;
+    no decision is made again without the index) against the f64 kernel on
+    the same inputs: per output, |y32 - y64| less one f32 rounding of y32
+    (the bias added), over max|x| sum|w| of its window and channel. Returns
+    the largest and whether every output is within STEM_SPLIT_ERR."""
+    x_nhwc, w, b = x.permute(0, 2, 3, 1), w.detach(), b.detach()
+    y32 = vgg_stem.stem_forward(x_nhwc, w, b, False)[0].double()
+    y64 = vgg_stem.stem_forward(x_nhwc.double(), w.double(), b.double(), False)[0]
+    x_max = torch.nn.functional.max_pool2d(x.abs().amax(1, keepdim=True).double(), 4, 2, 1)
+    scale = x_max * w.abs().double().sum((1, 2, 3)).view(1, -1, 1, 1)
+    excess = (y32 - y64).abs() - 2.0**-24 * y32.abs()
+    ok = bool((excess <= STEM_SPLIT_ERR * scale).all())
+    worst = float((excess.clamp_min(0) / scale.clamp_min(1e-30)).max())
+    return worst, ok
+
+
+def stem_near_shares(x_nhwc, w, b, chunk: int = 23) -> tuple[float, float]:
+    """Shares of the f32 forward's routing decisions (pooled output x
+    channel) that lie within the kernel's margin, 2 STEM_SPLIT_ERR max|x|
+    sum|w|, of their threshold (0 for the ReLU, where the output passes it
+    the other positions' sums), and of those left once positions that tie
+    exactly are one (the kernel's rule: neighbouring positions, 0 and 1, 2
+    and 3, 0 and 2, 1 and 3, whose windows are equal on every tap that some
+    channel weighs, and what follows from them): these the kernel makes
+    again in f32 FMA. Estimated from f64 sums, which lie within
+    STEM_SPLIT_ERR of that scale of the kernel's split sums."""
+    fn = torch.nn.functional
+    n, h, wd, _ = x_nhwc.shape
+    ho, wo, f = h // 2, wd // 2, w.shape[0]
+    w64, b64 = w.detach().double(), b.detach().double()
+    w1 = w64.abs().sum((1, 2, 3)).view(1, -1, 1, 1)
+    weighed = (w.detach().permute(0, 2, 3, 1).reshape(f, 27) != 0).any(0)  # (ky, kx, c)
+    counts = [0, 0]
+    for i in range(0, n, chunk):
+        x = x_nhwc[i:i + chunk].permute(0, 3, 1, 2)
+        c = x.shape[0]
+        pre = fn.conv2d(x.double(), w64, b64, padding=1)
+        v = torch.stack([pre[:, :, dy:2 * ho:2, dx:2 * wo:2] for dy in (0, 1) for dx in (0, 1)],
+                        -1)
+        best, first = v.max(-1)
+        margin = 2 * STEM_SPLIT_ERR * w1 * fn.max_pool2d(x.abs().amax(1, keepdim=True).double(),
+                                                        4, 2, 1)
+        taps = fn.unfold(x, 3, padding=1).view(c, 3, 3, 3, h, wd).permute(0, 2, 3, 1, 4, 5)
+        taps = taps.reshape(c, 27, h, wd).contiguous().view(torch.int32)
+        pos = [taps[:, :, dy:2 * ho:2, dx:2 * wo:2] for dy in (0, 1) for dx in (0, 1)]
+        ties = torch.stack([~((pos[a] != pos[b]) & weighed.view(1, 27, 1, 1)).any(1)
+                            for a, b in ((0, 1), (2, 3), (0, 2), (1, 3))], -1)
+        ties = ties[:, None].expand(c, f, ho, wo, 4)
+        tie = lambda i: ties.gather(-1, i[..., None])[..., 0]  # noqa: E731
+        row, col = tie(first >> 1), tie(2 + (first & 1))
+        diag = (row & tie(2 + ((first & 1) ^ 1))) | (col & tie((first >> 1) ^ 1))
+        at = lambda i: torch.arange(4, device=x.device) == i[..., None]  # noqa: E731
+        in_class = (at(first) | (row[..., None] & at(first ^ 1)) | (col[..., None] & at(first ^ 2))
+                    | (diag[..., None] & at(first ^ 3)))
+        gaps = (best[..., None] - v).masked_fill(
+            torch.arange(4, device=x.device) == first[..., None], math.inf)
+        gap = torch.minimum(best.abs(), torch.where(best > 0, gaps.min(-1).values, math.inf))
+        gap_class = torch.minimum(best.abs(), torch.where(
+            best > 0, gaps.masked_fill(in_class, math.inf).min(-1).values, math.inf))
+        counts[0] += int((gap < margin).sum())
+        counts[1] += int(((gap < margin) & (gap_class < margin)).sum())
+        del pre, v, taps, pos, ties, gaps
+    total = n * f * ho * wo
+    return counts[0] / total, counts[1] / total
+
+
+def build_stem(source: str, tag: int) -> str:
+    """Build another version of csrc/vgg_stem.cu with the same C interface
+    (an earlier commit's) beside this one, its nvcc report kept as a .log;
+    return the library's path."""
+    from pose3d_tpu_torch.ops import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_build.BUILD_DIR, f"libvgg_stem_other{tag}.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, source],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    return out
+
+
+def stem_using(path: str | None, run):
+    """run() with the stem's wrappers launching the kernels of the library
+    at `path` (None: this source's); the swap is undone at once."""
+    from pose3d_tpu_torch.ops import vgg_stem
+
+    own = vgg_stem._lib
+    if path is not None:
+        vgg_stem._lib = functools.partial(own, path)
+    try:
+        return run()
+    finally:
+        vgg_stem._lib = own
+
+
+def sass_hmma(lib: str) -> dict:
+    """{kernel: whether its SASS holds an HMMA (tensor-core) instruction} for
+    the stem's kernels in a built library, by cuobjdump beside nvcc."""
+    from pose3d_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        for kernel in ("stem_forward_tf32x3_kernel", "stem_wgrad_stream_kernel",
+                       "stem_forward_f64_kernel", "stem_wgrad_f64_kernel",
+                       "stem_wgrad_reduce_kernel"):
+            if kernel in name:
+                key = kernel + ("<double>" if name.split(kernel)[1].startswith("Id") else "")
+                found[key] = found.get(key, False) or "HMMA" in part
+    return found
 
 
 def student_heads_plain_stem(model, x):
@@ -684,6 +831,11 @@ class KDMemorySet(MemorySet):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    ap.add_argument("--stem-source", action="append", default=[],
+                    help="another version of csrc/vgg_stem.cu (an earlier commit's) to time "
+                    "beside this one in phase 22; repeatable")
+    args = ap.parse_args()
     t0 = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
@@ -795,11 +947,20 @@ def main() -> int:
 
     # 5. VGG stem kernel vs plain version on the card: forward and the
     # weight/bias gradient, at the main path's shapes and around them
+    # the f32 forward runs on the tensor cores (HMMA in its SASS), the f64
+    # kernels and the f32 weight gradient on the CUDA cores
+    hmma = sass_hmma(libs[3])
+    want = {"stem_forward_tf32x3_kernel": True, "stem_wgrad_stream_kernel": False,
+            "stem_forward_f64_kernel": False, "stem_wgrad_f64_kernel": False}
+    if any(hmma.get(k) != v for k, v in want.items()):
+        raise RuntimeError(f"vgg_stem SASS: HMMA in {hmma}, want {want}")
+    phase("vgg_stem", t0, f"cuobjdump -sass: HMMA in {hmma}")
     srng = np.random.default_rng(2)
     cases = [(n_c, hw, f_c, "rand") for n_c in (1, 7, 138) for hw in (224, 64, 30)
              for f_c in (16, 64)]
-    cases += [(7, 224, 64, "ties"), (7, 224, 64, "negative")]
-    stem_y_err = stem_grad_err = stem_err = 0.0
+    cases += [(7, 224, 64, "ties"), (7, 224, 64, "negative"), (7, 31, 8, "rand"),
+              (7, 64, 256, "rand"), (7, 224, 64, "bars")]
+    stem_y_err = stem_grad_err = stem_err = split_err = 0.0
     for n_c, hw, f_c, kind in cases:
         x_s, w_s, b_s, g_s = stem_inputs(srng, n_c, hw, f_c, kind, dev)
         before = counts()
@@ -816,12 +977,20 @@ def main() -> int:
                                f"{y_err:.3g}, gradients {grad_err:.3g}")
         stem_y_err, stem_grad_err = max(stem_y_err, y_err), max(stem_grad_err, grad_err)
         stem_err = max(stem_err, max_d)
+        case_split, split_ok = stem_split_error(vgg_stem, x_s, w_s, b_s)
+        if not split_ok:
+            raise RuntimeError(f"stem split-TF32 sums at {(n_c, hw, f_c, kind)}: error "
+                               f"{case_split:.3g} of max|x| sum|w| beyond {STEM_SPLIT_ERR:.3g}")
+        split_err = max(split_err, case_split)
     del x_s, w_s, b_s, g_s
     phase("vgg_stem", t0, f"kernel vs plain in {len(cases)} cases (N 1/7/138 x H=W 224/64/30 "
-          f"x F 16/64, every window tied, every output masked): output max|d|/max|ref| "
+          f"x F 16/64, every window tied, every output masked, 31 x 31 at F 8, F 256, "
+          f"constant bars over half the image): output max|d|/max|ref| "
           f"{stem_y_err:.3g} (tol {STEM_Y_TOL}), weight and bias gradients {stem_grad_err:.3g} "
           f"(tol {STEM_GRAD_TOL}); one forward and one backward launch a run, the same bits "
-          f"on a second run")
+          f"on a second run; the f32 serving forward's split sums vs the f64 kernel: at most "
+          f"{split_err:.3g} = 2^{math.log2(split_err) if split_err > 0 else -math.inf:.2f} "
+          f"of max|x| sum|w| (the recompute margin assumes {STEM_SPLIT_ERR:.3g})")
 
     # 6. student at full width, random weights from a seed, loaded strictly
     state = convert.baseline_state_dict(student_variables(np.random.default_rng(1)))
@@ -1389,9 +1558,13 @@ def main() -> int:
     del resumed
 
     # 22. KD times at batch 46 x 3 (host clock around synced steps), the
-    # step with the plain stem beside it, a profile of two steps, and the
-    # stem kernels vs their plain version
+    # step with the plain stem beside it (and with --stem-source, with those
+    # sources' stem kernels), a profile of two steps, and the stem kernels
+    # vs their plain version (and those sources')
     from pose3d_tpu_torch.models import vgg as vgg_model
+    with ThreadPoolExecutor(max_workers=max(1, len(args.stem_source))) as pool:
+        others = dict(zip(args.stem_source, pool.map(build_stem, args.stem_source,
+                                                     range(len(args.stem_source)))))
     ab = ab_times(vgg_model, "vgg_stem", vgg_stem.vgg_stem_plain,
                   lambda: steps_ms(lambda: kd_step(kd_state, kd_teacher, kb)))
     kd_ms = sum(ab["kernel"]) / 2
@@ -1399,6 +1572,17 @@ def main() -> int:
           f"{KD_BATCH * 1000.0 / kd_ms:.1f} samples/s (runs {ab['kernel']}); with the plain "
           f"stem {ab['plain']} ms/step = {KD_BATCH * 2000.0 / sum(ab['plain']):.1f} "
           f"samples/s [{card}]")
+    if others:
+        libs_ab = {"this source": None, **others}
+        for lib in others.values():  # their first launches
+            stem_using(lib, lambda: kd_step(kd_state, kd_teacher, kb))
+        kd_ab = {who: [] for who in libs_ab}
+        for order in (list(libs_ab), list(libs_ab)[::-1]):
+            for who in order:
+                kd_ab[who].append(stem_using(
+                    libs_ab[who], lambda: steps_ms(lambda: kd_step(kd_state, kd_teacher, kb))))
+        phase("time", t0, "KD --crd step through the stem of " + ", ".join(
+            f"{who}: {v} ms/step" for who, v in kd_ab.items()) + f" (in turns) [{card}]")
     rows, device_ms, wall_ms = profile_steps(lambda: kd_step(kd_state, kd_teacher, kb))
     stem_dev_ms = sum(e.self_device_time_total for e in rows if "stem_" in e.key) / 1e3
     phase("profile", t0, f"2 KD steps: {device_ms:.2f} ms device of {wall_ms:.2f} ms wall "
@@ -1417,6 +1601,7 @@ def main() -> int:
     del kd_state, kd_teacher, kb, history, im3
 
     stem_times, stem_bounds = {}, {}
+    whos = ("plain", "kernel", *others)
     for n_s in (3 * KD_BATCH, 256):
         x_s, w_s, b_s, g_s = stem_inputs(np.random.default_rng(25), n_s, 224, 64, "rand", dev)
         x_nhwc, w_d, b_d = x_s.permute(0, 2, 3, 1), w_s.detach(), b_s.detach()
@@ -1429,41 +1614,76 @@ def main() -> int:
 
         fns = {"kernel forward": lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, True),
                "kernel backward": lambda: vgg_stem.stem_backward(x_nhwc, index, g_s),
+               "kernel forward, serving": lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, False),
                "plain forward": plain_fwd,
                "plain backward": lambda: torch.autograd.grad(y_plain, (w_s, b_s), g_s,
                                                              retain_graph=True)}
-        runs = {k: [] for k in fns}
-        runs["kernel forward, serving"] = []
-        for order in (("plain", "kernel"), ("kernel", "plain")):
+        for who, lib in others.items():  # the same C interface and index format
+            for part in ("forward", "backward", "forward, serving"):
+                fns[f"{who} {part}"] = functools.partial(stem_using, lib, fns[f"kernel {part}"])
+        runs = {f"{who} {part}": [] for who in whos for part in ("forward", "backward")}
+        runs.update({f"{who} forward, serving": [] for who in whos if who != "plain"})
+        for order in (whos, whos[::-1]):
             for who in order:
-                for part in ("forward", "backward"):
-                    runs[f"{who} {part}"].append(cuda_ms(fns[f"{who} {part}"], 10))
-                if who == "kernel":
-                    runs["kernel forward, serving"].append(cuda_ms(
-                        lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, False), 10))
+                for key in runs:
+                    if key.startswith(who + " "):
+                        runs[key].append(cuda_ms(fns[key], 10))
         stem_times[n_s] = {k: sum(v) / len(v) for k, v in runs.items()}
         t = stem_times[n_s]
         # the bound: each input read once, each output written once; the
-        # weight gradient's products only where this run's outputs pass
-        # the ReLU (the routed position of each)
+        # forward's products at the TF32 rate, three for each f32 product
+        # (beside it the figure for the f32 CUDA cores), the weight
+        # gradient's only where this run's outputs pass the ReLU (the
+        # routed position of each), on the CUDA cores
         pooled = n_s * 112 * 112 * 64
         unmasked = int((index < 4).sum())
+        in_bytes = 4.0 * (n_s * 224 * 224 * 3 + 64 * 28)
+        products = 2.0 * 27 * 4 * pooled
         stem_bounds[n_s] = (
-            bound(4.0 * (n_s * 224 * 224 * 3 + 64 * 28 + pooled) + pooled,
-                  2.0 * 27 * 4 * pooled),
-            bound(4.0 * (n_s * 224 * 224 * 3 + pooled + 64 * 28) + pooled,
-                  2.0 * 28 * unmasked))
+            bound(in_bytes + 4.0 * pooled + pooled, STEM_TF32_PRODUCTS * products, TF32_FLOPS),
+            bound(in_bytes + 4.0 * pooled + pooled, 2.0 * 28 * unmasked),
+            bound(in_bytes + 4.0 * pooled, STEM_TF32_PRODUCTS * products, TF32_FLOPS),
+            bound(in_bytes + 4.0 * pooled + pooled, products))
+        fwd_b, bwd_b, serve_b, cc_b = stem_bounds[n_s]
+        other_ms = "".join(f"; {who}: forward {runs[who + ' forward']} (serving "
+                           f"{runs[who + ' forward, serving']}) + backward "
+                           f"{runs[who + ' backward']} ms" for who in others)
         phase("time", t0, f"stem ({n_s}, 224, 224) F 64: kernel forward "
               f"{runs['kernel forward']} ms (serving, no indices, "
               f"{runs['kernel forward, serving']}) + backward {runs['kernel backward']} ms; "
-              f"plain forward {runs['plain forward']} + backward {runs['plain backward']} ms; "
-              f"forward+backward {t['kernel forward'] + t['kernel backward']:.4f} vs "
+              f"plain forward {runs['plain forward']} + backward {runs['plain backward']} ms"
+              f"{other_ms}; forward+backward {t['kernel forward'] + t['kernel backward']:.4f} vs "
               f"{t['plain forward'] + t['plain backward']:.4f} ms "
               f"({(t['plain forward'] + t['plain backward']) / (t['kernel forward'] + t['kernel backward']):.2f}x); "
-              f"bound forward {stem_bounds[n_s][0][0]:.4f} ms ({stem_bounds[n_s][0][1]}), "
-              f"backward {stem_bounds[n_s][1][0]:.4f} ms ({stem_bounds[n_s][1][1]}; "
+              f"bound forward {fwd_b[0]:.4f} ms ({fwd_b[1]}; its products as split TF32 on "
+              f"the tensor cores; on the f32 CUDA cores {cc_b[0]:.4f} ms, {cc_b[1]}), serving "
+              f"{serve_b[0]:.4f} ms ({serve_b[1]}), backward {bwd_b[0]:.4f} ms ({bwd_b[1]}; "
               f"{unmasked / pooled:.3f} of the outputs pass the ReLU) [{card}]")
         del x_s, x_nhwc, index, y_plain, g_s
+    # the forward with indices where windows tie exactly, at the KD shape:
+    # phase 5's "ties" image (every window tied) and resize_pad's constant
+    # bars over a quarter and a half of the image, beside the random image
+    # (with --stem-source, those sources' in turns); the shares of routing
+    # decisions near their threshold and of those the kernel makes again
+    for kind, bars in (("rand", 0.0), ("ties", 0.0), ("bars", 0.25), ("bars", 0.5)):
+        x_s, w_s, b_s, _ = stem_inputs(np.random.default_rng(25), 3 * KD_BATCH, 224, 64, kind,
+                                       dev, bars=bars)
+        x_nhwc, w_d, b_d = x_s.permute(0, 2, 3, 1), w_s.detach(), b_s.detach()
+        fwd = {"kernel": lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, True)}
+        for who, lib in others.items():
+            fwd[who] = functools.partial(stem_using, lib, fwd["kernel"])
+        runs = {who: [] for who in fwd}
+        for order in (list(fwd), list(fwd)[::-1]):
+            for who in order:
+                runs[who].append(cuda_ms(fwd[who], 10))
+        near, again = stem_near_shares(x_nhwc, w_d, b_d)
+        label = f"bars over {bars:.0%} of it" if kind == "bars" else kind
+        other_ms = "".join(f", {who}'s {runs[who]} ms" for who in others)
+        phase("time", t0, f"stem forward with indices ({3 * KD_BATCH}, 224, 224) F 64, "
+              f"{label} image: kernel {runs['kernel']} ms{other_ms} (in turns); routing "
+              f"decisions within the margin of their threshold {near:.6f} of all, made again in "
+              f"f32 FMA {again:.6f} (estimated from f64 sums) [{card}]")
+        del x_s, w_s, b_s, x_nhwc, w_d, b_d
 
     # 23. the train-mode PointNet kernels vs the plain version in float64
     # on the card: the output, the three statistics and the 12 parameter

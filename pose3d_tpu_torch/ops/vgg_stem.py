@@ -19,6 +19,21 @@ differentiated by autograd. A CUDA tensor goes through `_VggStem`, whose
 forward and backward launch the kernels (`stem_forward`, `stem_backward`,
 one launch count each), or the call raises: there is no fallback. The
 image gets no gradient: an `x` that requires one is refused.
+
+On the card, f32: the forward is one CUDA launch, an im2col product on the
+tensor cores in split TF32 (each f32 operand a TF32 big part plus a TF32
+small part, three TF32 products per f32 product, f32 accumulators), which
+keeps f32's accuracy where one TF32 product would not (the emulation in
+tests/test_torch_vgg_stem.py: 2e-7 of max|ref| against 3e-4). With the
+window indices, a routing decision (a maximum, or the ReLU) closer to its
+threshold than the split's error bound is made again from f32 FMA sums in
+cuDNN's tap order, so the gradient goes where MaxPool2d on cuDNN's output
+sends it; windows equal on every weighed tap (a flat region, such as the
+constant bars around a padded crop) tie exactly in any order and route to
+the first without being made again. The backward is two launches: the
+weight gradient's partials, streamed on the CUDA cores over a grid of whole
+waves, then their fixed-order sum. f64 (the card-vs-CPU step checks) runs
+both on the CUDA cores, with the same launch counts.
 """
 
 from __future__ import annotations
@@ -42,8 +57,11 @@ def vgg_stem_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) ->
 
 
 @functools.cache
-def _lib():
-    lib = _build.load("vgg_stem")
+def _lib(path: str | None = None):
+    """The kernels' library, its entry points typed: csrc/vgg_stem.cu's
+    build, or the library at `path`, built from another version of the
+    source with the same C interface."""
+    lib = _build.load("vgg_stem") if path is None else ctypes.CDLL(path)
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     # pointers and the stream are 64-bit: ctypes' default int would cut them
     for suffix in _SUFFIX.values():
@@ -103,6 +121,7 @@ def stem_backward(x: torch.Tensor, index: torch.Tensor,
     f = index.shape[-1]
     g = g.contiguous(memory_format=torch.channels_last)
     lib = _lib()
+    # the most partials the first pass writes (f32 writes one a resident block)
     partial = torch.empty((lib.vgg_stem_partial_blocks(n, h, w), f, SUMS), dtype=x.dtype,
                           device=x.device)
     dw = torch.empty((f, 3, 3, 3), dtype=x.dtype, device=x.device)

@@ -307,6 +307,30 @@ def test_vgg_stem_kernel_checks_its_inputs(cuda):
     assert vgg_stem.stem_backward.launches == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vgg_stem_launches_per_call(cuda, dtype):
+    """One CUDA launch a forward call (f32: the split-TF32 product on the
+    tensor cores; f64: the CUDA-core kernel) and two a backward call (the
+    weight gradient's partials, then their fixed-order sum), as the
+    profiler counts them."""
+    x, w, b, cot = _stem_inputs(3, 40, 64, "rand", cuda, dtype)
+    x_nhwc, w, b = x.permute(0, 2, 3, 1), w.detach(), b.detach()
+    _, index = vgg_stem.stem_forward(x_nhwc, w, b, with_index=True)
+    g = cot.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    torch.cuda.synchronize()
+    counted = []
+    for part in ("forward", "backward"):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            if part == "forward":
+                vgg_stem.stem_forward(x_nhwc, w, b, with_index=True)
+            else:
+                vgg_stem.stem_backward(x_nhwc, index, g)
+            torch.cuda.synchronize()
+        counted.append(sum(e.count for e in prof.key_averages() if "stem_" in e.key))
+    assert tuple(counted) == (1, 2)
+
+
 def test_cpu_student_forward_makes_no_stem_launch():
     model = BaselineEstimator(img_feature_dim=32, width_mult=0.25, input_dim=32,
                               generator=torch.Generator().manual_seed(0)).eval()
