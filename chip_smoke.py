@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (pose3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--stem-source OTHER.cu ...]
+    python3 chip_smoke.py [--source info_nce=OTHER.cu] [--source vgg_stem=OTHER.cu ...]
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch version on the card, and drives the port's paths once at full
@@ -36,10 +36,10 @@ kernel in every student forward. Phases:
   6 student at full width    7 student serving    8 student evaluation
   9 teacher at full width    10 teacher serving    11 teacher evaluation
   12 view_tile    13 serving times
-  14 NCE kernel vs plain    15 train step, card vs CPU
-  16 teacher training at full width    17 trainer epoch and resume
-  18 training times (with and without the train-mode PointNet kernels)
-     and profile
+  14 NCE kernels vs plain (and HMMA in their SASS)    15 train step, card
+     vs CPU    16 teacher training at full width    17 trainer epoch and
+     resume    18 training times (with and without the train-mode PointNet
+     kernels), profile, and the NCE kernels' times at (46 / 160 / 4096, 200)
   19 KD step, card vs CPU    20 KD training at full width
   21 KD trainer epoch and resume    22 KD times and profile
   23 train-mode PointNet kernels vs plain    24 stage-1 training at full
@@ -49,10 +49,12 @@ Each path (7-8, 10-11, 16-17, 20-21 and 24-25) is driven with the
 kernels' launch counts set to 0 just before it and read just after it;
 16, 20 and 24 are the three training paths' main paths.
 
-With --stem-source (repeatable), another version of csrc/vgg_stem.cu with
-the same C interface (an earlier commit's, from `git show`) is built too,
-and phase 22 times its stem kernels and the KD step through them in turns
-with this source's.
+With --source NAME=FILE (repeatable), another version of csrc/NAME.cu
+(info_nce or vgg_stem) with the same C interface (an earlier commit's,
+from `git show`) is built beside this one, and its kernels are timed in
+turns with this source's: info_nce's and the teacher step through them in
+phase 18, the stage-1 step in phase 26; vgg_stem's and the KD step through
+them in phase 22.
 
 Each phase prints a line; any failure raises and exits non-zero. Before the
 last line come the card's name and power limit (nvidia-smi) and one JSON
@@ -69,6 +71,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -112,8 +115,9 @@ STAGE1_SHAPE_DIM = 256  # PoseEstimatorVanilla's shape_feature_dim
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense TF32 FLOP/s on the tensor cores
 HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
-# the f32 stem forward's split-TF32 product: three TF32 products per f32 one
-STEM_TF32_PRODUCTS = 3
+# split TF32 (the f32 stem forward, the NCE's products): three TF32
+# products per f32 one
+SPLIT_TF32_PRODUCTS = 3
 # the split-TF32 window sums' error over max|x| sum|w| that the kernel's
 # margin for making a routing decision again (kNear, twice this) assumes
 STEM_SPLIT_ERR = 2.0**-15
@@ -313,6 +317,61 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, stream, calls: int = 10, replays: int = 5) -> float:
+    """Device time a call of fn() in ms: `calls` calls captured into one CUDA
+    graph on `stream` (a side stream; fn() is run there once first), whose
+    replays CUDA events time, so that neither the host nor the profiler's
+    records come between the calls. fn() must not synchronise."""
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    graph.reset()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def graph_kernel_launches(fn) -> int:
+    """CUDA kernels one call of fn() launches: fn() is run once (so that its
+    libraries set their attributes outside a capture), then captured into a
+    CUDA graph, whose kernel nodes are counted through the driver API. The
+    count does not depend on the profiler's activity buffers. fn() must not
+    synchronise."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    driver = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if driver.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and driver.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kernels, kind = 0, ctypes.c_int(-1)
+    for node in nodes:
+        if driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels
+
+
 def phase(name: str, t0: float, msg: str) -> None:
     print(f"[{name}] {msg} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -370,6 +429,20 @@ def steps_ms(run_step, steps: int = TRAIN_STEPS) -> float:
     return (time.perf_counter() - tt) * 1e3 / steps
 
 
+def steps_through(module, others: dict, run_step) -> dict:
+    """Host-clock ms a step of run_step() with `module`'s kernels from this
+    source and from each library in `others` ({label: path}), in turns
+    (this, others, others reversed, this) after one step through each."""
+    libs = {"this source": None, **others}
+    for lib in others.values():  # their first launches
+        using(module, lib, run_step)
+    times = {who: [] for who in libs}
+    for order in (list(libs), list(libs)[::-1]):
+        for who in order:
+            times[who].append(using(module, libs[who], lambda: steps_ms(run_step)))
+    return times
+
+
 def ab_times(module, name: str, plain, run) -> dict:
     """run() with `module.<name>` as it is ("kernel") and swapped for
     `plain` ("plain"), in turns kernel, plain, plain, kernel: the swap is a
@@ -424,15 +497,22 @@ def bound(n_bytes: float, flops: float, flops_per_s: float = F32_FLOPS) -> tuple
 
 
 def nce_inputs(rng: np.random.Generator, n: int, d: int, dev, masked=False,
-               offset=0, identical=False):
+               offset=0, identical=False, keys="rand"):
     """s (n, d), keys t (n + offset, d) and the masks of one NCE case: with
     `masked`, the last quarter of the rows (and their key columns) invalid;
-    with an offset, the rows are a shard whose positives start there."""
+    with an offset, the rows are a shard whose positives start there. Keys
+    "trained": each row's positive is the row plus 10 % noise, as after
+    training; "dropout": 30 % of the entries zeroed and the rest scaled by
+    1 / 0.7, as route_info_nce feeds the kernel under dropout."""
     nc = n + offset
     s = rng.standard_normal((n, d), dtype=np.float32)
     t = rng.standard_normal((nc, d), dtype=np.float32)
     if identical:
         s[:], t[:] = s[0], t[0]
+    if keys == "trained":
+        t[offset:] = s + np.float32(0.1) * rng.standard_normal((n, d), dtype=np.float32)
+    elif keys == "dropout":
+        t = np.where(rng.random(t.shape) < 0.7, t / np.float32(0.7), 0).astype(np.float32)
     vrow = vcol = None
     if masked:
         vrow = np.arange(n) < max(1, n - n // 4)
@@ -441,29 +521,37 @@ def nce_inputs(rng: np.random.Generator, n: int, d: int, dev, masked=False,
     return as_dev(s), as_dev(t), as_dev(vrow), as_dev(vcol)
 
 
-def nce_kernel_vs_plain(nce, s, t, vrow, vcol, offset):
-    """Loss and both gradients through the kernels and through the plain
-    version (autograd) on the same inputs: (max relative loss error,
-    max gradient error over its max|ref|, max|d|)."""
-    s, t = s.clone().requires_grad_(), t.clone().requires_grad_()
-    if offset:
-        loss = nce.blocked_info_nce_partial(s, t, vrow, vcol, offset, 0.1)
-    elif vrow is not None:
-        loss = nce.blocked_info_nce(s, t, 0.1, valid=vrow)
-    else:
-        loss = nce.fused_info_nce(s, t, 0.1)
-    grads = torch.autograd.grad(loss, (s, t))
-    ref = nce.info_nce_plain(s, t, 0.1, vrow, vcol, offset)
-    if not offset:
-        ref = ref / (s.shape[0] if vrow is None else vrow.sum())
-    ref_grads = torch.autograd.grad(ref, (s, t))
-    loss, ref = float(loss.detach()), float(ref.detach())
-    loss_err = abs(loss - ref) / abs(ref)
-    max_d = max(float((g - r).abs().max()) for g, r in zip(grads, ref_grads))
-    # one row alone has a zero gradient: a floor for its rounding
-    grad_err = max(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-4)
-                   for g, r in zip(grads, ref_grads))
-    return loss_err, grad_err, max(max_d, abs(loss - ref))
+def nce_kernel_vs_plain(nce, s, t, vrow, vcol, offset, tau=0.1) -> dict:
+    """Loss and both gradients through the kernels (twice) and through the
+    plain version (autograd) in f32 and in f64 on the same inputs: the
+    relative loss error and the gradients' max|d|/max|ref| against each
+    (gradients with a floor of 1e-4 on max|ref|: one row alone has a zero
+    gradient), the largest |d| against f32, and whether the two kernel runs
+    gave the same bits."""
+    def run(x, y, kernel):
+        x, y = x.clone().requires_grad_(), y.clone().requires_grad_()
+        if kernel and offset:
+            loss = nce.blocked_info_nce_partial(x, y, vrow, vcol, offset, tau)
+        elif kernel and vrow is not None:
+            loss = nce.blocked_info_nce(x, y, tau, valid=vrow)
+        elif kernel:
+            loss = nce.fused_info_nce(x, y, tau)
+        else:
+            loss = nce.info_nce_plain(x, y, tau, vrow, vcol, offset)
+            if not offset:
+                loss = loss / (s.shape[0] if vrow is None else vrow.sum())
+        return (loss.detach(), *torch.autograd.grad(loss, (x, y)))
+
+    got, again = run(s, t, True), run(s, t, True)
+    res = {"same": all(torch.equal(a, b) for a, b in zip(got, again))}
+    for name, ref in (("", run(s, t, False)), ("64", run(s.double(), t.double(), False))):
+        res["loss" + name] = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+        res["grads" + name] = max(float((g.double() - r.double()).abs().max()) /
+                                  max(float(r.abs().max()), 1e-4)
+                                  for g, r in zip(got[1:], ref[1:]))
+        if not name:
+            res["max_d"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    return res
 
 
 def train_batch(rng: np.random.Generator, n: int, dim: int, points: int) -> dict:
@@ -618,14 +706,26 @@ def stem_near_shares(x_nhwc, w, b, chunk: int = 23) -> tuple[float, float]:
     return counts[0] / total, counts[1] / total
 
 
-def build_stem(source: str, tag: int) -> str:
-    """Build another version of csrc/vgg_stem.cu with the same C interface
-    (an earlier commit's) beside this one, its nvcc report kept as a .log;
-    return the library's path."""
+LIBRARIES = ("geodesic", "pointnet_eval", "info_nce", "vgg_stem", "pointnet_train")
+
+
+def parse_source(arg: str) -> tuple[str, str]:
+    """--source NAME=PATH: another version of csrc/NAME.cu."""
+    name, sep, path = arg.partition("=")
+    if not sep or name not in ("info_nce", "vgg_stem") or not os.path.isfile(path):
+        raise argparse.ArgumentTypeError(
+            f"--source takes info_nce=FILE or vgg_stem=FILE; got {arg}")
+    return name, path
+
+
+def build_other(name: str, source: str, tag: int) -> str:
+    """Build another version of csrc/<name>.cu with the same C interface (an
+    earlier commit's) beside this one, its nvcc report kept as a .log; return
+    the library's path."""
     from pose3d_tpu_torch.ops import _build
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(_build.BUILD_DIR, f"libvgg_stem_other{tag}.so")
+    out = os.path.join(_build.BUILD_DIR, f"lib{name}_other{tag}.so")
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, source],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
@@ -635,23 +735,23 @@ def build_stem(source: str, tag: int) -> str:
     return out
 
 
-def stem_using(path: str | None, run):
-    """run() with the stem's wrappers launching the kernels of the library
-    at `path` (None: this source's); the swap is undone at once."""
-    from pose3d_tpu_torch.ops import vgg_stem
-
-    own = vgg_stem._lib
+def using(module, path: str | None, run):
+    """run() with `module`'s wrappers launching the kernels of the library at
+    `path` (None: this source's); the swap is undone at once."""
+    own = module._lib
     if path is not None:
-        vgg_stem._lib = functools.partial(own, path)
+        module._lib = functools.partial(own, path)
     try:
         return run()
     finally:
-        vgg_stem._lib = own
+        module._lib = own
 
 
-def sass_hmma(lib: str) -> dict:
+def sass_hmma(lib: str, prefix: str) -> dict:
     """{kernel: whether its SASS holds an HMMA (tensor-core) instruction} for
-    the stem's kernels in a built library, by cuobjdump beside nvcc."""
+    the kernels of a built library whose names start with `prefix`, by
+    cuobjdump beside nvcc; a template's instantiations apart (<4>, <double>;
+    the float one bare)."""
     from pose3d_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -659,13 +759,13 @@ def sass_hmma(lib: str) -> dict:
                           timeout=120).stdout
     found = {}
     for part in sass.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
-        for kernel in ("stem_forward_tf32x3_kernel", "stem_wgrad_stream_kernel",
-                       "stem_forward_f64_kernel", "stem_wgrad_f64_kernel",
-                       "stem_wgrad_reduce_kernel"):
-            if kernel in name:
-                key = kernel + ("<double>" if name.split(kernel)[1].startswith("Id") else "")
-                found[key] = found.get(key, False) or "HMMA" in part
+        mangled = part.split(None, 1)[0]
+        m = re.search(r"\d+(%s\w*?_kernel)(I(?:Li(\d+)E|d|f))?" % prefix, mangled)
+        if m is None:
+            continue
+        key = m.group(1) + ("" if m.group(2) in (None, "If") else
+                            "<double>" if m.group(2) == "Id" else f"<{m.group(3)}>")
+        found[key] = found.get(key, False) or "HMMA" in part
     return found
 
 
@@ -832,9 +932,11 @@ class KDMemorySet(MemorySet):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument("--stem-source", action="append", default=[],
-                    help="another version of csrc/vgg_stem.cu (an earlier commit's) to time "
-                    "beside this one in phase 22; repeatable")
+    ap.add_argument("--source", action="append", default=[], type=parse_source,
+                    metavar="NAME=FILE",
+                    help="another version of csrc/NAME.cu (info_nce or vgg_stem; an earlier "
+                    "commit's, with the same C interface) to time beside this one: info_nce in "
+                    "phases 18 and 26, vgg_stem in phase 22; repeatable")
     args = ap.parse_args()
     t0 = time.perf_counter()
     # 1. device
@@ -853,6 +955,7 @@ def main() -> int:
     def reset_counts():
         geodesic.rotation_err.launches = pointnet.pointnet_eval.launches = 0
         nce.nce_forward.launches = nce.nce_backward.launches = 0
+        nce.nce_forward.blocked_launches = nce.nce_backward.blocked_launches = 0
         vgg_stem.stem_forward.launches = vgg_stem.stem_backward.launches = 0
         pointnet_train.train_forward.launches = pointnet_train.train_backward.launches = 0
 
@@ -864,6 +967,11 @@ def main() -> int:
                 vgg_stem.stem_forward.launches, vgg_stem.stem_backward.launches,
                 pointnet_train.train_forward.launches, pointnet_train.train_backward.launches)
 
+    def blocked_counts():
+        """NCE forward and backward launches for the blocked entries (JAX's
+        kernel 5, nce_blocked.py)."""
+        return nce.nce_forward.blocked_launches, nce.nce_backward.blocked_launches
+
     card = card_line()
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
@@ -872,25 +980,33 @@ def main() -> int:
           f"nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           "TF32 off for cuDNN and matmul")
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per source (and per --source), all started together
     tb = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:
-        libs = list(pool.map(_build.build, ("geodesic", "pointnet_eval", "info_nce",
-                                            "vgg_stem", "pointnet_train")))
+    with ThreadPoolExecutor(max_workers=len(LIBRARIES) + len(args.source)) as pool:
+        own = [pool.submit(_build.build, name) for name in LIBRARIES]
+        other = [pool.submit(build_other, name, path, i)
+                 for i, (name, path) in enumerate(args.source)]
+        libs = [f.result() for f in own]
+        other_libs = {name: {} for name in ("info_nce", "vgg_stem")}
+        for (name, path), f in zip(args.source, other):
+            other_libs[name][path] = f.result()
     build_s = time.perf_counter() - tb
-    for lib in libs:
+    for lib in libs + [p for o in other_libs.values() for p in o.values()]:
         with open(lib[:-3] + ".log") as f:
             ptxas = " | ".join(line.strip() for line in f
                                if "ptxas info" in line or "spill" in line)
         phase("build", t0, f"nvcc {lib}; {ptxas}")
-    phase("build", t0, f"five libraries in {build_s:.2f} s; pointnet_eval_kernel: "
+    phase("build", t0, f"{len(libs) + len(args.source)} libraries in {build_s:.2f} s; "
+          f"pointnet_eval_kernel: "
           f"{pointnet.shared_memory_bytes()} bytes of dynamic shared memory a block; "
           f"info_nce at D 200 (forward, backward): {nce.shared_memory_bytes(200)} bytes; "
           f"vgg_stem at F 64 (forward, weight gradient): "
           f"{vgg_stem.shared_memory_bytes(64)} bytes; pointnet_train's largest block "
           f"(f32, f64): {pointnet_train.shared_memory_bytes()}, "
-          f"{pointnet_train.shared_memory_bytes(torch.float64)} bytes; its CUDA launches a "
-          f"forward and a backward call: {pointnet_train.kernel_launches_per_call()}")
+          f"{pointnet_train.shared_memory_bytes(torch.float64)} bytes; CUDA launches a "
+          f"forward and a backward call, as the libraries report them: pointnet_train "
+          f"{pointnet_train.kernel_launches_per_call()}, info_nce "
+          f"{nce.kernel_launches_per_call()}")
 
     # 3. geodesic kernel vs plain version on the card, 1,000,003 rows + edge rows
     rng = np.random.default_rng(0)
@@ -949,7 +1065,7 @@ def main() -> int:
     # weight/bias gradient, at the main path's shapes and around them
     # the f32 forward runs on the tensor cores (HMMA in its SASS), the f64
     # kernels and the f32 weight gradient on the CUDA cores
-    hmma = sass_hmma(libs[3])
+    hmma = sass_hmma(libs[3], "stem_")
     want = {"stem_forward_tf32x3_kernel": True, "stem_wgrad_stream_kernel": False,
             "stem_forward_f64_kernel": False, "stem_wgrad_f64_kernel": False}
     if any(hmma.get(k) != v for k, v in want.items()):
@@ -1206,32 +1322,56 @@ def main() -> int:
 
     # 14. NCE kernels vs the plain version on the card: loss and both
     # gradients; N 1 to 2500 (one tile to 79), D 64 / 200, with and without
-    # masked rows and columns, a shard with its row offset, identical rows
+    # masked rows and columns, a shard with its row offset, identical rows;
+    # stage 1's (46, 200) at its tau 0.5, keys under dropout and "trained"
+    # keys (the positive near its row), at tau 0.1 and 0.5, to N 4096. Each
+    # case runs twice (the same bits) and is held against the f32 plain
+    # version within the tolerances and against the f64 one, which shows the
+    # split-TF32 products' own error. The forward and backward kernels hold
+    # HMMA (tensor-core) instructions in their SASS.
+    hmma = sass_hmma(libs[2], "nce_")
+    if sorted(hmma) != [f"nce_{p}_kernel<{rm}>" for p in ("backward", "forward")
+                        for rm in (1, 2)] or not all(hmma.values()):
+        raise RuntimeError(f"info_nce SASS: HMMA in {hmma}, want every kernel")
+    phase("nce", t0, f"cuobjdump -sass: HMMA in {hmma}")
     nrng = np.random.default_rng(13)
-    cases = [(n, d, masked, 0, False) for n in (1, 7, 160, 1025, 2500) for d in (64, 200)
-             for masked in (False, True)]
-    cases += [(160, 200, True, 97, False), (100, 200, False, 37, False),
-              (160, 200, False, 0, True)]
+    cases = [(n, d, masked, 0, False, 0.1, "rand") for n in (1, 7, 160, 1025, 2500)
+             for d in (64, 200) for masked in (False, True)]
+    cases += [(160, 200, True, 97, False, 0.1, "rand"), (100, 200, False, 37, False, 0.1, "rand"),
+              (160, 200, False, 0, True, 0.1, "rand")]
+    cases += [(n, 200, False, 0, False, tau, keys) for n in (KD_BATCH, TRAIN_BATCH, 4096)
+              for tau in (0.1, 0.5) for keys in ("rand", "dropout", "trained")]
     nce_loss_err = nce_grad_err = nce_err = 0.0
-    for n, d, masked, offset, identical in cases:
-        s_c, t_c, vrow, vcol = nce_inputs(nrng, n, d, dev, masked, offset, identical)
+    f64_errs = []
+    for n, d, masked, offset, identical, tau, keys in cases:
+        s_c, t_c, vrow, vcol = nce_inputs(nrng, n, d, dev, masked, offset, identical, keys)
         before = counts()
-        loss_err, grad_err, max_d = nce_kernel_vs_plain(nce, s_c, t_c, vrow, vcol, offset)
+        res = nce_kernel_vs_plain(nce, s_c, t_c, vrow, vcol, offset, tau)
         torch.cuda.synchronize()
         after = counts()
-        if (after[2] - before[2], after[3] - before[3]) != (1, 1):
-            raise RuntimeError(f"NCE case {(n, d, masked, offset)}: launches "
-                               f"{after[2] - before[2]} forward, {after[3] - before[3]} backward")
-        if loss_err > NCE_LOSS_RTOL or grad_err > NCE_GRAD_TOL:
-            raise RuntimeError(f"NCE kernel vs plain at {(n, d, masked, offset, identical)}: "
-                               f"loss {loss_err:.3g}, gradients {grad_err:.3g}")
-        nce_loss_err, nce_grad_err = max(nce_loss_err, loss_err), max(nce_grad_err, grad_err)
-        nce_err = max(nce_err, max_d)
-    phase("nce", t0, f"kernel vs plain in {len(cases)} cases (N 1/7/160/1025/2500 x D 64/200 "
-          f"x masked or not, shards at offsets 97 and 37, identical rows): loss rel "
-          f"{nce_loss_err:.3g} (tol {NCE_LOSS_RTOL}), gradients max|d|/max|ref| "
-          f"{nce_grad_err:.3g} (tol {NCE_GRAD_TOL}); one forward and one backward launch "
-          f"a case")
+        case = (n, d, masked, offset, identical, tau, keys)
+        if (after[2] - before[2], after[3] - before[3]) != (2, 2) or not res["same"]:
+            raise RuntimeError(f"NCE case {case}: launches {after[2] - before[2]} forward, "
+                               f"{after[3] - before[3]} backward for two runs, the same bits "
+                               f"{res['same']}")
+        if res["loss"] > NCE_LOSS_RTOL or res["grads"] > NCE_GRAD_TOL:
+            raise RuntimeError(f"NCE kernel vs plain at {case}: loss {res['loss']:.3g}, "
+                               f"gradients {res['grads']:.3g}")
+        nce_loss_err = max(nce_loss_err, res["loss"])
+        nce_grad_err = max(nce_grad_err, res["grads"])
+        nce_err = max(nce_err, res["max_d"])
+        f64_errs.append((res["loss64"], res["grads64"]))
+        if tau != 0.1 or keys != "rand" or n == KD_BATCH:
+            phase("nce", t0, f"({n}, {d}) tau {tau} keys {keys}: vs f32 plain loss "
+                  f"{res['loss']:.3g}, gradients {res['grads']:.3g}; vs f64 plain loss "
+                  f"{res['loss64']:.3g}, gradients {res['grads64']:.3g}")
+    phase("nce", t0, f"kernel vs plain in {len(cases)} cases (N 1/7/46/160/1025/2500/4096 x "
+          f"D 64/200 x masked or not, shards at offsets 97 and 37, identical rows, tau "
+          f"0.1/0.5, keys random, under dropout or trained): loss rel {nce_loss_err:.3g} (tol "
+          f"{NCE_LOSS_RTOL}), gradients max|d|/max|ref| {nce_grad_err:.3g} (tol "
+          f"{NCE_GRAD_TOL}); against the f64 plain version at most loss "
+          f"{max(e[0] for e in f64_errs):.3g}, gradients {max(e[1] for e in f64_errs):.3g}; "
+          f"one forward and one backward launch a run, the same bits twice")
 
     # 15. one train step, card vs CPU: small width, the same seeded weights,
     # model in f64 and losses in f32 (the NCE in its kernel on the card), no
@@ -1294,7 +1434,7 @@ def main() -> int:
     reset_counts()
     history = [step(state, tb) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
-    train_counts = counts()
+    train_counts, train_blocked = counts(), blocked_counts()
     losses = [float(m["loss"]) for m in history]
     pose_losses = [float(m["pose_loss"]) for m in history]
     if train_counts != (0, 0) + (TRAIN_STEPS,) * 2 + (0, 0) + (TRAIN_STEPS,) * 2:
@@ -1309,7 +1449,8 @@ def main() -> int:
     phase("teacher training", t0, f"{n_params} params, batch {TRAIN_BATCH}, 224x224, "
           f"{POINT_NUM} points, {TRAIN_STEPS} steps on one batch: loss "
           f"{[round(v, 4) for v in losses]} (pose {[round(v, 4) for v in pose_losses]}); "
-          f"NCE launches {train_counts[2]} forward, {train_counts[3]} backward; train-mode "
+          f"NCE launches {train_counts[2]} forward, {train_counts[3]} backward (blocked "
+          f"entries {train_blocked}); train-mode "
           f"pointnet launches {train_counts[6]} forward, {train_counts[7]} backward")
 
     # 17. the trainer: one epoch on in-memory samples (train, both
@@ -1374,6 +1515,11 @@ def main() -> int:
           f"{step_ms:.3f} ms/step = {TRAIN_BATCH * 1000.0 / step_ms:.1f} samples/s (runs "
           f"{ab['kernel']}); with the plain train-mode PointNet {ab['plain']} ms/step = "
           f"{TRAIN_BATCH * 2000.0 / sum(ab['plain']):.1f} samples/s [{card}]")
+    if other_libs["info_nce"]:
+        phase("time", t0, "teacher train step through the NCE kernels of " + ", ".join(
+            f"{who}: {v} ms/step" for who, v in steps_through(
+                nce, other_libs["info_nce"], lambda: step(state, tb)).items())
+            + f" (in turns) [{card}]")
     rows, device_ms, wall_ms = profile_steps(lambda: step(state, tb))
     nce_ms = sum(e.self_device_time_total for e in rows if "nce_" in e.key) / 1e3
     pt_ms = sum(e.self_device_time_total for e in rows if "pnt_" in e.key) / 1e3
@@ -1383,41 +1529,80 @@ def main() -> int:
     print_rows(rows, device_ms)
     del state, tb, step
 
-    nce_times = {}
-    for n in (TRAIN_BATCH, 4096):
-        s_c, t_c, _, _ = nce_inputs(np.random.default_rng(17), n, 200, dev)
-        loss, count, saved_res = nce.nce_forward(s_c, t_c, None, None, 0, 0.1, True)
+    # the NCE kernels at stage 1's (46, 200), the teacher step's (160, 200)
+    # and the blocked regime's (4096, 200), in turns with the plain version
+    # and any --source info_nce=...: time a call by CUDA events around
+    # back-to-back calls, device time a call by CUDA events around the
+    # replays of a CUDA graph of 10 calls (the profiler lost kernel records
+    # here once), the host's time to issue a call (no sync), CUDA launches a
+    # call (a CUDA graph's kernel nodes)
+    nce_others = other_libs["info_nce"]
+    nce_times, nce_bounds = {}, {}
+    side = torch.cuda.Stream()
+    for n in (KD_BATCH, TRAIN_BATCH, 4096):
+        d = 200
+        s_c, t_c, _, _ = nce_inputs(np.random.default_rng(17), n, d, dev)
         g = torch.ones((), device=dev)
         s_g, t_g = s_c.clone().requires_grad_(), t_c.clone().requires_grad_()
         plain_loss = nce.info_nce_plain(s_g, t_g) / n
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # leaves and forward there: so is their backward
+            s_side, t_side = s_c.clone().requires_grad_(), t_c.clone().requires_grad_()
+            plain_loss_side = nce.info_nce_plain(s_side, t_side) / n
+        torch.cuda.synchronize()
 
         def plain_fwd():
             with torch.no_grad():
                 nce.info_nce_plain(s_c, t_c)
 
-        iters = 200 if n == TRAIN_BATCH else 20
-        fns = {"kernel forward": lambda: nce.nce_forward(s_c, t_c, None, None, 0, 0.1, True),
-               "kernel backward": lambda: nce.nce_backward(saved_res, None, None, count, g, 0,
-                                                           0.1, True),
-               "plain forward": plain_fwd,
+        fns = {"plain forward": plain_fwd,
                "plain backward": lambda: torch.autograd.grad(plain_loss, (s_g, t_g),
                                                              retain_graph=True)}
-        # in turns: plain, kernel, kernel, plain
-        runs = {k: [] for k in fns}
-        for order in (("plain", "kernel"), ("kernel", "plain")):
+        for who, lib in (("kernel", None), *nce_others.items()):
+            saved_c = using(nce, lib, lambda: nce.nce_forward(s_c, t_c, None, None, 0, 0.1,
+                                                              True))[1]
+            fns[f"{who} forward"] = functools.partial(
+                using, nce, lib, lambda: nce.nce_forward(s_c, t_c, None, None, 0, 0.1, True))
+            fns[f"{who} backward"] = functools.partial(
+                using, nce, lib, functools.partial(nce.nce_backward, saved_c, None, None, g,
+                                                   (n, n, d), 0, 0.1, True))
+        iters = 200 if n < 1000 else 20
+        in_graph = dict(fns, **{"plain backward": lambda: torch.autograd.grad(
+            plain_loss_side, (s_side, t_side), retain_graph=True)})
+        runs = {k: {"ms": [], "graph_ms": [], "host_us": []} for k in fns}
+        whos = ("plain", "kernel", *nce_others)
+        for order in (whos, whos[::-1]):
             for who in order:
                 for part in ("forward", "backward"):
-                    runs[f"{who} {part}"].append(cuda_ms(fns[f"{who} {part}"], iters))
-        nce_times[n] = {k: sum(v) / len(v) for k, v in runs.items()}
-        phase("time", t0, f"NCE ({n}, 200): kernel forward {runs['kernel forward']} + "
-              f"backward {runs['kernel backward']} ms; plain forward "
-              f"{runs['plain forward']} + backward {runs['plain backward']} ms; "
-              f"forward+backward {nce_times[n]['kernel forward'] + nce_times[n]['kernel backward']:.4f}"
-              f" vs {nce_times[n]['plain forward'] + nce_times[n]['plain backward']:.4f} ms "
-              f"[{card}]")
-    n, d = TRAIN_BATCH, 200
-    fwd_bound = bound(4.0 * 2 * n * d, 2.0 * n * n * d)
-    bwd_bound = bound(4.0 * 4 * n * d, 4.0 * n * n * d)
+                    fn, r = fns[f"{who} {part}"], runs[f"{who} {part}"]
+                    r["ms"].append(cuda_ms(fn, iters))
+                    r["graph_ms"].append(graph_ms(in_graph[f"{who} {part}"], side))
+                    torch.cuda.synchronize()
+                    tt = time.perf_counter()
+                    for _ in range(iters):
+                        fn()
+                    r["host_us"].append((time.perf_counter() - tt) * 1e6 / iters)
+                    torch.cuda.synchronize()
+        for k, r in runs.items():
+            if not k.startswith("plain"):
+                r["launches"] = graph_kernel_launches(fns[k])
+        nce_times[n] = runs
+        # the bound: inputs read once, outputs written once (forward: the
+        # normalised rows, norms and per-row residuals; backward: those in,
+        # ds and dt out); the products as split TF32 on the tensor cores
+        # (three TF32 products per f32 product: 3 x 2 n^2 d forward, 3 x 4 n^2
+        # d backward) and, beside it, on the f32 CUDA cores
+        fwd_bytes, bwd_bytes = 4.0 * (4 * n * d + 8 * n + 2), 4.0 * (4 * n * d + 5 * n + 2)
+        nce_bounds[n] = (bound(fwd_bytes, SPLIT_TF32_PRODUCTS * 2.0 * n * n * d, TF32_FLOPS),
+                         bound(bwd_bytes, SPLIT_TF32_PRODUCTS * 4.0 * n * n * d, TF32_FLOPS),
+                         bound(fwd_bytes, 2.0 * n * n * d), bound(bwd_bytes, 4.0 * n * n * d))
+        fwd_b, bwd_b, fwd_cc, bwd_cc = nce_bounds[n]
+        phase("time", t0, f"NCE ({n}, {d}), in turns: " + "; ".join(
+            f"{k}: {json.dumps({m: v for m, v in r.items()})}" for k, r in runs.items())
+            + f"; bound forward {fwd_b[0]:.5f} ms ({fwd_b[1]}, split TF32; f32 CUDA cores "
+            f"{fwd_cc[0]:.5f}), backward {bwd_b[0]:.5f} ms ({bwd_b[1]}, split TF32; f32 CUDA "
+            f"cores {bwd_cc[0]:.5f}) [{card}]")
+        del s_c, t_c, s_g, t_g, s_side, t_side, plain_loss, plain_loss_side, fns, in_graph
 
     # 19. one KD step, card vs CPU, at the CPU test's small width: the
     # student in f64 (the stem's f64 kernel on the card), the frozen
@@ -1558,13 +1743,11 @@ def main() -> int:
     del resumed
 
     # 22. KD times at batch 46 x 3 (host clock around synced steps), the
-    # step with the plain stem beside it (and with --stem-source, with those
+    # step with the plain stem beside it (and with --source vgg_stem=..., with those
     # sources' stem kernels), a profile of two steps, and the stem kernels
     # vs their plain version (and those sources')
     from pose3d_tpu_torch.models import vgg as vgg_model
-    with ThreadPoolExecutor(max_workers=max(1, len(args.stem_source))) as pool:
-        others = dict(zip(args.stem_source, pool.map(build_stem, args.stem_source,
-                                                     range(len(args.stem_source)))))
+    others = other_libs["vgg_stem"]
     ab = ab_times(vgg_model, "vgg_stem", vgg_stem.vgg_stem_plain,
                   lambda: steps_ms(lambda: kd_step(kd_state, kd_teacher, kb)))
     kd_ms = sum(ab["kernel"]) / 2
@@ -1573,16 +1756,10 @@ def main() -> int:
           f"stem {ab['plain']} ms/step = {KD_BATCH * 2000.0 / sum(ab['plain']):.1f} "
           f"samples/s [{card}]")
     if others:
-        libs_ab = {"this source": None, **others}
-        for lib in others.values():  # their first launches
-            stem_using(lib, lambda: kd_step(kd_state, kd_teacher, kb))
-        kd_ab = {who: [] for who in libs_ab}
-        for order in (list(libs_ab), list(libs_ab)[::-1]):
-            for who in order:
-                kd_ab[who].append(stem_using(
-                    libs_ab[who], lambda: steps_ms(lambda: kd_step(kd_state, kd_teacher, kb))))
         phase("time", t0, "KD --crd step through the stem of " + ", ".join(
-            f"{who}: {v} ms/step" for who, v in kd_ab.items()) + f" (in turns) [{card}]")
+            f"{who}: {v} ms/step" for who, v in steps_through(
+                vgg_stem, others, lambda: kd_step(kd_state, kd_teacher, kb)).items())
+            + f" (in turns) [{card}]")
     rows, device_ms, wall_ms = profile_steps(lambda: kd_step(kd_state, kd_teacher, kb))
     stem_dev_ms = sum(e.self_device_time_total for e in rows if "stem_" in e.key) / 1e3
     phase("profile", t0, f"2 KD steps: {device_ms:.2f} ms device of {wall_ms:.2f} ms wall "
@@ -1620,7 +1797,8 @@ def main() -> int:
                                                              retain_graph=True)}
         for who, lib in others.items():  # the same C interface and index format
             for part in ("forward", "backward", "forward, serving"):
-                fns[f"{who} {part}"] = functools.partial(stem_using, lib, fns[f"kernel {part}"])
+                fns[f"{who} {part}"] = functools.partial(using, vgg_stem, lib,
+                                                        fns[f"kernel {part}"])
         runs = {f"{who} {part}": [] for who in whos for part in ("forward", "backward")}
         runs.update({f"{who} forward, serving": [] for who in whos if who != "plain"})
         for order in (whos, whos[::-1]):
@@ -1640,9 +1818,9 @@ def main() -> int:
         in_bytes = 4.0 * (n_s * 224 * 224 * 3 + 64 * 28)
         products = 2.0 * 27 * 4 * pooled
         stem_bounds[n_s] = (
-            bound(in_bytes + 4.0 * pooled + pooled, STEM_TF32_PRODUCTS * products, TF32_FLOPS),
+            bound(in_bytes + 4.0 * pooled + pooled, SPLIT_TF32_PRODUCTS * products, TF32_FLOPS),
             bound(in_bytes + 4.0 * pooled + pooled, 2.0 * 28 * unmasked),
-            bound(in_bytes + 4.0 * pooled, STEM_TF32_PRODUCTS * products, TF32_FLOPS),
+            bound(in_bytes + 4.0 * pooled, SPLIT_TF32_PRODUCTS * products, TF32_FLOPS),
             bound(in_bytes + 4.0 * pooled + pooled, products))
         fwd_b, bwd_b, serve_b, cc_b = stem_bounds[n_s]
         other_ms = "".join(f"; {who}: forward {runs[who + ' forward']} (serving "
@@ -1663,7 +1841,7 @@ def main() -> int:
     # the forward with indices where windows tie exactly, at the KD shape:
     # phase 5's "ties" image (every window tied) and resize_pad's constant
     # bars over a quarter and a half of the image, beside the random image
-    # (with --stem-source, those sources' in turns); the shares of routing
+    # (with --source vgg_stem=..., those sources' in turns); the shares of routing
     # decisions near their threshold and of those the kernel makes again
     for kind, bars in (("rand", 0.0), ("ties", 0.0), ("bars", 0.25), ("bars", 0.5)):
         x_s, w_s, b_s, _ = stem_inputs(np.random.default_rng(25), 3 * KD_BATCH, 224, 64, kind,
@@ -1671,7 +1849,7 @@ def main() -> int:
         x_nhwc, w_d, b_d = x_s.permute(0, 2, 3, 1), w_s.detach(), b_s.detach()
         fwd = {"kernel": lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, True)}
         for who, lib in others.items():
-            fwd[who] = functools.partial(stem_using, lib, fwd["kernel"])
+            fwd[who] = functools.partial(using, vgg_stem, lib, fwd["kernel"])
         runs = {who: [] for who in fwd}
         for order in (list(fwd), list(fwd)[::-1]):
             for who in order:
@@ -1745,7 +1923,7 @@ def main() -> int:
     reset_counts()
     history = [s1_step(t1, s1, sb) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
-    s1_counts = counts()
+    s1_counts, s1_blocked = counts(), blocked_counts()
     s1_losses = [float(m["loss"]) for m in history]
     t_losses = [float(m["teacher_loss"]) for m in history]
     if s1_counts != (0, 0) + (2 * TRAIN_STEPS,) * 2 + (TRAIN_STEPS,) * 4:
@@ -1762,7 +1940,7 @@ def main() -> int:
           f"{POINT_NUM} points, {TRAIN_STEPS} steps on one batch: loss "
           f"{[round(v, 4) for v in s1_losses]} (teacher {[round(v, 4) for v in t_losses]}); "
           f"launches a step: NCE {s1_counts[2] // TRAIN_STEPS} forward, "
-          f"{s1_counts[3] // TRAIN_STEPS} backward; stem {s1_counts[4] // TRAIN_STEPS} and "
+          f"{s1_counts[3] // TRAIN_STEPS} backward (blocked entries in all {s1_blocked}); stem {s1_counts[4] // TRAIN_STEPS} and "
           f"{s1_counts[5] // TRAIN_STEPS}; train-mode pointnet {s1_counts[6] // TRAIN_STEPS} "
           f"and {s1_counts[7] // TRAIN_STEPS}")
 
@@ -1823,11 +2001,17 @@ def main() -> int:
     s1_ms = steps_ms(lambda: s1_step(t1, s1, sb))
     phase("time", t0, f"KD --stage 1 step f32 batch {KD_BATCH}, --fused_nce: {s1_ms:.3f} "
           f"ms/step = {KD_BATCH * 1000.0 / s1_ms:.1f} samples/s [{card}]")
+    if other_libs["info_nce"]:
+        phase("time", t0, "KD --stage 1 step through the NCE kernels of " + ", ".join(
+            f"{who}: {v} ms/step" for who, v in steps_through(
+                nce, other_libs["info_nce"], lambda: s1_step(t1, s1, sb)).items())
+            + f" (in turns) [{card}]")
     rows, device_ms, wall_ms = profile_steps(lambda: s1_step(t1, s1, sb))
     pt_dev_ms = sum(e.self_device_time_total for e in rows if "pnt_" in e.key) / 1e3
+    nce_dev_ms = sum(e.self_device_time_total for e in rows if "nce_" in e.key) / 1e3
     phase("profile", t0, f"2 stage-1 steps: {device_ms:.2f} ms device of {wall_ms:.2f} ms wall "
           f"(busy {device_ms / wall_ms:.3f}); the train-mode pointnet kernels {pt_dev_ms:.4f} "
-          f"ms [{card}]; by self device time:")
+          f"ms, the NCE kernels {nce_dev_ms:.4f} ms [{card}]; by self device time:")
     print_rows(rows, device_ms)
     del t1, s1, sb, history
 
@@ -1887,6 +2071,25 @@ def main() -> int:
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
+    # kernel 4 at the teacher step's shape, its launches on the teacher's
+    # path; kernel 5 (the same core through the blocked entries, which the
+    # router takes at N > 1024, on no recipe's path) at N 4096, its launches
+    # on the teacher's and stage 1's paths
+    nce_entries = []
+    for tag, n_c, wheres, launched in (
+            ("", TRAIN_BATCH, ("pose3d_tpu/ops/nce_fused.py:109",
+                               "pose3d_tpu/ops/nce_fused.py:134"),
+             tuple(a - b for a, b in zip(train_counts[2:4], train_blocked))),
+            ("_blocked", 4096, ("pose3d_tpu/ops/nce_blocked.py:191",
+                                "pose3d_tpu/ops/nce_blocked.py:224"),
+             tuple(a + b for a, b in zip(train_blocked, s1_blocked)))):
+        t = nce_times[n_c]
+        for i, part in enumerate(("forward", "backward")):
+            nce_entries.append(entry(
+                f"info_nce{tag}_{part}", "pose3d_tpu_torch/csrc/info_nce.cu", wheres[i],
+                launched[i], nce_err, sum(t[f"kernel {part}"]["ms"]) / 2,
+                sum(t[f"plain {part}"]["ms"]) / 2, nce_bounds[n_c][i]))
+
     print(card)
     print(json.dumps({"kernels": [
         entry("geodesic_rotation_err", "pose3d_tpu_torch/csrc/geodesic.cu",
@@ -1895,12 +2098,7 @@ def main() -> int:
         entry("pointnet_eval", "pose3d_tpu_torch/csrc/pointnet_eval.cu",
               "pose3d_tpu/ops/pointnet_fused.py:78", teacher_pn, pn_err, pn_times[64][0],
               pn_times[64][1], pn_bound),
-        entry("info_nce_forward", "pose3d_tpu_torch/csrc/info_nce.cu",
-              "pose3d_tpu/ops/nce_fused.py:109", train_counts[2], nce_err,
-              nce_times[n]["kernel forward"], nce_times[n]["plain forward"], fwd_bound),
-        entry("info_nce_backward", "pose3d_tpu_torch/csrc/info_nce.cu",
-              "pose3d_tpu/ops/nce_fused.py:134", train_counts[3], nce_err,
-              nce_times[n]["kernel backward"], nce_times[n]["plain backward"], bwd_bound),
+        *nce_entries,
         entry("vgg_stem_forward", "pose3d_tpu_torch/csrc/vgg_stem.cu",
               "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[4], stem_err,
               stem_times[3 * KD_BATCH]["kernel forward"],

@@ -21,14 +21,20 @@ here; callers pass masks where that cannot happen.
 
 A CPU tensor takes `info_nce_plain`, differentiated by autograd. A CUDA
 tensor goes through `_InfoNCE`, whose forward and backward launch the
-kernels (`nce_forward`, `nce_backward`, one launch count each), or the call
-raises: there is no fallback.
+kernels (`nce_forward`, `nce_backward`), or the call raises: there is no
+fallback. Each wrapper counts its launches (`launches`) and, apart, those
+made for the blocked entries (`blocked_launches`: JAX's
+`pose3d_tpu/ops/nce_blocked.py` kernel, where `fused_info_nce` stands for
+`nce_fused.py`'s). On the card a forward call is one CUDA
+launch and a backward call one; their products run in split TF32 on the
+tensor cores (three TF32 products per f32 product, f32 accuracy).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 
 import torch
 
@@ -68,8 +74,11 @@ def info_nce_plain(s: torch.Tensor, t: torch.Tensor, tau: float = 0.1,
 
 
 @functools.cache
-def _lib():
-    lib = _build.load("info_nce")
+def _lib(path: str | None = None):
+    """The kernels' library, its entry points typed: csrc/info_nce.cu's
+    build, or the library at `path`, built from another version of the
+    source with the same C interface."""
+    lib = _build.load("info_nce") if path is None else ctypes.CDLL(path)
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
     # pointers and the stream are 64-bit: ctypes' default int would cut them
     lib.info_nce_forward.argtypes = [p] * 4 + [i64] * 4 + [f32, i32] + [p] * 10 + [p]
@@ -82,91 +91,110 @@ def _lib():
 
 
 def shared_memory_bytes(d: int) -> tuple[int, int]:
-    """The dynamic shared memory a block takes at width d, forward and
-    backward (builds the library)."""
+    """The dynamic shared memory a block takes at width d (16-row tiles),
+    forward and backward (builds the library)."""
     lib = _lib()
     return lib.info_nce_smem_bytes(d, 0), lib.info_nce_smem_bytes(d, 1)
+
+
+def kernel_launches_per_call() -> tuple[int, int]:
+    """CUDA launches a forward and a backward call make, as the library
+    reports them (builds it)."""
+    lib = _lib()
+    lib.info_nce_launches.argtypes = [ctypes.c_int]
+    lib.info_nce_launches.restype = ctypes.c_int
+    return lib.info_nce_launches(0), lib.info_nce_launches(1)
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def nce_forward(s, t, vrow, vcol, row_offset: int, tau: float, divide: bool):
-    """Launch the forward kernels on CUDA tensors (checked by the caller).
-    Returns (loss, count, saved): loss and count are 0-d and (1,) float32,
-    saved the workspace and residuals the backward reads."""
+def _offsets(nr: int, nc: int, d: int) -> tuple[int, ...]:
+    """Where sn, tn, s_norm, t_norm, m, denom, pos, row_loss, loss and count
+    start in the forward's workspace, in floats, and its length."""
+    return tuple(itertools.accumulate((nr * d, nc * d, nr, nc, nr, nr, nr, nr, 1, 1),
+                                      initial=0))
+
+
+def nce_forward(s, t, vrow, vcol, row_offset: int, tau: float, divide: bool,
+                blocked: bool = False):
+    """Launch the forward kernel on CUDA tensors (checked by the caller);
+    `blocked`: for a blocked entry. Returns (loss, saved): loss 0-d float32,
+    a view of saved, the one workspace that holds the normalised rows, their
+    norms and the residuals the backward reads."""
     nr, d = s.shape
     nc = t.shape[0]
-    new = functools.partial(torch.empty, dtype=torch.float32, device=s.device)
-    sn, tn, s_norm, t_norm = new((nr, d)), new((nc, d)), new(nr), new(nc)
-    m, denom, pos, row_loss = new(nr), new(nr), new(nr), new(nr)
-    loss, count = new(()), new(1)
+    offsets = _offsets(nr, nc, d)
+    saved = torch.empty(offsets[-1], dtype=torch.float32, device=s.device)
+    base = saved.data_ptr()
     with torch.cuda.device(s.device):
         err = _lib().info_nce_forward(
-            s.data_ptr(), t.data_ptr(), _ptr(vrow), _ptr(vcol), nr, nc, d, row_offset,
-            tau, int(divide), sn.data_ptr(), tn.data_ptr(), s_norm.data_ptr(),
-            t_norm.data_ptr(), m.data_ptr(), denom.data_ptr(), pos.data_ptr(),
-            row_loss.data_ptr(), loss.data_ptr(), count.data_ptr(),
+            s.data_ptr(), t.data_ptr(), _ptr(vrow), _ptr(vcol), nr, nc, d, row_offset, tau,
+            int(divide), *(base + 4 * o for o in offsets[:-1]),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"info_nce forward kernel launch failed: cudaError_t {err}")
     nce_forward.launches += 1
-    return loss, count, (sn, tn, s_norm, t_norm, m, denom, pos)
+    nce_forward.blocked_launches += blocked
+    return saved[offsets[8]], saved
 
 
-nce_forward.launches = 0
+nce_forward.launches = nce_forward.blocked_launches = 0
 
 
-def nce_backward(saved, vrow, vcol, count, g, row_offset: int, tau: float, divide: bool):
-    """Launch the two backward passes; returns (ds, dt)."""
-    sn, tn, s_norm, t_norm, m, denom, pos = saved
-    nr, d = sn.shape
-    nc = tn.shape[0]
-    ds = torch.empty_like(sn)
-    dt = torch.empty_like(tn)
+def nce_backward(saved, vrow, vcol, g, shape: tuple[int, int, int], row_offset: int,
+                 tau: float, divide: bool, blocked: bool = False):
+    """Launch the backward kernel (the ds and dt passes in one grid): saved
+    is nce_forward's workspace, shape (Nr, Nc, D). Returns (ds, dt), views
+    of one allocation."""
+    nr, nc, d = shape
+    o = _offsets(nr, nc, d)
+    base = saved.data_ptr()
+    ds, dt = torch.empty((nr + nc, d), dtype=torch.float32, device=saved.device).split((nr, nc))
     g = g.to(torch.float32).contiguous()
-    with torch.cuda.device(sn.device):
+    with torch.cuda.device(saved.device):
         err = _lib().info_nce_backward(
-            sn.data_ptr(), tn.data_ptr(), s_norm.data_ptr(), t_norm.data_ptr(), _ptr(vrow),
-            _ptr(vcol), m.data_ptr(), denom.data_ptr(), pos.data_ptr(), count.data_ptr(),
-            g.data_ptr(), nr, nc, d, row_offset, tau, int(divide), ds.data_ptr(),
-            dt.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            *(base + 4 * o[i] for i in range(4)), _ptr(vrow), _ptr(vcol),
+            *(base + 4 * o[i] for i in (4, 5, 6, 9)), g.data_ptr(), nr, nc, d, row_offset, tau,
+            int(divide), ds.data_ptr(), dt.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"info_nce backward kernel launch failed: cudaError_t {err}")
     nce_backward.launches += 1
+    nce_backward.blocked_launches += blocked
     return ds, dt
 
 
-nce_backward.launches = 0
+nce_backward.launches = nce_backward.blocked_launches = 0
 
 
 class _InfoNCE(torch.autograd.Function):
-    """The kernels under autograd: the forward saves the normalised rows,
-    their norms and the residuals (m, denom, pos) of each row; the backward
-    launches the ds and dt passes with the upstream gradient, read on the
-    device (no host sync)."""
+    """The kernels under autograd: the forward saves its workspace (the
+    normalised rows, their norms, the residuals m, denom, pos of each row
+    and the valid count); the backward launches the ds and dt passes with
+    the upstream gradient, read on the device (no host sync)."""
 
     @staticmethod
-    def forward(ctx, s, t, vrow, vcol, row_offset, tau, divide):
-        loss, count, saved = nce_forward(s, t, vrow, vcol, row_offset, tau, divide)
-        ctx.save_for_backward(*saved, count)
+    def forward(ctx, s, t, vrow, vcol, row_offset, tau, divide, blocked):
+        loss, saved = nce_forward(s, t, vrow, vcol, row_offset, tau, divide, blocked)
+        ctx.save_for_backward(saved)
         ctx.masks = (vrow, vcol)
-        ctx.args = (row_offset, tau, divide)
+        ctx.args = ((s.shape[0], t.shape[0], s.shape[1]), row_offset, tau, divide, blocked)
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        *saved, count = ctx.saved_tensors
-        ds, dt = nce_backward(saved, *ctx.masks, count, g, *ctx.args)
-        return ds, dt, None, None, None, None, None
+        (saved,) = ctx.saved_tensors
+        ds, dt = nce_backward(saved, *ctx.masks, g, *ctx.args)
+        return ds, dt, None, None, None, None, None, None
 
 
 def _mask_f32(mask: torch.Tensor | None) -> torch.Tensor | None:
     return None if mask is None else mask.to(torch.float32).contiguous()
 
 
-def _info_nce(s, t, tau, valid_rows, valid_cols, row_offset, divide) -> torch.Tensor:
+def _info_nce(s, t, tau, valid_rows, valid_cols, row_offset, divide,
+              blocked: bool) -> torch.Tensor:
     if s.dim() != 2 or t.dim() != 2 or s.shape[1] != t.shape[1]:
         raise ValueError("info_nce takes (Nr, D) and (Nc, D) tensors; got "
                          f"{tuple(s.shape)} and {tuple(t.shape)}")
@@ -195,13 +223,13 @@ def _info_nce(s, t, tau, valid_rows, valid_cols, row_offset, divide) -> torch.Te
         raise ValueError(f"info_nce's kernels take D <= {MAX_D} and fewer than 2^31 rows; "
                          f"got {tuple(s.shape)}, {tuple(t.shape)}")
     return _InfoNCE.apply(s, t, _mask_f32(valid_rows), _mask_f32(valid_cols),
-                          int(row_offset), float(tau), bool(divide))
+                          int(row_offset), float(tau), bool(divide), blocked)
 
 
 def fused_info_nce(s: torch.Tensor, t: torch.Tensor, tau: float = 0.1) -> torch.Tensor:
     """The mean infoNCE-KD over all rows, no mask (JAX `fused_info_nce`;
     dropout, if any, is applied to t by the caller)."""
-    return _info_nce(s, t, tau, None, None, 0, True)
+    return _info_nce(s, t, tau, None, None, 0, True, False)
 
 
 def blocked_info_nce(s: torch.Tensor, t: torch.Tensor, tau: float = 0.1,
@@ -209,7 +237,7 @@ def blocked_info_nce(s: torch.Tensor, t: torch.Tensor, tau: float = 0.1,
     """The masked mean (JAX `blocked_info_nce`): `valid` (N,) bool keeps
     rows out of the mean and out of every row's keys; the sum over valid
     rows is divided by max(number valid, 1)."""
-    return _info_nce(s, t, tau, valid, valid, 0, True)
+    return _info_nce(s, t, tau, valid, valid, 0, True, True)
 
 
 def blocked_info_nce_partial(s: torch.Tensor, t: torch.Tensor, valid_rows: torch.Tensor,
@@ -218,4 +246,4 @@ def blocked_info_nce_partial(s: torch.Tensor, t: torch.Tensor, valid_rows: torch
     """The per-shard SUM (JAX `blocked_info_nce_partial`): this shard's rows
     s (Nr, D) against all the keys t (Nc, D), the positive of local row r at
     column row_offset + r."""
-    return _info_nce(s, t, tau, valid_rows, valid_cols, row_offset, False)
+    return _info_nce(s, t, tau, valid_rows, valid_cols, row_offset, False, True)

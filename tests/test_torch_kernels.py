@@ -203,12 +203,14 @@ def test_nce_kernel_matches_plain_on_cuda(cuda, n, d, kind):
     s, t, vrow, vcol, off = _nce_inputs(n, d, kind, cuda)
     s.requires_grad_()
     t.requires_grad_()
-    before = nce.nce_forward.launches, nce.nce_backward.launches
+    counters = (nce.nce_forward, nce.nce_backward)
+    before = [(c.launches, c.blocked_launches) for c in counters]
     loss = _nce_call(s, t, vrow, vcol, off, kind)
     ds, dt = torch.autograd.grad(loss, (s, t))
     torch.cuda.synchronize()
-    assert (nce.nce_forward.launches, nce.nce_backward.launches) == \
-        (before[0] + 1, before[1] + 1)
+    blocked = int(kind != "fused")  # the blocked entries: JAX's nce_blocked.py kernel
+    assert [(c.launches, c.blocked_launches) for c in counters] == \
+        [(a + 1, b + blocked) for a, b in before]
     ref = nce.info_nce_plain(s, t, 0.1, vrow, vcol, off)
     if kind != "partial":
         ref = ref / (n if vrow is None else vrow.sum())
@@ -233,6 +235,27 @@ def test_nce_kernel_is_deterministic_and_checks_its_inputs(cuda):
     with pytest.raises(ValueError, match="D <= 512"):
         wide = torch.zeros((4, 513), device=cuda)
         nce.fused_info_nce(wide, wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kind", [(46, "fused"), (160, "masked"), (4096, "partial")])
+def test_nce_launches_per_call(cuda, n, kind):
+    """One CUDA launch a forward call and one a backward call, as the library
+    says and as a CUDA graph that captures one call counts them, at the
+    stage-1 step's, the teacher step's and the blocked regime's sizes."""
+    assert nce.kernel_launches_per_call() == (1, 1)
+    s, t, vrow, vcol, off = _nce_inputs(n, 200, kind, cuda)
+    vrow, vcol = (None if v is None else v.float() for v in (vrow, vcol))
+    divide = kind != "partial"
+    _, saved = nce.nce_forward(s, t, vrow, vcol, off, 0.1, divide)
+    g = torch.ones((), device=cuda)
+    shape = (s.shape[0], t.shape[0], s.shape[1])
+    counted = (
+        chip_smoke.graph_kernel_launches(
+            lambda: nce.nce_forward(s, t, vrow, vcol, off, 0.1, divide)),
+        chip_smoke.graph_kernel_launches(
+            lambda: nce.nce_backward(saved, vrow, vcol, g, shape, off, 0.1, divide)))
+    assert counted == (1, 1)
 
 
 def _stem_inputs(n, hw, f, kind, device, dtype=torch.float32, seed=0):
@@ -312,23 +335,17 @@ def test_vgg_stem_kernel_checks_its_inputs(cuda):
 def test_vgg_stem_launches_per_call(cuda, dtype):
     """One CUDA launch a forward call (f32: the split-TF32 product on the
     tensor cores; f64: the CUDA-core kernel) and two a backward call (the
-    weight gradient's partials, then their fixed-order sum), as the
-    profiler counts them."""
+    weight gradient's partials, then their fixed-order sum), counted as the
+    kernel nodes of a CUDA graph that captures one call."""
     x, w, b, cot = _stem_inputs(3, 40, 64, "rand", cuda, dtype)
     x_nhwc, w, b = x.permute(0, 2, 3, 1), w.detach(), b.detach()
     _, index = vgg_stem.stem_forward(x_nhwc, w, b, with_index=True)
     g = cot.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
-    torch.cuda.synchronize()
-    counted = []
-    for part in ("forward", "backward"):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            if part == "forward":
-                vgg_stem.stem_forward(x_nhwc, w, b, with_index=True)
-            else:
-                vgg_stem.stem_backward(x_nhwc, index, g)
-            torch.cuda.synchronize()
-        counted.append(sum(e.count for e in prof.key_averages() if "stem_" in e.key))
-    assert tuple(counted) == (1, 2)
+    counted = (
+        chip_smoke.graph_kernel_launches(
+            lambda: vgg_stem.stem_forward(x_nhwc, w, b, with_index=True)),
+        chip_smoke.graph_kernel_launches(lambda: vgg_stem.stem_backward(x_nhwc, index, g)))
+    assert counted == (1, 2)
 
 
 def test_cpu_student_forward_makes_no_stem_launch():
@@ -363,22 +380,18 @@ def test_pointnet_train_kernels_match_plain_on_cuda(cuda, n, p, d, kw):
 @pytest.mark.cuda
 def test_pointnet_train_launches_per_call(cuda):
     """Layer 3 in its Gram form: 9 CUDA launches a forward call and 10 a
-    backward call, as the library says and as the profiler counts them."""
+    backward call, as the library says and as a CUDA graph that captures
+    one call counts them."""
     assert pointnet_train.kernel_launches_per_call() == (9, 10)
     pts, layers, _, g = chip_smoke.pt_inputs(np.random.default_rng(1), 3, 300, 128, cuda)
     prm = pointnet_train.pack_params(layers)
-    counted = []
-    for part in ("forward", "backward"):
-        saved = pointnet_train.train_forward(pts, prm, 128, None)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            if part == "forward":
-                pointnet_train.train_forward(pts, prm, 128, None)
-            else:
-                pointnet_train.train_backward(pts, prm, 128, None, *saved[1:], g)
-            torch.cuda.synchronize()
-        counted.append(sum(e.count for e in prof.key_averages() if "pnt_" in e.key))
-    assert tuple(counted) == (9, 10)
+    saved = pointnet_train.train_forward(pts, prm, 128, None)
+    counted = (
+        chip_smoke.graph_kernel_launches(
+            lambda: pointnet_train.train_forward(pts, prm, 128, None)),
+        chip_smoke.graph_kernel_launches(
+            lambda: pointnet_train.train_backward(pts, prm, 128, None, *saved[1:], g)))
+    assert counted == (9, 10)
 
 
 @pytest.mark.cuda
