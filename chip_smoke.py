@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (pose3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--source info_nce=OTHER.cu] [--source vgg_stem=OTHER.cu ...]
+    python3 chip_smoke.py [--source info_nce=OTHER.cu] [--source vgg_stem=OTHER.cu]
+                          [--source pointnet_eval=OTHER.cu ...]
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch version on the card, and drives the port's paths once at full
@@ -31,11 +32,13 @@ The student's stem (conv3x3 + ReLU + 2x2 pool) runs in the VGG stem
 kernel in every student forward. Phases:
 
   1 device    2 build    3 geodesic kernel vs plain
-  4 pointnet kernel vs plain    5 VGG stem kernel vs plain (and HMMA in
-     the f32 forward's SASS only)
+  4 pointnet kernel vs plain (in f32 and f64; HMMA in the encoder's SASS
+     only)    5 VGG stem kernel vs plain (and HMMA in the f32 forward's
+     SASS only)
   6 student at full width    7 student serving    8 student evaluation
   9 teacher at full width    10 teacher serving    11 teacher evaluation
-  12 view_tile    13 serving times
+  12 view_tile    13 serving times, and the pointnet kernel's at (64 / 46
+     / 1, 2500, 1024) and (64, 2500, 256)
   14 NCE kernels vs plain (and HMMA in their SASS)    15 train step, card
      vs CPU    16 teacher training at full width    17 trainer epoch and
      resume    18 training times (with and without the train-mode PointNet
@@ -50,11 +53,14 @@ kernels' launch counts set to 0 just before it and read just after it;
 16, 20 and 24 are the three training paths' main paths.
 
 With --source NAME=FILE (repeatable), another version of csrc/NAME.cu
-(info_nce or vgg_stem) with the same C interface (an earlier commit's,
-from `git show`) is built beside this one, and its kernels are timed in
-turns with this source's: info_nce's and the teacher step through them in
-phase 18, the stage-1 step in phase 26; vgg_stem's and the KD step through
-them in phase 22.
+(info_nce, vgg_stem or pointnet_eval) with the same C interface (an
+earlier commit's, from `git show`) is built beside this one, and its
+kernels are timed in turns with this source's: info_nce's and the teacher
+step through them in phase 18, the stage-1 step in phase 26; vgg_stem's
+and the KD step through them in phase 22; pointnet_eval's and teacher
+serving through them in phase 13 (also the CUDA-core version of commit
+d190092 and before, with its own C interface and segment rule:
+`legacy_pointnet_eval`).
 
 Each phase prints a line; any failure raises and exits non-zero. Before the
 last line come the card's name and power limit (nvidia-smi) and one JSON
@@ -115,8 +121,10 @@ STAGE1_SHAPE_DIM = 256  # PoseEstimatorVanilla's shape_feature_dim
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense TF32 FLOP/s on the tensor cores
 HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
-# split TF32 (the f32 stem forward, the NCE's products): three TF32
-# products per f32 one
+# split TF32: three TF32 products per f32 one. Every kernel whose work is
+# f32-accurate products takes its bound at this rate (495 / 3 TFLOP/s),
+# whichever unit it uses today: the stem's f32 forward, the NCE's products,
+# both PointNet kernels; the f32 CUDA-core figure is printed beside it
 SPLIT_TF32_PRODUCTS = 3
 # the split-TF32 window sums' error over max|x| sum|w| that the kernel's
 # margin for making a routing decision again (kNear, twice this) assumes
@@ -707,14 +715,15 @@ def stem_near_shares(x_nhwc, w, b, chunk: int = 23) -> tuple[float, float]:
 
 
 LIBRARIES = ("geodesic", "pointnet_eval", "info_nce", "vgg_stem", "pointnet_train")
+OTHER_SOURCES = ("info_nce", "vgg_stem", "pointnet_eval")
 
 
 def parse_source(arg: str) -> tuple[str, str]:
     """--source NAME=PATH: another version of csrc/NAME.cu."""
     name, sep, path = arg.partition("=")
-    if not sep or name not in ("info_nce", "vgg_stem") or not os.path.isfile(path):
+    if not sep or name not in OTHER_SOURCES or not os.path.isfile(path):
         raise argparse.ArgumentTypeError(
-            f"--source takes info_nce=FILE or vgg_stem=FILE; got {arg}")
+            f"--source takes info_nce=FILE, vgg_stem=FILE or pointnet_eval=FILE; got {arg}")
     return name, path
 
 
@@ -745,6 +754,67 @@ def using(module, path: str | None, run):
         return run()
     finally:
         module._lib = own
+
+
+def legacy_pointnet_eval(path: str):
+    """pointnet_eval(points, folded) through the library at `path`, built
+    from csrc/pointnet_eval.cu as of commit d190092 (f32 FMA on the CUDA
+    cores): that version's C interface (no
+    column groups; the scratch is the partial maxima) and its wrapper's split
+    over point segments (64-point tiles, one block a 256-column chunk, one
+    block an SM), so that it runs as it did then. Counts no launches."""
+    import ctypes
+
+    fn = ctypes.CDLL(path).pointnet_eval
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def segments(n, p, d):
+        tiles, blocks = -(-p // 64), n * -(-d // 256)
+        best, best_cost = 1, None
+        for per in range(tiles, max(1, -(-tiles // 65535)) - 1, -1):
+            cost = -(-blocks * -(-tiles // per) // sms) * (per + 0.25)
+            if best_cost is None or cost < best_cost:
+                best, best_cost = -(-tiles // per), cost
+        return best
+
+    def run(points, folded):
+        n, p, d = points.shape[0], points.shape[1], folded[2][0].shape[1]
+        out = torch.empty((n, d), dtype=torch.float32, device=points.device)
+        s = segments(n, p, d)
+        partial = torch.empty((n, s, d), dtype=torch.float32, device=points.device) \
+            if s > 1 else out
+        tensors = [points] + [t for pair in folded for t in pair]
+        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), partial.data_ptr(), n, p,
+                 d, s, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{path}: pointnet_eval launch failed: cudaError_t {err}")
+        return out
+
+    return run
+
+
+def with_pointnet_source(path: str | None, run):
+    """run(encoder) with the eval PointNet built from another version of
+    csrc/pointnet_eval.cu at `path` (None: this source's): a library with
+    this version's C interface through this wrapper (`using`), one with
+    commit d190092's through `legacy_pointnet_eval`, which is then also the
+    encoder of the models (models.pointnet's pointnet_eval); `encoder` is
+    the function that runs it. The swap is undone at once."""
+    import ctypes
+
+    from pose3d_tpu_torch.models import pointnet as model
+    from pose3d_tpu_torch.ops import pointnet
+
+    if path is None or hasattr(ctypes.CDLL(path), "pointnet_eval_scratch_floats"):
+        return using(pointnet, path, lambda: run(pointnet.pointnet_eval))
+    legacy = legacy_pointnet_eval(path)
+    model.pointnet_eval = legacy
+    try:
+        return run(legacy)
+    finally:
+        model.pointnet_eval = pointnet.pointnet_eval
 
 
 def sass_hmma(lib: str, prefix: str) -> dict:
@@ -934,9 +1004,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--source", action="append", default=[], type=parse_source,
                     metavar="NAME=FILE",
-                    help="another version of csrc/NAME.cu (info_nce or vgg_stem; an earlier "
-                    "commit's, with the same C interface) to time beside this one: info_nce in "
-                    "phases 18 and 26, vgg_stem in phase 22; repeatable")
+                    help="another version of csrc/NAME.cu (info_nce, vgg_stem or pointnet_eval; "
+                    "an earlier commit's, with the same C interface, or pointnet_eval as of d190092) "
+                    "to time beside this one: info_nce in phases 18 and 26, vgg_stem in phase "
+                    "22, pointnet_eval in phase 13; repeatable")
     args = ap.parse_args()
     t0 = time.perf_counter()
     # 1. device
@@ -987,7 +1058,7 @@ def main() -> int:
         other = [pool.submit(build_other, name, path, i)
                  for i, (name, path) in enumerate(args.source)]
         libs = [f.result() for f in own]
-        other_libs = {name: {} for name in ("info_nce", "vgg_stem")}
+        other_libs = {name: {} for name in OTHER_SOURCES}
         for (name, path), f in zip(args.source, other):
             other_libs[name][path] = f.result()
     build_s = time.perf_counter() - tb
@@ -997,7 +1068,7 @@ def main() -> int:
                                if "ptxas info" in line or "spill" in line)
         phase("build", t0, f"nvcc {lib}; {ptxas}")
     phase("build", t0, f"{len(libs) + len(args.source)} libraries in {build_s:.2f} s; "
-          f"pointnet_eval_kernel: "
+          f"pne_encoder_kernel: "
           f"{pointnet.shared_memory_bytes()} bytes of dynamic shared memory a block; "
           f"info_nce at D 200 (forward, backward): {nce.shared_memory_bytes(200)} bytes; "
           f"vgg_stem at F 64 (forward, weight gradient): "
@@ -1031,12 +1102,19 @@ def main() -> int:
           f"max|d| {geo_err:.3g} deg (rtol {GEODESIC_RTOL}, atol {GEODESIC_ATOL}); "
           f"edge rows {np.round(edge, 4).tolist()}")
 
-    # 4. pointnet kernel vs plain version on the card
-    pn_err, pn_rel, cases = 0.0, 0.0, []
+    # 4. pointnet kernel vs plain version on the card, in f32 and in f64 (the
+    # split-TF32 products' own error); D 1000 is no multiple of the 256-column
+    # pass. Layer 3 runs on the tensor cores: HMMA in the encoder's SASS only
+    hmma = sass_hmma(libs[1], "pne_")
+    want = {"pne_split_w3_kernel": False, "pne_encoder_kernel": True,
+            "pne_segment_max_kernel": False}
+    if hmma != want:
+        raise RuntimeError(f"pointnet_eval SASS: HMMA in {hmma}, expected {want}")
+    pn_err, pn_rel, pn_rel64, cases = 0.0, 0.0, 0.0, []
     prng = np.random.default_rng(1)
     for n_c in (1, 46, 64):
         for p_c in (1, 511, 2500, 2501):
-            for d_c in (256, 1024):
+            for d_c in (256, 1000, 1024):
                 cases.append((n_c, p_c, d_c, None, False))
     cases += [(3, 2500, 256, -100.0, False), (2, 700, 1024, None, True)]
     for n_c, p_c, d_c, b3, identical in cases:
@@ -1056,10 +1134,15 @@ def main() -> int:
         if err > POINTNET_REL_TOL * float(ref.abs().max()):
             raise RuntimeError(f"pointnet kernel vs plain at {(n_c, p_c, d_c, b3)}: "
                                f"max|d| {err:.3g}, max|ref| {float(ref.abs().max()):.3g}")
+        ref64 = pointnet.pointnet_eval_plain(pts.double(), [(w.double(), b.double())
+                                                            for w, b in folded])
+        pn_rel64 = max(pn_rel64, rel_err(out.double(), ref64))
         pn_err, pn_rel = max(pn_err, err), max(pn_rel, err / float(ref.abs().max()))
+        del ref64
     phase("pointnet", t0, f"kernel vs plain in {len(cases)} cases (N 1/46/64 x P 1/511/"
-          f"2500/2501 x D 256/1024, all outputs negative, identical points): max|d| "
-          f"{pn_err:.3g}, max|d|/max|ref| {pn_rel:.3g} (tol {POINTNET_REL_TOL})")
+          f"2500/2501 x D 256/1000/1024, all outputs negative, identical points): max|d| "
+          f"{pn_err:.3g}, max|d|/max|ref| {pn_rel:.3g} (tol {POINTNET_REL_TOL}); against the "
+          f"f64 plain version {pn_rel64:.3g}; cuobjdump -sass: HMMA in {hmma}")
 
     # 5. VGG stem kernel vs plain version on the card: forward and the
     # weight/bias gradient, at the main path's shapes and around them
@@ -1283,11 +1366,20 @@ def main() -> int:
             phase("time", t0, f"student serving f32 batch {b} (stem kernel): {ms:.3f} "
                   f"ms/batch = {b * 1000.0 / ms:.1f} img/s [{card}]")
         del model
+        # the teacher through this pointnet source and any --source
+        # pointnet_eval=..., in turns (this, others, others reversed, this)
+        pn_others = other_libs["pointnet_eval"]
         for b in (1, TEACHER_BATCH):
             xb, pb = xt[:b].to(dev), pc_dev[:b]
-            ms = cuda_ms(lambda: teacher(xb, pb), iters=20)
+            runs = {who: [] for who in ("this source", *pn_others)}
+            for order in (list(runs), list(runs)[::-1]):
+                for who in order:
+                    runs[who].append(with_pointnet_source(
+                        pn_others.get(who), lambda _: cuda_ms(lambda: teacher(xb, pb), iters=20)))
+            ms = sum(runs["this source"]) / 2
             phase("time", t0, f"teacher serving f32 batch {b}: {ms:.3f} ms/batch = "
-                  f"{b * 1000.0 / ms:.1f} img/s [{card}]")
+                  f"{b * 1000.0 / ms:.1f} img/s; ms/batch in turns with the pointnet kernel "
+                  f"of {json.dumps(runs)} [{card}]")
     geo_times = {}
     for rows in (10_000, 1_000_000):
         p, l_ = p_dev[:rows].contiguous(), l_dev[:rows].contiguous()
@@ -1296,29 +1388,56 @@ def main() -> int:
         geo_times[rows] = (k_ms, plain_ms)
         phase("time", t0, f"geodesic {rows} rows: kernel {k_ms * 1000:.2f} us, plain "
               f"{plain_ms * 1000:.2f} us ({plain_ms / k_ms:.2f}x) [{card}]")
-    pn_times = {}
-    for n_c in (64, 46):
+    # the pointnet kernel at serving's and evaluation's (64, 2500, 1024), the
+    # KD step's frozen teacher's (46, ...), serving at batch 1, and the
+    # teacher step's and stage 1's evaluations (64, 2500, 256), in turns
+    # plain, kernel, any --source pointnet_eval=..., then back: by CUDA
+    # events around back-to-back calls and by CUDA graph replays of 10 calls
+    # (the host out of the way at batch 1); CUDA launches a call (a CUDA
+    # graph's kernel nodes). The bound: the points and parameters read once,
+    # the output written once; the three layers' products as split TF32
+    # (three TF32 products per f32 one at 495 TFLOP/s) and, beside it, as
+    # f32 on the CUDA cores
+    pn_times, pn_bounds = {}, {}
+    side = torch.cuda.Stream()
+    whos = ("plain", "kernel", *pn_others)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n_c, d_c in ((TEACHER_BATCH, 1024), (KD_BATCH, 1024), (1, 1024), (TEACHER_BATCH, 256)):
         pts = pc_dev[:n_c].contiguous()
-        # in turns: plain, kernel, kernel, plain
-        runs = [cuda_ms(fn, iters=20) for fn in (
-            lambda: pointnet.pointnet_eval_plain(pts, folded),
-            lambda: pointnet.pointnet_eval(pts, folded),
-            lambda: pointnet.pointnet_eval(pts, folded),
-            lambda: pointnet.pointnet_eval_plain(pts, folded))]
-        k_ms, plain_ms = (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
-        pn_times[n_c] = (k_ms, plain_ms)
-        phase("time", t0, f"pointnet ({n_c}, {POINT_NUM}, 1024): kernel {runs[1]:.4f} / "
-              f"{runs[2]:.4f} ms, plain {runs[0]:.4f} / {runs[3]:.4f} ms "
-              f"({plain_ms / k_ms:.2f}x) [{card}]")
+        f_c = folded if d_c == 1024 else pointnet_params(np.random.default_rng(13), d_c, dev)
+        runs = {who: {"ms": [], "graph_ms": []} for who in whos}
+        for order in (whos, whos[::-1]):
+            for who in order:
+                if who == "plain":
+                    fn = functools.partial(pointnet.pointnet_eval_plain, pts, f_c)
+                    runs[who]["ms"].append(cuda_ms(fn, iters=20))
+                    runs[who]["graph_ms"].append(graph_ms(fn, side))
+                    continue
+                lib = pn_others.get(who)
+                runs[who]["ms"].append(with_pointnet_source(
+                    lib, lambda enc: cuda_ms(functools.partial(enc, pts, f_c), iters=20)))
+                runs[who]["graph_ms"].append(with_pointnet_source(
+                    lib, lambda enc: graph_ms(functools.partial(enc, pts, f_c), side)))
+        launches = graph_kernel_launches(functools.partial(pointnet.pointnet_eval, pts, f_c))
+        pn_times[n_c, d_c] = (sum(runs["kernel"]["ms"]) / 2, sum(runs["plain"]["ms"]) / 2)
+        n_bytes = 4.0 * (n_c * POINT_NUM * 3 + sum(w.numel() + b.numel() for w, b in f_c)
+                         + n_c * d_c)
+        flops = 2.0 * n_c * POINT_NUM * (3 * 64 + 64 * 128 + 128 * d_c)
+        pn_bounds[n_c, d_c] = bound(n_bytes, SPLIT_TF32_PRODUCTS * flops, TF32_FLOPS)
+        cores = bound(n_bytes, flops)
+        share = pn_bounds[n_c, d_c][0] / (sum(runs["kernel"]["graph_ms"]) / 2)
+        phase("time", t0, f"pointnet ({n_c}, {POINT_NUM}, {d_c}) in turns, ms: "
+              f"{json.dumps(runs)}; segments and groups "
+              f"{pointnet.segments_for(n_c, POINT_NUM, d_c, sms)}, {launches} CUDA "
+              f"launches a call; bound {pn_bounds[n_c, d_c][0]:.4f} ms "
+              f"({pn_bounds[n_c, d_c][1]}, split TF32; f32 CUDA cores {cores[0]:.4f} ms), "
+              f"{100 * share:.1f} % of it by graph replay [{card}]")
+        del pts
 
     del teacher
-    pn_bytes = 4.0 * (64 * POINT_NUM * 3 + sum(w.numel() + b.numel() for w, b in folded)
-                      + 64 * 1024)
-    pn_flops = 2.0 * 64 * POINT_NUM * (3 * 64 + 64 * 128 + 128 * 1024)
     # per row: 24 bytes read, 4 written; about 100 operations (six sincos,
     # two 3x3 builds, the trace, acos)
     geo_bound = bound(28.0 * 1_000_000, 100.0 * 1_000_000)
-    pn_bound = bound(pn_bytes, pn_flops)
 
     # 14. NCE kernels vs the plain version on the card: loss and both
     # gradients; N 1 to 2500 (one tile to 79), D 64 / 200, with and without
@@ -2049,20 +2168,26 @@ def main() -> int:
         # indices, statistics) and, backward, the upstream gradient and the
         # parameters' gradients, each moved once; the layers' useful FLOPs:
         # forward the three layers, backward layers 1-2 and, for layer 3,
-        # M h2 (128 x 128) a point, its Gram form (csrc/pointnet_train.cu)
+        # M h2 (128 x 128) a point, its Gram form (csrc/pointnet_train.cu);
+        # as split TF32 (three TF32 products per f32 one at 495 TFLOP/s) and,
+        # beside it, as f32 on the CUDA cores, where the kernels run today
         rows_c, n_stats = n_c * POINT_NUM, 2 * (64 + 128 + d_c)
         flops_f = 2.0 * rows_c * (3 * 64 + 64 * 128 + 128 * d_c)
         flops_b = 2.0 * rows_c * (3 * 64 + 2 * 64 * 128 + 128 * 128)
-        pt_bounds[n_c] = (
-            bound(4.0 * (3 * rows_c + prm.numel() + 2 * n_c * d_c + n_stats), flops_f),
-            bound(4.0 * (3 * rows_c + 2 * prm.numel() + 2 * n_c * d_c + n_stats), flops_b))
+        bytes_f = 4.0 * (3 * rows_c + prm.numel() + 2 * n_c * d_c + n_stats)
+        bytes_b = 4.0 * (3 * rows_c + 2 * prm.numel() + 2 * n_c * d_c + n_stats)
+        pt_bounds[n_c] = (bound(bytes_f, SPLIT_TF32_PRODUCTS * flops_f, TF32_FLOPS),
+                          bound(bytes_b, SPLIT_TF32_PRODUCTS * flops_b, TF32_FLOPS))
+        cores = bound(bytes_f, flops_f)[0], bound(bytes_b, flops_b)[0]
         phase("time", t0, f"train-mode pointnet ({n_c}, {POINT_NUM}, {d_c}): kernel forward "
               f"{runs['kernel forward']} + backward {runs['kernel backward']} ms; plain forward "
               f"{runs['plain forward']} + backward {runs['plain backward']} ms; forward+backward "
               f"{t['kernel forward'] + t['kernel backward']:.4f} vs "
               f"{t['plain forward'] + t['plain backward']:.4f} ms; bound forward "
-              f"{pt_bounds[n_c][0][0]:.4f} ms ({pt_bounds[n_c][0][1]}), backward "
-              f"{pt_bounds[n_c][1][0]:.4f} ms ({pt_bounds[n_c][1][1]}); CUDA launches a forward "
+              f"{pt_bounds[n_c][0][0]:.4f} ms ({pt_bounds[n_c][0][1]}, split TF32; f32 CUDA "
+              f"cores {cores[0]:.4f}), backward {pt_bounds[n_c][1][0]:.4f} ms "
+              f"({pt_bounds[n_c][1][1]}, split TF32; f32 CUDA cores {cores[1]:.4f}); CUDA "
+              f"launches a forward "
               f"and a backward call: {pointnet_train.kernel_launches_per_call()} [{card}]")
         del pts_c, layers_c, g_c, h1_c, h2_c, gram_c, tracked, flat, out_p
 
@@ -2096,8 +2221,8 @@ def main() -> int:
               "pose3d_tpu/ops/geodesic.py:65", student_geo + teacher_geo, geo_err,
               geo_times[1_000_000][0], geo_times[1_000_000][1], geo_bound),
         entry("pointnet_eval", "pose3d_tpu_torch/csrc/pointnet_eval.cu",
-              "pose3d_tpu/ops/pointnet_fused.py:78", teacher_pn, pn_err, pn_times[64][0],
-              pn_times[64][1], pn_bound),
+              "pose3d_tpu/ops/pointnet_fused.py:78", teacher_pn, pn_err,
+              *pn_times[TEACHER_BATCH, 1024], pn_bounds[TEACHER_BATCH, 1024]),
         *nce_entries,
         entry("vgg_stem_forward", "pose3d_tpu_torch/csrc/vgg_stem.cu",
               "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[4], stem_err,

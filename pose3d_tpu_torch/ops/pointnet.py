@@ -22,11 +22,13 @@ from pose3d_tpu_torch.ops import _build
 
 # the kernel's tiling (csrc/pointnet_eval.cu kTileP, kChunkD) and its fixed
 # hidden widths (ShapeEncoderPC's 64 and 128)
-TILE_P, CHUNK_D = 64, 256
+TILE_P, CHUNK_D = 128, 256
 HIDDEN = (64, 128)
-# a block's setup (its 160 KB of weights from L2 into shared memory) costs
-# about a quarter of one tile's 2.6 M FMAs; a guess that steers the split
-_BLOCK_SETUP_TILES = 0.25
+# a tile's layers 1-2 (8,384 f32 FMAs a point on the CUDA cores) and a
+# block's setup (W2 into shared memory, the ring's first k-steps), in units
+# of one 256-column pass of layer 3 over a tile (split TF32 on the tensor
+# cores); estimates that steer the split
+_LAYERS12_PASSES, _BLOCK_SETUP_PASSES = 0.5, 0.1
 
 Folded = Sequence[tuple[torch.Tensor, torch.Tensor]]
 
@@ -54,37 +56,48 @@ def pointnet_eval_plain(points: torch.Tensor, folded: Folded) -> torch.Tensor:
 
 
 @functools.cache
-def segments_for(n: int, p: int, d: int, sms: int) -> int:
-    """How many blocks share one cloud's points, so that the grid of
-    n x ceil(d / CHUNK_D) x segments blocks (one per SM at a time) keeps the
-    card's `sms` SMs busy: the segment length (in tiles) that minimises
-    waves x (tiles per block + setup). Ties keep fewer segments."""
-    tiles = -(-p // TILE_P)
-    blocks = n * -(-d // CHUNK_D)
-    best, best_cost = 1, None
-    for per in range(tiles, max(1, -(-tiles // 65535)) - 1, -1):
-        segments = -(-tiles // per)
-        cost = -(-blocks * segments // sms) * (per + _BLOCK_SETUP_TILES)
-        if best_cost is None or cost < best_cost:
-            best, best_cost = segments, cost
+def segments_for(n: int, p: int, d: int, sms: int) -> tuple[int, int]:
+    """(segments, groups): how many blocks share one cloud's points (runs of
+    whole TILE_P tiles) and its columns (runs of whole CHUNK_D passes), so
+    that the grid of n x segments x groups blocks (one an SM at a time)
+    keeps the card's `sms` SMs busy: the split that minimises waves x a
+    block's work, which is its tiles x (layers 1-2, computed once a tile of
+    each group, + its passes) + its setup. Ties keep fewer groups, then
+    fewer segments."""
+    tiles, passes = -(-p // TILE_P), -(-d // CHUNK_D)
+    best, best_cost = (1, 1), None
+    for groups in range(1, passes + 1):
+        per_group = -(-passes // groups)
+        if -(-passes // per_group) < groups:
+            continue  # a group would have no columns
+        for per in range(tiles, max(1, -(-tiles // 65535)) - 1, -1):
+            segments = -(-tiles // per)
+            cost = -(-n * segments * groups // sms) * (
+                per * (_LAYERS12_PASSES + per_group) + _BLOCK_SETUP_PASSES)
+            if best_cost is None or cost < best_cost:
+                best, best_cost = (segments, groups), cost
     return best
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("pointnet_eval").pointnet_eval
+def _lib(path: str | None = None):
+    """The kernels' library, its entry points typed: csrc/pointnet_eval.cu's
+    build, or the library at `path`, built from another version of the
+    source with the same C interface."""
+    lib = _build.load("pointnet_eval") if path is None else ctypes.CDLL(path)
     # pointers and the stream are 64-bit: ctypes' default int would cut them
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 3 + [ctypes.c_int,
-                                                                  ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.pointnet_eval.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 3 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.pointnet_eval.restype = ctypes.c_int
+    lib.pointnet_eval_scratch_floats.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+    lib.pointnet_eval_scratch_floats.restype = ctypes.c_int64
+    lib.pointnet_eval_smem_bytes.restype = ctypes.c_int
+    return lib
 
 
 def shared_memory_bytes() -> int:
     """The dynamic shared memory a block of the kernel takes (builds it)."""
-    fn = _build.load("pointnet_eval").pointnet_eval_smem_bytes
-    fn.restype = ctypes.c_int
-    return fn()
+    return _lib().pointnet_eval_smem_bytes()
 
 
 @functools.cache
@@ -132,20 +145,21 @@ def pointnet_eval(points: torch.Tensor, folded: Folded) -> torch.Tensor:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("pointnet_eval's kernel takes contiguous tensors")
     n, p = points.shape[0], points.shape[1]
-    if n >= 2**31 or 3 * p >= 2**31 or -(-d // CHUNK_D) > 65535:
+    if n >= 2**31 or 3 * p >= 2**31 or d >= 2**31 // 256:
         raise ValueError(f"pointnet_eval's kernel takes N < 2^31, 3P < 2^31 and "
-                         f"D <= {65535 * CHUNK_D}; got {(n, p, d)}")
+                         f"D < 2^23; got {(n, p, d)}")
 
     out = torch.empty((n, d), dtype=torch.float32, device=points.device)
     if n == 0:
         return out
-    segments = segments_for(n, p, d, _sm_count(points.device))
-    partial = (torch.empty((n, segments, d), dtype=torch.float32, device=points.device)
-               if segments > 1 else out)
-    fn = _kernel()
+    segments, groups = segments_for(n, p, d, _sm_count(points.device))
+    lib = _lib()
+    scratch = torch.empty(lib.pointnet_eval_scratch_floats(n, d, segments),
+                          dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):
-        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), partial.data_ptr(),
-                 n, p, d, segments, torch.cuda.current_stream().cuda_stream)
+        err = lib.pointnet_eval(*(t.data_ptr() for t in tensors), out.data_ptr(),
+                                scratch.data_ptr(), n, p, d, segments, groups,
+                                torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"pointnet_eval kernel launch failed: cudaError_t {err}")
     pointnet_eval.launches += 1

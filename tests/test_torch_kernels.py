@@ -170,6 +170,46 @@ def test_pointnet_kernel_all_negative_and_identical_points(cuda):
     assert pointnet.pointnet_eval(pts[:0], folded).shape == (0, 256)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,d", [
+    (2, 128, 256), (2, 129, 520), (3, 256, 1000), (2, 2500, 600), (8, 2500, 1024),
+    (132, 300, 256)])
+def test_pointnet_kernel_tiles_and_groups_on_cuda(cuda, n, p, d):
+    """Clouds at and one past the 128-point tile, D no multiple of the
+    256-column pass, and splits over point segments and column groups
+    (segments_for), against the plain version in f32 and in f64: split TF32
+    leaves about 2^-21 of each product (one TF32 product 2^-11, which would
+    miss 1e-5 of max|ref|), and the same bits on a second call."""
+    folded = _folded(d, cuda, seed=n * p + d)
+    pts = torch.rand((n, p, 3), generator=torch.Generator().manual_seed(d)).to(cuda)
+    out = pointnet.pointnet_eval(pts, folded)
+    ref = pointnet.pointnet_eval_plain(pts, folded)
+    ref64 = pointnet.pointnet_eval_plain(pts.double(), [(w.double(), b.double())
+                                                        for w, b in folded])
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert float((out.double() - ref64).abs().max()) <= 1e-5 * float(ref64.abs().max())
+    assert torch.equal(out, pointnet.pointnet_eval(pts, folded))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,d", [(64, 2500, 1024), (46, 2500, 1024), (1, 2500, 1024),
+                                   (2, 1, 256)])
+def test_pointnet_eval_launches_per_call(cuda, n, p, d):
+    """Two CUDA launches a call (W3's split, the encoder) and three with
+    point segments (the max over them), as a CUDA graph that captures one
+    call counts them: at serving's and the KD step's shapes (segments) and
+    at a single tile (none). One count on the wrapper a call."""
+    folded = _folded(d, cuda)
+    pts = torch.rand((n, p, 3), generator=torch.Generator().manual_seed(n)).to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    segments, _ = pointnet.segments_for(n, p, d, sms)
+    assert (segments > 1) == (p > pointnet.TILE_P)
+    before = pointnet.pointnet_eval.launches
+    counted = chip_smoke.graph_kernel_launches(lambda: pointnet.pointnet_eval(pts, folded))
+    assert counted == 2 + (segments > 1)
+    assert pointnet.pointnet_eval.launches == before + 2  # the run before the capture, and it
+
+
 def _nce_inputs(n, d, kind, device, seed=0):
     """(s, t, valid_rows, valid_cols, row_offset): all valid ("fused"), a
     masked tail ("masked"), or a shard of rows against more columns with

@@ -4,6 +4,15 @@ JAX package, on the CPU.
 The same seeded weights go through JAX's fold, its plain XLA version and its
 Pallas kernel in interpret mode, and through the port's fold and plain
 version; the port's ShapeEncoderPC is held against JAX's eval forward.
+
+The CUDA kernel's arithmetic, which no CPU run reaches, is emulated in numpy
+(`split_tf32_pointnet`: layers 1-2 as the kernel's f32 FMA chains, layer 3
+in split TF32 with cvt.rna as rounding the f32 bits to 10 mantissa bits,
+half away from zero, over the kernel's 16 k-steps of mma.m16n8k8, each
+k-step's three products an exact 8-term sum rounded to f32 into a fresh
+accumulator, then added to the running f32 sum) and held against JAX's
+plain version in f64; one TF32 product instead of three misses the
+tolerance, which is why the kernel splits.
 """
 
 import importlib.util
@@ -62,6 +71,51 @@ def _points(n, p, seed=0):
 def _rel(got, want):
     want = np.asarray(want)
     return np.abs(np.asarray(got) - want).max() / np.abs(want).max()
+
+
+def _rna(a):
+    """cvt.rna.tf32.f32: the f32 bit pattern rounded to 10 mantissa bits,
+    half away from zero (the low 13 bits cleared)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(a):
+    """a = big + small, both TF32: small is the remainder (exact in f32), rounded."""
+    big = _rna(a)
+    return big, _rna(np.asarray(a, np.float32) - big)
+
+
+def split_tf32_pointnet(pts, folded, products=3):
+    """csrc/pointnet_eval.cu's arithmetic in numpy (f32), (N, P, 3) -> (N, D):
+    layer 1 as fma(x2, w_c, fma(x1, w_b, x0 w_a)) + b1, layer 2 as one FMA
+    chain over k = 0..63, both ReLU'd; layer 3 over 16 k-steps of 8, each
+    k-step's small.big, big.small, big.big (products=3; big.big alone with
+    1) into a fresh f32 accumulator (each mma an exact 8-term sum rounded to
+    f32), then added to the running f32 sum; the max over the points, then
+    b3. (An FMA is its f64 product and sum rounded once to f32.)"""
+    (w1, b1), (w2, b2), (w3, b3) = folded
+    n, p, _ = pts.shape
+    x = pts.reshape(-1, 3).astype(np.float64)
+    h = (x[:, :1] * w1[0]).astype(np.float32)
+    h = (x[:, 1:2] * w1[1] + h).astype(np.float32)
+    h = (x[:, 2:3] * w1[2] + h).astype(np.float32)
+    h1 = np.maximum(h + b1, 0).astype(np.float32)
+    acc = np.zeros((h1.shape[0], w2.shape[1]), np.float32)
+    for k in range(w2.shape[0]):
+        acc = (h1[:, k:k + 1].astype(np.float64) * w2[k] + acc).astype(np.float32)
+    h2 = np.maximum(acc + b2, 0).astype(np.float32)
+    (a_big, a_small), (b_big, b_small) = _split(h2), _split(w3)
+    terms = [(a_small, b_big), (a_big, b_small), (a_big, b_big)][3 - products:]
+    acc = np.zeros((h2.shape[0], w3.shape[1]), np.float32)
+    for j in range(0, w3.shape[0], 8):
+        ks = slice(j, j + 8)
+        part = np.zeros_like(acc)
+        for ta, tb in terms:
+            part = (part + ta[:, ks].astype(np.float64) @ tb[ks].astype(np.float64)
+                    ).astype(np.float32)
+        acc = acc + part
+    return (acc.reshape(n, p, -1).max(axis=1) + b3).astype(np.float32)
 
 
 @pytest.mark.parametrize("kind", ["jax_init", "seeded"])
@@ -145,17 +199,47 @@ def test_cpu_tensors_take_the_plain_version():
     assert empty.shape == (0, FEATURE_DIM)
 
 
+@pytest.mark.parametrize("d", [256, 1024])
+def test_split_tf32_kernel_arithmetic_matches_jax_f64(d):
+    """The kernel's arithmetic (three TF32 products per f32 product, K 128 in
+    16 k-steps) within ENCODER_REL_TOL of JAX's plain version in f64 at P 513
+    (no multiple of the 128-point tile); one TF32 product is not."""
+    folded = [(w.numpy(), b.numpy())
+              for w, b in chip_smoke.pointnet_params(np.random.default_rng(d), d, "cpu")]
+    pts = _points(5, 513, seed=d)
+    with jax.enable_x64(True):
+        want = np.asarray(_xla_pointnet_eval(
+            jnp.asarray(pts, jnp.float64), *[jnp.asarray(t, jnp.float64)
+                                             for pair in folded for t in pair]))
+    got = split_tf32_pointnet(pts, folded)
+    assert got.shape == want.shape == (5, d)
+    assert _rel(got, want) <= ENCODER_REL_TOL
+    assert _rel(split_tf32_pointnet(pts, folded, products=1), want) > ENCODER_REL_TOL
+
+
 @pytest.mark.parametrize("n,p,d,want", [
-    (64, 2500, 1024, 1),   # 256 blocks: two full waves on 132 SMs
-    (46, 2500, 1024, 5),   # 184 blocks would leave 80 SMs idle in wave 2
-    (1, 2500, 1024, 20),   # serving at batch 1: 80 blocks of two tiles
-    (2, 1, 256, 1),        # a single tile cannot be split
+    # serving and evaluation at batch 64: 64 x 20 tiles of 128 points; 2
+    # segments of 10 tiles make 128 blocks, one wave on 132 SMs
+    (64, 2500, 1024, (2, 1)),
+    # the KD step's frozen teacher: 920 one-tile blocks, 7 waves 99.6 % full;
+    # 2 segments (92 blocks) would leave 40 SMs idle for the whole call
+    (46, 2500, 1024, (20, 1)),
+    # serving at batch 1: 20 tiles x 4 column groups of one 256-column pass
+    # = 80 blocks, layers 1-2 computed once a group
+    (1, 2500, 1024, (20, 4)),
+    # the teacher step's and stage 1's evaluations at D 256: as at D 1024
+    (64, 2500, 256, (2, 1)),
+    (46, 2500, 256, (20, 1)),
+    # a single tile and a single pass cannot be split
+    (2, 1, 256, (1, 1)),
 ])
 def test_segments_fill_the_card(n, p, d, want):
     assert pointnet.segments_for(n, p, d, 132) == want
 
 
-@pytest.mark.parametrize("n,p,d", [(1, 511, 256), (46, 2501, 1024), (300, 2500, 1024)])
+@pytest.mark.parametrize("n,p,d", [(1, 511, 256), (46, 2501, 1024), (300, 2500, 1024),
+                                   (1, 1, 1000)])
 def test_segments_stay_within_the_tiles(n, p, d):
-    s = pointnet.segments_for(n, p, d, 132)
+    s, g = pointnet.segments_for(n, p, d, 132)
     assert 1 <= s <= -(-p // pointnet.TILE_P)
+    assert 1 <= g <= -(-d // pointnet.CHUNK_D)
