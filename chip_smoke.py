@@ -27,7 +27,15 @@ width with random weights from a seed:
   * KD --stage 1 (the student above and the vanilla teacher: ResNet-18,
     img_feature_dim 1024, shape_feature_dim 256, 2,500 points; batch 46,
     Adam lr 1e-4, tau 0.5, --fused_nce): train steps through the stem, NCE
-    and train-mode PointNet kernels, then the stage-1 trainer's epoch loop.
+    and train-mode PointNet kernels, then the stage-1 trainer's epoch loop;
+  * KD --stage 2 (the student above distilled from the vanilla teacher
+    that stage 1 trained, read from a stage-1 checkpoint.pth by the CLI's
+    loader; batch 46 x 3 views): train steps through the stem kernels and
+    the teacher's eval PointNet kernel, then the trainer's epoch loop;
+  * the other regimes, 2 steps each at the same widths: KD --contrast and
+    --vid, stage 1 with the memory bank and with --nce pose / multipose,
+    the teacher step with --nce pose / multipose (batch 160), and the
+    RGB-only baseline (training --shape None, batch 64).
 The student's stem (conv3x3 + ReLU + 2x2 pool) runs in the VGG stem
 kernel in every student forward. Phases:
 
@@ -47,10 +55,17 @@ kernel in every student forward. Phases:
   21 KD trainer epoch and resume    22 KD times and profile
   23 train-mode PointNet kernels vs plain    24 stage-1 training at full
   width    25 stage-1 trainer epoch and resume    26 stage-1 times and
-  profile    27 train-mode PointNet times
-Each path (7-8, 10-11, 16-17, 20-21 and 24-25) is driven with the
-kernels' launch counts set to 0 just before it and read just after it;
-16, 20 and 24 are the three training paths' main paths.
+  profile (and stage 1's checkpoint.pth for phase 28)    27 train-mode
+  PointNet times    28 stage-2 training at full width, its teacher from
+  that checkpoint    29 stage-2 trainer epoch and resume    30 stage-2
+  step card vs CPU, times and profile    31 the variants (--contrast,
+  --vid, the memory bank, --nce pose / multipose in stage 1 and the
+  teacher step, the baseline), each card vs CPU    32 the NCE forward on
+  two streams at once
+Each path (7-8, 10-11, 16-17, 20-21, 24-25, 28-29 and each variant of 31)
+is driven with the kernels' launch counts set to 0 just before it and
+read just after it; 16, 20, 24, 28 and 31's are the training paths' main
+paths. The total seconds are printed before the card's line.
 
 With --source NAME=FILE (repeatable), another version of csrc/NAME.cu
 (info_nce, vgg_stem or pointnet_eval) with the same C interface (an
@@ -494,6 +509,37 @@ def print_rows(rows, device_ms: float, top: int = 16) -> None:
 
 def rel_err(got, want) -> float:
     return float((got.cpu() - want.cpu()).abs().max() / want.abs().max())
+
+
+def card_vs_cpu(small_step, loss_keys) -> tuple[float, float, float]:
+    """One small train step on the CPU and on the card from the same weights
+    and inputs (small_step(where) -> (metrics, [the trained models])): the
+    losses' relative error, the gradients' max|d|/max|ref| and the running
+    statistics' max|d|; a gradient that is zero in exact arithmetic (a bias
+    before a train-mode BatchNorm) must stay under 1e-6 of the largest on
+    the card too. Raises past STEP_LOSS_RTOL, STEP_GRAD_TOL and 1e-5."""
+    (m_cpu, cpu_models), (m_gpu, gpu_models) = small_step("cpu"), small_step("cuda")
+    torch.cuda.synchronize()
+    loss_err = max(abs(float(m_gpu[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
+                   for k in loss_keys)
+    grad_err = stat_err = 0.0
+    for m_c, m_g in zip(cpu_models, gpu_models):
+        g_cpu = {k: p.grad for k, p in m_c.named_parameters()}
+        g_gpu = {k: p.grad.cpu() for k, p in m_g.named_parameters()}
+        largest = max(float(g.abs().max()) for g in g_cpu.values())
+        for k, want in g_cpu.items():
+            if float(want.abs().max()) < 1e-6 * largest:
+                if float(g_gpu[k].abs().max()) >= 1e-6 * largest:
+                    raise RuntimeError(f"card vs CPU: {k} has a gradient on the card only")
+                continue
+            grad_err = max(grad_err, rel_err(g_gpu[k], want))
+        on_card = dict(m_g.named_buffers())
+        stat_err = max([stat_err] + [float((on_card[k].cpu() - v).abs().max())
+                                     for k, v in m_c.named_buffers() if "running" in k])
+    if loss_err > STEP_LOSS_RTOL or grad_err > STEP_GRAD_TOL or stat_err > 1e-5:
+        raise RuntimeError(f"card vs CPU: losses {loss_err:.3g}, gradients {grad_err:.3g}, "
+                           f"running statistics {stat_err:.3g}")
+    return loss_err, grad_err, stat_err
 
 
 def bound(n_bytes: float, flops: float, flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
@@ -1498,41 +1544,34 @@ def main() -> int:
     # magnifies rounding far past these tolerances (tests/test_torch_train.py)
     small = convert.pose_state_dict(teacher_variables(np.random.default_rng(14), 64, 64))
     small_batch = train_batch(np.random.default_rng(14), 8, 64, 100)
-    got = {}
-    for where in ("cpu", "cuda"):
-        model_s = PoseEstimator(img_feature_dim=64, shape_feature_dim=64)
-        model_s.load_state_dict(small, strict=True)
-        state_s = create_train_state(model_s.double().to(where), LR, [100], seed=0)
-        batch = {k: torch.from_numpy(v).to(where) for k, v in small_batch.items()}
-        batch["im"], batch["shape"] = batch["im"].double(), batch["shape"].double()
-        before = counts()
-        metrics = steps.make_teacher_train_step(nce_dropout=0.0, use_fused_nce=True)(
-            state_s, batch)
-        torch.cuda.synchronize()
-        launched = tuple(a - b for a, b in zip(counts()[2:], before[2:]))
-        launched = launched[:2] + launched[4:]  # NCE and train-mode pointnet
-        got[where] = ({k: float(v) for k, v in metrics.items()},
-                      {k: p.grad.cpu() for k, p in model_s.named_parameters()},
-                      {k: v.cpu() for k, v in model_s.state_dict().items() if "running" in k},
-                      launched)
-    (m_cpu, g_cpu, r_cpu, l_cpu), (m_gpu, g_gpu, r_gpu, l_gpu) = got["cpu"], got["cuda"]
-    if l_gpu != (1, 1, 1, 1) or any(l_cpu):
+
+    def small_teacher_step(launched=None, **kw):
+        """small_step(where) for `card_vs_cpu`: one teacher step at the small
+        width (make_teacher_train_step's options `kw`); `launched[where]`:
+        the kernels' launches it made."""
+        def run(where):
+            model = PoseEstimator(img_feature_dim=64, shape_feature_dim=64)
+            model.load_state_dict(small, strict=True)
+            state = create_train_state(model.double().to(where), LR, [100], seed=0)
+            batch = {k: torch.from_numpy(v).to(where) for k, v in small_batch.items()}
+            batch["im"], batch["shape"] = batch["im"].double(), batch["shape"].double()
+            before = counts()
+            metrics = steps.make_teacher_train_step(nce_dropout=0.0, use_fused_nce=True,
+                                                    **kw)(state, batch)
+            torch.cuda.synchronize()
+            if launched is not None:
+                launched[where] = tuple(a - b for a, b in zip(counts(), before))
+            return metrics, [state.model]
+        return run
+
+    launched = {}
+    loss_err, grad_err, stat_err = card_vs_cpu(small_teacher_step(launched),
+                                               ("loss", "pose_loss", "nce_loss"))
+    # NCE and train-mode pointnet, forward and backward
+    l_gpu = launched["cuda"][2:4] + launched["cuda"][6:]
+    if l_gpu != (1, 1, 1, 1) or any(launched["cpu"]):
         raise RuntimeError(f"train step (NCE, train-mode pointnet) forward and backward "
-                           f"launches: card {l_gpu}, CPU {l_cpu}")
-    loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
-                   for k in ("loss", "pose_loss", "nce_loss"))
-    largest = max(float(g.abs().max()) for g in g_cpu.values())
-    grad_err = 0.0
-    for k, want in g_cpu.items():
-        if float(want.abs().max()) < 1e-6 * largest:  # a bias before a train-mode BN
-            if float(g_gpu[k].abs().max()) >= 1e-6 * largest:
-                raise RuntimeError(f"train step: {k} has a gradient on the card only")
-            continue
-        grad_err = max(grad_err, rel_err(g_gpu[k], want))
-    stat_err = max(float((r_gpu[k] - v).abs().max()) for k, v in r_cpu.items())
-    if loss_err > STEP_LOSS_RTOL or grad_err > STEP_GRAD_TOL or stat_err > 1e-5:
-        raise RuntimeError(f"train step card vs CPU: losses {loss_err:.3g}, gradients "
-                           f"{grad_err:.3g}, running statistics {stat_err:.3g}")
+                           f"launches: card {l_gpu}, CPU {launched['cpu']}")
     phase("train step", t0, f"card vs CPU at width 64, 64x64, batch 8 (f64 model, f32 "
           f"losses): losses rel {loss_err:.3g} (tol {STEP_LOSS_RTOL}), gradients max|d|/"
           f"max|ref| {grad_err:.3g} (tol {STEP_GRAD_TOL}), running statistics max|d| "
@@ -1732,47 +1771,47 @@ def main() -> int:
     t_small = convert.pose_state_dict(teacher_variables(np.random.default_rng(20), 64, 64))
     kd_small = kd_batch(np.random.default_rng(21), 4, 32, 100)
     kd_small["valid"] = np.arange(4) < 3
-    got = {}
-    for where in ("cpu", "cuda"):
-        student_s = BaselineEstimator(img_feature_dim=64, width_mult=0.25, input_dim=32,
-                                      dropout_rate=0.0)
-        student_s.load_state_dict(s_small, strict=True)
-        teacher_s = PoseEstimator(img_feature_dim=64, shape_feature_dim=64)
-        teacher_s.load_state_dict(t_small, strict=True)
-        teacher_s = teacher_s.to(where).eval().requires_grad_(False)
-        state_s = create_train_state(student_s.double().to(where), LR, [100], seed=0)
-        batch = {k: torch.from_numpy(v).to(where) for k, v in kd_small.items()}
-        for k in ("im", "im_flip", "im_rot"):
-            batch[k] = batch[k].double()
-        before = counts()
-        metrics = steps.make_kd_crd_step()(state_s, teacher_s, batch)
-        torch.cuda.synchronize()
-        got[where] = ({k: float(v) for k, v in metrics.items()},
-                      {k: p.grad.cpu() for k, p in student_s.named_parameters()},
-                      {k: v.cpu() for k, v in student_s.state_dict().items() if "running" in k},
-                      tuple(a - b for a, b in zip(counts(), before)))
-    (m_cpu, g_cpu, r_cpu, l_cpu), (m_gpu, g_gpu, r_gpu, l_gpu) = got["cpu"], got["cuda"]
-    if l_gpu != (0, 1, 0, 0, 1, 1, 0, 0) or any(l_cpu):
-        raise RuntimeError(f"KD step launches: card {l_gpu}, CPU {l_cpu}")
-    loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in ("loss", "gt_loss"))
-    largest = max(float(g.abs().max()) for g in g_cpu.values())
-    grad_err = 0.0
-    for k, want in g_cpu.items():
-        if float(want.abs().max()) < 1e-6 * largest:  # a bias before a train-mode BN
-            if float(g_gpu[k].abs().max()) >= 1e-6 * largest:
-                raise RuntimeError(f"KD step: {k} has a gradient on the card only")
-            continue
-        grad_err = max(grad_err, rel_err(g_gpu[k], want))
-    stat_err = max(float((r_gpu[k] - v).abs().max()) for k, v in r_cpu.items())
-    if loss_err > STEP_LOSS_RTOL or grad_err > STEP_GRAD_TOL or stat_err > 1e-5:
-        raise RuntimeError(f"KD step card vs CPU: losses {loss_err:.3g}, gradients "
-                           f"{grad_err:.3g}, running statistics {stat_err:.3g}")
+
+    def small_student(where):
+        model = BaselineEstimator(img_feature_dim=64, width_mult=0.25, input_dim=32,
+                                  dropout_rate=0.0)
+        model.load_state_dict(s_small, strict=True)
+        return create_train_state(model.double().to(where), LR, [100], seed=0)
+
+    def small_kd_step(make_step, teacher_cls, teacher_sd, launched=None):
+        """small_step(where) for `card_vs_cpu`: one student step of
+        make_step() over the three views against the frozen small teacher
+        (teacher_cls 64/64 from teacher_sd, f32); `launched[where]`: the
+        kernels' launches it made."""
+        def run(where):
+            state = small_student(where)
+            teacher = teacher_cls(img_feature_dim=64, shape_feature_dim=64)
+            teacher.load_state_dict(teacher_sd, strict=True)
+            teacher = teacher.to(where).eval().requires_grad_(False)
+            batch = {k: torch.from_numpy(v).to(where) for k, v in kd_small.items()}
+            for k in ("im", "im_flip", "im_rot"):
+                batch[k] = batch[k].double()
+            before = counts()
+            metrics = make_step()(state, teacher, batch)
+            torch.cuda.synchronize()
+            if launched is not None:
+                launched[where] = tuple(a - b for a, b in zip(counts(), before))
+            return metrics, [state.model]
+        return run
+
+    launched = {}
+    loss_err, grad_err, stat_err = card_vs_cpu(
+        small_kd_step(steps.make_kd_crd_step, PoseEstimator, t_small, launched),
+        ("loss", "gt_loss"))
+    l_gpu = launched["cuda"]
+    if l_gpu != (0, 1, 0, 0, 1, 1, 0, 0) or any(launched["cpu"]):
+        raise RuntimeError(f"KD step launches: card {l_gpu}, CPU {launched['cpu']}")
     phase("KD step", t0, f"card vs CPU at student width 0.25 / feature 64, 32x32, teacher "
           f"64/64, 4 samples x 3 views, one padded (f64 student, f32 teacher and losses): "
           f"losses rel {loss_err:.3g} (tol {STEP_LOSS_RTOL}), gradients max|d|/max|ref| "
           f"{grad_err:.3g} (tol {STEP_GRAD_TOL}), running statistics max|d| {stat_err:.3g}; "
           f"the card's step launched (pointnet, stem forward, stem backward) "
-          f"{(l_gpu[1], l_gpu[4], l_gpu[5])}; loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f}")
+          f"{(l_gpu[1], l_gpu[4], l_gpu[5])}")
 
     # 20. the KD --crd student's training at the KD CLI's width, through
     # make_kd_crd_step: the student path's main path
@@ -2132,6 +2171,12 @@ def main() -> int:
           f"(busy {device_ms / wall_ms:.3f}); the train-mode pointnet kernels {pt_dev_ms:.4f} "
           f"ms, the NCE kernels {nce_dev_ms:.4f} ms [{card}]; by self device time:")
     print_rows(rows, device_ms)
+    # stage 1's train states as its trainer's checkpoint.pth holds them, for
+    # stage 2's teacher (phase 28)
+    s2_dir = tempfile.TemporaryDirectory()
+    s1_ckpt = os.path.join(s2_dir.name, "checkpoint.pth")
+    torch.save({"teacher": t1.state_dict(), "student": s1.state_dict()}, s1_ckpt)
+    s1_teacher_sd = {k: v.cpu() for k, v in t1.model.state_dict().items()}
     del t1, s1, sb, history
 
     # 27. the train-mode PointNet kernels vs the plain version at the two
@@ -2191,6 +2236,319 @@ def main() -> int:
               f"and a backward call: {pointnet_train.kernel_launches_per_call()} [{card}]")
         del pts_c, layers_c, g_c, h1_c, h2_c, gram_c, tracked, flat, out_p
 
+    # 28. KD --stage 2 at full width: the frozen vanilla teacher read by
+    # the CLI's loader (`cli.common.build_vanilla`) from the stage-1
+    # checkpoint.pth written after phase 26 (the two-stage recipe on the
+    # card), the student (2048, 224x224) through make_stage2_step at batch
+    # 46 x 3 views: the stage-2 path's main path
+    from types import SimpleNamespace
+    from pose3d_tpu_torch.cli import common as cli_common
+    from pose3d_tpu_torch.losses.memory_bank import MemoryBank, enqueue, init_memory_bank
+    from pose3d_tpu_torch.train.ckpt import Checkpointer
+    tr = time.perf_counter()
+    s2_teacher = cli_common.build_vanilla(
+        SimpleNamespace(img_feature_dim=1024, shape_feature_dim=STAGE1_SHAPE_DIM, bin_size=15),
+        dev, s1_ckpt).requires_grad_(False)
+    load_s = time.perf_counter() - tr
+    same = all(torch.equal(v.cpu(), s1_teacher_sd[k])
+               for k, v in s2_teacher.state_dict().items())
+    if not same or s2_teacher.training:
+        raise RuntimeError(f"stage 2: the teacher read from stage 1's checkpoint equal {same}, "
+                           f"in train mode {s2_teacher.training}")
+    del s1_teacher_sd
+    s2_dir.cleanup()
+    s2_state = create_train_state(kd_student(47), LR, [10**9], seed=47)
+    s2_step = steps.make_stage2_step()
+    kb2 = {k: torch.from_numpy(v).to(dev) for k, v in
+           kd_batch(np.random.default_rng(28), KD_BATCH, 224, POINT_NUM).items()}
+    reset_counts()
+    history = [s2_step(s2_state, s2_teacher, kb2) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    s2_counts = counts()
+    s2_losses = [float(m["loss"]) for m in history]
+    s2_gt = [float(m["gt_loss"]) for m in history]
+    if s2_counts != (0, TRAIN_STEPS, 0, 0, TRAIN_STEPS, TRAIN_STEPS, 0, 0):
+        raise RuntimeError(f"stage 2: launches {s2_counts}, expected one pointnet, one stem "
+                           f"forward and one stem backward a step")
+    if not all(math.isfinite(v) for v in s2_losses + s2_gt):
+        raise RuntimeError(f"stage 2: losses {s2_losses}, gt losses {s2_gt}")
+    phase("stage 2 training", t0, f"vanilla teacher (1024/{STAGE1_SHAPE_DIM}, {POINT_NUM} "
+          f"points) read from stage 1's checkpoint.pth in {load_s:.2f} s, equal to the trained "
+          f"teacher, eval mode; student {sum(p.numel() for p in s2_state.model.parameters())} "
+          f"params, batch {KD_BATCH} x 3 views, 224x224, {TRAIN_STEPS} steps on one batch: "
+          f"loss {[round(v, 4) for v in s2_losses]} (gt {[round(v, 4) for v in s2_gt]}); "
+          f"launches a step: pointnet {s2_counts[1] // TRAIN_STEPS}, stem forward "
+          f"{s2_counts[4] // TRAIN_STEPS}, stem backward {s2_counts[5] // TRAIN_STEPS}")
+
+    # 29. the stage-2 trainer: one epoch on in-memory samples, then a
+    # resume into a second (as phase 21 for --crd)
+    with tempfile.TemporaryDirectory() as tmp:
+        def s2_loaders():
+            return (DataLoader(KDMemorySet(2 * KD_BATCH, 29, 224), KD_BATCH, shuffle=True,
+                               drop_last=True, num_workers=2),
+                    DataLoader(KDMemorySet(40, 30, 224, train=False), KD_BATCH,
+                               shuffle=False, num_workers=2))
+
+        fit_state = create_train_state(kd_student(29), LR, [10**9], seed=46)
+        trainer = KDTrainer(fit_state, s2_teacher, *s2_loaders(), EVAL_CATEGORIES, tmp)
+        reset_counts()
+        trainer.fit_stage2(1)
+        torch.cuda.synchronize()
+        s2_fit_counts = counts()
+        if s2_fit_counts != (1, 2, 0, 0, 3, 2, 0, 0):
+            raise RuntimeError(f"stage-2 trainer epoch: launches {s2_fit_counts}")
+        resumed = create_train_state(kd_student(98), LR, [10**9], seed=0)
+        resumed.load_state_dict(trainer.ckpt.restore("checkpoint"))
+        same = all(torch.equal(a, b) for a, b in zip(
+            fit_state.model.state_dict().values(), resumed.model.state_dict().values()))
+        del fit_state, trainer
+        KDTrainer(resumed, s2_teacher, *s2_loaders(), EVAL_CATEGORIES, tmp).fit_stage2(
+            2, start_epoch=1)
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        if not same or resumed.step != 4 or [r["epoch"] for r in records] != [0, 1] or \
+                not all(r["kind"] == "stage2_epoch" and math.isfinite(r["train_loss"])
+                        and math.isfinite(r["val_med"]) for r in records):
+            raise RuntimeError(f"stage-2 trainer resume: state restored {same}, step "
+                               f"{resumed.step}, records {records}")
+    phase("stage-2 trainer", t0, f"epoch 0 at batch {KD_BATCH} (2 steps, 40 evaluation rows): "
+          f"launches {s2_fit_counts}; resumed from checkpoint.pth (state equal) into epoch 1; "
+          f"train_loss {[round(r['train_loss'], 4) for r in records]} val_med "
+          f"{[round(r['val_med'], 3) for r in records]} train_samples_per_s "
+          f"{[round(r['train_samples_per_s'], 1) for r in records]}")
+    del resumed
+
+    # 30. one stage-2 step card vs CPU at the CPU test's small width (the
+    # student in f64, the vanilla teacher in f32 and the losses in f32, no
+    # dropout, one sample of 4 padded); the stage-2 step's time by CUDA
+    # events, a profile of two steps (busy share, CUDA launches by kernel
+    # name) and the frozen teacher's forward
+    v_small = convert.pose_vanilla_state_dict(vanilla_variables(np.random.default_rng(31),
+                                                                64, 64))
+    errs = card_vs_cpu(small_kd_step(steps.make_stage2_step, PoseEstimatorVanilla, v_small),
+                       ("loss", "gt_loss"))
+    s2_ms = cuda_ms(lambda: s2_step(s2_state, s2_teacher, kb2), iters=TRAIN_STEPS, warmup=1)
+    im3 = torch.cat([kb2["im"], kb2["im_flip"], kb2["im_rot"]])
+    with torch.no_grad():
+        s2_teacher_ms = cuda_ms(lambda: s2_teacher(im3, kb2["shape"], view_tile=3), iters=5)
+    rows, device_ms, wall_ms = profile_steps(lambda: s2_step(s2_state, s2_teacher, kb2))
+    # CUDA launches a call at the step's shapes, counted as a CUDA graph's
+    # kernel nodes (the profiler's records miss a kernel now and then):
+    # the stem forward and backward at (138, 224, 224, 64), the eval
+    # PointNet at (46, 2500, 256)
+    x_s, w_s, b_s, g_s = stem_inputs(np.random.default_rng(30), 3 * KD_BATCH, 224, 64,
+                                     "random", dev)
+    x_s, w_s, b_s = x_s.permute(0, 2, 3, 1), w_s.detach(), b_s.detach()
+    _, index_s = vgg_stem.stem_forward(x_s, w_s, b_s, with_index=True)
+    s2_stem = (graph_kernel_launches(lambda: vgg_stem.stem_forward(x_s, w_s, b_s,
+                                                                   with_index=True)),
+               graph_kernel_launches(lambda: vgg_stem.stem_backward(x_s, index_s, g_s)))
+    folded_s = pointnet_params(np.random.default_rng(30), STAGE1_SHAPE_DIM, dev)
+    s2_pne = graph_kernel_launches(lambda: pointnet.pointnet_eval(kb2["shape"], folded_s))
+    del x_s, w_s, b_s, g_s, index_s, folded_s
+    phase("stage 2", t0, f"one step card vs CPU at student width 0.25 / feature 64, 32x32, "
+          f"vanilla teacher 64/64, 4 samples x 3 views, one padded (f64 student, f32 teacher "
+          f"and losses): losses rel {errs[0]:.3g} (tol {STEP_LOSS_RTOL}), gradients "
+          f"max|d|/max|ref| {errs[1]:.3g} (tol {STEP_GRAD_TOL}), running statistics max|d| "
+          f"{errs[2]:.3g} (tol 1e-5)")
+    phase("time", t0, f"KD --stage 2 step f32 batch {KD_BATCH} x 3 views: {s2_ms:.3f} ms/step "
+          f"= {KD_BATCH * 1000.0 / s2_ms:.1f} samples/s by CUDA events; the frozen vanilla "
+          f"teacher's forward on the 138 views {s2_teacher_ms:.3f} ms [{card}]")
+    phase("profile", t0, f"2 stage-2 steps: {device_ms:.2f} ms device of {wall_ms:.2f} ms wall "
+          f"(busy {device_ms / wall_ms:.3f}); a step makes 1 stem forward call ({s2_stem[0]} "
+          f"CUDA launch), 1 stem backward call ({s2_stem[1]}) and 1 eval pointnet call "
+          f"({s2_pne} at (46, 2500, 256)), launches by a CUDA graph's kernel nodes [{card}]; by "
+          f"self device time:")
+    print_rows(rows, device_ms)
+    del s2_state, s2_teacher, kb2, history, im3
+
+    # 31. the variants, 2 steps each at full width (and 3 more timed by CUDA
+    # events), each with one step card vs CPU at the small width:
+    # --contrast and --vid through make_kd_crd_step (the KD teacher of phase
+    # 20 again), stage 1 with the memory bank (its queue saved and restored
+    # through a checkpoint), stage 1 and the teacher step with --nce pose
+    # (--weighting sqrt) and --nce multipose, and the RGB-only baseline at
+    # batch 64. Each variant's launches are counted from 0. The pose
+    # variants' small steps take their pose distances from the CPU on both
+    # sides (`pose_distances_on_cpu`).
+    variant_counts, variant_ms = {}, {}
+
+    def run_variant(name, run_step, loss_key, expect, small=None, loss_keys=()):
+        reset_counts()
+        history = [run_step() for _ in range(2)]
+        torch.cuda.synchronize()
+        variant_counts[name] = counts()
+        losses = [float(m[loss_key]) for m in history]
+        if variant_counts[name] != expect or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"{name}: launches {variant_counts[name]} (expected {expect}), "
+                               f"losses {losses}")
+        variant_ms[name] = cuda_ms(run_step, iters=3, warmup=0)
+        errs = card_vs_cpu(small, loss_keys) if small is not None else None
+        phase(name, t0, f"2 steps: {loss_key} {[round(v, 4) for v in losses]}; launches "
+              f"(geodesic, pointnet, NCE forward, NCE backward, stem forward, stem backward, "
+              f"train-mode pointnet forward, backward) {variant_counts[name]}; "
+              f"{variant_ms[name]:.3f} ms/step by CUDA events [{card}]"
+              + ("" if errs is None else
+                 f"; one small step card vs CPU: losses rel {errs[0]:.3g} (tol "
+                 f"{STEP_LOSS_RTOL}), gradients {errs[1]:.3g} (tol {STEP_GRAD_TOL}), running "
+                 f"statistics {errs[2]:.3g} (tol 1e-5)"))
+
+    state = convert.pose_state_dict(teacher_variables(np.random.default_rng(5)))
+    with torch.device("meta"):
+        kd_teacher = PoseEstimator()
+    kd_teacher.load_state_dict({k: v.to(dev) for k, v in state.items()}, strict=True,
+                               assign=True)
+    kd_teacher.eval().requires_grad_(False)
+    del state
+    kv_state = create_train_state(kd_student(48), LR, [10**9], seed=48)
+    kbv = {k: torch.from_numpy(v).to(dev) for k, v in
+           kd_batch(np.random.default_rng(34), KD_BATCH, 224, POINT_NUM).items()}
+    per_kd = (0, 2, 0, 0, 2, 2, 0, 0)
+    for variant in ("contrast", "vid"):
+        kv_step = steps.make_kd_crd_step(loss_variant=variant)
+        run_variant(f"KD --{variant}", lambda: kv_step(kv_state, kd_teacher, kbv), "loss",
+                    per_kd, small_kd_step(functools.partial(steps.make_kd_crd_step,
+                                                            loss_variant=variant),
+                                          PoseEstimator, t_small), ("loss", "gt_loss"))
+    del kv_state, kd_teacher, kbv
+
+    # stage 1's variants: the student and the vanilla teacher of phase 24
+    tv, sv = stage1_states(49)
+    sbv = {k: torch.from_numpy(v).to(dev) for k, v in
+           train_batch(np.random.default_rng(35), KD_BATCH, 224, POINT_NUM).items()}
+    s1_small = train_batch(np.random.default_rng(36), 4, 32, 100)
+    s1_small["valid"] = np.arange(4) < 3
+    keep_small = [torch.rand((4, 200), generator=torch.Generator().manual_seed(i)) < 0.7
+                  for i in (1, 2)]
+    bank_small = torch.randn((6, 200), generator=torch.Generator().manual_seed(3))
+
+    from pose3d_tpu_torch.losses import nce as nce_losses
+
+    def pose_distances_on_cpu(run):
+        """run(where) with the pose NCE's distances computed on the CPU for
+        either device: the f32 geodesic error of a pair of equal labels
+        reads 0 or 0.028 degrees by the device's rounding, and the pose NCE
+        weights the positive itself among the negatives by it (1e-4 of the
+        loss; tests/torch_pose_geodesic.py)."""
+        def wrapped(where):
+            own = nce_losses._pairwise_pose_distance_raw
+            nce_losses._pairwise_pose_distance_raw = \
+                lambda labels: own(labels.cpu()).to(labels.device)
+            try:
+                return run(where)
+            finally:
+                nce_losses._pairwise_pose_distance_raw = own
+        return wrapped
+
+    def small_stage1(**kw):
+        def run(where):
+            teacher = PoseEstimatorVanilla(img_feature_dim=64, shape_feature_dim=64)
+            teacher.load_state_dict(v_small, strict=True)
+            t_state = create_train_state(teacher.double().to(where), LR, [100], seed=1)
+            s_state = small_student(where)
+            batch = {k: torch.from_numpy(v).to(where) for k, v in s1_small.items()}
+            step = steps.make_stage1_step(tau=0.5, **kw)
+            if kw.get("use_memory_bank"):
+                bank = init_memory_bank(16, 200, where)
+                bank = enqueue(bank, bank_small.to(where))
+                metrics, bank = step(t_state, s_state, batch,
+                                     keep=[k.to(where) for k in keep_small], bank=bank)
+            else:
+                metrics = step(t_state, s_state, batch)
+            return metrics, [t_state.model, s_state.model]
+        return pose_distances_on_cpu(run)
+
+    bank = init_memory_bank(4096, 200, dev)
+    bank_step = steps.make_stage1_step(tau=0.5, use_memory_bank=True)
+
+    def bank_run():
+        nonlocal bank
+        metrics, bank = bank_step(tv, sv, sbv, bank=bank)
+        return metrics
+
+    per_s1 = (0, 0, 0, 0, 2, 2, 2, 2)
+    run_variant("stage 1 --use_memory_bank", bank_run, "loss", per_s1,
+                small_stage1(use_memory_bank=True), ("loss", "teacher_loss"))
+    # 2 counted steps, then cuda_ms's 3: 5 enqueues of 46 rows
+    filled, ptr = int(bank.filled), int(bank.ptr)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(tmp)
+        ckpt.save("checkpoint", {"bank": bank._asdict()})
+        back = MemoryBank(*(ckpt.restore("checkpoint")["bank"][k].to(dev)
+                            for k in MemoryBank._fields))
+    if (filled, ptr) != (5 * KD_BATCH,) * 2 or not all(
+            torch.equal(a, b) for a, b in zip(bank, back)):
+        raise RuntimeError(f"memory bank: filled {filled}, ptr {ptr} after 5 steps of "
+                           f"{KD_BATCH}; restored equal "
+                           f"{[torch.equal(a, b) for a, b in zip(bank, back)]}")
+    phase("stage 1 --use_memory_bank", t0, f"the queue (4096, 200) after 5 steps: filled "
+          f"{filled}, ptr {ptr}; saved in a checkpoint and restored equal")
+    del bank, back
+    for variant in ("pose", "multipose"):
+        v_step = steps.make_stage1_step(tau=0.5, nce_variant=variant, nce_weighting="sqrt")
+        run_variant(f"stage 1 --nce {variant}", lambda: v_step(tv, sv, sbv), "loss", per_s1,
+                    small_stage1(nce_variant=variant, nce_weighting="sqrt"),
+                    ("loss", "teacher_loss"))
+    del tv, sv, sbv
+
+    # the teacher step's pose variants at the recipe's width (phase 16)
+    tp_state = create_train_state(
+        PoseEstimator(img_feature_dim=1024, shape_feature_dim=TRAIN_SHAPE_DIM,
+                      generator=torch.Generator().manual_seed(50)).to(dev),
+        LR, [10**9], seed=50)
+    tbv = {k: torch.from_numpy(v).to(dev) for k, v in
+           train_batch(np.random.default_rng(39), TRAIN_BATCH, 224, POINT_NUM).items()}
+    for variant in ("pose", "multipose"):
+        tp_step = steps.make_teacher_train_step(nce_variant=variant, nce_weighting="sqrt")
+        run_variant(f"teacher --nce {variant}", lambda: tp_step(tp_state, tbv), "loss",
+                    (0, 0, 0, 0, 0, 0, 2, 2),
+                    pose_distances_on_cpu(small_teacher_step(nce_variant=variant,
+                                                             nce_weighting="sqrt")),
+                    ("loss", "pose_loss", "nce_loss"))
+    del tp_state, tbv
+
+    # the RGB-only baseline (training --shape None) at batch 64
+    def small_baseline(where):
+        state = small_student(where)
+        batch = {k: torch.from_numpy(v).to(where) for k, v in kd_small.items()
+                 if k in ("im", "label", "valid")}
+        batch["im"] = batch["im"].double()
+        return steps.make_vanilla_train_step(False)(state, batch), [state.model]
+
+    bl_state = create_train_state(kd_student(51), LR, [10**9], seed=51)
+    blb = {k: torch.from_numpy(v).to(dev) for k, v in
+           train_batch(np.random.default_rng(40), 64, 224, POINT_NUM).items() if k != "shape"}
+    bl_step = steps.make_vanilla_train_step(False)
+    run_variant("baseline", lambda: bl_step(bl_state, blb), "loss", (0, 0, 0, 0, 2, 2, 0, 0),
+                small_baseline, ("loss",))
+    del bl_state, blb
+
+    # 32. two forward calls of the NCE at once on two streams, each with its
+    # own ticket in its workspace (csrc/info_nce.cu), 20 pairs issued back
+    # to back, every loss against the plain version
+    pairs = [nce_inputs(np.random.default_rng(41), n, 200, dev)[:2] for n in (2500, 4096)]
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in side:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    with torch.no_grad():
+        for _ in range(20):
+            for st, (s_c, t_c) in zip(side, pairs):
+                with torch.cuda.stream(st):
+                    got.append(nce.fused_info_nce(s_c, t_c))
+        for st in side:
+            torch.cuda.current_stream().wait_stream(st)
+        torch.cuda.synchronize()
+        want = [nce.info_nce_plain(s_c, t_c) / s_c.shape[0] for s_c, t_c in pairs]
+    two_stream_err = max(abs(float(g) - float(want[i % 2])) / abs(float(want[i % 2]))
+                         for i, g in enumerate(got))
+    if two_stream_err > NCE_LOSS_RTOL:
+        raise RuntimeError(f"NCE forward on two streams at once: loss rel {two_stream_err:.3g}")
+    phase("nce", t0, f"two streams at once, (2500, 200) and (4096, 200), 20 forward calls "
+          f"each: every loss within {two_stream_err:.3g} of the plain version (tol "
+          f"{NCE_LOSS_RTOL})")
+    del pairs, got
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2215,29 +2573,33 @@ def main() -> int:
                 launched[i], nce_err, sum(t[f"kernel {part}"]["ms"]) / 2,
                 sum(t[f"plain {part}"]["ms"]) / 2, nce_bounds[n_c][i]))
 
+    # the launches of this slice's paths (phases 28 and 31), added to each
+    # kernel's main-path count
+    added = [sum(c[i] for c in (s2_counts, *variant_counts.values())) for i in range(8)]
+    print(f"[total] {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [
         entry("geodesic_rotation_err", "pose3d_tpu_torch/csrc/geodesic.cu",
               "pose3d_tpu/ops/geodesic.py:65", student_geo + teacher_geo, geo_err,
               geo_times[1_000_000][0], geo_times[1_000_000][1], geo_bound),
         entry("pointnet_eval", "pose3d_tpu_torch/csrc/pointnet_eval.cu",
-              "pose3d_tpu/ops/pointnet_fused.py:78", teacher_pn, pn_err,
+              "pose3d_tpu/ops/pointnet_fused.py:78", teacher_pn + added[1], pn_err,
               *pn_times[TEACHER_BATCH, 1024], pn_bounds[TEACHER_BATCH, 1024]),
         *nce_entries,
         entry("vgg_stem_forward", "pose3d_tpu_torch/csrc/vgg_stem.cu",
-              "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[4], stem_err,
+              "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[4] + added[4], stem_err,
               stem_times[3 * KD_BATCH]["kernel forward"],
               stem_times[3 * KD_BATCH]["plain forward"], stem_bounds[3 * KD_BATCH][0]),
         entry("vgg_stem_backward", "pose3d_tpu_torch/csrc/vgg_stem.cu",
-              "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[5], stem_err,
+              "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[5] + added[5], stem_err,
               stem_times[3 * KD_BATCH]["kernel backward"],
               stem_times[3 * KD_BATCH]["plain backward"], stem_bounds[3 * KD_BATCH][1]),
         entry("pointnet_train_forward", "pose3d_tpu_torch/csrc/pointnet_train.cu",
-              "pose3d_tpu/ops/pointnet_train_fused.py:372", train_counts[6], pt_err,
+              "pose3d_tpu/ops/pointnet_train_fused.py:372", train_counts[6] + added[6], pt_err,
               pt_times[TRAIN_BATCH]["kernel forward"], pt_times[TRAIN_BATCH]["plain forward"],
               pt_bounds[TRAIN_BATCH][0]),
         entry("pointnet_train_backward", "pose3d_tpu_torch/csrc/pointnet_train.cu",
-              "pose3d_tpu/ops/pointnet_train_fused.py:372", train_counts[7], pt_err,
+              "pose3d_tpu/ops/pointnet_train_fused.py:372", train_counts[7] + added[7], pt_err,
               pt_times[TRAIN_BATCH]["kernel backward"], pt_times[TRAIN_BATCH]["plain backward"],
               pt_bounds[TRAIN_BATCH][1])]}))
     print(json.dumps({"ok": True, "device": {

@@ -96,25 +96,32 @@ def build_teacher(opt, checkpoint: str | None, device: torch.device,
     return _loaded(model, checkpoint, device)
 
 
-def build_vanilla(opt, device: torch.device) -> PoseEstimatorVanilla:
-    """The KD `--stage 1` vanilla PointCloud teacher of the flags
-    (ResNet-18, PointNet, compress MLP), from a seeded random init, on
-    `device`: stage 1 trains it from scratch, as JAX's CLI does."""
+def build_vanilla(opt, device: torch.device,
+                  checkpoint: str | None = None) -> PoseEstimatorVanilla:
+    """The vanilla PointCloud teacher of the flags (ResNet-18, PointNet,
+    compress MLP) on `device`. Without `checkpoint`, from a seeded random
+    init in train mode: KD `--stage 1` trains it from scratch, as JAX's CLI
+    does. With one (KD `--stage 2`'s frozen teacher), loaded strictly and
+    in eval mode: the "teacher" train state of the port's stage-1
+    `checkpoint.pth`, or a reference-layout vanilla `.pth`."""
     azi, ele, inp = num_classes(opt.bin_size)
-    return PoseEstimatorVanilla(
+    model = PoseEstimatorVanilla(
         img_feature_dim=opt.img_feature_dim, shape_feature_dim=opt.shape_feature_dim,
         azi_classes=azi, ele_classes=ele, inp_classes=inp, bin_size=opt.bin_size,
-        generator=torch.Generator().manual_seed(1)).to(device)
+        generator=torch.Generator().manual_seed(1))
+    if checkpoint is None:
+        return model.to(device)
+    return _loaded(model, checkpoint, device, role="teacher")
 
 
-def _loaded(model, checkpoint: str | None, device: torch.device):
+def _loaded(model, checkpoint: str | None, device: torch.device, role: str | None = None):
     if checkpoint:
         if os.path.isdir(checkpoint):
             raise SystemExit(f"{checkpoint}: a checkpoint directory (the JAX package's "
                              "orbax format) is not read by pose3d_tpu_torch; see "
                              "ROADMAP.md Queue 1. Pass a .pth: a reference-layout "
                              "state_dict or the port's own checkpoint.pth")
-        model.load_state_dict(read_state_dict(checkpoint), strict=True)
+        model.load_state_dict(read_state_dict(checkpoint, role), strict=True)
     else:
         print("WARNING: no checkpoint given; the model keeps its seeded random init")
     return model.to(device).eval()
@@ -159,10 +166,10 @@ def build_train_eval_datasets(opt):
 
 def build_kd_datasets(opt):
     """The KD regimes' train and validation sets, as the JAX CLI builds
-    them. `--crd`: Pascal3DContrast (three views a sample, with its cloud)
-    on ObjectNet3D's test categories or on Pascal3D's; the validation set
-    evaluates the RGB-only student, so it loads no clouds (JAX loads and
-    ignores them). `--stage 1`: plain Pascal3D samples with their clouds,
+    them. `--crd`, `--contrast`, `--vid` and `--stage 2`: Pascal3DContrast
+    (three views a sample, with its cloud) on ObjectNet3D's test categories
+    or on Pascal3D's; the validation set evaluates the RGB-only student, so
+    it loads no clouds (JAX loads and ignores them). `--stage 1`: plain Pascal3D samples with their clouds,
     train (with `--random` / `--random_range`) and validation, since the
     vanilla teacher is what stage 1 evaluates."""
     root_dir = os.path.join(opt.data_root, opt.dataset)

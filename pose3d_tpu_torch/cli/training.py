@@ -1,18 +1,27 @@
-"""Teacher training CLI. Port of `pose3d_tpu/cli/training.py` for the
-contrastive PointCloud teacher (`--shape PointCloud`) on ObjectNet3D and
-Pascal3D, with `--fused_nce` (the infoNCE term in the CUDA kernels of
-`csrc/info_nce.cu` on the card).
+"""Teacher and baseline training CLI. Port of `pose3d_tpu/cli/training.py`
+on ObjectNet3D and Pascal3D:
+  * `--shape PointCloud`: the contrastive PointCloud teacher, its NCE the
+    infoNCE-KD (through the CUDA kernels of `csrc/info_nce.cu` on the card
+    with `--fused_nce`), or `--nce pose` (weighted by `--weighting`) or
+    `--nce multipose`;
+  * `--shape None`: the RGB-only supervised baseline, the student
+    (`--img_feature_dim`, `--student_width_mult`) under the 4-term pose
+    loss alone, its stem in the VGG stem kernel on the card.
 
     python -m pose3d_tpu_torch.cli.training --dataset ObjectNet3D \\
         --shape PointCloud --shape_dir pointcloud --batch_size 160 \\
         --n_epoch 300 --lr 1e-4 --decrease 200 --fused_nce
+    python -m pose3d_tpu_torch.cli.training --dataset ObjectNet3D --shape None \\
+        --img_feature_dim 2048 --batch_size 64
 
 Runs on the card (`--device cuda`, the default); `--device cpu` runs the
-plain versions. Writes, under <result_dir>/PointCloud_<dataset>[_novel]/,
-training_log.txt, config.json, metrics.jsonl, the curves and ckpt/
-(checkpoint.pth, best.pth, the image encoder alone, EPOCH); `--resume`
-continues from the last saved epoch. The flags of paths not ported yet are
-refused with a message that names ROADMAP.md.
+plain versions. Writes, under <result_dir>/PointCloud_<dataset>[_novel]/
+(the baseline: baseline_<dataset>[_novel]/), training_log.txt,
+config.json, metrics.jsonl, the curves and ckpt/ (checkpoint.pth, best.pth,
+EPOCH and, for the teacher, the image encoder alone; checkpoint.pth is
+what the testing CLI's `--model` reads); `--resume` continues from the last
+saved epoch. The flags of paths not ported yet are refused with a message
+that names ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import torch
 
@@ -28,7 +38,7 @@ from pose3d_tpu_torch.data import datasets
 from pose3d_tpu_torch.data.loader import DataLoader
 from pose3d_tpu_torch.models.estimators import PoseEstimator
 from pose3d_tpu_torch.train.state import create_train_state
-from pose3d_tpu_torch.train.trainer import TeacherTrainer
+from pose3d_tpu_torch.train.trainer import SupervisedTrainer, TeacherTrainer
 from pose3d_tpu_torch.utils.logging import TxtLogger
 
 
@@ -52,8 +62,10 @@ def parse_args(argv=None):
                         choices=["Renders_semi_sphere", "pointcloud"])
     parser.add_argument("--shape", type=str, default="MultiView",
                         choices=["MultiView", "PointCloud", "None"],
-                        help="PointCloud: the contrastive teacher; MultiView and "
-                             "None are not ported yet")
+                        help="PointCloud: the contrastive teacher; None: the RGB-only "
+                             "supervised baseline; MultiView is not ported yet")
+    parser.add_argument("--student_width_mult", type=float, default=1.0,
+                        help="--shape None: the student's VGG conv width multiplier")
     parser.add_argument("--novel", action="store_true")
     parser.add_argument("--keypoint", action="store_true")
     parser.add_argument("--shot", type=int, default=None)
@@ -75,10 +87,11 @@ def parse_args(argv=None):
                              "of up to 1024, the blocked one above")
     parser.add_argument("--nce", type=str, default="info",
                         choices=["info", "pose", "multipose"],
-                        help="pose / multipose: not ported yet, refused")
+                        help="the teacher's contrastive term: info (infoNCE-KD, the "
+                             "reference's) or the pose-weighted pose and multipose")
     parser.add_argument("--weighting", type=str, default=None,
                         choices=["linear", "square", "sqrt", "sin", "sinsin"],
-                        help="--nce pose only: not ported yet, refused")
+                        help="the pose distance's weighting; --nce pose only")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda); cpu runs the plain "
                              "versions and must be asked for")
@@ -94,15 +107,31 @@ def parse_args(argv=None):
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="not ported yet, refused (ROADMAP.md)")
     opt = parser.parse_args(argv)
-    if opt.shape != "PointCloud":
-        raise SystemExit(f"--shape {opt.shape}: only the PointCloud teacher's training is "
-                         "ported to pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+    if opt.shape == "MultiView":
+        raise SystemExit("--shape MultiView: the MultiView teacher's training is not ported "
+                         "to pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
     if opt.dataset in (None, "ShapeNetCore", "Pix3D", "LineMod"):
         raise SystemExit(f"--dataset {opt.dataset}: training on it is not ported to "
                          "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
-    unported = {"--nce pose/multipose": opt.nce != "info",
-                "--weighting": opt.weighting is not None,
-                "--loader shm": opt.loader != "thread",
+    # JAX's refusals, with its messages
+    if opt.weighting is not None and opt.nce != "pose":
+        raise SystemExit("--weighting is consumed only by --nce pose "
+                         "(refusing to accept-and-ignore it)")
+    if opt.nce != "info" and opt.shape == "None":
+        raise SystemExit("--nce pose/multipose applies to teacher training (--shape ...); "
+                         "the RGB baseline has no contrastive term")
+    if opt.fused_nce and opt.nce != "info":
+        print("WARNING: the NCE kernels implement the infoNCE term only; --nce "
+              "pose/multipose takes the plain lowering (train/steps.py route_info_nce) — "
+              "continuing WITHOUT --fused_nce", file=sys.stderr)
+        opt.fused_nce = False
+    if opt.shape == "None" and opt.fused_nce:
+        raise SystemExit("--fused_nce: the RGB baseline has no contrastive term "
+                         "(ROADMAP.md Queue 1 lists the ported regimes)")
+    if opt.shape != "None" and opt.student_width_mult != 1.0:
+        raise SystemExit("--student_width_mult applies to --shape None, the RGB baseline "
+                         "(ROADMAP.md Queue 1 lists the ported regimes)")
+    unported = {"--loader shm": opt.loader != "thread",
                 "--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
                 "--cache_decoded_mb > 0": opt.cache_decoded_mb > 0,
                 "--profile_dir": opt.profile_dir is not None,
@@ -125,25 +154,21 @@ def main(argv=None):
     train_loader = common.make_train_loader(dataset_train, opt)
     eval_loader = DataLoader(dataset_eval, opt.batch_size, shuffle=False,
                              num_workers=opt.workers, seed=common.MANUAL_SEED)
-    # the per-category Acc sweep runs on the contrastive val set without the
-    # keypoint filter, as the reference's training.py does
-    cat_ds = datasets.Pascal3DContrast(
-        os.path.join(opt.data_root, opt.dataset), f"{opt.dataset}.txt", train=False,
-        cat_choice=common.TEST_CATS[opt.dataset], keypoint=False, shape=opt.shape,
-        shape_dir=opt.shape_dir, input_dim=opt.input_dim, point_num=opt.point_num)
-    cat_eval_loader = DataLoader(cat_ds, opt.batch_size, shuffle=False,
-                                 num_workers=opt.workers, seed=common.MANUAL_SEED)
-
-    azi, ele, inp = common.num_classes(opt.bin_size)
-    model = PoseEstimator(img_feature_dim=opt.img_feature_dim,
-                          shape_feature_dim=opt.shape_feature_dim, azi_classes=azi,
-                          ele_classes=ele, inp_classes=inp, bin_size=opt.bin_size,
-                          generator=torch.Generator().manual_seed(common.MANUAL_SEED))
     steps_per_epoch = max(len(train_loader), 1)
+    if opt.shape == "None":
+        print("Baseline!")
+        model = common.build_student(opt, None, device).train()
+    else:
+        azi, ele, inp = common.num_classes(opt.bin_size)
+        model = PoseEstimator(img_feature_dim=opt.img_feature_dim,
+                              shape_feature_dim=opt.shape_feature_dim, azi_classes=azi,
+                              ele_classes=ele, inp_classes=inp, bin_size=opt.bin_size,
+                              generator=torch.Generator().manual_seed(common.MANUAL_SEED))
     state = create_train_state(model.to(device), opt.lr, [opt.decrease * steps_per_epoch],
                                seed=common.MANUAL_SEED)
 
-    training_mode = f"{opt.shape}_{opt.dataset}" + ("_novel" if opt.novel else "")
+    training_mode = (f"baseline_{opt.dataset}" if opt.shape == "None"
+                     else f"{opt.shape}_{opt.dataset}") + ("_novel" if opt.novel else "")
     result_path = os.path.join(os.getcwd(), opt.result_dir, training_mode)
     os.makedirs(result_path, exist_ok=True)
     log = TxtLogger(os.path.join(result_path, "training_log.txt"))
@@ -153,9 +178,25 @@ def main(argv=None):
     with open(os.path.join(result_path, "config.json"), "w") as f:
         json.dump(vars(opt), f, indent=1)
 
-    trainer = TeacherTrainer(state, train_loader, eval_loader, cat_ds.category_names,
-                             result_path, bin_size=opt.bin_size, print_freq=opt.print_freq,
-                             cat_eval_loader=cat_eval_loader, use_fused_nce=opt.fused_nce)
+    if opt.shape == "None":
+        # the supervised RGB-only baseline (the reference's train_vanilla)
+        trainer = SupervisedTrainer(state, train_loader, eval_loader,
+                                    dataset_eval.category_names, result_path, kind="student",
+                                    bin_size=opt.bin_size, print_freq=opt.print_freq)
+    else:
+        # the per-category Acc sweep runs on the contrastive val set without
+        # the keypoint filter, as the reference's training.py does
+        cat_ds = datasets.Pascal3DContrast(
+            os.path.join(opt.data_root, opt.dataset), f"{opt.dataset}.txt", train=False,
+            cat_choice=common.TEST_CATS[opt.dataset], keypoint=False, shape=opt.shape,
+            shape_dir=opt.shape_dir, input_dim=opt.input_dim, point_num=opt.point_num)
+        cat_eval_loader = DataLoader(cat_ds, opt.batch_size, shuffle=False,
+                                     num_workers=opt.workers, seed=common.MANUAL_SEED)
+        trainer = TeacherTrainer(state, train_loader, eval_loader, cat_ds.category_names,
+                                 result_path, bin_size=opt.bin_size, print_freq=opt.print_freq,
+                                 cat_eval_loader=cat_eval_loader,
+                                 use_fused_nce=opt.fused_nce, nce_variant=opt.nce,
+                                 nce_weighting=opt.weighting or "linear")
     start_epoch = 0
     if opt.resume:
         latest = trainer.ckpt.latest_epoch()

@@ -1,13 +1,21 @@
-"""Student KD training CLI. Port of `pose3d_tpu/cli/trainingKD.py` for two
-regimes, on ObjectNet3D or Pascal3D:
+"""Student KD training CLI. Port of `pose3d_tpu/cli/trainingKD.py`, on
+ObjectNet3D or Pascal3D, with a PointCloud teacher:
   * `--crd`: the RGB-only student (VGG-11) distilled from a frozen
     PointCloud teacher, with the stem's CUDA kernel (`csrc/vgg_stem.cu`) in
     every step and the teacher's PointNet kernel in its forward on the card;
+    `--contrast` drops the features' KL (30 epochs), `--vid` takes the VID
+    loss instead (60);
   * `--stage 1`: the vanilla PointCloud teacher (ResNet-18, PointNet,
     compress MLP) and the student trained together from scratch, with the
     teacher's pose loss and the symmetric infoNCE-KD at `--tau` (its two
     directions in the NCE kernels with `--fused_nce`), the train-mode
-    PointNet kernel (`csrc/pointnet_train.cu`) in every step.
+    PointNet kernel (`csrc/pointnet_train.cu`) in every step; with
+    `--use_memory_bank` a queue of `--memory_bank_size` past teacher
+    features joins the negatives, and `--nce pose` (weighted by
+    `--weighting`) or `--nce multipose` replaces the infoNCE;
+  * `--stage 2`: the student distilled (response KD) from stage 1's frozen
+    vanilla teacher, read from `--teacher_model`: the port's stage-1
+    `checkpoint.pth` or a reference-layout vanilla `.pth`.
 
     python -m pose3d_tpu_torch.cli.trainingKD --crd --dataset ObjectNet3D \\
         --shape PointCloud --shape_dir pointcloud --batch_size 46 \\
@@ -15,17 +23,22 @@ regimes, on ObjectNet3D or Pascal3D:
     python -m pose3d_tpu_torch.cli.trainingKD --stage 1 --fused_nce \\
         --dataset ObjectNet3D --shape PointCloud --shape_dir pointcloud \\
         --batch_size 46 --shape_feature_dim 256
+    python -m pose3d_tpu_torch.cli.trainingKD --stage 2 --dataset ObjectNet3D \\
+        --shape PointCloud --shape_dir pointcloud --batch_size 46 \\
+        --shape_feature_dim 256 \\
+        --teacher_model result/KD_ObjectNet3D/ckpt/checkpoint.pth
 
 Runs on the card (`--device cuda`, the default); `--device cpu` runs the
-plain versions. `--crd` runs 60 epochs and `--stage 1` 300 (`--n_epoch`
-overrides), lr 1e-4 times 0.1 after `--decrease` epochs, counted in
-optimizer steps as JAX does. `--teacher_model` (--crd) reads a
-reference-layout .pth or the port's own teacher `checkpoint.pth`;
-`--student_model` warm-starts the student from either kind. Writes, under
-<result_dir>/KD_<dataset>/, training_log.txt (a "Student Epoch" line per
-epoch), config.json, metrics.jsonl and ckpt/ (checkpoint.pth, best.pth,
-EPOCH; --crd's checkpoint.pth is what the testing CLI's `--model` reads,
---stage 1's holds both train states under "teacher" and "student");
+plain versions. `--crd` runs 60 epochs, `--contrast` 30, `--stage 1` 300
+and `--stage 2` 90 (`--n_epoch` overrides), lr 1e-4 times 0.1 after
+`--decrease` epochs, counted in optimizer steps as JAX does.
+`--teacher_model` (--crd) reads a reference-layout .pth or the port's own
+teacher `checkpoint.pth`; `--student_model` warm-starts the student from
+either kind. Writes, under <result_dir>/KD_<dataset>/, training_log.txt (a
+"Student Epoch" line per epoch), config.json, metrics.jsonl and ckpt/
+(checkpoint.pth, best.pth, EPOCH; the student regimes' checkpoint.pth is
+what the testing CLI's `--model` reads, --stage 1's holds both train states
+under "teacher" and "student", and the memory bank under "bank");
 `--resume` continues from the last saved epoch; `--export_torch` writes
 the final student as a reference-layout .pth.
 The flags of paths not ported yet are refused with a message that names
@@ -47,7 +60,7 @@ from pose3d_tpu_torch.train.state import create_train_state
 from pose3d_tpu_torch.train.trainer import KDTrainer
 from pose3d_tpu_torch.utils.logging import TxtLogger
 
-EPOCHS = {"crd": 60, "stage1": 300}  # the reference's regimes
+EPOCHS = {"contrast": 30, "crd": 60, "stage1": 300, "stage2": 90}  # the reference's regimes
 
 
 def parse_args(argv=None):
@@ -87,19 +100,27 @@ def parse_args(argv=None):
     parser.add_argument("--decrease", type=int, default=44,
                         help="epoch at which the learning rate drops tenfold")
     parser.add_argument("--teacher_model", type=str, default=None,
-                        help="--crd's frozen teacher: a reference-layout .pth or the "
-                             "port's teacher checkpoint.pth (--stage 1 trains its own)")
+                        help="the frozen teacher: --crd's (--contrast, --vid) a "
+                             "reference-layout .pth or the port's teacher checkpoint.pth; "
+                             "--stage 2's a reference-layout vanilla .pth or the port's "
+                             "stage-1 checkpoint.pth (--stage 1 trains its own)")
     parser.add_argument("--student_model", type=str, default=None,
                         help="optional student warm start (.pth, loaded strictly)")
     parser.add_argument("--crd", action="store_true",
                         help="the feature-KD regime (the default when no other is set)")
     parser.add_argument("--stage", type=int, default=0,
                         help="1: the vanilla teacher and the student trained together; "
-                             "2: not ported yet, refused (ROADMAP.md)")
+                             "2: the student distilled from stage 1's frozen teacher")
+    parser.add_argument("--contrast", action="store_true",
+                        help="--crd without the features' KL term, 30 epochs (the "
+                             "reference dispatches this flag to a method that does not "
+                             "exist; JAX's reading of it)")
+    parser.add_argument("--vid", action="store_true",
+                        help="--crd with the VID loss: 0.6 CE + 0.2 KL + 0.2 VID")
     parser.add_argument("--temperature", type=float, default=1.0)
     parser.add_argument("--weighting", type=str, default=None,
                         choices=["linear", "square", "sqrt", "sin", "sinsin"],
-                        help="consumed only by --stage 1 --nce pose; with --crd it is "
+                        help="consumed only by --stage 1 --nce pose; elsewhere it is "
                              "ignored with a warning, as in the JAX CLI")
     parser.add_argument("--n_epoch", type=int, default=None,
                         help=f"override the regime's epochs ({EPOCHS})")
@@ -109,16 +130,13 @@ def parse_args(argv=None):
     parser.add_argument("--result_dir", type=str, default="result")
     parser.add_argument("--resume", action="store_true",
                         help="continue from the latest checkpoint (--stage 1: both "
-                             "models)")
+                             "models and the memory bank)")
     parser.add_argument("--export_torch", type=str, default=None,
                         help="also write the final student as a reference-layout .pth here")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda); cpu runs the plain "
                              "versions and must be asked for")
-    for flag, what in (("contrast", "the response-KD regime"),
-                       ("vid", "the VID loss variant"),
-                       ("use_memory_bank", "the stage-1 memory bank"),
-                       ("int8_teacher", "an int8 frozen teacher"),
+    for flag, what in (("int8_teacher", "an int8 frozen teacher"),
                        ("device_augment", "on-device photometric augmentation"),
                        ("device_views", "on-device view synthesis"),
                        ("device_shapes", "a device-resident cloud bank"),
@@ -129,10 +147,16 @@ def parse_args(argv=None):
                         help="--stage 1: both NCE directions in the NCE kernels")
     parser.add_argument("--tau", type=float, default=None,
                         help="--stage 1's NCE temperature (default 0.5)")
+    parser.add_argument("--use_memory_bank", action="store_true",
+                        help="--stage 1: a FIFO queue of past teacher features joins the "
+                             "NCE's negatives (an extension of JAX's; --fused_nce does not "
+                             "apply to it)")
+    parser.add_argument("--memory_bank_size", type=int, default=4096,
+                        help="the queue's length for --use_memory_bank")
     parser.add_argument("--nce", type=str, default="info",
                         choices=["info", "pose", "multipose"],
-                        help="pose / multipose: --stage 1's pose-weighted NCE, not ported "
-                             "yet, refused (ROADMAP.md)")
+                        help="--stage 1's NCE: info (the reference's), or the "
+                             "pose-weighted pose (weighted by --weighting) and multipose")
     parser.add_argument("--n_devices", type=int, default=None,
                         help="more than 1: not ported yet, refused (ROADMAP.md)")
     parser.add_argument("--cache_decoded_mb", type=float, default=0.0,
@@ -146,22 +170,43 @@ def parse_args(argv=None):
     if opt.dataset in (None, "ShapeNetCore", "Pix3D", "LineMod"):
         raise SystemExit(f"--dataset {opt.dataset}: KD training on it is not ported to "
                          "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
-    if opt.stage not in (0, 1):
-        raise SystemExit(f"--stage {opt.stage} is not ported to pose3d_tpu_torch's KD "
-                         "training yet; see ROADMAP.md Queue 1")
+    if opt.stage not in (0, 1, 2):
+        raise SystemExit(f"--stage {opt.stage}: pose3d_tpu_torch's KD training takes --stage "
+                         "1 or 2, or none for --crd (ROADMAP.md Queue 1 lists the regimes)")
+    # JAX's refusals, with its messages
+    if opt.weighting is not None and not (opt.stage == 1 and opt.nce == "pose"):
+        print("WARNING: --weighting has NO consumer outside --stage 1 --nce pose (the "
+              "reference ignores it everywhere too, trainingKD.py:128); continuing WITHOUT "
+              "pose weighting", file=sys.stderr)
+        opt.weighting = None
+    if opt.nce != "info" and opt.stage != 1:
+        raise SystemExit("--nce pose/multipose applies to --stage 1 (the only regime with a "
+                         "contrastive term)")
+    if opt.vid and (opt.stage != 0 or opt.contrast):
+        raise SystemExit("--vid is a --crd loss variant")
+    if opt.fused_nce and opt.nce != "info":
+        print("WARNING: the NCE kernels implement the infoNCE term only; --nce "
+              "pose/multipose takes the plain lowering (train/steps.py route_info_nce) — "
+              "continuing WITHOUT --fused_nce", file=sys.stderr)
+        opt.fused_nce = False
+    if opt.contrast and (opt.crd or opt.stage != 0):
+        raise SystemExit("--contrast is a loss variant of the --crd regime and replaces it: "
+                         "JAX runs --crd or --stage and ignores it, so the port refuses the "
+                         "pair (ROADMAP.md Queue 1)")
+    if opt.use_memory_bank and opt.nce != "info":
+        raise SystemExit("--use_memory_bank with --nce pose/multipose: pose-weighted NCE has "
+                         "no memory-bank form (the queue holds no pose labels)")
     stage1_only = {"--fused_nce": opt.fused_nce, "--tau": opt.tau is not None,
-                   "--random": opt.random, "--random_range > 0": opt.random_range > 0}
+                   "--random": opt.random, "--random_range > 0": opt.random_range > 0,
+                   "--use_memory_bank": opt.use_memory_bank}
     for flag, set_ in stage1_only.items():
         if set_ and opt.stage != 1:
-            raise SystemExit(f"{flag} applies to --stage 1 only; the --crd regime has no "
+            raise SystemExit(f"{flag} applies to --stage 1 only; the other regimes have no "
                              "use for it (ROADMAP.md Queue 1 lists the ported regimes)")
     if opt.stage == 1 and opt.teacher_model is not None:
         raise SystemExit("--teacher_model: --stage 1 trains its vanilla teacher from "
                          "scratch (ROADMAP.md Queue 1 lists the ported regimes)")
-    unported = {"--contrast": opt.contrast, "--vid": opt.vid,
-                "--use_memory_bank": opt.use_memory_bank,
-                "--nce pose/multipose": opt.nce != "info",
-                "--int8_teacher": opt.int8_teacher, "--device_augment": opt.device_augment,
+    unported = {"--int8_teacher": opt.int8_teacher, "--device_augment": opt.device_augment,
                 "--device_views": opt.device_views, "--device_shapes": opt.device_shapes,
                 "--bf16": opt.bf16, "--loader shm": opt.loader != "thread",
                 "--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
@@ -173,10 +218,6 @@ def parse_args(argv=None):
                              "see ROADMAP.md Queue 1")
     if opt.tau is None:
         opt.tau = 0.5
-    if opt.weighting is not None:
-        print("WARNING: --weighting has no consumer outside --stage 1 --nce pose; "
-              "continuing without pose weighting", file=sys.stderr)
-        opt.weighting = None
     return opt
 
 
@@ -200,7 +241,13 @@ def main(argv=None):
         teacher_state = create_train_state(common.build_vanilla(opt, device), opt.lr,
                                            milestones, seed=common.MANUAL_SEED + 1)
     else:
-        teacher = common.build_teacher(opt, opt.teacher_model, device).requires_grad_(False)
+        if opt.stage == 2:
+            if opt.teacher_model is None:
+                print("WARNING: no checkpoint given; the model keeps its seeded random init")
+            teacher = common.build_vanilla(opt, device, opt.teacher_model).eval()
+        else:
+            teacher = common.build_teacher(opt, opt.teacher_model, device)
+        teacher.requires_grad_(False)
         teacher_state = None
 
     result_path = os.path.join(os.getcwd(), opt.result_dir, f"KD_{opt.dataset}")
@@ -213,18 +260,26 @@ def main(argv=None):
     trainer = KDTrainer(state, teacher, train_loader, eval_loader,
                         dataset_eval.category_names, result_path, bin_size=opt.bin_size,
                         temperature=opt.temperature, teacher_state=teacher_state,
-                        tau=opt.tau, use_fused_nce=opt.fused_nce)
+                        tau=opt.tau, use_fused_nce=opt.fused_nce, nce_variant=opt.nce,
+                        nce_weighting=opt.weighting or "linear")
     start_epoch = 0
     latest = trainer.ckpt.latest_epoch() if opt.resume else None
     if latest is not None:
         start_epoch = latest + 1
         print(f"resuming from epoch {latest}")
-    if opt.stage == 1:  # fit_stage1 restores both train states itself
-        best = trainer.fit_stage1(opt.n_epoch or EPOCHS["stage1"], start_epoch=start_epoch)
+    if opt.stage == 1:  # fit_stage1 restores both train states (and the bank) itself
+        best = trainer.fit_stage1(opt.n_epoch or EPOCHS["stage1"], start_epoch=start_epoch,
+                                  use_memory_bank=opt.use_memory_bank,
+                                  memory_bank_size=opt.memory_bank_size)
     else:
         if latest is not None:
             state.load_state_dict(trainer.ckpt.restore("checkpoint"))
-        best = trainer.fit_crd(opt.n_epoch or EPOCHS["crd"], start_epoch=start_epoch)
+        if opt.stage == 2:
+            best = trainer.fit_stage2(opt.n_epoch or EPOCHS["stage2"], start_epoch=start_epoch)
+        else:
+            variant = "contrast" if opt.contrast else "vid" if opt.vid else "crd"
+            best = trainer.fit_crd(opt.n_epoch or EPOCHS["crd" if variant == "vid" else variant],
+                                   start_epoch=start_epoch, loss_variant=variant)
 
     if opt.export_torch:
         torch.save({"state_dict": {k: v.cpu() for k, v in state.model.state_dict().items()}},

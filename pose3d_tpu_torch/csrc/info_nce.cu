@@ -73,8 +73,10 @@
 //     se exp(m_old - m_new), and writes m, denom, pos and the row losses; the
 //     last row tile to finish (an atomic ticket; the sums are not atomics)
 //     sums the row losses and the valid rows in row order into loss and
-//     count and resets the ticket. So two calls on one device must not
-//     overlap: the port issues them on one stream.
+//     count. The ticket is the call's own: the count's word in the call's
+//     workspace, zeroed by the entry point on the call's stream before the
+//     launch and overwritten by the count at the end, so calls on several
+//     streams may overlap.
 //   * Backward, one launch: blocks [0, R) own row tiles of ds, blocks
 //     [R, R + C) tiles of 32 columns of dt. Each recomputes its z tiles with
 //     the forward's fragments in the forward's k order, forms dz in shared
@@ -118,9 +120,6 @@ struct Shape {
   int vec_a, vec_b;    // the first and second operand rows load 16 bytes at a time
   float tau;
 };
-
-// the forward's ticket: the row tiles that have written their rows
-__device__ unsigned int g_ticket;
 
 __device__ __forceinline__ bool is_valid(const float* mask, long long i) {
   return mask == nullptr || mask[i] > 0.0f;
@@ -534,7 +533,8 @@ nce_forward_kernel(const float* __restrict__ s, const float* __restrict__ t,
   __threadfence();  // this tile's row losses before its ticket
   __syncthreads();
   if (threadIdx.x == 0)
-    *last = atomicAdd(&g_ticket, 1u) == static_cast<unsigned>(sh.row_tiles - 1);
+    *last = atomicAdd(reinterpret_cast<unsigned*>(count), 1u) ==
+            static_cast<unsigned>(sh.row_tiles - 1);
   __syncthreads();
   if (*last == 0) return;
   __threadfence();
@@ -556,9 +556,8 @@ nce_forward_kernel(const float* __restrict__ s, const float* __restrict__ t,
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    count[0] = sums[kThreads];
+    count[0] = sums[kThreads];  // the ticket's word: every tile has taken its ticket
     loss[0] = divide ? sums[0] / fmaxf(sums[kThreads], 1.0f) : sums[0];
-    atomicExch(&g_ticket, 0u);  // ready for the next call
   }
 }
 
@@ -846,8 +845,9 @@ extern "C" int info_nce_launches(int which) {
 // count (one float, the valid rows). All contiguous on the current device.
 // Launches on `stream` and returns the first cudaError_t (0 on success); it
 // neither synchronises nor allocates. The caller keeps 1 <= nr, nc < 2^31
-// and 1 <= d <= 512, and issues the calls on one device one after another
-// (the ticket).
+// and 1 <= d <= 512. `count` is the row tiles' ticket until the last one
+// writes the count into it: it is zeroed here on `stream`, so calls on
+// other streams, each with its own workspace, may run at once.
 extern "C" int info_nce_forward(const float* s, const float* t, const float* vrow,
                                 const float* vcol, long long nr, long long nc, long long d,
                                 long long off, float tau, int divide, float* sn, float* tn,
@@ -871,6 +871,8 @@ extern "C" int info_nce_forward(const float* s, const float* t, const float* vro
   sh.splits = static_cast<int>((ntiles + per - 1) / per);  // every split holds a column
   const int rm = tile_mtiles(nr, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(count, 0, sizeof(unsigned), st);  // the call's ticket
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = rm == 2 ? launch_forward<2>(s, t, vrow, vcol, sh, divide, sn, tn, s_norm, t_norm, m,
                                     denom, pos, row_loss, loss, count, st)
                 : launch_forward<1>(s, t, vrow, vcol, sh, divide, sn, tn, s_norm, t_norm, m,

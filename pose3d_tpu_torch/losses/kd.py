@@ -7,11 +7,14 @@
   * `kd_loss`: 0.25 * gt + 0.75 * the sum of the six heads' KL;
   * `kd_loss_with_features`: the `--crd` loss, `kd_loss` + 0.75 * the KL of
     the 200-d projector features, treated as logits and softmaxed, as the
-    reference does.
+    reference does;
+  * `gaussian_vid_loss` and `vid_loss` (`pose3d_tpu/losses/kd.py:43-56,
+    94-117`): the `--vid` loss, 0.6 * gt + 0.2 * the mean of the six heads'
+    KL + 0.2 * the Gaussian VID term on the projector features (variance
+    ones unless given).
 
 The teacher's logits and features carry no gradient: the caller computes
-them under `torch.no_grad()`. `vid_loss` comes with `--vid` (ROADMAP.md
-Queue 1 item 8).
+them under `torch.no_grad()`.
 """
 
 from __future__ import annotations
@@ -63,3 +66,30 @@ def kd_loss_with_features(student_outputs: Sequence[torch.Tensor],
                     kl_weight, valid)
             + feature_weight * temperature_scaled_kl(student_features, teacher_features,
                                                      temperature, valid))
+
+
+def gaussian_vid_loss(pred_mean: torch.Tensor, pred_var: torch.Tensor, target: torch.Tensor,
+                      valid: torch.Tensor | None = None) -> torch.Tensor:
+    """mean(0.5 * ((mu - y)^2 / var + log var)); `valid` (N,) bool takes
+    the mean of each row, then of the valid rows (over max(valid rows, 1))."""
+    per = 0.5 * ((pred_mean - target) ** 2 / pred_var + torch.log(pred_var))
+    if valid is None:
+        return per.mean()
+    per_row = per.mean(dim=tuple(range(1, per.dim())))
+    v = valid.to(per_row.dtype)
+    return (per_row * v).sum() / torch.clamp(v.sum(), min=1.0)
+
+
+def vid_loss(student_outputs: Sequence[torch.Tensor], teacher_outputs: Sequence[torch.Tensor],
+             student_loss: torch.Tensor, student_features: torch.Tensor,
+             teacher_features: torch.Tensor, pred_var: torch.Tensor | None = None,
+             temperature: float = 1.0, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The `--vid` loss (the reference's calculate_vid_loss): 0.6 * gt +
+    0.2 * the six heads' mean KL + 0.2 * the VID term; `valid` masks padded
+    rows out of every term."""
+    kl = sum(temperature_scaled_kl(s, t, temperature, valid) / 6.0
+             for s, t in zip(student_outputs, teacher_outputs))
+    if pred_var is None:
+        pred_var = torch.ones_like(student_features)
+    vid = gaussian_vid_loss(student_features, pred_var, teacher_features, valid)
+    return 0.6 * student_loss + 0.2 * kl + 0.2 * vid

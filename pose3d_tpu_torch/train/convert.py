@@ -167,11 +167,17 @@ def pose_vanilla_state_dict(variables) -> dict[str, torch.Tensor]:
     return _to_tensors(sd)
 
 
-def read_state_dict(path: str) -> dict[str, torch.Tensor]:
+def read_state_dict(path: str, role: str | None = None) -> dict[str, torch.Tensor]:
     """A reference-layout `.pth` (as `torch_export.save_torch_checkpoint`
-    writes it) -> state_dict. Unwraps the reference's container keys in its
-    order: model, state_dict, net_vp, student_model, teacher_model."""
+    writes it) or the port's own `checkpoint.pth` -> state_dict. Unwraps
+    the reference's container keys in its order: model, state_dict, net_vp,
+    student_model, teacher_model. `role` ("teacher" or "student") first
+    takes that train state out of a checkpoint that holds both, as KD
+    `--stage 1`'s does (`{"teacher": {"model": ...}, "student": ...}`)."""
     checkpoint = torch.load(path, map_location="cpu", weights_only=True)
+    if role is not None and isinstance(checkpoint, dict) \
+            and isinstance(checkpoint.get(role), dict):
+        checkpoint = checkpoint[role]
     if isinstance(checkpoint, dict):
         for key in ("model", "state_dict", "net_vp", "student_model", "teacher_model"):
             if isinstance(checkpoint.get(key), dict):

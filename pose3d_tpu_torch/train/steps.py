@@ -1,11 +1,13 @@
 """Train and evaluation steps. Port of `pose3d_tpu/train/steps.py`:
-`route_info_nce`, `make_teacher_train_step` (the contrastive teacher,
-`nce_variant="info"`), `make_kd_crd_step` (the KD `--crd` student step,
-`loss_variant="crd"`), `make_stage1_step` (KD `--stage 1`, the vanilla
-teacher and the student trained together, without the memory bank) and
-`make_eval_step` (student, teacher and vanilla kinds). The stage-2 step,
-the other KD loss variants, the memory bank and the pose-weighted NCE
-variants come with their paths (ROADMAP.md Queue 1)."""
+`route_info_nce`; `make_teacher_train_step` (the contrastive teacher, its
+NCE `"info"`, `"pose"` or `"multipose"`); `make_vanilla_train_step` (the
+4-term pose loss alone: the RGB-only baseline, or the vanilla teacher);
+`make_kd_crd_step` (the KD student step against a frozen teacher,
+`loss_variant` `"crd"`, `"contrast"` or `"vid"`); `make_stage1_step` (KD
+`--stage 1`, the vanilla teacher and the student trained together, with
+the memory bank or a pose-weighted NCE as options); `make_stage2_step` (KD
+`--stage 2`, response KD from the frozen stage-1 teacher); and
+`make_eval_step` (student, teacher and vanilla kinds)."""
 
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ import torch
 
 from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.losses.binned import pose_loss, pose_loss_per_sample
-from pose3d_tpu_torch.losses.kd import kd_loss_with_features
-from pose3d_tpu_torch.losses.nce import info_nce_kd, info_nce_kd_per_sample
+from pose3d_tpu_torch.losses.kd import kd_loss, kd_loss_with_features, vid_loss
+from pose3d_tpu_torch.losses.memory_bank import enqueue, info_nce_memory
+from pose3d_tpu_torch.losses.nce import (info_nce_kd, info_nce_kd_per_sample,
+                                         multi_pose_nce_kd, pose_nce_kd)
 from pose3d_tpu_torch.ops import nce
 from pose3d_tpu_torch.ops.augment import dewire
 from pose3d_tpu_torch.train.state import TrainState
@@ -26,6 +30,38 @@ NCE_TAU, NCE_DROPOUT, NCE_WEIGHT = 0.1, 0.3, 0.5
 # JAX's widest batch for the single-block kernel (its b^2 Gram in VMEM);
 # the routing table is kept as JAX's, so both route a batch alike
 SINGLE_BLOCK_NCE_MAX = 1024
+NCE_VARIANTS = ("info", "pose", "multipose")
+KD_LOSS_VARIANTS = ("crd", "contrast", "vid")
+
+
+def _pose_variant_nce(variant: str, q: torch.Tensor, k: torch.Tensor, labels: torch.Tensor,
+                      tau: float, weighting: str, valid: torch.Tensor | None) -> torch.Tensor:
+    """The pose-weighted NCE of `--nce pose` (`pose_nce_kd` under
+    `weighting`) or `--nce multipose` (`multi_pose_nce_kd`), the labels as
+    f32: no dropout and no kernel, as in JAX."""
+    labels = labels.to(torch.float32)
+    if variant == "pose":
+        return pose_nce_kd(q, k, labels, tau, weighting, valid=valid)
+    return multi_pose_nce_kd(q, k, labels, tau, valid=valid)
+
+
+def _update(state: TrainState) -> None:
+    """One Adam update and one schedule step after the backward pass. A
+    parameter the loss does not reach takes a zero gradient: JAX's
+    optimizer still applies its weight decay, which torch's Adam would skip
+    for a missing gradient."""
+    for p in state.model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+
+
+def _acc(outputs, labels: torch.Tensor, bin_size: int, valid) -> torch.Tensor:
+    with torch.no_grad():
+        preds = geometry.decode_predictions(outputs[:3], outputs[3:], bin_size)
+        return geometry.rotation_acc(preds, labels.to(torch.float32), valid=valid)
 
 
 def route_info_nce(feat_q: torch.Tensor, feat_k: torch.Tensor, tau: float,
@@ -54,22 +90,27 @@ def route_info_nce(feat_q: torch.Tensor, feat_k: torch.Tensor, tau: float,
 
 
 def make_teacher_train_step(bin_size: int = 15, nce_dropout: float = NCE_DROPOUT,
-                            use_fused_nce: bool = False) -> Callable:
-    """The contrastive teacher's step (JAX's `nce_variant="info"`): the
-    4-term pose loss plus 0.5 times the infoNCE-KD (tau 0.1) between the
-    image projection and the fused feature, through `route_info_nce`; one
-    Adam update and one schedule step. JAX's `nce_mesh` has no single-GPU
-    meaning and is not taken; the pose-weighted variants are refused by the
-    CLI (ROADMAP.md).
+                            use_fused_nce: bool = False, nce_variant: str = "info",
+                            nce_weighting: str = "linear") -> Callable:
+    """The contrastive teacher's step: the 4-term pose loss plus 0.5 times
+    the NCE (tau 0.1) between the image projection and the fused feature.
+    `nce_variant` "info" takes the infoNCE-KD through `route_info_nce`;
+    "pose" (`pose_nce_kd` under `nce_weighting`) and "multipose"
+    (`multi_pose_nce_kd`) take the batch's labels, no dropout and no
+    kernel, as JAX's. One Adam update and one schedule step. JAX's
+    `nce_mesh` has no single-GPU meaning and is not taken.
 
     Returns step(state, batch, keep=None) -> {'loss', 'pose_loss',
     'nce_loss', 'acc_rot'} (0-d tensors on the model's device, no host
     sync). `batch` holds 'im' (N, H, W, 3) float32 or uint8 (the u8
     wire), 'shape' (N, P, 3), 'label' (N, 3) and, for a padded batch,
-    'valid' (N,) bool, all on the model's device. The dropout keep-mask on
-    the keys is drawn from `state.generator` unless `keep` ((N, 200) bool)
-    is given, as a test does to hand JAX's mask in.
+    'valid' (N,) bool, all on the model's device. The "info" NCE's
+    dropout keep-mask on the keys is drawn from `state.generator` unless
+    `keep` ((N, 200) bool) is given, as a test does to hand JAX's mask in.
     """
+    if nce_variant not in NCE_VARIANTS:
+        raise ValueError(f"unknown nce_variant: {nce_variant!r}")
+
     def step(state: TrainState, batch: dict, keep: torch.Tensor | None = None) -> dict:
         model = state.model
         model.train()
@@ -79,34 +120,109 @@ def make_teacher_train_step(bin_size: int = 15, nce_dropout: float = NCE_DROPOUT
         outputs = [o.float() for o in outputs]
         fused, img_proj = fused.float(), img_proj.float()
         gt = pose_loss(outputs, batch["label"], bin_size, valid=valid)
-        if keep is None and nce_dropout > 0.0:
-            keep = torch.rand(fused.shape, generator=state.generator,
-                              device=fused.device) < 1.0 - nce_dropout
-        nce_loss = route_info_nce(img_proj, fused, NCE_TAU, keep, nce_dropout, valid,
-                                  use_fused_nce)
+        if nce_variant != "info":
+            nce_loss = _pose_variant_nce(nce_variant, img_proj, fused, batch["label"], NCE_TAU,
+                                         nce_weighting, valid)
+        else:
+            if keep is None and nce_dropout > 0.0:
+                keep = torch.rand(fused.shape, generator=state.generator,
+                                  device=fused.device) < 1.0 - nce_dropout
+            nce_loss = route_info_nce(img_proj, fused, NCE_TAU, keep, nce_dropout, valid,
+                                      use_fused_nce)
         loss = gt + NCE_WEIGHT * nce_loss
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        with torch.no_grad():
-            preds = geometry.decode_predictions(outputs[:3], outputs[3:], bin_size)
-            acc = geometry.rotation_acc(preds, batch["label"].to(torch.float32),
-                                        valid=valid)
+        _update(state)
         return {"loss": loss.detach(), "pose_loss": gt.detach(),
-                "nce_loss": nce_loss.detach(), "acc_rot": acc}
+                "nce_loss": nce_loss.detach(),
+                "acc_rot": _acc(outputs, batch["label"], bin_size, valid)}
 
     return step
 
 
-def make_kd_crd_step(bin_size: int = 15, temperature: float = 1.0) -> Callable:
-    """The KD `--crd` student step (JAX's `make_kd_crd_step`,
-    `loss_variant="crd"`): the three views of each sample through the
-    student in train mode, the frozen teacher's responses and projector
-    features on them, then 0.25 * the pose loss + 0.75 * the six heads' KL
-    + 0.75 * the features' KL (`losses.kd.kd_loss_with_features`, at
-    `temperature`); one Adam update and one schedule step. JAX's
+def make_vanilla_train_step(has_shape: bool, bin_size: int = 15) -> Callable:
+    """Plain supervised training (JAX's `make_vanilla_train_step`): the
+    4-term pose loss alone, one Adam update and one schedule step. Without
+    a shape the model is the RGB-only `BaselineEstimator` (the `--shape
+    None` baseline; its classifier dropout from `state.generator` unless
+    `keep` is given); with one, a `PoseEstimatorVanilla` on 'shape'.
+
+    Returns step(state, batch, keep=None) -> {'loss', 'acc_rot'} (0-d
+    tensors on the model's device, no host sync). `batch` holds 'im' (N,
+    H, W, 3) float32 or uint8, 'label' (N, 3), with a shape 'shape' (N, P,
+    3), and, for a padded batch, 'valid' (N,) bool.
+    """
+    def step(state: TrainState, batch: dict, keep=None) -> dict:
+        model = state.model
+        model.train()
+        valid = batch.get("valid")
+        im = dewire(batch["im"])
+        if has_shape:
+            out = model(im, batch["shape"], mask=valid)
+        else:
+            out = model(im, mask=valid, generator=state.generator, keep=keep)
+        outputs = [o.float() for o in out[0]]
+        loss = pose_loss(outputs, batch["label"], bin_size, valid=valid)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        _update(state)
+        return {"loss": loss.detach(), "acc_rot": _acc(outputs, batch["label"], bin_size, valid)}
+
+    return step
+
+
+def _views_step(bin_size: int, temperature: float, loss_kind: str) -> Callable:
+    """The student step over three views against a frozen teacher, shared
+    by `make_kd_crd_step` and `make_stage2_step`; `loss_kind` "crd",
+    "contrast", "vid" or "stage2" (the response KD: `kd_loss`, as
+    "contrast")."""
+    def step(state: TrainState, teacher, batch: dict, keep=None) -> dict:
+        model = state.model
+        model.train()
+        teacher.eval()
+        valid = batch.get("valid")
+        valid3 = None if valid is None else torch.cat([valid] * 3)
+        im = dewire(torch.cat([batch["im"], batch["im_flip"], batch["im_rot"]]))
+        label = torch.cat([batch["label"], batch["label_flip"], batch["label_rot"]])
+        s_out, s_feat = model(im, mask=valid3, generator=state.generator, keep=keep)
+        t_dtype = next(teacher.parameters()).dtype
+        with torch.no_grad():
+            # ([6 heads], ..., feature): the teacher's projector feature,
+            # or the vanilla teacher's compressed one (unused by its loss)
+            t = teacher(im.to(t_dtype), batch["shape"].to(t_dtype), view_tile=3)
+        # the losses in float32 whatever the models' dtypes, as JAX's step
+        s_out, t_out = [o.float() for o in s_out], [o.float() for o in t[0]]
+        s_feat, t_feat = s_feat.float(), t[-1].float()
+        gt = pose_loss(s_out, label, bin_size, valid=valid3)
+        if loss_kind == "crd":
+            loss = kd_loss_with_features(s_out, t_out, s_feat, t_feat, gt,
+                                         temperature=temperature, valid=valid3)
+        elif loss_kind == "vid":
+            loss = vid_loss(s_out, t_out, gt, s_feat, t_feat, temperature=temperature,
+                            valid=valid3)
+        else:
+            loss = kd_loss(s_out, t_out, gt, temperature=temperature, valid=valid3)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        _update(state)
+        return {"loss": loss.detach(), "gt_loss": gt.detach(),
+                "acc_rot": _acc(s_out, label, bin_size, valid3)}
+
+    return step
+
+
+def make_kd_crd_step(bin_size: int = 15, temperature: float = 1.0,
+                     loss_variant: str = "crd") -> Callable:
+    """The KD student step (JAX's `make_kd_crd_step`): the three views of
+    each sample through the student in train mode, the frozen teacher's
+    responses and projector features on them, then by `loss_variant`:
+      * "crd" (`--crd`): 0.25 * the pose loss + 0.75 * the six heads' KL +
+        0.75 * the features' KL (`losses.kd.kd_loss_with_features`);
+      * "contrast" (`--contrast`): the same without the features' KL
+        (`kd_loss`);
+      * "vid" (`--vid`): 0.6 * the pose loss + 0.2 * the heads' mean KL +
+        0.2 * the VID term on the 200-d features (`vid_loss`);
+    at `temperature`; one Adam update and one schedule step. JAX's
     `device_augment`, `device_views`, `int8_teacher` and `with_shape_bank`
     are not taken (the CLI refuses them; ROADMAP.md).
 
@@ -122,50 +238,46 @@ def make_kd_crd_step(bin_size: int = 15, temperature: float = 1.0) -> Callable:
     three views. The classifier dropout's keep-masks come from
     `state.generator` unless `keep` (two (3N, 4096) bool masks) is given.
     """
-    def step(state: TrainState, teacher, batch: dict, keep=None) -> dict:
-        model = state.model
-        model.train()
-        teacher.eval()
-        valid = batch.get("valid")
-        valid3 = None if valid is None else torch.cat([valid] * 3)
-        im = dewire(torch.cat([batch["im"], batch["im_flip"], batch["im_rot"]]))
-        label = torch.cat([batch["label"], batch["label_flip"], batch["label_rot"]])
-        s_out, s_feat = model(im, mask=valid3, generator=state.generator, keep=keep)
-        t_dtype = next(teacher.parameters()).dtype
-        with torch.no_grad():
-            t_out, _, t_feat = teacher(im.to(t_dtype), batch["shape"].to(t_dtype),
-                                       view_tile=3)
-        # the losses in float32 whatever the models' dtypes, as JAX's step
-        s_out, t_out = [o.float() for o in s_out], [o.float() for o in t_out]
-        gt = pose_loss(s_out, label, bin_size, valid=valid3)
-        loss = kd_loss_with_features(s_out, t_out, s_feat.float(), t_feat.float(), gt,
-                                     temperature=temperature, valid=valid3)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        with torch.no_grad():
-            preds = geometry.decode_predictions(s_out[:3], s_out[3:], bin_size)
-            acc = geometry.rotation_acc(preds, label.to(torch.float32), valid=valid3)
-        return {"loss": loss.detach(), "gt_loss": gt.detach(), "acc_rot": acc}
+    if loss_variant not in KD_LOSS_VARIANTS:
+        raise ValueError(f"unknown loss_variant: {loss_variant!r}")
+    return _views_step(bin_size, temperature, loss_variant)
 
-    return step
+
+def make_stage2_step(bin_size: int = 15, temperature: float = 1.0) -> Callable:
+    """KD `--stage 2` (JAX's `make_stage2_step`): response KD from the
+    frozen stage-1 teacher, a `PoseEstimatorVanilla` in eval mode without a
+    gradient, in its own dtype, with `view_tile=3` (each cloud once through
+    the eval PointNet for its three views); the student in train mode over
+    the three views; 0.25 * the pose loss + 0.75 * the six heads' KL at
+    `temperature` (`kd_loss`), the losses in f32; one Adam update and one
+    schedule step. The batch, `keep` and the returned metrics are
+    `make_kd_crd_step`'s: step(state, teacher, batch, keep=None) ->
+    {'loss', 'gt_loss', 'acc_rot'}, no host sync. JAX's `device_views`
+    and `int8_teacher` are not taken (the CLI refuses them; ROADMAP.md)."""
+    return _views_step(bin_size, temperature, "stage2")
 
 
 def make_stage1_step(bin_size: int = 15, tau: float = 0.5, nce_weight: float = 0.75,
-                     use_fused_nce: bool = False) -> Callable:
-    """KD `--stage 1` (JAX's `make_stage1_step` with `nce_variant="info"`
-    and no memory bank): the vanilla teacher (`PoseEstimatorVanilla`) and
-    the student both in train mode with `mask=valid`; the teacher's 4-term
-    pose loss plus nce_weight * (0.5 NCE(s -> t) + 0.5 NCE(t -> s)), the
-    symmetric infoNCE-KD at `tau` with key dropout 0.3, each direction
-    through `route_info_nce`; one Adam update and one schedule step for
-    each model.
+                     use_fused_nce: bool = False, use_memory_bank: bool = False,
+                     nce_variant: str = "info", nce_weighting: str = "linear") -> Callable:
+    """KD `--stage 1` (JAX's `make_stage1_step`): the vanilla teacher
+    (`PoseEstimatorVanilla`) and the student both in train mode with
+    `mask=valid`; the teacher's 4-term pose loss plus nce_weight * (0.5
+    NCE(s -> t) + 0.5 NCE(t -> s)) at `tau`; one Adam update and one
+    schedule step for each model. The symmetric NCE, by `nce_variant`:
+      * "info": the infoNCE-KD with key dropout 0.3, each direction through
+        `route_info_nce` (the NCE kernels with `use_fused_nce`); with
+        `use_memory_bank`, `info_nce_memory` instead (the same dropout,
+        the queue's entries as extra negatives; `use_fused_nce` is
+        ignored, as in JAX), and the teacher's features are enqueued, only
+        the valid rows, after the step;
+      * "pose" / "multipose": `pose_nce_kd` under `nce_weighting` /
+        `multi_pose_nce_kd` on the batch's labels, without dropout.
 
     Returns step(teacher_state, student_state, batch, keep=None,
-    student_keep=None) -> {'loss', 'teacher_loss', 'acc_rot'} (0-d tensors
-    on the models' device, no host sync; acc_rot is the teacher's).
+    student_keep=None[, bank]) -> {'loss', 'teacher_loss', 'acc_rot'}
+    (0-d tensors on the models' device, no host sync; acc_rot is the
+    teacher's) or, with the memory bank, (metrics, the advanced bank).
     `batch` holds 'im' (N, H, W, 3) float32 or uint8 (the u8 wire),
     'shape' (N, P, 3), 'label' (N, 3) and, for a padded batch, 'valid'
     (N,) bool. Each model takes the images in its own dtype. The two NCE
@@ -174,8 +286,14 @@ def make_stage1_step(bin_size: int = 15, tau: float = 0.5, nce_weight: float = 0
     them) are drawn from `student_state.generator` unless given, as a test
     does to hand JAX's masks in.
     """
+    if nce_variant not in NCE_VARIANTS:
+        raise ValueError(f"unknown nce_variant: {nce_variant!r}")
+    if use_memory_bank and nce_variant != "info":
+        raise ValueError("pose-weighted NCE has no memory-bank form "
+                         "(the queue holds no pose labels)")
+
     def step(teacher_state: TrainState, student_state: TrainState, batch: dict,
-             keep=None, student_keep=None) -> dict:
+             keep=None, student_keep=None, bank=None):
         teacher, student = teacher_state.model, student_state.model
         teacher.train()
         student.train()
@@ -190,33 +308,38 @@ def make_stage1_step(bin_size: int = 15, tau: float = 0.5, nce_weight: float = 0
         t_out = [o.float() for o in t_out]
         s_feat, t_feat = s_feat.float(), t_feat.float()
         teacher_loss = pose_loss(t_out, batch["label"], bin_size, valid=valid)
-        if keep is None:
-            keep = [torch.rand(t_feat.shape, generator=student_state.generator,
-                               device=t_feat.device) < 1.0 - NCE_DROPOUT for _ in range(2)]
-        nce_s2t = route_info_nce(s_feat, t_feat, tau, keep[0], NCE_DROPOUT, valid,
-                                 use_fused_nce)
-        nce_t2s = route_info_nce(t_feat, s_feat, tau, keep[1], NCE_DROPOUT, valid,
-                                 use_fused_nce)
+        if nce_variant != "info":
+            nce_s2t, nce_t2s = (_pose_variant_nce(nce_variant, q, k, batch["label"], tau,
+                                                  nce_weighting, valid)
+                                for q, k in ((s_feat, t_feat), (t_feat, s_feat)))
+        else:
+            if keep is None:
+                keep = [torch.rand(t_feat.shape, generator=student_state.generator,
+                                   device=t_feat.device) < 1.0 - NCE_DROPOUT
+                        for _ in range(2)]
+            if use_memory_bank:
+                nce_s2t = info_nce_memory(s_feat, t_feat, bank, tau, valid=valid,
+                                          keep=keep[0], dropout_rate=NCE_DROPOUT)
+                nce_t2s = info_nce_memory(t_feat, s_feat, bank, tau, valid=valid,
+                                          keep=keep[1], dropout_rate=NCE_DROPOUT)
+            else:
+                nce_s2t = route_info_nce(s_feat, t_feat, tau, keep[0], NCE_DROPOUT, valid,
+                                         use_fused_nce)
+                nce_t2s = route_info_nce(t_feat, s_feat, tau, keep[1], NCE_DROPOUT, valid,
+                                         use_fused_nce)
         loss = teacher_loss + nce_weight * (0.5 * nce_s2t + 0.5 * nce_t2s)
         for state in (teacher_state, student_state):
             state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        for state in (teacher_state, student_state):
-            # the student's heads take no part in the loss: as JAX's
-            # optimizer, Adam still updates them (weight decay on a zero
-            # gradient), which torch's skips for a missing gradient
-            for p in state.model.parameters():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            state.optimizer.step()
-            state.scheduler.step()
-            state.step += 1
-        with torch.no_grad():
-            preds = geometry.decode_predictions(t_out[:3], t_out[3:], bin_size)
-            acc = geometry.rotation_acc(preds, batch["label"].to(torch.float32),
-                                        valid=valid)
-        return {"loss": loss.detach(), "teacher_loss": teacher_loss.detach(),
-                "acc_rot": acc}
+        # the student's heads take no part in the loss: `_update` hands
+        # them a zero gradient, so that Adam updates them as JAX's does
+        _update(teacher_state)
+        _update(student_state)
+        metrics = {"loss": loss.detach(), "teacher_loss": teacher_loss.detach(),
+                   "acc_rot": _acc(t_out, batch["label"], bin_size, valid)}
+        if use_memory_bank:
+            return metrics, enqueue(bank, t_feat, valid)
+        return metrics
 
     return step
 

@@ -1,7 +1,8 @@
 """The epoch loops: loader, train step, evaluation, checkpoints and logs.
 Port of `pose3d_tpu/train/trainer.py` (`_device_batch`, `_DeferredMeters`,
-`_Base._eval`, `TeacherTrainer.fit`, and `KDTrainer.fit_crd` with its
-`_student_loop` and `KDTrainer.fit_stage1`).
+`_Base._eval`, `TeacherTrainer.fit`, `SupervisedTrainer.fit`, and
+`KDTrainer.fit_crd` and `.fit_stage2` with their `_student_loop`, and
+`KDTrainer.fit_stage1` with its memory bank).
 
 Host batches reach the card off the consumer thread: a feeder thread pins
 each batch and starts its host-to-device copies (`non_blocking`) on a side
@@ -22,6 +23,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from pose3d_tpu_torch.losses.memory_bank import MemoryBank, init_memory_bank
 from pose3d_tpu_torch.train import steps as steps_lib
 from pose3d_tpu_torch.train.ckpt import Checkpointer
 from pose3d_tpu_torch.train.evaluate import CategoryEvalResult, evaluate_categories
@@ -125,11 +127,13 @@ class TeacherTrainer:
     loss on `eval_loader`, the per-category Acc@pi/6 on `cat_eval_loader`
     (the reference computes them on another set; `eval_loader` when None),
     the checkpoints (whole train state, and the image encoder alone), one
-    log line, one metrics record and the curves."""
+    log line, one metrics record and the curves. `nce_variant` and
+    `nce_weighting` select the contrastive term (`make_teacher_train_step`)."""
 
     def __init__(self, state: TrainState, train_loader, eval_loader,
                  category_names: list[str], result_path: str, bin_size: int = 15,
-                 print_freq: int = 50, cat_eval_loader=None, use_fused_nce: bool = False):
+                 print_freq: int = 50, cat_eval_loader=None, use_fused_nce: bool = False,
+                 nce_variant: str = "info", nce_weighting: str = "linear"):
         self.state = state
         self.device = next(state.model.parameters()).device
         self.train_loader = train_loader
@@ -142,8 +146,9 @@ class TeacherTrainer:
         self.log = TxtLogger(os.path.join(result_path, "training_log.txt"))
         self.metrics = MetricsWriter(os.path.join(result_path, "metrics.jsonl"))
         self.ckpt = Checkpointer(os.path.join(result_path, "ckpt"))
-        self.train_step = steps_lib.make_teacher_train_step(bin_size,
-                                                            use_fused_nce=use_fused_nce)
+        self.train_step = steps_lib.make_teacher_train_step(
+            bin_size, use_fused_nce=use_fused_nce, nce_variant=nce_variant,
+            nce_weighting=nce_weighting)
         self.eval_step = steps_lib.make_eval_step(state.model, "teacher", bin_size)
 
     def _eval(self, loader) -> CategoryEvalResult:
@@ -213,33 +218,109 @@ class TeacherTrainer:
         return best_acc
 
 
+class SupervisedTrainer:
+    """Plain 4-term pose-loss training (the reference's training.py
+    `train_vanilla`): the RGB-only `BaselineEstimator` baseline (`kind`
+    "student", `--shape None`) or a `PoseEstimatorVanilla` ("vanilla"),
+    by `make_vanilla_train_step`. Per epoch a train sweep, the per-category
+    evaluation on `eval_loader`, the whole train state as the checkpoint
+    (its "model" entry is what the testing CLI's `--model` reads), one log
+    line, one metrics record and the curves."""
+
+    def __init__(self, state: TrainState, train_loader, eval_loader,
+                 category_names: list[str], result_path: str, kind: str = "student",
+                 bin_size: int = 15, print_freq: int = 50):
+        self.state = state
+        self.device = next(state.model.parameters()).device
+        self.train_loader = train_loader
+        self.eval_loader = eval_loader
+        self.category_names = category_names
+        self.print_freq = print_freq
+        self.result_path = result_path
+        os.makedirs(result_path, exist_ok=True)
+        self.log = TxtLogger(os.path.join(result_path, "training_log.txt"))
+        self.metrics = MetricsWriter(os.path.join(result_path, "metrics.jsonl"))
+        self.ckpt = Checkpointer(os.path.join(result_path, "ckpt"))
+        has_shape = kind != "student"
+        self.keys = ("im", "shape", "label") if has_shape else ("im", "label")
+        self.train_step = steps_lib.make_vanilla_train_step(has_shape, bin_size)
+        self.eval_step = steps_lib.make_eval_step(state.model, kind, bin_size)
+
+    def fit(self, epochs: int, start_epoch: int = 0) -> float:
+        best_acc = self.ckpt.best_acc() if start_epoch > 0 else 0.0
+        losses = np.zeros((epochs, 2))
+        accuracies = np.zeros((epochs, 2))
+        for epoch in range(start_epoch, epochs):
+            self.train_loader.set_epoch(epoch)
+            loss_m, acc_m = AverageValueMeter(), AverageValueMeter()
+            meters = DeferredMeters(loss_m, acc_m)
+            t0 = time.time()
+            batches = Prefetcher(self.train_loader, self.keys, self.device)
+            for i, (db, valid) in enumerate(batches):
+                meters.push(self.train_step(self.state, db), int(valid.sum()))
+                if (i + 1) % self.print_freq == 0:
+                    meters.flush()
+                    print(f"\tEpoch {epoch:3d} --- Iter [{i + 1}/{len(self.train_loader)}] "
+                          f"Train loss: {loss_m.avg:.2f} || Train accuracy: {acc_m.avg:.2f}")
+            meters.flush()
+            train_seconds = time.time() - t0
+
+            names = getattr(getattr(self.eval_loader, "dataset", None), "category_names",
+                            self.category_names)
+            result = evaluate_categories(self.eval_step, self.eval_loader, names, self.device)
+            is_best = result.mean_acc > best_acc
+            best_acc = max(best_acc, result.mean_acc)
+            losses[epoch] = [loss_m.avg, result.val_loss]
+            accuracies[epoch] = [acc_m.avg, result.mean_acc]
+            self.ckpt.save_epoch(epoch, self.state.state_dict(), best_acc, is_best=is_best)
+            self.log.line(
+                "Epoch: %03d || train_loss %.2f -- val_loss %.2f || train_acc %.2f -- "
+                "val_acc %.2f \n" %
+                (epoch, loss_m.avg, result.val_loss, acc_m.avg, result.mean_acc))
+            self.metrics.write({"kind": "supervised_epoch", "epoch": epoch,
+                                "train_loss": loss_m.avg, "train_acc": acc_m.avg,
+                                "val_loss": result.val_loss, "val_acc": result.mean_acc,
+                                "val_med": result.mean_med,
+                                "epoch_seconds": time.time() - t0,
+                                "train_seconds": train_seconds,
+                                "train_samples": loss_m.count,
+                                "train_samples_per_s": loss_m.count / max(train_seconds, 1e-9)})
+            plot_curves(self.result_path, losses, accuracies, epoch)
+        return best_acc
+
+
 # a KD batch: the three views of each sample, their labels and the cloud
 KD_VIEW_KEYS = ("im", "shape", "label", "im_flip", "label_flip", "im_rot", "label_rot")
 
 
 class KDTrainer:
     """The KD regimes of the reference's trainingKD.py:
-      * `fit_crd` (--crd): per epoch a train sweep of `make_kd_crd_step`
-        against the frozen `teacher`, the student's per-category evaluation
-        on `eval_loader`, the checkpoints (the student's whole train state:
+      * `fit_crd` (--crd, and its loss variants --contrast and --vid):
+        per epoch a train sweep of `make_kd_crd_step` against the frozen
+        `teacher`, the student's per-category evaluation on
+        `eval_loader`, the checkpoints (the student's whole train state:
         its "model" entry is the reference-layout state_dict the testing
         CLI's `--model` loads), one log line and one metrics record with
         the sustained train samples/s;
+      * `fit_stage2` (--stage 2): the same loop through `make_stage2_step`
+        against the frozen vanilla `teacher` of stage 1;
       * `fit_stage1` (--stage 1): the vanilla teacher (`teacher_state`) and
-        the student trained together by `make_stage1_step`; per epoch the
-        teacher's per-category evaluation, a checkpoint of both train
-        states, the log line and the metrics record.
-    The stage-2 and contrast regimes of JAX's KDTrainer come with their
-    paths (ROADMAP.md Queue 1 item 8)."""
+        the student trained together by `make_stage1_step`, optionally
+        with the memory bank; per epoch the teacher's per-category
+        evaluation, a checkpoint of both train states (and of the bank),
+        the log line and the metrics record."""
 
     def __init__(self, state: TrainState, teacher, train_loader, eval_loader,
                  category_names: list[str], result_path: str, bin_size: int = 15,
                  temperature: float = 1.0, teacher_state: TrainState | None = None,
-                 tau: float = 0.5, use_fused_nce: bool = False):
+                 tau: float = 0.5, use_fused_nce: bool = False, nce_variant: str = "info",
+                 nce_weighting: str = "linear"):
         self.state = state
         self.teacher = teacher
         self.teacher_state = teacher_state
-        self.bin_size, self.tau, self.use_fused_nce = bin_size, tau, use_fused_nce
+        self.bin_size, self.temperature, self.tau = bin_size, temperature, tau
+        self.use_fused_nce = use_fused_nce
+        self.nce_variant, self.nce_weighting = nce_variant, nce_weighting
         self.device = next(state.model.parameters()).device
         self.train_loader = train_loader
         self.eval_loader = eval_loader
@@ -249,32 +330,68 @@ class KDTrainer:
         self.log = TxtLogger(os.path.join(result_path, "training_log.txt"))
         self.metrics = MetricsWriter(os.path.join(result_path, "metrics.jsonl"))
         self.ckpt = Checkpointer(os.path.join(result_path, "ckpt"))
-        self.kd_step = steps_lib.make_kd_crd_step(bin_size, temperature)
         self.eval_step = steps_lib.make_eval_step(state.model, "student", bin_size)
 
-    def fit_crd(self, epochs: int, start_epoch: int = 0) -> float:
-        """JAX's fit_crd with its `_student_loop`."""
-        return self._fit("crd", epochs, start_epoch, KD_VIEW_KEYS,
-                         lambda db: self.kd_step(self.state, self.teacher, db), self.eval_step,
+    def fit_crd(self, epochs: int, start_epoch: int = 0, loss_variant: str = "crd") -> float:
+        """JAX's fit_crd with its `_student_loop`; `loss_variant` "crd",
+        "contrast" or "vid" (`make_kd_crd_step`), also the metrics' kind."""
+        step = steps_lib.make_kd_crd_step(self.bin_size, self.temperature, loss_variant)
+        return self._fit(loss_variant, epochs, start_epoch, KD_VIEW_KEYS,
+                         lambda db: step(self.state, self.teacher, db), self.eval_step,
                          self.state.state_dict)
 
-    def fit_stage1(self, epochs: int, start_epoch: int = 0) -> float:
-        """JAX's fit_stage1 without the memory bank. From start_epoch > 0
-        both train states are restored from `checkpoint.pth` first."""
+    def fit_stage2(self, epochs: int, start_epoch: int = 0) -> float:
+        """JAX's fit_stage2: `fit_crd`'s loop through `make_stage2_step`."""
+        step = steps_lib.make_stage2_step(self.bin_size, self.temperature)
+        return self._fit("stage2", epochs, start_epoch, KD_VIEW_KEYS,
+                         lambda db: step(self.state, self.teacher, db), self.eval_step,
+                         self.state.state_dict)
+
+    def fit_stage1(self, epochs: int, start_epoch: int = 0, use_memory_bank: bool = False,
+                   memory_bank_size: int = 4096) -> float:
+        """JAX's fit_stage1. From start_epoch > 0 both train states are
+        restored from `checkpoint.pth` first, and with `use_memory_bank`
+        the bank too (its queue, ptr and filled ride in the checkpoint); a
+        checkpoint without one restarts the queue empty, with a warning in
+        the log, as JAX's."""
         if self.teacher_state is None:
             raise ValueError("stage 1 trains the teacher too: pass teacher_state")
+        bank = (init_memory_bank(memory_bank_size, 200, self.device)
+                if use_memory_bank else None)
         if start_epoch > 0 and self.ckpt.exists("checkpoint"):
             restored = self.ckpt.restore("checkpoint")
             self.teacher_state.load_state_dict(restored["teacher"])
             self.state.load_state_dict(restored["student"])
+            if use_memory_bank and "bank" in restored:
+                bank = MemoryBank(*(restored["bank"][k].to(self.device)
+                                    for k in MemoryBank._fields))
+            elif use_memory_bank:
+                self.log.line("WARNING: resuming stage 1 without a saved memory bank — "
+                              "the negative queue restarts cold\n")
         step = steps_lib.make_stage1_step(self.bin_size, self.tau,
-                                          use_fused_nce=self.use_fused_nce)
+                                          use_fused_nce=self.use_fused_nce,
+                                          use_memory_bank=use_memory_bank,
+                                          nce_variant=self.nce_variant,
+                                          nce_weighting=self.nce_weighting)
+
+        def run_step(db):
+            nonlocal bank
+            if not use_memory_bank:
+                return step(self.teacher_state, self.state, db)
+            metrics, bank = step(self.teacher_state, self.state, db, bank=bank)
+            return metrics
+
+        def checkpoint():
+            tree = {"teacher": self.teacher_state.state_dict(),
+                    "student": self.state.state_dict()}
+            if use_memory_bank:
+                tree["bank"] = bank._asdict()
+            return tree
+
         eval_step = steps_lib.make_eval_step(self.teacher_state.model, "vanilla",
                                              self.bin_size)
-        return self._fit("stage1", epochs, start_epoch, ("im", "shape", "label"),
-                         lambda db: step(self.teacher_state, self.state, db), eval_step,
-                         lambda: {"teacher": self.teacher_state.state_dict(),
-                                  "student": self.state.state_dict()})
+        return self._fit("stage1", epochs, start_epoch, ("im", "shape", "label"), run_step,
+                         eval_step, checkpoint)
 
     def _fit(self, kind: str, epochs: int, start_epoch: int, keys, run_step, eval_step,
              checkpoint) -> float:

@@ -278,6 +278,29 @@ def test_nce_kernel_is_deterministic_and_checks_its_inputs(cuda):
 
 
 @pytest.mark.cuda
+def test_nce_forward_on_two_streams_at_once(cuda):
+    """Each forward call takes its ticket in its own workspace: calls on two
+    streams may overlap, and each loss is its own."""
+    rng = np.random.default_rng(12)
+    pairs = [tuple(torch.from_numpy(rng.standard_normal((n, 200)).astype("float32")).to(cuda)
+                   for _ in range(2)) for n in (2500, 4096)]
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in side:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    with torch.no_grad():
+        for _ in range(10):
+            for st, (s, t) in zip(side, pairs):
+                with torch.cuda.stream(st):
+                    got.append(nce.fused_info_nce(s, t))
+        for st in side:
+            torch.cuda.current_stream().wait_stream(st)
+        want = [nce.info_nce_plain(s, t) / s.shape[0] for s, t in pairs]
+    for i, loss in enumerate(got):
+        assert float(loss) == pytest.approx(float(want[i % 2]), rel=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,kind", [(46, "fused"), (160, "masked"), (4096, "partial")])
 def test_nce_launches_per_call(cuda, n, kind):
     """One CUDA launch a forward call and one a backward call, as the library
