@@ -62,10 +62,29 @@ kernel in every student forward. Phases:
   --vid, the memory bank, --nce pose / multipose in stage 1 and the
   teacher step, the baseline), each card vs CPU    32 the NCE forward on
   two streams at once
-Each path (7-8, 10-11, 16-17, 20-21, 24-25, 28-29 and each variant of 31)
-is driven with the kernels' launch counts set to 0 just before it and
-read just after it; 16, 20, 24, 28 and 31's are the training paths' main
-paths. The total seconds are printed before the card's line.
+  bf16 (--bf16: bfloat16 compute, f32 parameters): 33 the bf16 stem
+  kernels vs their plain bf16 version on phase 5's cases (y within one bf16
+  ulp of max|ref|, the window index where the plain decision is clear, dW
+  and db given the kernel's index; HMMA.16816.F32.BF16 in the forward's
+  SASS), and their times    34 the bf16 eval PointNet kernel vs its plain
+  version at (64 / 46 / 1, 2500, 1024) and (46, 2500, 256) (and HMMA.16816.
+  F32.BF16 in its SASS), times    35 the student in bf16: serving, an
+  evaluation, card vs CPU at small width by an oracle rule (the card's
+  error against f64, the largest and the RMS difference, at most twice
+  the CPU's bf16 error plus 2^-10 of max|ref|), serving at batch 256 and 1
+  beside f32, a profile    36 the teacher in bf16 likewise (batch 64)
+  37 KD --crd in bf16 at batch 46 x 3: four small steps (phase 19's size
+  and batch, and three more) card vs CPU by the oracle rule on each
+  tensor's errors summed over them, 6 steps, the trainer's epoch and
+  resume, the step beside f32, a profile; --contrast and --vid 2 steps
+  each    38 KD --stage 2 (its
+  teacher read from phase 26's checkpoint under --bf16) and the RGB-only
+  baseline (batch 64) in bf16, likewise
+Each path (7-8, 10-11, 16-17, 20-21, 24-25, 28-29, each variant of 31,
+and 35-38's) is driven with the kernels' launch counts set to 0 just
+before it and read just after it; 16, 20, 24, 28 and 31's are the
+training paths' main paths, 35-38's the bf16 ones. The total seconds are
+printed before the card's line.
 
 With --source NAME=FILE (repeatable), another version of csrc/NAME.cu
 (info_nce, vgg_stem or pointnet_eval) with the same C interface (an
@@ -144,6 +163,16 @@ SPLIT_TF32_PRODUCTS = 3
 # the split-TF32 window sums' error over max|x| sum|w| that the kernel's
 # margin for making a routing decision again (kNear, twice this) assumes
 STEM_SPLIT_ERR = 2.0**-15
+# the bf16 kernels vs their plain bf16 versions: one bf16 ulp of max|ref|
+# (bf16 keeps 8 significant bits); the dense bf16 rate of the tensor cores
+# (published H100 SXM peak); card vs CPU in bf16, an oracle rule (as
+# tests/test_torch_bf16.py's): the card's error against the f64 result,
+# the largest and the RMS difference, at most twice the CPU's bf16 error
+# plus this share of max|ref|
+BF16_ULP, BF16_FLOPS, BF16_ORACLE_FLOOR = 2.0**-7, 989e12, 2.0**-10
+# the bf16 small steps' batches (phase 19's first; the last unpadded),
+# over which each tensor's card and CPU errors are summed
+BF16_STEP_SEEDS = (21, 22, 23, 24)
 IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 EVAL_CATEGORIES = ["bed", "bookshelf", "calculator"]
 EVAL_COUNTS = [64] * 8 + [37]  # 8 full batches of 64 + a ragged 37 padded to 64
@@ -764,6 +793,163 @@ LIBRARIES = ("geodesic", "pointnet_eval", "info_nce", "vgg_stem", "pointnet_trai
 OTHER_SOURCES = ("info_nce", "vgg_stem", "pointnet_eval")
 
 
+def stem_bf16_vs_plain(vgg_stem, x, w, b, g, chunk: int = 23) -> dict:
+    """The bf16 stem kernels against the plain bf16 version on the same
+    inputs (x an NCHW view of NHWC bf16 memory, w and b bf16 needing a
+    gradient, g bf16): y through the wrapper (autograd: one forward and one
+    backward launch) and the window index through one more forward; y's
+    max|d| over max|ref| and its unequal share; the index's unequal share
+    and how many index bytes differ from the plain version's where that
+    one's top two window sums are more than one bf16 ulp apart and its ReLU
+    input more than two from 0; dW's and db's max|d| over max|ref| against
+    the f32 sums (exact products, TF32 off) of g routed by the kernel's own
+    index, and their largest absolute differences (dw_abs, db_abs). Chunks
+    of `chunk` images keep the full-resolution sums small."""
+    F = torch.nn.functional
+    y = vgg_stem.vgg_stem(x, w, b)
+    dw, db = torch.autograd.grad(y, (w, b), g)
+    w, b = w.detach(), b.detach()
+    index = vgg_stem.stem_forward(x.permute(0, 2, 3, 1), w, b, True)[1]
+    y_ref = vgg_stem.vgg_stem_plain(x, w, b)
+    d = (y.detach().float() - y_ref.float()).abs()
+    y_scale = float(y_ref.float().abs().max())
+    out = {"y_err": float(d.max()) / y_scale if y_scale > 0 else float(d.max()),
+           "y_unequal": float((y.detach() != y_ref).float().mean()), "index_unequal": 0.0,
+           "index_bad": 0, "max_abs_err": float(d.max())}
+    n, f, hh, ww = x.shape[0], w.shape[0], x.shape[2], x.shape[3]
+    ho, wo = hh // 2, ww // 2
+    dw_ref = torch.zeros(w.shape, dtype=torch.float32, device=x.device)
+    db_ref = torch.zeros(f, dtype=torch.float32, device=x.device)
+    unequal = 0
+    for i in range(0, n, chunk):
+        xs = x[i:i + chunk].float()
+        conv = F.conv2d(xs, w.float(), padding=1)
+        m = conv.shape[0]
+        win = (conv.to(torch.bfloat16).float()[:, :, :2 * ho, :2 * wo]
+               .reshape(m, f, ho, 2, wo, 2).permute(0, 1, 2, 4, 3, 5).reshape(m, f, ho, wo, 4))
+        top2 = win.topk(2, dim=-1).values
+        first = win.argmax(-1)  # the first maximum
+        pre = top2[..., 0] + b.float()[None, :, None, None]
+        plain = torch.where(pre.to(torch.bfloat16).float() > 0, first, torch.full_like(first, 4))
+        ulp = torch.exp2(torch.floor(torch.log2(top2[..., 0].abs().clamp_min(1e-30))) - 7)
+        clear = (top2[..., 0] - top2[..., 1] > ulp) & (pre.abs() > 2 * ulp)
+        k_idx = index[i:i + chunk].permute(0, 3, 1, 2).long()
+        differ = k_idx != plain
+        unequal += int(differ.sum())
+        out["index_bad"] += int((differ & clear).sum())
+        gs = g[i:i + chunk].float() * (k_idx < 4)
+        routed = torch.zeros((m, f, ho, wo, 4), device=x.device).scatter_(
+            4, k_idx.clamp(max=3).unsqueeze(-1), gs.unsqueeze(-1))
+        g_conv = torch.zeros_like(conv)
+        g_conv[:, :, :2 * ho, :2 * wo] = (routed.reshape(m, f, ho, wo, 2, 2)
+                                           .permute(0, 1, 2, 4, 3, 5).reshape(m, f, 2 * ho, 2 * wo))
+        dw_ref += torch.nn.grad.conv2d_weight(xs, tuple(w.shape), g_conv, padding=1)
+        db_ref += gs.sum((0, 2, 3))
+        del conv, win, top2, first, pre, plain, ulp, clear, routed, g_conv
+    out["index_unequal"] = unequal / index.numel()
+    for name, got, want in (("dw_err", dw, dw_ref), ("db_err", db, db_ref)):
+        scale = float(want.abs().max())
+        err = float((got.float() - want).abs().max())
+        out[name] = err / scale if scale > 0 else err
+        out[name.replace("err", "abs")] = err
+    return out
+
+
+def pointnet_bf16_params(rng: np.random.Generator, d: int, dev, b3: float | None = None):
+    """The bf16 eval PointNet's unfolded layers (W (in, out) and b bf16, He-
+    scaled; the eval BN (3, out) f32: mean, a multiplier of either sign, a
+    shift), on `dev`; with `b3`, layer 3's multipliers positive and its shift
+    b3 (every output negative at b3 -100)."""
+    layers = []
+    for fan_in, out in ((3, 64), (64, 128), (128, d)):
+        w = rng.standard_normal((fan_in, out), dtype=np.float32) * math.sqrt(2.0 / fan_in)
+        b = rng.standard_normal(out, dtype=np.float32) * 0.1
+        bn = np.stack([rng.standard_normal(out) * 0.1, rng.uniform(-1.5, 1.5, out),
+                       rng.standard_normal(out) * 0.1]).astype(np.float32)
+        if b3 is not None and out == d:
+            bn[1], bn[2] = np.abs(bn[1]), b3
+        layers.append((torch.from_numpy(w).to(dev, torch.bfloat16),
+                       torch.from_numpy(b).to(dev, torch.bfloat16), torch.from_numpy(bn).to(dev)))
+    return layers
+
+
+def set_compute_dtype(model: torch.nn.Module, dtype: torch.dtype | None) -> torch.nn.Module:
+    """Switch a built model's compute dtype (None: its parameters'), so that
+    one set of weights is timed in f32 and in bf16 in turns; the CLIs fix
+    it when they build the model (`compute_dtype=`)."""
+    for module in model.modules():
+        if hasattr(module, "compute_dtype"):
+            module.compute_dtype = dtype
+    return model
+
+
+def bf16_errors(card, cpu, ref) -> dict:
+    """The card's and the CPU's bf16 errors against the f64 `ref`: the
+    largest difference ("max") and the root-mean-square difference ("rms")."""
+    card, cpu, ref = (t.detach().cpu().double() for t in (card, cpu, ref))
+    return {"max": [float((t - ref).abs().max()) for t in (card, cpu)],
+            "rms": [float((t - ref).pow(2).mean().sqrt()) for t in (card, cpu)]}
+
+
+def bound_share(errs: dict, floor: float) -> float:
+    """The largest share, over both statistics of `bf16_errors` (or of their
+    sums over several steps), that the card's error takes of the oracle's
+    bound: twice the CPU's error plus `floor` (BF16_ORACLE_FLOOR of
+    max|ref|, or the sum of those)."""
+    return max(card / (2 * cpu + floor) for card, cpu in errs.values())
+
+
+def bf16_oracle(errs: dict, floor: float, what: str) -> float:
+    """`bound_share`, raising where the card's error exceeds the bound."""
+    share = bound_share(errs, floor)
+    if share > 1:
+        raise RuntimeError(f"bf16 card vs CPU, {what}: card and CPU errors against f64 "
+                           f"{errs}, floor {floor:.3g}")
+    return share
+
+
+def bf16_card_vs_cpu(small_step, loss_keys, batches,
+                     hold: bool = True) -> tuple[float, list[float]]:
+    """Small train steps in bf16 on the card and on the CPU, and in f64 on
+    the CPU, one on each of `batches` (small_step(where, bf16, batch) ->
+    (metrics, [trained models]), the models in bfloat16 compute, or in
+    float64 with bf16 False): the losses and every parameter gradient held
+    (with `hold`) to `bf16_oracle` with each tensor's errors and floors
+    summed over the batches (a gradient zero in exact arithmetic takes the
+    step's largest gradient as its scale). Returns the largest share of the
+    bound over the sums, and over each batch's step alone: those are
+    printed, not held, since one small bf16 step's error against f64 is too
+    noisy a yardstick (PERF.md: the rule fails between two correct bf16
+    runs on some batches)."""
+    pooled, shares = {}, []
+    for batch in batches:
+        (m_ref, ref_models), (m_cpu, cpu_models) = (small_step("cpu", False, batch),
+                                                    small_step("cpu", True, batch))
+        m_gpu, gpu_models = small_step("cuda", True, batch)
+        torch.cuda.synchronize()
+        tensors = {k: [torch.tensor(float(m[k])) for m in (m_gpu, m_cpu, m_ref)]
+                   for k in loss_keys}
+        for j, (m_r, m_c, m_g) in enumerate(zip(ref_models, cpu_models, gpu_models)):
+            on_cpu, on_card = dict(m_c.named_parameters()), dict(m_g.named_parameters())
+            for k, p in m_r.named_parameters():
+                tensors[f"{j}.{k}"] = [on_card[k].grad, on_cpu[k].grad, p.grad]
+        largest = max(float(r.abs().max()) for k, (_, _, r) in tensors.items()
+                      if k not in loss_keys)
+        share = 0.0
+        for k, (g, c, r) in tensors.items():
+            scale = float(r.abs().max())
+            if k not in loss_keys and scale < 1e-6 * largest:
+                scale = largest
+            errs, floor = bf16_errors(g, c, r), BF16_ORACLE_FLOOR * scale
+            share = max(share, bound_share(errs, floor))
+            sums, floors = pooled.get(k, ({"max": [0.0, 0.0], "rms": [0.0, 0.0]}, 0.0))
+            pooled[k] = ({stat: [a + b for a, b in zip(sums[stat], errs[stat])]
+                          for stat in sums}, floors + floor)
+        shares.append(round(share, 3))
+    return max(bf16_oracle(e, f, k) if hold else bound_share(e, f)
+               for k, (e, f) in pooled.items()), shares
+
+
 def parse_source(arg: str) -> tuple[str, str]:
     """--source NAME=PATH: another version of csrc/NAME.cu."""
     name, sep, path = arg.partition("=")
@@ -863,11 +1049,12 @@ def with_pointnet_source(path: str | None, run):
         model.pointnet_eval = pointnet.pointnet_eval
 
 
-def sass_hmma(lib: str, prefix: str) -> dict:
-    """{kernel: whether its SASS holds an HMMA (tensor-core) instruction} for
-    the kernels of a built library whose names start with `prefix`, by
-    cuobjdump beside nvcc; a template's instantiations apart (<4>, <double>;
-    the float one bare)."""
+def sass_hmma(lib: str, prefix: str, needle: str = "HMMA") -> dict:
+    """{kernel: whether its SASS holds `needle` (an HMMA, tensor-core,
+    instruction; "HMMA.16816.F32.BF16" the bf16 m16n8k16 one)} for the
+    kernels of a built library whose names start with `prefix`, by
+    cuobjdump beside nvcc; a template's instantiations apart (<4>, <double>,
+    <bf16>; the float one bare)."""
     from pose3d_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -876,12 +1063,14 @@ def sass_hmma(lib: str, prefix: str) -> dict:
     found = {}
     for part in sass.split("Function : ")[1:]:
         mangled = part.split(None, 1)[0]
-        m = re.search(r"\d+(%s\w*?_kernel)(I(?:Li(\d+)E|d|f))?" % prefix, mangled)
+        m = re.search(r"\d+(%s\w*?_kernel)(I(?:Li(\d+)E|d|f|13__nv_bfloat16))?" % prefix,
+                      mangled)
         if m is None:
             continue
         key = m.group(1) + ("" if m.group(2) in (None, "If") else
-                            "<double>" if m.group(2) == "Id" else f"<{m.group(3)}>")
-        found[key] = found.get(key, False) or "HMMA" in part
+                            "<double>" if m.group(2) == "Id" else
+                            "<bf16>" if m.group(2) == "I13__nv_bfloat16" else f"<{m.group(3)}>")
+        found[key] = found.get(key, False) or needle in part
     return found
 
 
@@ -1060,6 +1249,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     from pose3d_tpu_torch import geometry
+    from pose3d_tpu_torch.cli import common as cli_common
     from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator,
                                                     PoseEstimatorVanilla)
     from pose3d_tpu_torch.data.loader import DataLoader
@@ -1075,6 +1265,8 @@ def main() -> int:
         nce.nce_forward.blocked_launches = nce.nce_backward.blocked_launches = 0
         vgg_stem.stem_forward.launches = vgg_stem.stem_backward.launches = 0
         pointnet_train.train_forward.launches = pointnet_train.train_backward.launches = 0
+        vgg_stem.stem_forward.bf16_launches = vgg_stem.stem_backward.bf16_launches = 0
+        pointnet.pointnet_eval_bf16.launches = 0
 
     def counts():
         """(geodesic, pointnet, NCE forward, NCE backward, stem forward,
@@ -1084,18 +1276,24 @@ def main() -> int:
                 vgg_stem.stem_forward.launches, vgg_stem.stem_backward.launches,
                 pointnet_train.train_forward.launches, pointnet_train.train_backward.launches)
 
+    def bf16_counts():
+        """The bf16 instances' launches: (stem forward, stem backward, eval
+        pointnet)."""
+        return (vgg_stem.stem_forward.bf16_launches, vgg_stem.stem_backward.bf16_launches,
+                pointnet.pointnet_eval_bf16.launches)
+
     def blocked_counts():
         """NCE forward and backward launches for the blocked entries (JAX's
         kernel 5, nce_blocked.py)."""
         return nce.nce_forward.blocked_launches, nce.nce_backward.blocked_launches
 
     card = card_line()
-    dev = torch.device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # the CLIs' settings: TF32 off for cuDNN and matmuls, bf16 GEMMs reduced
+    # in float32
+    dev = cli_common.setup_device(argparse.Namespace(device="cuda"))
     phase("device", t0, f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
-          "TF32 off for cuDNN and matmul")
+          "TF32 off for cuDNN and matmul, cuBLAS's reduced-precision bf16 reductions off")
 
     # 2. build: one nvcc per source (and per --source), all started together
     tb = time.perf_counter()
@@ -1115,10 +1313,12 @@ def main() -> int:
         phase("build", t0, f"nvcc {lib}; {ptxas}")
     phase("build", t0, f"{len(libs) + len(args.source)} libraries in {build_s:.2f} s; "
           f"pne_encoder_kernel: "
-          f"{pointnet.shared_memory_bytes()} bytes of dynamic shared memory a block; "
+          f"{pointnet.shared_memory_bytes()} bytes of dynamic shared memory a block (its "
+          f"bf16 instance {pointnet.shared_memory_bytes(torch.bfloat16)}); "
           f"info_nce at D 200 (forward, backward): {nce.shared_memory_bytes(200)} bytes; "
           f"vgg_stem at F 64 (forward, weight gradient): "
-          f"{vgg_stem.shared_memory_bytes(64)} bytes; pointnet_train's largest block "
+          f"{vgg_stem.shared_memory_bytes(64)} bytes (bf16 "
+          f"{vgg_stem.shared_memory_bytes(64, torch.bfloat16)}); pointnet_train's largest block "
           f"(f32, f64): {pointnet_train.shared_memory_bytes()}, "
           f"{pointnet_train.shared_memory_bytes(torch.float64)} bytes; CUDA launches a "
           f"forward and a backward call, as the libraries report them: pointnet_train "
@@ -1153,7 +1353,8 @@ def main() -> int:
     # pass. Layer 3 runs on the tensor cores: HMMA in the encoder's SASS only
     hmma = sass_hmma(libs[1], "pne_")
     want = {"pne_split_w3_kernel": False, "pne_encoder_kernel": True,
-            "pne_segment_max_kernel": False}
+            "pne_segment_max_kernel": False, "pne_pack_w3_bf16_kernel": False,
+            "pne_encoder_bf16_kernel": True, "pne_segment_max_bf16_kernel": False}
     if hmma != want:
         raise RuntimeError(f"pointnet_eval SASS: HMMA in {hmma}, expected {want}")
     pn_err, pn_rel, pn_rel64, cases = 0.0, 0.0, 0.0, []
@@ -1196,7 +1397,8 @@ def main() -> int:
     # kernels and the f32 weight gradient on the CUDA cores
     hmma = sass_hmma(libs[3], "stem_")
     want = {"stem_forward_tf32x3_kernel": True, "stem_wgrad_stream_kernel": False,
-            "stem_forward_f64_kernel": False, "stem_wgrad_f64_kernel": False}
+            "stem_forward_f64_kernel": False, "stem_wgrad_f64_kernel": False,
+            "stem_forward_bf16_kernel": True, "stem_wgrad_stream_kernel<bf16>": False}
     if any(hmma.get(k) != v for k, v in want.items()):
         raise RuntimeError(f"vgg_stem SASS: HMMA in {hmma}, want {want}")
     phase("vgg_stem", t0, f"cuobjdump -sass: HMMA in {hmma}")
@@ -2242,7 +2444,6 @@ def main() -> int:
     # card), the student (2048, 224x224) through make_stage2_step at batch
     # 46 x 3 views: the stage-2 path's main path
     from types import SimpleNamespace
-    from pose3d_tpu_torch.cli import common as cli_common
     from pose3d_tpu_torch.losses.memory_bank import MemoryBank, enqueue, init_memory_bank
     from pose3d_tpu_torch.train.ckpt import Checkpointer
     tr = time.perf_counter()
@@ -2256,6 +2457,12 @@ def main() -> int:
         raise RuntimeError(f"stage 2: the teacher read from stage 1's checkpoint equal {same}, "
                            f"in train mode {s2_teacher.training}")
     del s1_teacher_sd
+    # the same checkpoint read by the CLI's loader under --bf16 (phase 38)
+    s2_teacher16 = cli_common.build_vanilla(
+        SimpleNamespace(img_feature_dim=1024, shape_feature_dim=STAGE1_SHAPE_DIM, bin_size=15,
+                        bf16=True), dev, s1_ckpt).requires_grad_(False)
+    if s2_teacher16.shape_encoder.compute_dtype != torch.bfloat16:
+        raise RuntimeError("stage 2: the CLI's loader built no bf16 teacher under --bf16")
     s2_dir.cleanup()
     s2_state = create_train_state(kd_student(47), LR, [10**9], seed=47)
     s2_step = steps.make_stage2_step()
@@ -2549,6 +2756,460 @@ def main() -> int:
           f"{NCE_LOSS_RTOL})")
     del pairs, got
 
+    # --- bf16 (--bf16): the stem's and the eval PointNet's bf16 instances,
+    # then the paths that run on them at full width; each path's launches
+    # of the bf16 kernels counted from 0, its time by CUDA events beside the
+    # f32 path's in this run (the same weights, in turns), and what leads
+    # its profile
+    bf16 = torch.bfloat16
+
+    def in_turns(models, run, iters):
+        """ms of run() by CUDA events with `models` in f32 and in bf16
+        compute, in turns (f32, bf16, bf16, f32); left in bf16."""
+        times = {"f32": [], "bf16": []}
+        for who in ("f32", "bf16", "bf16", "f32"):
+            for m in models:
+                set_compute_dtype(m, None if who == "f32" else bf16)
+            times[who].append(round(cuda_ms(run, iters, warmup=1), 3))
+        for m in models:
+            set_compute_dtype(m, bf16)
+        return times
+
+    def leads(run, top=5) -> str:
+        """A profile of one run(): its busy share and the rows that lead."""
+        rows, device_ms, wall_ms = profile_steps(run, steps=1)
+        return (f"busy {device_ms / wall_ms:.3f}; leads: " + "; ".join(
+            f"{e.key[:56]} {100 * e.self_device_time_total / 1e3 / device_ms:.1f} %"
+            for e in rows[:top]))
+
+    def mean(v):
+        return sum(v) / len(v)
+
+    # 33. the bf16 stem kernels vs their plain bf16 version on phase 5's
+    # cases (the tied image and the bars too): y within one bf16 ulp of
+    # max|ref|, the window index equal where the plain version's decision
+    # is more than an ulp clear, dW and db within one ulp of the gradient
+    # routed by the kernel's own index; HMMA.16816.F32.BF16 in the bf16
+    # forward's SASS only
+    hmma = sass_hmma(libs[3], "stem_", needle="HMMA.16816.F32.BF16")
+    if not hmma.get("stem_forward_bf16_kernel") or any(
+            v for k, v in hmma.items() if k != "stem_forward_bf16_kernel"):
+        raise RuntimeError(f"vgg_stem SASS: HMMA.16816.F32.BF16 in {hmma}")
+    srng = np.random.default_rng(33)
+    stem_cases = [(n_c, hw, f_c, "rand") for n_c in (1, 7, 138) for hw in (224, 64, 30)
+                  for f_c in (16, 64)]
+    stem_cases += [(7, 224, 64, "ties"), (7, 224, 64, "negative"), (7, 31, 8, "rand"),
+                   (7, 64, 256, "rand"), (7, 224, 64, "bars")]
+    worst = {}
+    for case in stem_cases:
+        x_s, w_s, b_s, g_s = stem_inputs(srng, *case, dev, dtype=bf16)
+        before = bf16_counts()
+        r = stem_bf16_vs_plain(vgg_stem, x_s, w_s, b_s, g_s)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(bf16_counts()[:2], before[:2]))
+        if launched != (2, 1) or r["y_err"] > BF16_ULP or r["index_bad"] or \
+                r["dw_err"] > BF16_ULP or r["db_err"] > BF16_ULP:
+            raise RuntimeError(f"bf16 stem case {case}: launches (forward, backward) "
+                               f"{launched}, {r}")
+        worst = {k: max(worst.get(k, 0), v) for k, v in r.items()}
+    del x_s, w_s, b_s, g_s
+    stem16_err, stem16_wgrad_err = worst["max_abs_err"], max(worst["dw_abs"], worst["db_abs"])
+    phase("vgg_stem bf16", t0, f"kernels vs the plain bf16 version in {len(stem_cases)} cases "
+          f"(phase 5's): y max|d|/max|ref| {worst['y_err']:.3g} (one ulp {BF16_ULP:.3g}), "
+          f"unequal share at most {worst['y_unequal']:.3g}; window index unequal share at "
+          f"most {worst['index_unequal']:.3g}, {worst['index_bad']} differing where the plain "
+          f"version's decision is more than an ulp clear; dW {worst['dw_err']:.3g} and db "
+          f"{worst['db_err']:.3g} of max|ref| given the kernel's index (tol one ulp; max|d| "
+          f"{worst['dw_abs']:.3g} and {worst['db_abs']:.3g}); "
+          f"cuobjdump -sass: HMMA.16816.F32.BF16 in {hmma}")
+    # times at the KD shape (138, 224, 224) F 64: the kernels and the plain
+    # version, the forward with indices also on the tied and bars images
+    x_s, w_s, b_s, g_s = stem_inputs(np.random.default_rng(25), 3 * KD_BATCH, 224, 64, "rand",
+                                     dev, dtype=bf16)
+    x_nhwc, w_d, b_d = x_s.permute(0, 2, 3, 1), w_s.detach(), b_s.detach()
+    _, index = vgg_stem.stem_forward(x_nhwc, w_d, b_d, with_index=True)
+    y_plain = vgg_stem.vgg_stem_plain(x_s, w_s, b_s)
+
+    def plain16_fwd():
+        with torch.no_grad():
+            vgg_stem.vgg_stem_plain(x_s, w_d, b_d)
+
+    stem16 = {k: round(cuda_ms(fn, 10), 4) for k, fn in (
+        ("kernel forward", lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, True)),
+        ("kernel forward, serving", lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, False)),
+        ("kernel backward", lambda: vgg_stem.stem_backward(x_nhwc, index, g_s)),
+        ("plain forward", plain16_fwd),
+        ("plain backward", lambda: torch.autograd.grad(y_plain, (w_s, b_s), g_s,
+                                                       retain_graph=True)))}
+    pooled = 3 * KD_BATCH * 112 * 112 * 64
+    unmasked = int((index < 4).sum())
+    in_bytes = 2.0 * (3 * KD_BATCH * 224 * 224 * 3 + 64 * 28)
+    products = 2.0 * 27 * 4 * pooled
+    stem16_bounds = (bound(in_bytes + 2.0 * pooled + pooled, products, BF16_FLOPS),
+                     bound(in_bytes + 2.0 * pooled + pooled, 2.0 * 28 * unmasked),
+                     bound(in_bytes + 2.0 * pooled, products, BF16_FLOPS))
+    del x_s, x_nhwc, index, y_plain, g_s
+    tied = {}
+    for kind, bars in (("ties", 0.0), ("bars", 0.25), ("bars", 0.5)):
+        x_s, w_s, b_s, _ = stem_inputs(np.random.default_rng(25), 3 * KD_BATCH, 224, 64, kind,
+                                       dev, dtype=bf16, bars=bars)
+        x_nhwc, w_d, b_d = x_s.permute(0, 2, 3, 1), w_s.detach(), b_s.detach()
+        tied[f"{kind} {bars}"] = round(cuda_ms(
+            lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, True), 10), 4)
+        del x_s, x_nhwc
+    fb, bb, sb = stem16_bounds
+    phase("time", t0, f"stem bf16 ({3 * KD_BATCH}, 224, 224) F 64: {stem16} ms; the forward "
+          f"with indices where windows tie (every window; bars over 25 / 50 %): {tied} ms; "
+          f"bound forward {fb[0]:.4f} ms ({fb[1]}), serving {sb[0]:.4f} ({sb[1]}), backward "
+          f"{bb[0]:.4f} ({bb[1]}; {unmasked / pooled:.3f} of the outputs pass the ReLU) "
+          f"[{card}]")
+
+    # 34. the bf16 eval PointNet kernel vs its plain bf16 version: the
+    # shapes of the paths (64 / 46 / 1, 2500, 1024) and (46, 2500, 256),
+    # every output negative, identical points, a ragged column chunk;
+    # HMMA.16816.F32.BF16 in the bf16 encoder's SASS only; times
+    hmma = sass_hmma(libs[1], "pne_", needle="HMMA.16816.F32.BF16")
+    if not hmma.get("pne_encoder_bf16_kernel") or any(
+            v for k, v in hmma.items() if k != "pne_encoder_bf16_kernel"):
+        raise RuntimeError(f"pointnet_eval SASS: HMMA.16816.F32.BF16 in {hmma}")
+    prng = np.random.default_rng(34)
+    pn16_err = pn16_rel = pn16_unequal = 0.0
+    pn16_cases = [(64, 2500, 1024, None, False), (46, 2500, 1024, None, False),
+                  (1, 2500, 1024, None, False), (46, 2500, 256, None, False),
+                  (3, 2500, 256, -100.0, False), (2, 700, 1024, None, True),
+                  (3, 511, 1000, None, False), (2, 1, 256, None, False)]
+    for n_c, p_c, d_c, b3, identical in pn16_cases:
+        layers = pointnet_bf16_params(prng, d_c, dev, b3)
+        pts = prng.uniform(-1, 1, (n_c, 1 if identical else p_c, 3)).astype(np.float32)
+        pts = torch.from_numpy(np.broadcast_to(pts, (n_c, p_c, 3)).copy()).to(dev, bf16)
+        before = pointnet.pointnet_eval_bf16.launches
+        out = pointnet.pointnet_eval_bf16(pts, layers)
+        ref = pointnet.pointnet_eval_bf16_plain(pts, layers)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if pointnet.pointnet_eval_bf16.launches != before + 1 or out.shape != (n_c, d_c) or \
+                out.dtype != bf16 or err > BF16_ULP * scale or \
+                (b3 is not None and float(out.float().max()) >= 0):
+            raise RuntimeError(f"bf16 pointnet {(n_c, p_c, d_c, b3, identical)}: shape "
+                               f"{tuple(out.shape)}, max|d| {err:.3g}, max|ref| {scale:.3g}")
+        pn16_err, pn16_rel = max(pn16_err, err), max(pn16_rel, err / scale)
+        pn16_unequal = max(pn16_unequal, float((out != ref).float().mean()))
+    phase("pointnet bf16", t0, f"kernel vs the plain bf16 version in {len(pn16_cases)} cases "
+          f"((64 / 46 / 1, 2500, 1024), (46, 2500, 256), all outputs negative, identical "
+          f"points, (3, 511, 1000), one point): max|d|/max|ref| {pn16_rel:.3g} (one ulp "
+          f"{BF16_ULP:.3g}), unequal share at most {pn16_unequal:.3g}; cuobjdump -sass: "
+          f"HMMA.16816.F32.BF16 in {hmma}")
+    pn16_times, pn16_bounds = {}, {}
+    side = torch.cuda.Stream()
+    for n_c, d_c in ((64, 1024), (46, 1024), (1, 1024), (46, 256)):
+        layers = pointnet_bf16_params(np.random.default_rng(35), d_c, dev)
+        pts = torch.rand((n_c, POINT_NUM, 3), device=dev).to(bf16)
+        kernel_ms = graph_ms(lambda: pointnet.pointnet_eval_bf16(pts, layers), side)
+        plain_ms = cuda_ms(lambda: pointnet.pointnet_eval_bf16_plain(pts, layers), 5)
+        flops = 2.0 * n_c * POINT_NUM * (3 * 64 + 64 * 128 + 128 * d_c)
+        pn16_bounds[n_c, d_c] = bound(2.0 * (pts.numel() + n_c * d_c) + sum(
+            t.numel() * t.element_size() for layer in layers for t in layer), flops, BF16_FLOPS)
+        pn16_times[n_c, d_c] = (kernel_ms, plain_ms)
+    phase("time", t0, "pointnet bf16, device time a call by graph replay (plain by events), "
+          "ms: " + "; ".join(f"({n_c}, {POINT_NUM}, {d_c}) kernel {k:.4f} plain {p:.4f} bound "
+                             f"{pn16_bounds[n_c, d_c][0]:.4f} ({pn16_bounds[n_c, d_c][1]})"
+                             for (n_c, d_c), (k, p) in pn16_times.items()) + f" [{card}]")
+
+    # 35. the student in bf16 at full width (phase 6's weights): serving,
+    # then an evaluation; card vs CPU at the small width by the oracle rule;
+    # serving times beside f32 at batch 256 and 1
+    state = convert.baseline_state_dict(student_variables(np.random.default_rng(1)))
+    with torch.device("meta"):
+        student16 = BaselineEstimator(compute_dtype=bf16)
+    student16.load_state_dict({k: v.to(dev) for k, v in state.items()}, strict=True,
+                              assign=True)
+    student16.eval().requires_grad_(False)
+    del state
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (256, 224, 224, 3), dtype=np.float32)).to(dev)
+    reset_counts()
+    vp = student16.predict_viewpoint(x[:64])
+    torch.cuda.synchronize()
+    serving16 = bf16_counts()
+    if vp.shape != (64, 3) or not bool(((vp >= 0) & (vp <= 360)).all()) or \
+            serving16 != (1, 0, 0) or counts()[4] != 0:
+        raise RuntimeError(f"bf16 student serving: {tuple(vp.shape)}, bf16 launches "
+                           f"{serving16}, f32 stem launches {counts()[4]}")
+    result = evaluate_categories(steps.make_eval_step(student16, "student"),
+                                 eval_batches(3, False), EVAL_CATEGORIES, dev)
+    torch.cuda.synchronize()
+    eval16 = tuple(a - b for a, b in zip(bf16_counts(), serving16))
+    if eval16 != (len(EVAL_COUNTS), 0, 0) or geodesic.rotation_err.launches != 1:
+        raise RuntimeError(f"bf16 student evaluation: bf16 launches {eval16}, geodesic "
+                           f"{geodesic.rotation_err.launches}")
+    check_eval(result, geometry, "bf16 student")
+    small_in = torch.from_numpy(np.random.default_rng(36).standard_normal(
+        (4, 32, 32, 3), dtype=np.float32))
+
+    def small_eval(kind):
+        """The small student (kind "student") or teacher in eval mode on the
+        CPU in f64 (the teacher in f32: its eval PointNet takes f32 only), in
+        bf16, and on the card in bf16; each output held to `bf16_oracle`,
+        the largest share of its bound returned."""
+        outs = []
+        for where, dtype in (("cpu", None), ("cpu", bf16), ("cuda", bf16)):
+            if kind == "student":
+                m = BaselineEstimator(img_feature_dim=64, width_mult=0.25, input_dim=32,
+                                      dropout_rate=0.0, compute_dtype=dtype)
+                m.load_state_dict(s_small, strict=True)
+                args = (small_in,)
+            else:
+                m = PoseEstimator(img_feature_dim=64, shape_feature_dim=64, compute_dtype=dtype)
+                m.load_state_dict(t_small, strict=True)
+                args = (small_in, torch.from_numpy(kd_small["shape"]))
+            if dtype is None and kind == "student":
+                m, args = m.double(), tuple(a.double() for a in args)
+            with torch.no_grad():
+                out = m.to(where).eval()(*(a.to(where) for a in args))
+            outs.append([o.float() if dtype is None else o for o in list(out[0]) + list(out[1:])])
+        return max(bf16_oracle(bf16_errors(g, c, r), BF16_ORACLE_FLOOR * float(
+            r.abs().max()), f"{kind} output {i}") for i, (r, c, g) in enumerate(zip(*outs)))
+
+    small_ratio = small_eval("student")
+    times16 = {b: in_turns([student16], lambda: student16(x[:b]), 10 if b > 1 else 20)
+               for b in (256, 1)}
+    with torch.no_grad():
+        lead = leads(lambda: student16(x[:256]))
+    phase("student bf16", t0, f"serving 64 requests -> {tuple(vp.shape)} degrees in [0, 360], "
+          f"bf16 launches (stem forward, backward, pointnet) {serving16}; evaluation of "
+          f"{len(result.cat_ids)} rows: {eval16}, Acc {result.per_category_acc}, equal to the "
+          f"plain CPU recomputation; card vs CPU at width 0.25 (bf16, against f64): the card's "
+          f"error at most {small_ratio:.3g} of the oracle's bound (twice the CPU's + 2^-10 "
+          f"max|ref|, by the largest and by the RMS difference) [{card}]")
+    for b, t in times16.items():
+        phase("time", t0, f"student serving batch {b}: f32 {t['f32']} ms/batch, bf16 "
+              f"{t['bf16']} ms/batch = {b * 1000.0 / mean(t['bf16']):.1f} img/s (f32 "
+              f"{b * 1000.0 / mean(t['f32']):.1f}) [{card}]")
+    phase("profile", t0, f"student serving bf16 batch 256: {lead}")
+    student16_serving = serving16[0] + eval16[0]
+    del student16, x
+
+    # 36. the PointCloud teacher in bf16 at full width (phase 9's weights):
+    # serving at batch 64, then an evaluation; card vs CPU at the small
+    # width; serving times beside f32
+    state = convert.pose_state_dict(teacher_variables(np.random.default_rng(5)))
+    with torch.device("meta"):
+        teacher16 = PoseEstimator(compute_dtype=bf16)
+    teacher16.load_state_dict({k: v.to(dev) for k, v in state.items()}, strict=True,
+                              assign=True)
+    teacher16.eval().requires_grad_(False)
+    del state
+    trng = np.random.default_rng(6)
+    xt = torch.from_numpy(trng.standard_normal((TEACHER_BATCH, 224, 224, 3),
+                                               dtype=np.float32)).to(dev)
+    pc = torch.from_numpy(trng.uniform(0, 1, (TEACHER_BATCH, POINT_NUM, 3))
+                          .astype(np.float32)).to(dev)
+    reset_counts()
+    vp = teacher16.predict_viewpoint(xt, pc)
+    torch.cuda.synchronize()
+    t_serving16 = bf16_counts()
+    if vp.shape != (TEACHER_BATCH, 3) or not bool(((vp >= 0) & (vp <= 360)).all()) or \
+            t_serving16 != (0, 0, 1) or counts()[1] != 0:
+        raise RuntimeError(f"bf16 teacher serving: {tuple(vp.shape)}, bf16 launches "
+                           f"{t_serving16}, f32 pointnet launches {counts()[1]}")
+    result = evaluate_categories(steps.make_eval_step(teacher16, "teacher"),
+                                 eval_batches(7, True), EVAL_CATEGORIES, dev)
+    torch.cuda.synchronize()
+    t_eval16 = tuple(a - b for a, b in zip(bf16_counts(), t_serving16))
+    if t_eval16 != (0, 0, len(EVAL_COUNTS)) or geodesic.rotation_err.launches != 1 or \
+            not math.isfinite(result.val_nce_loss):
+        raise RuntimeError(f"bf16 teacher evaluation: bf16 launches {t_eval16}, geodesic "
+                           f"{geodesic.rotation_err.launches}, val_nce {result.val_nce_loss}")
+    check_eval(result, geometry, "bf16 teacher")
+    small_ratio = small_eval("teacher")
+    t_times16 = {b: in_turns([teacher16], lambda: teacher16(xt[:b], pc[:b]),
+                             10 if b > 1 else 20) for b in (TEACHER_BATCH, 1)}
+    lead = leads(lambda: teacher16(xt, pc))
+    phase("teacher bf16", t0, f"serving {TEACHER_BATCH} requests -> {tuple(vp.shape)} degrees "
+          f"in [0, 360], bf16 launches (stem forward, backward, pointnet) {t_serving16}; "
+          f"evaluation of {len(result.cat_ids)} rows: {t_eval16}, Acc "
+          f"{result.per_category_acc}, val_nce_loss {result.val_nce_loss:.4f}, equal to the "
+          f"plain CPU recomputation; card vs CPU at 64/64 (bf16, against f64): the card's "
+          f"error at most {small_ratio:.3g} of the oracle's bound [{card}]")
+    for b, t in t_times16.items():
+        phase("time", t0, f"teacher serving batch {b}: f32 {t['f32']} ms/batch, bf16 "
+              f"{t['bf16']} ms/batch = {b * 1000.0 / mean(t['bf16']):.1f} img/s (f32 "
+              f"{b * 1000.0 / mean(t['f32']):.1f}) [{card}]")
+    phase("profile", t0, f"teacher serving bf16 batch {TEACHER_BATCH}: {lead}")
+    teacher16_serving = t_serving16[2] + t_eval16[2]
+    del xt, pc
+
+    # 37. the KD --crd student's training in bf16 at batch 46 x 3 (the
+    # student and the frozen teacher in bf16): small steps card vs CPU by
+    # the oracle rule (phase 19's size: 4 samples x 3 views at the small
+    # width; phase 19's batch, one sample padded, and three more, the last
+    # unpadded; each tensor's errors summed over the four), 6 steps on one
+    # batch, the trainer's epoch and a resume; the step's time beside
+    # f32's; a profile; then --contrast and --vid
+    small16 = [kd_batch(np.random.default_rng(seed), 4, 32, 100) for seed in BF16_STEP_SEEDS]
+    for b in small16[:-1]:  # the last unpadded: BatchNorm's unmasked library call
+        b["valid"] = np.arange(4) < 3
+
+    def small_bf16_step(make_step, teacher_cls, teacher_sd):
+        """small_step(where, bf16, batch) for `bf16_card_vs_cpu`: one
+        student step of make_step() against the small frozen teacher, both
+        in bf16 compute, or (bf16 False) the student in f64 and the teacher
+        in f32."""
+        def run(where, as_bf16, batch_np):
+            dtype = bf16 if as_bf16 else None
+            model = BaselineEstimator(img_feature_dim=64, width_mult=0.25, input_dim=32,
+                                      dropout_rate=0.0, compute_dtype=dtype)
+            model.load_state_dict(s_small, strict=True)
+            state = create_train_state((model if as_bf16 else model.double()).to(where), LR,
+                                       [100], seed=0)
+            batch = {k: torch.from_numpy(v).to(where) for k, v in batch_np.items()}
+            if teacher_cls is None:  # the baseline
+                batch = {k: v for k, v in batch.items() if k in ("im", "label", "valid")}
+                return make_step()(state, batch), [state.model]
+            teacher = teacher_cls(img_feature_dim=64, shape_feature_dim=64, compute_dtype=dtype)
+            teacher.load_state_dict(teacher_sd, strict=True)
+            teacher = teacher.to(where).eval().requires_grad_(False)
+            return make_step()(state, teacher, batch), [state.model]
+        return run
+
+    kd_ratio = bf16_card_vs_cpu(small_bf16_step(steps.make_kd_crd_step, PoseEstimator, t_small),
+                                ("loss", "gt_loss"), small16)
+    set_compute_dtype(teacher16, bf16)
+    kd16_state = create_train_state(set_compute_dtype(kd_student(46), bf16), LR, [10**9],
+                                    seed=46)
+    kd_step = steps.make_kd_crd_step()
+    kb = {k: torch.from_numpy(v).to(dev) for k, v in
+          kd_batch(np.random.default_rng(22), KD_BATCH, 224, POINT_NUM).items()}
+    reset_counts()
+    history = [kd_step(kd16_state, teacher16, kb) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    kd16_counts = bf16_counts()
+    kd16_losses = [float(m["loss"]) for m in history]
+    if kd16_counts != (TRAIN_STEPS,) * 3 or any(counts()[i] for i in (1, 4, 5)) or \
+            not all(math.isfinite(v) for v in kd16_losses):
+        raise RuntimeError(f"bf16 KD training: bf16 launches {kd16_counts}, f32 {counts()}, "
+                           f"losses {kd16_losses}")
+    with tempfile.TemporaryDirectory() as tmp:
+        def kd_loaders():
+            return (DataLoader(KDMemorySet(2 * KD_BATCH, 23, 224), KD_BATCH, shuffle=True,
+                               drop_last=True, num_workers=2),
+                    DataLoader(KDMemorySet(40, 24, 224, train=False), KD_BATCH,
+                               shuffle=False, num_workers=2))
+
+        fit_state = create_train_state(set_compute_dtype(kd_student(23), bf16), LR, [10**9],
+                                       seed=46)
+        trainer = KDTrainer(fit_state, teacher16, *kd_loaders(), EVAL_CATEGORIES, tmp)
+        reset_counts()
+        trainer.fit_crd(1)
+        torch.cuda.synchronize()
+        kd16_fit = bf16_counts()
+        saved = trainer.ckpt.restore("checkpoint")["model"]
+        if kd16_fit != (3, 2, 2) or not all(v.dtype != bf16 for v in saved.values()):
+            raise RuntimeError(f"bf16 KD trainer epoch: bf16 launches {kd16_fit}, checkpoint "
+                               f"dtypes {sorted({str(v.dtype) for v in saved.values()})}")
+        resumed = create_train_state(set_compute_dtype(kd_student(99), bf16), LR, [10**9],
+                                     seed=0)
+        resumed.load_state_dict(trainer.ckpt.restore("checkpoint"))
+        del fit_state, trainer, saved
+        KDTrainer(resumed, teacher16, *kd_loaders(), EVAL_CATEGORIES, tmp).fit_crd(
+            2, start_epoch=1)
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        if resumed.step != 4 or [r["epoch"] for r in records] != [0, 1] or not all(
+                math.isfinite(r["train_loss"]) and math.isfinite(r["val_med"])
+                for r in records):
+            raise RuntimeError(f"bf16 KD trainer resume: step {resumed.step}, records {records}")
+    del resumed
+    kd16_times = in_turns([kd16_state.model, teacher16],
+                          lambda: kd_step(kd16_state, teacher16, kb), 3)
+    lead = leads(lambda: kd_step(kd16_state, teacher16, kb))
+    phase("KD bf16", t0, f"{len(small16)} small steps card vs CPU (bf16, against f64): the card's "
+          f"error summed over them at most {kd_ratio[0]:.3g} of the oracle's bound (each batch "
+          f"alone, phase 19's first: {kd_ratio[1]}, not held); {TRAIN_STEPS} "
+          f"steps at batch {KD_BATCH} x 3 views: loss {[round(v, 4) for v in kd16_losses]}, "
+          f"bf16 launches (stem forward, backward, pointnet) {kd16_counts}; trainer epoch "
+          f"{kd16_fit}, its checkpoint f32, resumed into epoch 1; val_med "
+          f"{[round(r['val_med'], 3) for r in records]} [{card}]")
+    phase("time", t0, f"KD --crd step batch {KD_BATCH} x 3 views: f32 {kd16_times['f32']} "
+          f"ms/step, bf16 {kd16_times['bf16']} ms/step = "
+          f"{KD_BATCH * 1000.0 / mean(kd16_times['bf16']):.1f} samples/s (f32 "
+          f"{KD_BATCH * 1000.0 / mean(kd16_times['f32']):.1f}) [{card}]")
+    phase("profile", t0, f"KD --crd step bf16: {lead}")
+    # --contrast and --vid in bf16, 2 steps each (then 3 timed)
+    variant16_counts = (0, 0, 0)
+    for variant in ("contrast", "vid"):
+        v_step = steps.make_kd_crd_step(loss_variant=variant)
+        reset_counts()
+        losses = [float(v_step(kd16_state, teacher16, kb)["loss"]) for _ in range(2)]
+        torch.cuda.synchronize()
+        launched = bf16_counts()
+        if launched != (2, 2, 2) or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"bf16 KD --{variant}: bf16 launches {launched}, losses {losses}")
+        variant16_counts = tuple(a + b for a, b in zip(variant16_counts, launched))
+        v_ms = cuda_ms(lambda: v_step(kd16_state, teacher16, kb), 3, warmup=0)
+        phase(f"KD --{variant} bf16", t0, f"2 steps: loss {[round(v, 4) for v in losses]}, bf16 "
+              f"launches (stem forward, backward, pointnet) {launched}; {v_ms:.3f} ms/step by "
+              f"CUDA events [{card}]")
+    del kd16_state, teacher16, history
+
+    # 38. the stage-2 step in bf16 (its teacher read from phase 26's
+    # stage-1 checkpoint.pth under --bf16, phase 28) and the RGB-only
+    # baseline in bf16 at batch 64: each phase 37's small steps card vs
+    # CPU, 2 steps, their bf16 launches, time beside f32's, a profile
+    s2_ratio = bf16_card_vs_cpu(small_bf16_step(steps.make_stage2_step, PoseEstimatorVanilla,
+                                                v_small), ("loss", "gt_loss"), small16)
+    bl_small_step = small_bf16_step(lambda: steps.make_vanilla_train_step(False), None, None)
+    bl_ratio = bf16_card_vs_cpu(bl_small_step, ("loss",), small16)
+    # the witness: phase 19's batch with cuBLAS's reduced-precision bf16
+    # reductions on (PyTorch's default, which setup_device turns off)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    bl_reduced = bf16_card_vs_cpu(bl_small_step, ("loss",), small16[:1], hold=False)[1][0]
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    s2_state16 = create_train_state(set_compute_dtype(kd_student(47), bf16), LR, [10**9],
+                                    seed=47)
+    s2_step = steps.make_stage2_step()
+    reset_counts()
+    s2_losses16 = [float(s2_step(s2_state16, s2_teacher16, kb)["loss"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    s2_counts16 = bf16_counts()
+    bl_state16 = create_train_state(set_compute_dtype(kd_student(51), bf16), LR, [10**9],
+                                    seed=51)
+    blb = {k: torch.from_numpy(v).to(dev) for k, v in
+           train_batch(np.random.default_rng(40), 64, 224, POINT_NUM).items() if k != "shape"}
+    bl_step = steps.make_vanilla_train_step(False)
+    reset_counts()
+    bl_losses16 = [float(bl_step(bl_state16, blb)["loss"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    bl_counts16 = bf16_counts()
+    if s2_counts16 != (2, 2, 2) or bl_counts16 != (2, 2, 0) or not all(
+            math.isfinite(v) for v in s2_losses16 + bl_losses16):
+        raise RuntimeError(f"bf16 stage 2 / baseline: bf16 launches {s2_counts16} / "
+                           f"{bl_counts16}, losses {s2_losses16} / {bl_losses16}")
+    s2_times16 = in_turns([s2_state16.model, s2_teacher16],
+                          lambda: s2_step(s2_state16, s2_teacher16, kb), 3)
+    bl_times16 = in_turns([bl_state16.model], lambda: bl_step(bl_state16, blb), 3)
+    s2_lead = leads(lambda: s2_step(s2_state16, s2_teacher16, kb))
+    bl_lead = leads(lambda: bl_step(bl_state16, blb))
+    for name, what, ratio, losses, launched, t, rows, lead in (
+            ("stage 2 bf16", f"KD --stage 2 step batch {KD_BATCH} x 3 views", s2_ratio,
+             s2_losses16, s2_counts16, s2_times16, KD_BATCH, s2_lead),
+            ("baseline bf16", "baseline step batch 64", bl_ratio, bl_losses16, bl_counts16,
+             bl_times16, 64, bl_lead)):
+        witness = (f"; with cuBLAS's reduced-precision bf16 reductions on, phase 19's batch "
+                   f"{bl_reduced}" if name.startswith("baseline") else "")
+        phase(name, t0, f"{len(small16)} small steps card vs CPU (bf16, against f64): the "
+              f"card's error summed over them at most {ratio[0]:.3g} of the oracle's bound "
+              f"(each batch alone, phase 19's first: {ratio[1]}, not held{witness}); 2 steps: loss "
+              f"{[round(v, 4) for v in losses]}, bf16 launches (stem forward, backward, "
+              f"pointnet) {launched}")
+        phase("time", t0, f"{what}: f32 {t['f32']} ms/step, bf16 {t['bf16']} ms/step = "
+              f"{rows * 1000.0 / mean(t['bf16']):.1f} samples/s (f32 "
+              f"{rows * 1000.0 / mean(t['f32']):.1f}) [{card}]")
+        phase("profile", t0, f"{name}: {lead}")
+    del s2_state16, s2_teacher16, bl_state16, blb, kb
+    bf16_paths = [sum(c) for c in zip(kd16_counts, variant16_counts, s2_counts16, bl_counts16)]
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2601,7 +3262,17 @@ def main() -> int:
         entry("pointnet_train_backward", "pose3d_tpu_torch/csrc/pointnet_train.cu",
               "pose3d_tpu/ops/pointnet_train_fused.py:372", train_counts[7] + added[7], pt_err,
               pt_times[TRAIN_BATCH]["kernel backward"], pt_times[TRAIN_BATCH]["plain backward"],
-              pt_bounds[TRAIN_BATCH][1])]}))
+              pt_bounds[TRAIN_BATCH][1]),
+        # the bf16 instances, their launches on the bf16 paths (phases 35-38)
+        entry("vgg_stem_forward_bf16", "pose3d_tpu_torch/csrc/vgg_stem.cu",
+              "pose3d_tpu/ops/vgg_stem.py:93", bf16_paths[0] + student16_serving, stem16_err,
+              stem16["kernel forward"], stem16["plain forward"], stem16_bounds[0]),
+        entry("vgg_stem_wgrad_bf16", "pose3d_tpu_torch/csrc/vgg_stem.cu",
+              "pose3d_tpu/ops/vgg_stem.py:93", bf16_paths[1], stem16_wgrad_err,
+              stem16["kernel backward"], stem16["plain backward"], stem16_bounds[1]),
+        entry("pointnet_eval_bf16", "pose3d_tpu_torch/csrc/pointnet_eval.cu",
+              "pose3d_tpu/ops/pointnet_fused.py:78", bf16_paths[2] + teacher16_serving,
+              pn16_err, *pn16_times[TEACHER_BATCH, 1024], pn16_bounds[TEACHER_BATCH, 1024])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

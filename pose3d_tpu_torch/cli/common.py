@@ -22,6 +22,19 @@ from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator
 from pose3d_tpu_torch.train.convert import read_state_dict
 
 MANUAL_SEED = 46  # the reference's fixed seed
+BF16_HELP = ("bfloat16 compute with float32 parameters, optimizer state and "
+             "checkpoints (flax's dtype): each layer casts its input and weights to "
+             "bf16, BatchNorm statistics and the losses stay float32; the VGG stem "
+             "and the eval PointNet run in their bf16 kernels on the card. Serving, "
+             "evaluation, KD --crd / --contrast / --vid / --stage 2 and the RGB-only "
+             "baseline take it; the teacher's training and KD --stage 1 refuse it "
+             "(the train-mode PointNet kernel's bf16 instance: ROADMAP.md Queue 1)")
+DEVICE_HELP = ("torch device (default cuda). On a CUDA device the geodesic error, the "
+               "VGG stem and the PointNet encoders run in their CUDA kernels; on cpu the "
+               "plain PyTorch versions run, and only when asked for. TF32 is turned off "
+               "for convolutions and matmuls, and cuBLAS's reduced-precision bf16 "
+               "reductions too, matching the JAX package's float32 and bfloat16 "
+               "semantics.")
 TEST_CATS = {"ObjectNet3D": annotations.OBJECTNET3D_TEST_CATS,
              "Pascal3D": annotations.PASCAL3D_TEST_CATS}
 
@@ -33,15 +46,8 @@ def add_student_flags(parser: argparse.ArgumentParser, img_feature_dim: int) -> 
     parser.add_argument("--student_width_mult", type=float, default=1.0,
                         help="VGG conv width multiplier of the student (the "
                              "JAX KD CLI's --student_width_mult)")
-    parser.add_argument("--bf16", action="store_true",
-                        help="not ported yet: refused (ROADMAP.md Queue 1)")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device (default cuda). On a CUDA device the "
-                             "geodesic error and the PointNet encoder run in their "
-                             "CUDA kernels; on cpu the plain PyTorch versions "
-                             "run. TF32 is turned off for "
-                             "convolutions and matmuls, matching the JAX "
-                             "package's float32 semantics.")
+    parser.add_argument("--bf16", action="store_true", help=BF16_HELP)
+    parser.add_argument("--device", type=str, default="cuda", help=DEVICE_HELP)
 
 
 def refuse_unported(opt, flags: tuple[str, ...]) -> None:
@@ -53,15 +59,24 @@ def refuse_unported(opt, flags: tuple[str, ...]) -> None:
 
 
 def setup_device(opt) -> torch.device:
-    """The device of --device, with TF32 off. A CUDA device that is not there
-    is an error: nothing moves to the CPU unasked."""
+    """The device of --device, with TF32 off and bf16 GEMMs reduced in
+    float32 (cuBLAS may otherwise reduce them in bf16; flax accumulates in
+    float32). A CUDA device that is not there is an error: nothing moves to
+    the CPU unasked."""
     device = torch.device(opt.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {opt.device}: no CUDA device is available "
                          "(pass --device cpu to run the plain versions)")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return device
+
+
+def compute_dtype(opt) -> torch.dtype | None:
+    """The models' compute dtype: bfloat16 under --bf16, else None (the
+    parameters' float32), as JAX's `compute_dtype` reads the flag."""
+    return torch.bfloat16 if getattr(opt, "bf16", False) else None
 
 
 def num_classes(bin_size: int) -> tuple[int, int, int]:
@@ -72,13 +87,14 @@ def build_student(opt, checkpoint: str | None, device: torch.device,
                   img_feature_dim: int | None = None) -> BaselineEstimator:
     """The student of the flags, with weights from `checkpoint` (a
     reference-layout .pth, loaded strictly) or, without one, a seeded
-    random init. In eval mode, on `device`."""
+    random init; its compute dtype from --bf16. In eval mode, on `device`."""
     azi, ele, inp = num_classes(opt.bin_size)
     model = BaselineEstimator(
         img_feature_dim=img_feature_dim or opt.img_feature_dim, azi_classes=azi,
         ele_classes=ele, inp_classes=inp, bin_size=opt.bin_size,
         width_mult=opt.student_width_mult,
-        input_dim=opt.input_dim, generator=torch.Generator().manual_seed(0))
+        input_dim=opt.input_dim, generator=torch.Generator().manual_seed(0),
+        compute_dtype=compute_dtype(opt))
     return _loaded(model, checkpoint, device)
 
 
@@ -92,7 +108,7 @@ def build_teacher(opt, checkpoint: str | None, device: torch.device,
         img_feature_dim=img_feature_dim or opt.img_feature_dim,
         shape_feature_dim=opt.shape_feature_dim, azi_classes=azi, ele_classes=ele,
         inp_classes=inp, bin_size=opt.bin_size,
-        generator=torch.Generator().manual_seed(0))
+        generator=torch.Generator().manual_seed(0), compute_dtype=compute_dtype(opt))
     return _loaded(model, checkpoint, device)
 
 
@@ -108,7 +124,7 @@ def build_vanilla(opt, device: torch.device,
     model = PoseEstimatorVanilla(
         img_feature_dim=opt.img_feature_dim, shape_feature_dim=opt.shape_feature_dim,
         azi_classes=azi, ele_classes=ele, inp_classes=inp, bin_size=opt.bin_size,
-        generator=torch.Generator().manual_seed(1))
+        generator=torch.Generator().manual_seed(1), compute_dtype=compute_dtype(opt))
     if checkpoint is None:
         return model.to(device)
     return _loaded(model, checkpoint, device, role="teacher")

@@ -6,9 +6,10 @@ Loads a checkpoint (a reference-layout .pth), resize-pads the image to
 * bin_size, clamped to [0, 360]) and converts the result back to the
 annotation convention (ele -= 90, inp -= 180). With `--ply_path` the
 teacher also takes a cloud of --point_num points sampled from that file
-(seed 0, as in JAX). The MultiView teacher (`--render_dir`), `--int8`, the
-AOT artifacts and `--bf16` are refused with a message until they are
-ported (ROADMAP.md).
+(seed 0, as in JAX). `--bf16` computes in bfloat16 (the stem and the eval
+PointNet in their bf16 kernels on the card). The MultiView teacher
+(`--render_dir`), `--int8` and the AOT artifacts are refused with a
+message until they are ported (ROADMAP.md).
 
     python -m pose3d_tpu_torch.cli.inference --ckpt student.pth --img_path img.jpg
     python -m pose3d_tpu_torch.cli.inference --ckpt teacher.pth --img_path img.jpg \\
@@ -43,8 +44,7 @@ def parse_args(argv=None):
         parser.add_argument(f"--{flag}", type=str, default=None,
                             help="not ported yet: refused (ROADMAP.md)")
     opt = parser.parse_args(argv)
-    common.refuse_unported(opt, ("bf16", "int8", "export_aot", "load_aot",
-                                 "render_dir"))
+    common.refuse_unported(opt, ("int8", "export_aot", "load_aot", "render_dir"))
     if not opt.ckpt:
         raise SystemExit("--ckpt is required")
     return opt

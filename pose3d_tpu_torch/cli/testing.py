@@ -3,9 +3,10 @@
 
 One pass over the validation set, reduced per category. Writes the same
 artifacts as the JAX CLI: testing_log.txt with the per-category lines and
-predictions_{cat}.npy dumps. The MultiView teacher, `--int8`,
-`--device_shapes`, `--n_devices`, `--bf16` and the LineMod / Pix3D datasets
-are refused with a message until they are ported (ROADMAP.md).
+predictions_{cat}.npy dumps. `--bf16` computes in bfloat16 (float32
+parameters). The MultiView teacher, `--int8`, `--device_shapes`,
+`--n_devices` and the LineMod / Pix3D datasets are refused with a message
+until they are ported (ROADMAP.md).
 
     python -m pose3d_tpu_torch.cli.testing --dataset ObjectNet3D --shape None \\
         --img_feature_dim 2048 --model student.pth
@@ -60,7 +61,7 @@ def parse_args(argv=None):
                          "to pose3d_tpu_torch yet; see ROADMAP.md Queue 1 "
                          "(--shape None for the student, PointCloud for the "
                          "PointCloud teacher)")
-    common.refuse_unported(opt, ("bf16", "int8", "device_shapes", "n_devices"))
+    common.refuse_unported(opt, ("int8", "device_shapes", "n_devices"))
     return opt
 
 

@@ -6,7 +6,8 @@ on ObjectNet3D and Pascal3D:
     `--nce multipose`;
   * `--shape None`: the RGB-only supervised baseline, the student
     (`--img_feature_dim`, `--student_width_mult`) under the 4-term pose
-    loss alone, its stem in the VGG stem kernel on the card.
+    loss alone, its stem in the VGG stem kernel on the card; `--bf16`
+    computes in bfloat16 (float32 parameters and checkpoints).
 
     python -m pose3d_tpu_torch.cli.training --dataset ObjectNet3D \\
         --shape PointCloud --shape_dir pointcloud --batch_size 160 \\
@@ -95,8 +96,9 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda); cpu runs the plain "
                              "versions and must be asked for")
-    for flag, what in (("bf16", "bfloat16 compute"),
-                       ("device_shapes", "a device-resident cloud bank"),
+    parser.add_argument("--bf16", action="store_true",
+                        help=common.BF16_HELP + "; here: --shape None only")
+    for flag, what in (("device_shapes", "a device-resident cloud bank"),
                        ("device_augment", "on-device photometric augmentation")):
         parser.add_argument(f"--{flag}", action="store_true",
                             help=f"{what}: not ported yet, refused (ROADMAP.md)")
@@ -128,6 +130,11 @@ def parse_args(argv=None):
     if opt.shape == "None" and opt.fused_nce:
         raise SystemExit("--fused_nce: the RGB baseline has no contrastive term "
                          "(ROADMAP.md Queue 1 lists the ported regimes)")
+    if opt.bf16 and opt.shape != "None":
+        raise SystemExit("--bf16 with --shape PointCloud: the teacher's training needs the "
+                         "train-mode PointNet kernel's bf16 instance, which is not ported to "
+                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1 (--bf16 trains the "
+                         "RGB-only baseline, --shape None)")
     if opt.shape != "None" and opt.student_width_mult != 1.0:
         raise SystemExit("--student_width_mult applies to --shape None, the RGB baseline "
                          "(ROADMAP.md Queue 1 lists the ported regimes)")
@@ -135,8 +142,7 @@ def parse_args(argv=None):
                 "--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
                 "--cache_decoded_mb > 0": opt.cache_decoded_mb > 0,
                 "--profile_dir": opt.profile_dir is not None,
-                "--model": opt.model is not None,
-                "--bf16": opt.bf16, "--device_shapes": opt.device_shapes,
+                "--model": opt.model is not None, "--device_shapes": opt.device_shapes,
                 "--device_augment": opt.device_augment}
     for flag, set_ in unported.items():
         if set_:

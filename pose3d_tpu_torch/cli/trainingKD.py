@@ -139,10 +139,12 @@ def parse_args(argv=None):
     for flag, what in (("int8_teacher", "an int8 frozen teacher"),
                        ("device_augment", "on-device photometric augmentation"),
                        ("device_views", "on-device view synthesis"),
-                       ("device_shapes", "a device-resident cloud bank"),
-                       ("bf16", "bfloat16 compute")):
+                       ("device_shapes", "a device-resident cloud bank")):
         parser.add_argument(f"--{flag}", action="store_true",
                             help=f"{what}: not ported yet, refused (ROADMAP.md)")
+    parser.add_argument("--bf16", action="store_true",
+                        help=common.BF16_HELP + "; here: the student and its frozen "
+                             "teacher, every regime but --stage 1")
     parser.add_argument("--fused_nce", action="store_true",
                         help="--stage 1: both NCE directions in the NCE kernels")
     parser.add_argument("--tau", type=float, default=None,
@@ -203,12 +205,17 @@ def parse_args(argv=None):
         if set_ and opt.stage != 1:
             raise SystemExit(f"{flag} applies to --stage 1 only; the other regimes have no "
                              "use for it (ROADMAP.md Queue 1 lists the ported regimes)")
+    if opt.bf16 and opt.stage == 1:
+        raise SystemExit("--bf16 with --stage 1: the vanilla teacher's training needs the "
+                         "train-mode PointNet kernel's bf16 instance, which is not ported to "
+                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1 (--bf16 runs --crd, "
+                         "--contrast, --vid and --stage 2)")
     if opt.stage == 1 and opt.teacher_model is not None:
         raise SystemExit("--teacher_model: --stage 1 trains its vanilla teacher from "
                          "scratch (ROADMAP.md Queue 1 lists the ported regimes)")
     unported = {"--int8_teacher": opt.int8_teacher, "--device_augment": opt.device_augment,
                 "--device_views": opt.device_views, "--device_shapes": opt.device_shapes,
-                "--bf16": opt.bf16, "--loader shm": opt.loader != "thread",
+                "--loader shm": opt.loader != "thread",
                 "--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
                 "--cache_decoded_mb > 0": opt.cache_decoded_mb > 0,
                 "--profile_dir": opt.profile_dir is not None, "--model": opt.model is not None}

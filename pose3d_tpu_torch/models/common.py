@@ -11,6 +11,17 @@ BatchNorm follows flax (`nn.BatchNorm(momentum=0.9, epsilon=1e-5)` with the
 `mask` of `bn_mask`), not torch: in train mode the statistics come from the
 valid rows only, and the running variance moves toward the BIASED batch
 variance (torch's BatchNorm moves it toward the unbiased one).
+
+Compute dtype (`--bf16`), as flax's `dtype` with `param_dtype` float32:
+the parameters, the optimizer state and the checkpoints stay in their
+dtype; a model built with `compute_dtype` (bfloat16) casts each layer's
+input and weights to it (`linear`, `conv2d`), so a layer's output rounds
+where flax's does: x W to bf16, then + b to bf16. BatchNorm takes its
+statistics and normalises in float32 and rounds its output to the input's
+dtype. `compute_dtype=None` is the parameters' dtype, and those paths run
+as before. A parameter's gradient reaches it through the cast, so it is
+rounded to the compute dtype before it is widened, as JAX's gradient of
+`kernel.astype(bfloat16)` is.
 """
 
 from __future__ import annotations
@@ -34,6 +45,28 @@ def dense_init_(linear: nn.Linear, generator=None) -> nn.Linear:
     nn.init.normal_(linear.weight, 0.0, 1e-3, generator=generator)
     nn.init.zeros_(linear.bias)
     return linear
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """flax's Dense under compute dtype `dtype`: x W^T in `dtype` (one
+    rounding), then + b (another); with None, `layer(x)` as it is."""
+    if dtype is None:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype | None = None,
+           bias: bool = True) -> torch.Tensor:
+    """flax's Conv under compute dtype `dtype` (None: the parameters'): the
+    convolution (one rounding), then + b (another) unless `bias` is False
+    (the caller adds it, after a pool); with None and the bias, `conv(x)`."""
+    if dtype is None and bias:
+        return conv(x)
+    w = conv.weight if dtype is None else conv.weight.to(dtype)
+    y = F.conv2d(x if dtype is None else x.to(dtype), w, None, conv.stride, conv.padding)
+    if bias and conv.bias is not None:
+        y = y + conv.bias.to(y.dtype)[:, None, None]
+    return y
 
 
 def batch_stats(x: torch.Tensor, dims: Sequence[int],
@@ -68,6 +101,13 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         and the biased batch variance.
 
     Eval mode uses the running statistics, as torch's BatchNorm does.
+
+    An input in a narrower dtype than the parameters (a bf16 compute dtype)
+    is normalised as flax's BatchNorm(dtype=bfloat16) does: the statistics
+    from the input in float32, the normalisation in float32, rounded once to
+    the input's dtype. The library call (eval mode, and train mode without a
+    mask) takes a bf16 input with float32 parameters and buffers and does
+    its arithmetic in float32; the masked statistics widen the input first.
     """
 
     def __init__(self, num_features: int):
@@ -107,17 +147,25 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
             var = var * ((n - 1) / n)
         else:
-            mean, var = batch_stats(x, [0] + list(range(2, x.dim())), mask)
-            y = self.normalize(x, mean, var)
+            xp = x.to(self.weight.dtype)  # a bf16 input's statistics in float32
+            mean, var = batch_stats(xp, [0] + list(range(2, x.dim())), mask)
+            y = self.normalize(xp, mean, var).to(x.dtype)
         self.update_running(mean, var)
         return y
 
 
 def run_layers(layers: Iterable[nn.Module], x: torch.Tensor,
-               mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Apply a flat list of layers, handing `mask` to each BatchNorm."""
+               mask: torch.Tensor | None = None,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Apply a flat list of layers, handing `mask` to each BatchNorm and
+    the compute dtype `dtype` to each Linear."""
     for layer in layers:
-        x = layer(x, mask) if isinstance(layer, BatchNorm) else layer(x)
+        if isinstance(layer, BatchNorm):
+            x = layer(x, mask)
+        elif isinstance(layer, nn.Linear):
+            x = linear(layer, x, dtype)
+        else:
+            x = layer(x)
     return x
 
 

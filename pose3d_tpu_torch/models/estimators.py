@@ -18,6 +18,11 @@
 
 Heads in the order [cls_azi, cls_ele, cls_inp, reg_azi, reg_ele, reg_inp]
 with (360/bin, 180/bin, 360/bin) classes.
+
+`compute_dtype` (torch.bfloat16 under `--bf16`; None: the parameters'
+dtype) is handed to every layer, as JAX's estimators hand `dtype` down:
+the outputs come in it, and the steps and the decoders widen them to
+float32.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 from torch import nn
 
 from pose3d_tpu_torch import geometry
-from pose3d_tpu_torch.models.common import dense_bn_relu, head_dense, run_layers
+from pose3d_tpu_torch.models.common import dense_bn_relu, head_dense, linear, run_layers
 from pose3d_tpu_torch.models.deformnet import DeformNet
 from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
 from pose3d_tpu_torch.models.resnet import resnet18, resnet50
@@ -51,12 +56,14 @@ class BaselineEstimator(nn.Module):
     def __init__(self, img_feature_dim: int = 2048, azi_classes: int = 24,
                  ele_classes: int = 12, inp_classes: int = 24, bin_size: int = 15,
                  width_mult: float = 1.0, dropout_rate: float = 0.5,
-                 input_dim: int = 224, generator: torch.Generator | None = None):
+                 input_dim: int = 224, generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.bin_size = bin_size
+        self.compute_dtype = compute_dtype
         self.img_encoder = vgg11(num_classes=img_feature_dim, width_mult=width_mult,
                                  dropout_rate=dropout_rate, input_dim=input_dim,
-                                 generator=generator)
+                                 generator=generator, compute_dtype=compute_dtype)
         layers: list[nn.Module] = []
         width = img_feature_dim
         for out in COMPRESS_WIDTHS:
@@ -75,15 +82,16 @@ class BaselineEstimator(nn.Module):
         mode (kept out of every BatchNorm's statistics). `generator` /
         `keep`: the classifier dropout's keep-masks in train mode, drawn
         from the generator unless given (`VGG.forward`)."""
-        x = run_layers(self.compress, self.img_encoder(im, generator, keep), mask)
-        return ([getattr(self, name)(x) for name in HEADS],
-                run_layers(self.projector, x, mask))
+        cd = self.compute_dtype
+        x = run_layers(self.compress, self.img_encoder(im, generator, keep), mask, cd)
+        return ([linear(getattr(self, name), x, cd) for name in HEADS],
+                run_layers(self.projector, x, mask, cd))
 
     @torch.no_grad()
     def predict_viewpoint(self, im: torch.Tensor) -> torch.Tensor:
         """Serving: NHWC images -> (N, 3) degrees through the inference
         decoder, in canonical label convention. Call in eval mode."""
-        outputs, _ = self(im)
+        outputs = [o.float() for o in self(im)[0]]
         return geometry.decode_predictions_inference(outputs[:3], outputs[3:],
                                                      self.bin_size)
 
@@ -96,16 +104,20 @@ class PoseEstimator(nn.Module):
     def __init__(self, shape: str = "PointCloud", img_feature_dim: int = 1024,
                  shape_feature_dim: int = 1024, azi_classes: int = 24,
                  ele_classes: int = 12, inp_classes: int = 24, bin_size: int = 15,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         if shape != "PointCloud":
             raise NotImplementedError(f"PoseEstimator(shape={shape!r}) is not ported to "
                                       "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
         self.bin_size = bin_size
-        self.img_encoder = resnet50(num_classes=img_feature_dim, generator=generator)
-        self.shape_encoder = ShapeEncoderPC(shape_feature_dim, generator=generator)
+        self.compute_dtype = compute_dtype
+        self.img_encoder = resnet50(num_classes=img_feature_dim, generator=generator,
+                                    compute_dtype=compute_dtype)
+        self.shape_encoder = ShapeEncoderPC(shape_feature_dim, generator=generator,
+                                            compute_dtype=compute_dtype)
         self.deformNet = DeformNet(shape_feature_dim + img_feature_dim,
-                                   generator=generator)
+                                   generator=generator, compute_dtype=compute_dtype)
         for name, n in zip(HEADS, (azi_classes, ele_classes, inp_classes) * 2):
             setattr(self, name, head_dense(200, n, generator))
         layers: list[nn.Module] = []
@@ -131,14 +143,15 @@ class PoseEstimator(nn.Module):
         if view_tile > 1:
             shape_feature = shape_feature.repeat(view_tile, 1)
         x = self.deformNet(torch.cat([shape_feature, img_feature], dim=-1), mask)
-        return ([getattr(self, name)(x) for name in HEADS], x,
-                run_layers(self.projector, img_feature, mask))
+        cd = self.compute_dtype
+        return ([linear(getattr(self, name), x, cd) for name in HEADS], x,
+                run_layers(self.projector, img_feature, mask, cd))
 
     @torch.no_grad()
     def predict_viewpoint(self, im: torch.Tensor, shape: torch.Tensor) -> torch.Tensor:
         """Serving: NHWC images and their clouds -> (N, 3) degrees through the
         inference decoder, in canonical label convention. Call in eval mode."""
-        outputs, _, _ = self(im, shape)
+        outputs = [o.float() for o in self(im, shape)[0]]
         return geometry.decode_predictions_inference(outputs[:3], outputs[3:],
                                                      self.bin_size)
 
@@ -152,14 +165,18 @@ class PoseEstimatorVanilla(nn.Module):
     def __init__(self, shape: str = "PointCloud", img_feature_dim: int = 1024,
                  shape_feature_dim: int = 256, azi_classes: int = 24,
                  ele_classes: int = 12, inp_classes: int = 24, bin_size: int = 15,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         if shape != "PointCloud":
             raise NotImplementedError(f"PoseEstimatorVanilla(shape={shape!r}) is not ported "
                                       "to pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
         self.bin_size = bin_size
-        self.img_encoder = resnet18(num_classes=img_feature_dim, generator=generator)
-        self.shape_encoder = ShapeEncoderPC(shape_feature_dim, generator=generator)
+        self.compute_dtype = compute_dtype
+        self.img_encoder = resnet18(num_classes=img_feature_dim, generator=generator,
+                                    compute_dtype=compute_dtype)
+        self.shape_encoder = ShapeEncoderPC(shape_feature_dim, generator=generator,
+                                            compute_dtype=compute_dtype)
         layers: list[nn.Module] = []
         width = shape_feature_dim + img_feature_dim
         for out in COMPRESS_WIDTHS:
@@ -179,12 +196,13 @@ class PoseEstimatorVanilla(nn.Module):
         shape_feature = self.shape_encoder(shape, mask)
         if view_tile > 1:
             shape_feature = shape_feature.repeat(view_tile, 1)
-        x = run_layers(self.compress, torch.cat([shape_feature, img_feature], dim=-1), mask)
-        return [getattr(self, name)(x) for name in HEADS], x
+        cd = self.compute_dtype
+        x = run_layers(self.compress, torch.cat([shape_feature, img_feature], dim=-1), mask, cd)
+        return [linear(getattr(self, name), x, cd) for name in HEADS], x
 
     @torch.no_grad()
     def predict_viewpoint(self, im: torch.Tensor, shape: torch.Tensor) -> torch.Tensor:
         """Serving: as `PoseEstimator.predict_viewpoint`. Call in eval mode."""
-        outputs, _ = self(im, shape)
+        outputs = [o.float() for o in self(im, shape)[0]]
         return geometry.decode_predictions_inference(outputs[:3], outputs[3:],
                                                      self.bin_size)

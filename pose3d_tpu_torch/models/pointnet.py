@@ -20,6 +20,13 @@ channel, statistics over the valid clouds' points, variance E[x^2] - E[x]^2
 clamped at 0, the running statistics updated toward it (flax's update);
 then the max over the points, whose gradient goes to the first point that
 takes it.
+
+With a compute dtype (`compute_dtype=torch.bfloat16`, `--bf16`) the eval
+forward takes flax's bf16 rounding points, which a folded (W, b) cannot:
+`ops.pointnet.eval_layers_bf16` hands the unfolded layers to
+`ops.pointnet.pointnet_eval_bf16` (the kernel's bf16 instance on the card,
+the plain version on the CPU). The bf16 train forward (the train-mode
+kernel's bf16 instance) is not ported yet and raises (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,16 +35,19 @@ import torch
 from torch import nn
 
 from pose3d_tpu_torch.models.common import BatchNorm
-from pose3d_tpu_torch.ops.pointnet import HIDDEN, fold_pointnet_params, pointnet_eval
+from pose3d_tpu_torch.ops.pointnet import (HIDDEN, eval_layers_bf16, fold_pointnet_params,
+                                           pointnet_eval, pointnet_eval_bf16)
 from pose3d_tpu_torch.ops.pointnet_train import pointnet_train
 
 
 class ShapeEncoderPC(nn.Module):
     """Input (N, P, 3) float32 point clouds (channels last); output
-    (N, feature_dim)."""
+    (N, feature_dim), in `compute_dtype` if one is given."""
 
-    def __init__(self, feature_dim: int = 1024, generator: torch.Generator | None = None):
+    def __init__(self, feature_dim: int = 1024, generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         widths = (3, *HIDDEN, feature_dim)
         for i in range(3):
             conv = nn.Conv1d(widths[i], widths[i + 1], kernel_size=1)
@@ -47,9 +57,17 @@ class ShapeEncoderPC(nn.Module):
             setattr(self, f"bn{i + 1}", BatchNorm(widths[i + 1]))
 
     def forward(self, points: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        cd = self.compute_dtype
         if not self.training:
             with torch.no_grad():
+                if cd is not None:
+                    return pointnet_eval_bf16(points.to(cd),
+                                              eval_layers_bf16(self.state_dict()))
                 return pointnet_eval(points, fold_pointnet_params(self.state_dict()))
+        if cd is not None:
+            raise NotImplementedError(
+                f"ShapeEncoderPC in train mode with compute dtype {cd}: the train-mode "
+                "PointNet kernel's bf16 instance is not ported yet; see ROADMAP.md Queue 1")
         layers = [(getattr(self, f"conv{i}").weight[:, :, 0], getattr(self, f"conv{i}").bias,
                    getattr(self, f"bn{i}").weight, getattr(self, f"bn{i}").bias)
                   for i in (1, 2, 3)]

@@ -12,6 +12,11 @@ the batch statistics, as JAX passes `mask` to each ConvBN).
 
 The JAX package's `remat` option (recompute blocks in the backward) is a
 TPU memory trade and is not ported.
+
+With a compute dtype (`compute_dtype=torch.bfloat16`) each conv runs in it
+(cuDNN), each BatchNorm normalises in float32 and rounds to it
+(`models.common.BatchNorm`), the residual adds and the average pool round
+to it, and the head is a bf16 Dense, as JAX's ResNet(dtype=bfloat16).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from pose3d_tpu_torch.models.common import conv_bn, head_dense
+from pose3d_tpu_torch.models.common import conv2d, conv_bn, head_dense, linear
 
 
 class BasicBlock(nn.Module):
@@ -35,10 +40,11 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(in_channels, features * self.expansion, stride,
                                       generator)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x), mask))
-        y = self.bn2(self.conv2(y), mask)
-        return torch.relu(y + _residual(self.downsample, x, mask))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        y = torch.relu(self.bn1(conv2d(self.conv1, x, dtype), mask))
+        y = self.bn2(conv2d(self.conv2, y, dtype), mask)
+        return torch.relu(y + _residual(self.downsample, x, mask, dtype))
 
 
 class Bottleneck(nn.Module):
@@ -54,11 +60,12 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(in_channels, features * self.expansion, stride,
                                       generator)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x), mask))
-        y = torch.relu(self.bn2(self.conv2(y), mask))
-        y = self.bn3(self.conv3(y), mask)
-        return torch.relu(y + _residual(self.downsample, x, mask))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        y = torch.relu(self.bn1(conv2d(self.conv1, x, dtype), mask))
+        y = torch.relu(self.bn2(conv2d(self.conv2, y, dtype), mask))
+        y = self.bn3(conv2d(self.conv3, y, dtype), mask)
+        return torch.relu(y + _residual(self.downsample, x, mask, dtype))
 
 
 def _downsample(in_channels, out_channels, stride, generator):
@@ -69,19 +76,22 @@ def _downsample(in_channels, out_channels, stride, generator):
     return nn.Sequential(*conv_bn(in_channels, out_channels, 1, stride, generator))
 
 
-def _residual(downsample, x, mask):
+def _residual(downsample, x, mask, dtype=None):
     if downsample is None:
         return x
     conv, bn = downsample
-    return bn(conv(x), mask)
+    return bn(conv2d(conv, x, dtype), mask)
 
 
 class ResNet(nn.Module):
-    """Input NHWC float32 (N, H, W, 3); returns (pooled_feature, fc_output)."""
+    """Input NHWC float32 (N, H, W, 3); returns (pooled_feature, fc_output),
+    in `compute_dtype` if one is given (None: the parameters' dtype)."""
 
     def __init__(self, block: type, stage_sizes: Sequence[int], num_classes: int = 1000,
-                 features: int = 64, generator: torch.Generator | None = None):
+                 features: int = 64, generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.conv1, self.bn1 = conv_bn(3, features, 7, 2, generator)
         self.maxpool = nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
         channels = features
@@ -98,18 +108,23 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None):
         # NHWC -> the NCHW view convolutions take. The stem pools before its
         # ReLU, as JAX does: both are monotone, so the order is exact.
-        x = self.bn1(self.conv1(x.permute(0, 3, 1, 2)), mask)
+        cd = self.compute_dtype
+        x = self.bn1(conv2d(self.conv1, x.permute(0, 3, 1, 2), cd), mask)
         x = torch.relu(self.maxpool(x))
         for i in range(self.n_stages):
             for block in getattr(self, f"layer{i + 1}"):
-                x = block(x, mask)
+                x = block(x, mask, cd)
         feat = x.mean(dim=(2, 3))
-        return feat, self.fc(feat)
+        return feat, linear(self.fc, feat, cd)
 
 
-def resnet18(num_classes: int = 1000, generator: torch.Generator | None = None) -> ResNet:
-    return ResNet(BasicBlock, (2, 2, 2, 2), num_classes, generator=generator)
+def resnet18(num_classes: int = 1000, generator: torch.Generator | None = None,
+             compute_dtype: torch.dtype | None = None) -> ResNet:
+    return ResNet(BasicBlock, (2, 2, 2, 2), num_classes, generator=generator,
+                  compute_dtype=compute_dtype)
 
 
-def resnet50(num_classes: int = 1000, generator: torch.Generator | None = None) -> ResNet:
-    return ResNet(Bottleneck, (3, 4, 6, 3), num_classes, generator=generator)
+def resnet50(num_classes: int = 1000, generator: torch.Generator | None = None,
+             compute_dtype: torch.dtype | None = None) -> ResNet:
+    return ResNet(Bottleneck, (3, 4, 6, 3), num_classes, generator=generator,
+                  compute_dtype=compute_dtype)

@@ -16,6 +16,14 @@ compute the same values and are not ported.
 
 Dropout draws nothing from torch's global generator: in train mode its
 keep-masks are given (`keep`) or drawn from the caller's `generator`.
+
+Each deeper conv that a pool follows pools before it adds its bias, as
+JAX's `_PrePoolConv` does, in every dtype. With a compute dtype
+(`compute_dtype=torch.bfloat16`, `--bf16`) the layers round where JAX's
+bf16 student does: the stem kernel's bf16 instance (each window sum
+rounded, pooled, + bias rounded); each deeper conv rounded, pooled where a
+pool follows, + bias rounded; the classifier's Linears and dropout in bf16
+(`x / (1 - rate)` rounds as flax's does).
 """
 
 from __future__ import annotations
@@ -23,9 +31,10 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from pose3d_tpu_torch.models.common import dense_init_, kaiming_leaky02_
+from pose3d_tpu_torch.models.common import conv2d, dense_init_, kaiming_leaky02_, linear
 from pose3d_tpu_torch.ops.vgg_stem import vgg_stem
 
 CFG_A = [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"]
@@ -61,13 +70,16 @@ class VGG(nn.Module):
 
     `input_dim` fixes the classifier's input width (512*7*7 at 224), which
     flax infers at init. `cfg` starts with a conv followed by a pool (the
-    stem), as config A does.
+    stem), as config A does. `compute_dtype`: see the module docstring
+    (None: the parameters' dtype).
     """
 
     def __init__(self, cfg: Sequence, num_classes: int = 1000,
                  width_mult: float = 1.0, dropout_rate: float = 0.5,
-                 input_dim: int = 224, generator: torch.Generator | None = None):
+                 input_dim: int = 224, generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         layers: list[nn.Module] = []
         channels, hw = 3, input_dim
         for v in cfg:
@@ -111,19 +123,42 @@ class VGG(nn.Module):
         them, train-mode dropout draws from `generator`."""
         # NHWC -> the NCHW view convolutions take; for a contiguous NHWC
         # input this view is channels-last in memory, so nothing is copied
+        cd = self.compute_dtype
         stem = self.features[0]
-        x = vgg_stem(x.permute(0, 3, 1, 2), stem.weight, stem.bias)
-        x = torch.flatten(self.features[3:](x), 1)  # flattens C, H, W
+        w, b = stem.weight, stem.bias
+        if cd is not None:
+            x, w, b = x.to(cd), w.to(cd), b.to(cd)
+        x = torch.flatten(self._deep_features(vgg_stem(x.permute(0, 3, 1, 2), w, b)), 1)
         if keep is None:
             keep = self.keep_masks(x.shape[0], generator, x.device)
         c = self.classifier
-        for i, (linear, dropout) in enumerate(((c[0], c[2]), (c[3], c[5]))):
-            x = dropout(torch.relu(linear(x)), None if keep is None else keep[i])
-        return c[6](x)
+        for i, (layer, dropout) in enumerate(((c[0], c[2]), (c[3], c[5]))):
+            x = dropout(torch.relu(linear(layer, x, cd)), None if keep is None else keep[i])
+        return linear(c[6], x, cd)
+
+    def _deep_features(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolutions after the stem, at JAX's rounding points: a conv
+        followed by a pool pools its output, then adds the bias
+        (`_PrePoolConv`; rounding is monotone, so in f32 and f64 the values
+        are those of bias, ReLU, pool); the others add it at once."""
+        cd, layers = self.compute_dtype, self.features
+        for i in range(3, len(layers)):  # conv, ReLU[, MaxPool2d]
+            conv = layers[i]
+            if not isinstance(conv, nn.Conv2d):
+                continue
+            if i + 2 < len(layers) and isinstance(layers[i + 2], nn.MaxPool2d):
+                x = F.max_pool2d(conv2d(conv, x, cd, bias=False), 2)
+                x = x + conv.bias.to(x.dtype)[:, None, None]
+            else:
+                x = conv2d(conv, x, cd)
+            x = torch.relu(x)
+        return x
 
 
 def vgg11(num_classes: int = 1000, width_mult: float = 1.0,
           dropout_rate: float = 0.5, input_dim: int = 224,
-          generator: torch.Generator | None = None) -> VGG:
+          generator: torch.Generator | None = None,
+          compute_dtype: torch.dtype | None = None) -> VGG:
     return VGG(CFG_A, num_classes=num_classes, width_mult=width_mult,
-               dropout_rate=dropout_rate, input_dim=input_dim, generator=generator)
+               dropout_rate=dropout_rate, input_dim=input_dim, generator=generator,
+               compute_dtype=compute_dtype)

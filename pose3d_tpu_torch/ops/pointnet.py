@@ -8,6 +8,14 @@ ShapeEncoderPC` folds into one (W, b): W' = W * g, b' = b * g + c with
 g = scale / sqrt(var + eps) and c = shift - mean * g. The encoder is then
 3 -> 64 (ReLU) -> 128 (ReLU) -> D, then a max over the points; the kernel
 keeps the (N, P, D) activation out of device memory.
+
+bf16 (`--bf16`, flax's bfloat16 compute in `models/pointnet.py
+dense_bn_forward`) is another function: each layer rounds x W to bf16,
+adds b in bf16, and normalises in f32 before it rounds again, which no
+folded (W, b) reproduces. `eval_layers_bf16` gives the unfolded layers,
+`pointnet_eval_bf16_plain` the function and `pointnet_eval_bf16` its
+kernel (the bf16 instance in the same source, on the bf16 tensor cores),
+with its own launch count.
 """
 
 from __future__ import annotations
@@ -31,6 +39,9 @@ HIDDEN = (64, 128)
 _LAYERS12_PASSES, _BLOCK_SETUP_PASSES = 0.5, 0.1
 
 Folded = Sequence[tuple[torch.Tensor, torch.Tensor]]
+# per layer: W (in, out) and b (out,) in bf16, and the eval BN (3, out) in
+# f32: the running mean, rsqrt(var + eps) * scale, and the shift
+Unfolded = Sequence[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
 def fold_pointnet_params(state: Mapping[str, torch.Tensor], eps: float = 1e-5) -> Folded:
@@ -53,6 +64,34 @@ def pointnet_eval_plain(points: torch.Tensor, folded: Folded) -> torch.Tensor:
     h = torch.relu(h @ w2 + b2)
     h = h @ w3 + b3
     return h.amax(dim=1)
+
+
+def eval_layers_bf16(state: Mapping[str, torch.Tensor], eps: float = 1e-5) -> Unfolded:
+    """ShapeEncoderPC weights in the reference layout -> the bf16 instance's
+    three (W (in, out) bf16, b bf16, bn (3, out) f32) layers; the BN
+    multiplier rsqrt(var + eps) * scale in f32, as flax computes it."""
+    layers = []
+    for i in (1, 2, 3):
+        var, scale = state[f"bn{i}.running_var"].float(), state[f"bn{i}.weight"].float()
+        bn = torch.stack([state[f"bn{i}.running_mean"].float(), torch.rsqrt(var + eps) * scale,
+                          state[f"bn{i}.bias"].float()])
+        layers.append((state[f"conv{i}.weight"][:, :, 0].t().to(torch.bfloat16).contiguous(),
+                       state[f"conv{i}.bias"].to(torch.bfloat16).contiguous(), bn.contiguous()))
+    return layers
+
+
+def pointnet_eval_bf16_plain(points: torch.Tensor, layers: Unfolded) -> torch.Tensor:
+    """The plain bf16 version, flax's rounding points: per layer
+    bf16(x W) (f32 sums of the exact products), + b rounded to bf16, the BN
+    (h - mean) * mul + shift in f32 rounded to bf16, ReLU on layers 1-2;
+    then the max over the points."""
+    x = points
+    for i, (w, b, bn) in enumerate(layers):
+        h = (x.float() @ w.float()).to(torch.bfloat16)
+        h = (h.float() + b.float()).to(torch.bfloat16)
+        y = ((h.float() - bn[0]) * bn[1] + bn[2]).to(torch.bfloat16)
+        x = torch.relu(y) if i < 2 else y
+    return x.amax(dim=1)
 
 
 @functools.cache
@@ -92,11 +131,21 @@ def _lib(path: str | None = None):
     lib.pointnet_eval_scratch_floats.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
     lib.pointnet_eval_scratch_floats.restype = ctypes.c_int64
     lib.pointnet_eval_smem_bytes.restype = ctypes.c_int
+    lib.pointnet_eval_bf16.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int64] * 3 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.pointnet_eval_bf16.restype = ctypes.c_int
+    lib.pointnet_eval_bf16_scratch_words.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                                     ctypes.c_int]
+    lib.pointnet_eval_bf16_scratch_words.restype = ctypes.c_int64
+    lib.pointnet_eval_bf16_smem_bytes.restype = ctypes.c_int
     return lib
 
 
-def shared_memory_bytes() -> int:
-    """The dynamic shared memory a block of the kernel takes (builds it)."""
+def shared_memory_bytes(dtype: torch.dtype = torch.float32) -> int:
+    """The dynamic shared memory a block of the kernel takes (builds it):
+    the f32 instance's, or the bf16 one's."""
+    if dtype == torch.bfloat16:
+        return _lib().pointnet_eval_bf16_smem_bytes()
     return _lib().pointnet_eval_smem_bytes()
 
 
@@ -167,3 +216,68 @@ def pointnet_eval(points: torch.Tensor, folded: Folded) -> torch.Tensor:
 
 
 pointnet_eval.launches = 0
+
+
+def _check_bf16(points: torch.Tensor, layers: Unfolded) -> int:
+    """Validate the bf16 instance's shapes, dtypes and devices; return D."""
+    if len(layers) != 3:
+        raise ValueError(f"pointnet_eval_bf16 takes three (W, b, bn) layers; got {len(layers)}")
+    if points.dim() != 3 or points.shape[2] != 3:
+        raise ValueError(f"pointnet_eval_bf16 takes (N, P, 3) points; got {tuple(points.shape)}")
+    d = layers[2][0].shape[-1]
+    widths = (3, *HIDDEN, d)
+    for i, (w, b, bn) in enumerate(layers):
+        want = [(widths[i], widths[i + 1]), (widths[i + 1],), (3, widths[i + 1])]
+        if [tuple(w.shape), tuple(b.shape), tuple(bn.shape)] != want:
+            raise ValueError(f"pointnet_eval_bf16: layer {i + 1} shapes {tuple(w.shape)}, "
+                             f"{tuple(b.shape)}, {tuple(bn.shape)}, expected {want}")
+        if (w.dtype, b.dtype, bn.dtype) != (torch.bfloat16, torch.bfloat16, torch.float32):
+            raise TypeError("pointnet_eval_bf16 takes W and b in bfloat16 and the BN in "
+                            f"float32; got {w.dtype}, {b.dtype}, {bn.dtype}")
+    if points.dtype != torch.bfloat16:
+        raise TypeError(f"pointnet_eval_bf16 takes bfloat16 points; got {points.dtype}")
+    if any(t.device != points.device for layer in layers for t in layer):
+        raise ValueError("pointnet_eval_bf16: inputs on different devices")
+    if points.shape[1] == 0:
+        raise ValueError("pointnet_eval_bf16: a max over zero points is undefined (P = 0)")
+    return d
+
+
+def pointnet_eval_bf16(points: torch.Tensor, layers: Unfolded) -> torch.Tensor:
+    """(N, P, 3) bfloat16 points, the unfolded layers of `eval_layers_bf16`
+    -> (N, D) bfloat16.
+
+    A CPU tensor goes to `pointnet_eval_bf16_plain`. A CUDA tensor goes to
+    the bf16 kernel, on the current stream, or the call raises: there is no
+    fallback. Each launch adds one to `pointnet_eval_bf16.launches`.
+    """
+    d = _check_bf16(points, layers)
+    if points.device.type == "cpu":
+        return pointnet_eval_bf16_plain(points, layers)
+    if points.device.type != "cuda":
+        raise ValueError(f"pointnet_eval_bf16 has no kernel for device {points.device}")
+    tensors = [points] + [t for layer in layers for t in layer]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("pointnet_eval_bf16's kernel takes contiguous tensors")
+    n, p = points.shape[0], points.shape[1]
+    if n >= 2**31 or 3 * p >= 2**31 or d >= 2**31 // 256:
+        raise ValueError(f"pointnet_eval_bf16's kernel takes N < 2^31, 3P < 2^31 and "
+                         f"D < 2^23; got {(n, p, d)}")
+    out = torch.empty((n, d), dtype=torch.bfloat16, device=points.device)
+    if n == 0:
+        return out
+    segments, groups = segments_for(n, p, d, _sm_count(points.device))
+    lib = _lib()
+    scratch = torch.empty(lib.pointnet_eval_bf16_scratch_words(n, d, segments),
+                          dtype=torch.float32, device=points.device)
+    with torch.cuda.device(points.device):
+        err = lib.pointnet_eval_bf16(*(t.data_ptr() for t in tensors), out.data_ptr(),
+                                     scratch.data_ptr(), n, p, d, segments, groups,
+                                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pointnet_eval_bf16 kernel launch failed: cudaError_t {err}")
+    pointnet_eval_bf16.launches += 1
+    return out
+
+
+pointnet_eval_bf16.launches = 0

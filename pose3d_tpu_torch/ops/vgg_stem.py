@@ -34,6 +34,16 @@ the first without being made again. The backward is two launches: the
 weight gradient's partials, streamed on the CUDA cores over a grid of whole
 waves, then their fixed-order sum. f64 (the card-vs-CPU step checks) runs
 both on the CUDA cores, with the same launch counts.
+
+bf16 (`--bf16`, flax's bfloat16 compute) is another function: JAX's
+bf16 student rounds each window sum to bf16, pools, then adds the bias in
+bf16 (`pose3d_tpu/models/vgg.py _ConvPool2x2`), so x, the weight and the
+bias come in bf16 (the model casts them) and `vgg_stem_plain` rounds at
+those points. Its kernels: the im2col product on the bf16 tensor cores
+(mma.m16n8k16, f32 accumulators, no split) and the f32 kernels' weight
+gradient stream on bf16 inputs, dW and db summed in f32 and rounded to
+bf16 at the store. They count their launches apart
+(`stem_forward.bf16_launches`, `stem_backward.bf16_launches`).
 """
 
 from __future__ import annotations
@@ -48,11 +58,19 @@ from pose3d_tpu_torch.ops import _build
 
 MAX_F = 256  # csrc/vgg_stem.cu kMaxF
 SUMS = 28    # the weight gradient's partials: 27 taps and the bias
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+_KIND = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}  # the C interface's numbers
 
 
 def vgg_stem_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """The plain version: conv (padding 1), ReLU, 2x2/2 max pool."""
+    """The plain version: conv (padding 1), ReLU, 2x2/2 max pool. In bf16,
+    JAX's rounding points: each window sum (f32, where the products of bf16
+    values are exact) rounded to bf16, the 2x2 max (the first maximum wins),
+    + bias in f32 rounded to bf16, then the ReLU."""
+    if x.dtype == torch.bfloat16:
+        conv = F.conv2d(x.float(), weight.float(), padding=1).to(torch.bfloat16)
+        pooled = F.max_pool2d(conv, 2).float() + bias.float()[:, None, None]
+        return torch.relu(pooled.to(torch.bfloat16))
     return F.max_pool2d(torch.relu(F.conv2d(x, weight, bias, padding=1)), 2)
 
 
@@ -82,8 +100,14 @@ def shared_memory_bytes(f: int, dtype: torch.dtype = torch.float32) -> tuple[int
     """The dynamic shared memory a block takes at F output channels:
     forward, and the weight gradient's first pass (builds the library)."""
     lib = _lib()
-    dbl = int(dtype == torch.float64)
-    return lib.vgg_stem_smem_bytes(f, 0, dbl), lib.vgg_stem_smem_bytes(f, 1, dbl)
+    return lib.vgg_stem_smem_bytes(f, 0, _KIND[dtype]), lib.vgg_stem_smem_bytes(f, 1, _KIND[dtype])
+
+
+def _count(fn, dtype: torch.dtype) -> None:
+    if dtype == torch.bfloat16:
+        fn.bf16_launches += 1
+    else:
+        fn.launches += 1
 
 
 def stem_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -105,24 +129,26 @@ def stem_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"vgg_stem forward kernel launch failed: cudaError_t {err}")
-    stem_forward.launches += 1
+    _count(stem_forward, x.dtype)
     return y, index
 
 
-stem_forward.launches = 0
+stem_forward.launches = stem_forward.bf16_launches = 0
 
 
 def stem_backward(x: torch.Tensor, index: torch.Tensor,
                   g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the weight-gradient passes: x and index as `stem_forward`
     took and gave them, g the gradient of y (any layout; made channels-last
-    contiguous). Returns (dW (F, 3, 3, 3), db (F,))."""
+    contiguous). Returns (dW (F, 3, 3, 3), db (F,)) in x's dtype."""
     n, h, w, _ = x.shape
     f = index.shape[-1]
     g = g.contiguous(memory_format=torch.channels_last)
     lib = _lib()
-    # the most partials the first pass writes (f32 writes one a resident block)
-    partial = torch.empty((lib.vgg_stem_partial_blocks(n, h, w), f, SUMS), dtype=x.dtype,
+    # the most partials the first pass writes (f32 and bf16 write one a
+    # resident block, in f32)
+    partial = torch.empty((lib.vgg_stem_partial_blocks(n, h, w), f, SUMS),
+                          dtype=torch.float64 if x.dtype == torch.float64 else torch.float32,
                           device=x.device)
     dw = torch.empty((f, 3, 3, 3), dtype=x.dtype, device=x.device)
     db = torch.empty((f,), dtype=x.dtype, device=x.device)
@@ -133,11 +159,11 @@ def stem_backward(x: torch.Tensor, index: torch.Tensor,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"vgg_stem backward kernel launch failed: cudaError_t {err}")
-    stem_backward.launches += 1
+    _count(stem_backward, x.dtype)
     return dw, db
 
 
-stem_backward.launches = 0
+stem_backward.launches = stem_backward.bf16_launches = 0
 
 
 class _VggStem(torch.autograd.Function):
@@ -178,8 +204,9 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> None:
 
 def vgg_stem(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """conv3x3 (SAME) + bias + ReLU + 2x2/2 max pool of NCHW `x`
-    (N, 3, H, W) -> (N, F, H/2, W/2), channels-last on the card.
-    Differentiable in `weight` and `bias`."""
+    (N, 3, H, W) -> (N, F, H/2, W/2), channels-last on the card; in bf16
+    with `vgg_stem_plain`'s rounding points. Differentiable in `weight` and
+    `bias`."""
     _check(x, weight, bias)
     if x.device.type == "cpu":
         return vgg_stem_plain(x, weight, bias)
@@ -187,7 +214,8 @@ def vgg_stem(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch
         raise ValueError(f"vgg_stem has no kernel for device {x.device}")
     f = weight.shape[0]
     if x.dtype not in _SUFFIX:
-        raise TypeError(f"vgg_stem's kernels take float32 or float64; got {x.dtype}")
+        raise TypeError(f"vgg_stem's kernels take float32 or float64 (or bfloat16); got "
+                        f"{x.dtype}")
     if f % 8 or f > MAX_F or x.shape[2] >= 2**30 or x.shape[3] >= 2**30:
         raise ValueError(f"vgg_stem's kernels take F a multiple of 8 up to {MAX_F}; "
                          f"got F {f}")

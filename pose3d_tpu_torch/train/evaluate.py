@@ -67,7 +67,7 @@ def evaluate_categories(
                       for k in ("im", "label", "shape") if k in batch}
         valid = step_batch["valid"] = torch.as_tensor(valid_np, device=device)
         metrics = eval_step(step_batch)
-        preds.append(metrics["pred"][valid])
+        preds.append(metrics["pred"][valid].float())  # the geodesic kernel takes f32
         labels.append(step_batch["label"][valid])
         cats.append(np.asarray(batch["cat_id"])[valid_np])
         # per-sample losses: exact masking of the padded tail rows

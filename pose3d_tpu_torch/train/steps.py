@@ -45,6 +45,13 @@ def _pose_variant_nce(variant: str, q: torch.Tensor, k: torch.Tensor, labels: to
     return multi_pose_nce_kd(q, k, labels, tau, valid=valid)
 
 
+def input_dtype(model: torch.nn.Module) -> torch.dtype:
+    """The dtype a model takes its images and clouds in: its compute dtype
+    (bfloat16 under `--bf16`), else its parameters' (float32, or float64 in
+    the parity tests)."""
+    return getattr(model, "compute_dtype", None) or next(model.parameters()).dtype
+
+
 def _update(state: TrainState) -> None:
     """One Adam update and one schedule step after the backward pass. A
     parameter the loss does not reach takes a zero gradient: JAX's
@@ -156,9 +163,9 @@ def make_vanilla_train_step(has_shape: bool, bin_size: int = 15) -> Callable:
         model = state.model
         model.train()
         valid = batch.get("valid")
-        im = dewire(batch["im"])
+        im = dewire(batch["im"]).to(input_dtype(model))
         if has_shape:
-            out = model(im, batch["shape"], mask=valid)
+            out = model(im, batch["shape"].to(input_dtype(model)), mask=valid)
         else:
             out = model(im, mask=valid, generator=state.generator, keep=keep)
         outputs = [o.float() for o in out[0]]
@@ -184,11 +191,13 @@ def _views_step(bin_size: int, temperature: float, loss_kind: str) -> Callable:
         valid3 = None if valid is None else torch.cat([valid] * 3)
         im = dewire(torch.cat([batch["im"], batch["im_flip"], batch["im_rot"]]))
         label = torch.cat([batch["label"], batch["label_flip"], batch["label_rot"]])
-        s_out, s_feat = model(im, mask=valid3, generator=state.generator, keep=keep)
-        t_dtype = next(teacher.parameters()).dtype
+        s_out, s_feat = model(im.to(input_dtype(model)), mask=valid3,
+                              generator=state.generator, keep=keep)
+        t_dtype = input_dtype(teacher)
         with torch.no_grad():
             # ([6 heads], ..., feature): the teacher's projector feature,
-            # or the vanilla teacher's compressed one (unused by its loss)
+            # or the vanilla teacher's compressed one (unused by its loss);
+            # each cloud encoded once, its feature tiled over the views
             t = teacher(im.to(t_dtype), batch["shape"].to(t_dtype), view_tile=3)
         # the losses in float32 whatever the models' dtypes, as JAX's step
         s_out, t_out = [o.float() for o in s_out], [o.float() for o in t[0]]
@@ -299,8 +308,7 @@ def make_stage1_step(bin_size: int = 15, tau: float = 0.5, nce_weight: float = 0
         student.train()
         valid = batch.get("valid")
         im = dewire(batch["im"])
-        s_dtype = next(student.parameters()).dtype
-        t_dtype = next(teacher.parameters()).dtype
+        s_dtype, t_dtype = input_dtype(student), input_dtype(teacher)
         s_out, s_feat = student(im.to(s_dtype), mask=valid, generator=student_state.generator,
                                 keep=student_keep)
         t_out, t_feat = teacher(im.to(t_dtype), batch["shape"].to(t_dtype), mask=valid)
@@ -364,7 +372,9 @@ def make_eval_step(model, kind: str, bin_size: int = 15) -> Callable:
     tensors on the model's device; the teacher and the vanilla teacher
     (`PoseEstimatorVanilla`, kind "vanilla") also take 'shape' (N, P, 3)
     float32 and, optionally, 'valid' (N,) bool, which keeps padded rows out
-    of the teacher's NCE keys. The model runs in eval mode (BatchNorm running
+    of the teacher's NCE keys. The inputs go to the model in its compute
+    dtype (`input_dtype`), its outputs back to float32 for the losses and the
+    decoder. The model runs in eval mode (BatchNorm running
     statistics, no dropout) and the train/val decoder
     (bin + tanh(d)/2 + 0.5) * bin_size decodes the predictions. The
     teacher's NCE drops out its keys with `fixed_keep_mask`.
@@ -372,16 +382,21 @@ def make_eval_step(model, kind: str, bin_size: int = 15) -> Callable:
     if kind not in ("student", "teacher", "vanilla"):
         raise NotImplementedError(f"eval step kind {kind!r} is not ported yet; "
                                   "see ROADMAP.md Queue 1")
+    dtype = input_dtype(model)
 
     @torch.no_grad()
     def step(batch: dict) -> dict:
         model.eval()
+        im = batch["im"].to(dtype)
         if kind == "student":
-            outputs, _ = model(batch["im"])
+            outputs, _ = model(im)
         elif kind == "vanilla":
-            outputs, _ = model(batch["im"], batch["shape"])
+            outputs, _ = model(im, batch["shape"].to(dtype))
         else:
-            outputs, fused, img_proj = model(batch["im"], batch["shape"])
+            outputs, fused, img_proj = model(im, batch["shape"].to(dtype))
+            fused, img_proj = fused.float(), img_proj.float()
+        # the decoders and the losses in float32 whatever the model's dtype
+        outputs = [o.float() for o in outputs]
         per_sample = pose_loss_per_sample(outputs, batch["label"], bin_size)
         preds = geometry.decode_predictions(outputs[:3], outputs[3:], bin_size)
         metrics = {"pred": preds, "loss": per_sample.mean(),

@@ -401,7 +401,7 @@ def test_kd_cli_two_epochs_resume_and_testing(fixture_dir, monkeypatch):
 # for a flag that is ported (parsed without complaint), else the message
 KD_CLI_OUTCOMES = {
     ("--stage", "1", "--nce", "multipose"): None, ("--stage", "2"): None,
-    ("--contrast",): None, ("--vid",): None,
+    ("--contrast",): None, ("--vid",): None, ("--bf16",): None,
     ("--use_memory_bank",): "--use_memory_bank applies to --stage 1 only",
     ("--nce", "pose"): "--nce pose/multipose applies to --stage 1",  # JAX's
     ("--vid", "--contrast"): "--vid is a --crd loss variant",  # JAX's

@@ -192,22 +192,55 @@ def test_pointnet_kernel_tiles_and_groups_on_cuda(cuda, n, p, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,p,d,b3", [
+    (1, 1, 256, None), (2, 100, 256, None), (3, 511, 1000, None), (46, 2500, 256, None),
+    (64, 2500, 1024, None), (46, 2501, 1024, None), (3, 2500, 256, -100.0)])
+def test_pointnet_bf16_kernel_matches_plain_on_cuda(cuda, n, p, d, b3):
+    """The bf16 instance against pointnet_eval_bf16_plain on the same
+    inputs (the BN multipliers of either sign): each element within one bf16
+    ulp of max|ref| (2^-7), under 1 % unequal; every output negative where
+    b3 is -100; the same bits on a second call."""
+    layers = chip_smoke.pointnet_bf16_params(np.random.default_rng(n + p), d, cuda, b3)
+    pts = torch.rand((n, p, 3), generator=torch.Generator().manual_seed(p)).to(cuda)
+    pts = (2 * pts - 1).to(torch.bfloat16)
+    before = pointnet.pointnet_eval_bf16.launches
+    out = pointnet.pointnet_eval_bf16(pts, layers)
+    ref = pointnet.pointnet_eval_bf16_plain(pts, layers)
+    torch.cuda.synchronize()
+    assert pointnet.pointnet_eval_bf16.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (n, d)
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= chip_smoke.BF16_ULP * float(ref.float().abs().max())
+    assert float((out != ref).float().mean()) < 0.01
+    if b3 is not None:
+        assert float(out.float().max()) < 0
+    assert torch.equal(out, pointnet.pointnet_eval_bf16(pts, layers))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,p,d", [(64, 2500, 1024), (46, 2500, 1024), (1, 2500, 1024),
-                                   (2, 1, 256)])
-def test_pointnet_eval_launches_per_call(cuda, n, p, d):
-    """Two CUDA launches a call (W3's split, the encoder) and three with
-    point segments (the max over them), as a CUDA graph that captures one
-    call counts them: at serving's and the KD step's shapes (segments) and
-    at a single tile (none). One count on the wrapper a call."""
-    folded = _folded(d, cuda)
+                                   (2, 1, 256), (46, 2500, 256)])
+def test_pointnet_eval_launches_per_call(cuda, n, p, d, dtype):
+    """Two CUDA launches a call (W3's split, or its bf16 packing, and the
+    encoder) and three with point segments (the max over them), as a CUDA
+    graph that captures one call counts them: at serving's and the KD
+    step's shapes (segments) and at a single tile (none). One count on the
+    wrapper a call, f32's and bf16's apart."""
     pts = torch.rand((n, p, 3), generator=torch.Generator().manual_seed(n)).to(cuda)
+    call = pointnet.pointnet_eval
+    if dtype == torch.bfloat16:
+        pts, call = pts.to(dtype), pointnet.pointnet_eval_bf16
+        layers = chip_smoke.pointnet_bf16_params(np.random.default_rng(d), d, cuda)
+    else:
+        layers = _folded(d, cuda)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     segments, _ = pointnet.segments_for(n, p, d, sms)
     assert (segments > 1) == (p > pointnet.TILE_P)
-    before = pointnet.pointnet_eval.launches
-    counted = chip_smoke.graph_kernel_launches(lambda: pointnet.pointnet_eval(pts, folded))
+    before = call.launches
+    counted = chip_smoke.graph_kernel_launches(lambda: call(pts, layers))
     assert counted == 2 + (segments > 1)
-    assert pointnet.pointnet_eval.launches == before + 2  # the run before the capture, and it
+    assert call.launches == before + 2  # the run before the capture, and it
 
 
 def _nce_inputs(n, d, kind, device, seed=0):
@@ -394,12 +427,59 @@ def test_vgg_stem_kernel_checks_its_inputs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,hw,f,kind", [
+    (1, 224, 64, "rand"), (7, 64, 16, "rand"), (7, 30, 64, "rand"), (2, 31, 16, "rand"),
+    (3, 48, 64, "ties"), (3, 48, 64, "negative"), (2, 32, 24, "rand"), (2, 64, 256, "rand")])
+def test_vgg_stem_bf16_kernels_match_plain_on_cuda(cuda, n, hw, f, kind):
+    """The bf16 instances against the plain bf16 version on the same
+    inputs (chip_smoke.stem_bf16_vs_plain): y within one bf16 ulp of
+    max|ref| (2^-7), no window index differing where the plain version's
+    decision is more than an ulp clear, dW and db within one ulp of max|ref|
+    of the gradient routed by the kernel's own index; one forward and one
+    backward launch through the wrapper, counted apart from f32's."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, b, cot = _stem_inputs(n, hw, f, kind, cuda, torch.bfloat16)
+    before = (vgg_stem.stem_forward.launches, vgg_stem.stem_forward.bf16_launches,
+              vgg_stem.stem_backward.bf16_launches)
+    r = chip_smoke.stem_bf16_vs_plain(vgg_stem, x, w, b, cot)
+    torch.cuda.synchronize()
+    assert (vgg_stem.stem_forward.launches, vgg_stem.stem_forward.bf16_launches,
+            vgg_stem.stem_backward.bf16_launches) == (before[0], before[1] + 2, before[2] + 1)
+    assert r["y_err"] <= chip_smoke.BF16_ULP and r["index_bad"] == 0, r
+    assert r["dw_err"] <= chip_smoke.BF16_ULP and r["db_err"] <= chip_smoke.BF16_ULP, r
+    with torch.no_grad():
+        y = vgg_stem.vgg_stem(x, w, b)
+    assert y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last)
+    if kind == "negative":
+        assert float(y.float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_vgg_stem_bf16_pools_before_the_bias_on_cuda(cuda):
+    """Two window sums that round to one value after the bias (1.5 and 1.75,
+    + 256 -> 258 in bf16): the kernel routes to the larger sum, as the plain
+    version and JAX's bf16 stem do."""
+    x = torch.zeros((1, 2, 2, 3))
+    x[0, 0, 0, 0], x[0, 0, 1, 0] = 1.5, 1.75
+    w = torch.zeros((8, 3, 3, 3))
+    w[:, 0, 1, 1] = 1.0
+    x = x.to(cuda, torch.bfloat16).permute(0, 3, 1, 2)
+    w = w.to(cuda, torch.bfloat16).requires_grad_()
+    b = torch.full((8,), 256.0, device=cuda, dtype=torch.bfloat16).requires_grad_()
+    y = vgg_stem.vgg_stem(x, w, b)
+    assert float(y[0, 0, 0, 0]) == 258.0
+    dw, = torch.autograd.grad(y[0, 0, 0, 0], (w,))
+    assert float(dw[0, 0, 1, 1]) == 1.75 and float(dw[0, 0, 1, 0]) == 1.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 def test_vgg_stem_launches_per_call(cuda, dtype):
     """One CUDA launch a forward call (f32: the split-TF32 product on the
-    tensor cores; f64: the CUDA-core kernel) and two a backward call (the
-    weight gradient's partials, then their fixed-order sum), counted as the
-    kernel nodes of a CUDA graph that captures one call."""
+    tensor cores; f64: the CUDA-core kernel; bf16: the bf16 product on the
+    tensor cores) and two a backward call (the weight gradient's partials,
+    then their fixed-order sum), counted as the kernel nodes of a CUDA graph
+    that captures one call."""
     x, w, b, cot = _stem_inputs(3, 40, 64, "rand", cuda, dtype)
     x_nhwc, w, b = x.permute(0, 2, 3, 1), w.detach(), b.detach()
     _, index = vgg_stem.stem_forward(x_nhwc, w, b, with_index=True)
@@ -409,6 +489,25 @@ def test_vgg_stem_launches_per_call(cuda, dtype):
             lambda: vgg_stem.stem_forward(x_nhwc, w, b, with_index=True)),
         chip_smoke.graph_kernel_launches(lambda: vgg_stem.stem_backward(x_nhwc, index, g)))
     assert counted == (1, 2)
+
+
+def test_bf16_pointnet_rejects_bad_inputs():
+    layers = chip_smoke.pointnet_bf16_params(np.random.default_rng(0), 32, "cpu")
+    pts = torch.rand((2, 10, 3)).to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        pointnet.pointnet_eval_bf16(pts.float(), layers)
+    with pytest.raises(TypeError):
+        pointnet.pointnet_eval_bf16(pts, [layers[0], layers[1], (layers[2][0].float(),
+                                                                 *layers[2][1:])])
+    with pytest.raises(ValueError):
+        pointnet.pointnet_eval_bf16(pts, layers[:2])
+    with pytest.raises(ValueError, match="no kernel"):
+        pointnet.pointnet_eval_bf16(pts.to("meta"), [tuple(t.to("meta") for t in layer)
+                                                     for layer in layers])
+    before = pointnet.pointnet_eval_bf16.launches
+    out = pointnet.pointnet_eval_bf16(pts, layers)  # the CPU takes the plain version
+    assert pointnet.pointnet_eval_bf16.launches == before
+    assert torch.equal(out, pointnet.pointnet_eval_bf16_plain(pts, layers))
 
 
 def test_cpu_student_forward_makes_no_stem_launch():

@@ -160,6 +160,34 @@ def test_shape_encoder_matches_jax(kind, p):
     assert _rel(got.numpy(), want) <= ENCODER_REL_TOL
 
 
+@pytest.mark.parametrize("p", [100, 513])
+def test_shape_encoder_bf16_matches_jax(p):
+    """bf16 (--bf16): the port's ShapeEncoderPC(compute_dtype=bfloat16) in
+    eval mode (on the CPU pointnet_eval_bf16_plain on the unfolded layers,
+    no launch) against JAX's ShapeEncoderPC(dtype=bfloat16) eval forward
+    (flax: JAX's model never calls its Pallas kernel there) on the same
+    points: each element within one bf16 ulp (2^-7 of max|ref|), under 1 %
+    unequal."""
+    v = _variables("seeded")
+    pts = _points(5, p, seed=p + 1)
+    want = JaxShapeEncoderPC(FEATURE_DIM, dtype=jnp.bfloat16).apply(
+        jax.tree_util.tree_map(jnp.asarray, v), jnp.asarray(pts), train=False)
+    enc = ShapeEncoderPC(FEATURE_DIM, compute_dtype=torch.bfloat16)
+    enc.load_state_dict(_port_state(v), strict=True)
+    before = pointnet.pointnet_eval_bf16.launches, pointnet.pointnet_eval.launches
+    got = enc.eval()(torch.from_numpy(pts))
+    assert (pointnet.pointnet_eval_bf16.launches, pointnet.pointnet_eval.launches) == before
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    err, unequal = _rel(got, want), float(np.mean(got != want))
+    print(f"ShapeEncoderPC bf16 P {p}: max|d|/max|ref| {err:.3g} (one ulp 2^-7), "
+          f"unequal {unequal:.3g}")
+    assert err <= 2.0**-7 and unequal < 0.01
+    layers = pointnet.eval_layers_bf16(_port_state(v))
+    assert [(w.dtype, b.dtype, bn.dtype) for w, b, bn in layers] == \
+        [(torch.bfloat16, torch.bfloat16, torch.float32)] * 3
+
+
 def test_all_negative_outputs_keep_their_max():
     """The last layer has no ReLU: a max that started at 0 would read 0."""
     v = _variables("seeded")

@@ -195,6 +195,108 @@ def test_stem_rejects_devices_without_a_kernel():
         stem.vgg_stem(torch.zeros((2, 3, 8, 8), device="meta"), w, b)
 
 
+# --- bf16 (--bf16) ---------------------------------------------------------------
+
+BF16_ULP = 2.0**-7  # one bf16 ulp, relative to max|ref|
+
+
+def _bf16_values(a):
+    """The bf16 values of an f32 array, as f32 (so each side casts exactly)."""
+    return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+def _within_ulps(got, want, ulps, name):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    unequal = float(np.mean(got != want))
+    print(f"{name}: max|d|/max|ref| {err:.3g} (tol {ulps} x {BF16_ULP:.3g}), unequal "
+          f"{unequal:.3g}")
+    assert err <= ulps * BF16_ULP, name
+    return unequal
+
+
+@pytest.mark.parametrize("hw,f", [(16, 16), (32, 64)])
+def test_stem_bf16_matches_jax(hw, f):
+    """The plain bf16 version (the CPU's: each window sum rounded to bf16,
+    the first maximum, + bias rounded, ReLU) against JAX's bf16 student
+    stem, relu(_ConvPool2x2(dtype=bfloat16)), on the same bf16 image and
+    weights: within one bf16 ulp of max|ref|, under 1 % unequal. Against
+    the Pallas fused_vgg_stem in interpret mode on the same bf16 input
+    (its sums in f32, rounded once where the model rounds three times):
+    within 2 ulps. The weight and bias gradients against the f64 sums of
+    the routed gradient (the forward's own maxima and ReLU decisions): the
+    port rounds one f32 sum of exact products to bf16, so within one ulp;
+    and against jax.grad through JAX's bf16 block by the oracle rule (the
+    port's error at most twice JAX's plus 2^-10 of max|ref|): JAX sums its
+    weight gradient from four phase kernels' bf16 gradients and reduces its
+    bias gradient in bf16, each rounded."""
+    x, k, b = (_bf16_values(a) for a in _inputs(2, hw, f, seed=7 + hw + f))
+    cot = _bf16_values(np.random.default_rng(hw * f + 1).standard_normal(
+        (2, hw // 2, hw // 2, f)))
+    xt, wt, bt = _port(x.copy(), k, b)
+    wt, bt = wt.to(torch.bfloat16).requires_grad_(), bt.to(torch.bfloat16).requires_grad_()
+    y = stem.vgg_stem(xt.to(torch.bfloat16), wt, bt)
+    assert y.dtype == torch.bfloat16
+    dw, db = torch.autograd.grad(y, (wt, bt), torch.from_numpy(cot).permute(0, 3, 1, 2)
+                                 .to(torch.bfloat16))
+    got = y.detach().float().permute(0, 2, 3, 1).numpy()
+    block = _ConvPool2x2(features=f, dtype=jnp.bfloat16)
+
+    def jax_stem(params):
+        return jax.nn.relu(block.apply({"params": params}, jnp.asarray(x)))
+
+    params = {"kernel": jnp.asarray(k), "bias": jnp.asarray(b)}
+    want = jax_stem(params)
+    assert want.dtype == jnp.bfloat16
+    unequal = _within_ulps(got, want.astype(jnp.float32), 1, f"stem bf16 {hw} {f}")
+    assert unequal < 0.01
+    fused = fused_vgg_stem(jnp.asarray(x, jnp.bfloat16), jnp.asarray(k), jnp.asarray(b),
+                           interpret=True)
+    _within_ulps(got, fused.astype(jnp.float32), 2, f"stem bf16 vs Pallas {hw} {f}")
+    g = jax.grad(lambda p: jnp.sum(jax_stem(p).astype(jnp.float32) * cot))(params)
+    # the f64 gradient routed as the forward decided: each window's first
+    # maximum of the bf16 sums, where the output passed the ReLU
+    conv = torch.nn.functional.conv2d(xt.double(), wt.detach().double(), padding=1)
+    _, where = torch.nn.functional.max_pool2d(conv.to(torch.bfloat16).float(), 2,
+                                              return_indices=True)
+    g_out = torch.from_numpy(cot).permute(0, 3, 1, 2).double() * (y.detach() > 0)
+    g_conv = torch.zeros_like(conv).flatten(2).scatter_(2, where.flatten(2), g_out.flatten(2))
+    exact_dw = torch.nn.grad.conv2d_weight(xt.double(), tuple(wt.shape),
+                                           g_conv.view_as(conv), padding=1)
+    exact_db = g_out.sum((0, 2, 3))
+    for name, got_g, jax_g, exact in (
+            ("dW", dw, np.asarray(g["kernel"]).transpose(3, 2, 0, 1), exact_dw),
+            ("db", db, np.asarray(g["bias"]), exact_db)):
+        got_g, exact = got_g.double().numpy(), exact.numpy()
+        _within_ulps(got_g, exact, 1, f"stem bf16 {name} vs f64 {hw} {f}")
+        port_err, jax_err = np.abs(got_g - exact).max(), np.abs(jax_g - exact).max()
+        print(f"stem bf16 {name}: port {port_err:.3g}, JAX {jax_err:.3g} of max|ref| "
+              f"{np.abs(exact).max():.3g}")
+        assert port_err <= 2 * jax_err + 2.0**-10 * np.abs(exact).max()
+
+
+def test_stem_bf16_pools_before_the_bias():
+    """In bf16 two window sums that differ can round to one value after the
+    bias: the first maximum is taken on the rounded sums before the bias
+    (JAX's order), so the gradient goes to the larger sum, not to the first
+    of the tied sums after it."""
+    # window sums 1.5 (position 0) and 1.75 (position 1); + bias 256 rounds
+    # both to 258 (bf16's ulp there is 2)
+    x = np.zeros((1, 2, 2, 3), np.float32)
+    x[0, 0, 0, 0], x[0, 0, 1, 0] = 1.5, 1.75
+    w = torch.zeros((8, 3, 3, 3))
+    w[:, 0, 1, 1] = 1.0  # the centre tap of channel 0
+    x_t = torch.from_numpy(x).permute(0, 3, 1, 2).to(torch.bfloat16)
+    w_t = w.to(torch.bfloat16).requires_grad_()
+    b_t = torch.full((8,), 256.0).to(torch.bfloat16).requires_grad_()
+    y = stem.vgg_stem(x_t, w_t, b_t)
+    assert float(y[0, 0, 0, 0]) == 258.0
+    dw, = torch.autograd.grad(y[0, 0, 0, 0], (w_t,))
+    # the window sum at position 1 took the gradient: its centre reads x[0, 1]
+    assert float(dw[0, 0, 1, 1]) == 1.75
+    assert float(dw[0, 0, 1, 0]) == 1.5  # its left tap reads x[0, 0]
+
+
 # --- the CUDA kernels' arithmetic, emulated -----------------------------------
 
 def _rna(a):
