@@ -79,12 +79,23 @@ kernel in every student forward. Phases:
   resume, the step beside f32, a profile; --contrast and --vid 2 steps
   each    38 KD --stage 2 (its
   teacher read from phase 26's checkpoint under --bf16) and the RGB-only
-  baseline (batch 64) in bf16, likewise
+  baseline (batch 64) in bf16, likewise    39 the train-mode PointNet's
+  bf16 instance vs its plain bf16 version in 31 cases (N 1/7/160 x P
+  100/2500 x D 64/256/1024, masked too, and clouds whose maxima tie):
+  each layer against cuBLAS on its own input, the statistics within one
+  bf16 ulp, the gradients by the oracle rule at each side's own ReLU and
+  tie decisions against f64, the decisions that differ counted and
+  bounded; HMMA.16816.F32.BF16 in its passes' SASS, its launches a call
+  from a CUDA graph, its device times beside the f32 instance at (160 /
+  46, 2500, 256)    40 the teacher's training (batch 160) and KD --stage 1
+  (batch 46) in bf16: eight small steps card vs CPU (the ResNets' residual
+  branches damped), 6 steps, the trainer's epoch and resume, the step
+  beside f32, a profile
 Each path (7-8, 10-11, 16-17, 20-21, 24-25, 28-29, each variant of 31,
-and 35-38's) is driven with the kernels' launch counts set to 0 just
-before it and read just after it; 16, 20, 24, 28 and 31's are the
-training paths' main paths, 35-38's the bf16 ones. The total seconds are
-printed before the card's line.
+and 35-38's and 40's) is driven with the kernels' launch counts set to 0
+just before it and read just after it; 16, 20, 24, 28 and 31's are the
+training paths' main paths, 35-38's and 40's the bf16 ones. The total
+seconds are printed before the card's line.
 
 With --source NAME=FILE (repeatable), another version of csrc/NAME.cu
 (info_nce, vgg_stem or pointnet_eval) with the same C interface (an
@@ -107,6 +118,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -173,6 +185,19 @@ BF16_ULP, BF16_FLOPS, BF16_ORACLE_FLOOR = 2.0**-7, 989e12, 2.0**-10
 # the bf16 small steps' batches (phase 19's first; the last unpadded),
 # over which each tensor's card and CPU errors are summed
 BF16_STEP_SEEDS = (21, 22, 23, 24)
+# the bf16 teacher's and stage 1's small steps (phase 40): eight batches,
+# the last unpadded; the NCE at tau 0.1 and 0.5 makes one step's losses
+# noisier than the KD steps' (PERF.md: over the first four alone the
+# teacher's nce_loss reads 1.368 of the bound, with the PointNet's kernel
+# and with its plain version alike), and the losses each held
+BF16_TRAIN_STEP_SEEDS = tuple(range(21, 29))
+T16_LOSSES, S1_16_LOSSES = ("loss", "pose_loss", "nce_loss"), ("loss", "teacher_loss")
+# the train-mode PointNet's bf16 instance vs its plain bf16 version: the
+# share of (cloud, channel) tie sets, and of ReLU inputs, that may be
+# decided otherwise than the plain version decides them (an a3 or a ReLU
+# input rounded to the next bf16 value from f32 sums in another order),
+# plus 2 a case
+PT16_MOVED, PT16_FLIPS = 1e-2, 1e-3
 IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 EVAL_CATEGORIES = ["bed", "bookshelf", "calculator"]
 EVAL_COUNTS = [64] * 8 + [37]  # 8 full batches of 64 + a ragged 37 padded to 64
@@ -908,46 +933,108 @@ def bf16_oracle(errs: dict, floor: float, what: str) -> float:
     return share
 
 
-def bf16_card_vs_cpu(small_step, loss_keys, batches,
-                     hold: bool = True) -> tuple[float, list[float]]:
+def bf16_card_vs_cpu(small_step, loss_keys, batches, hold: bool = True, witness=None,
+                     first: int = len(BF16_STEP_SEEDS)) -> dict:
     """Small train steps in bf16 on the card and on the CPU, and in f64 on
     the CPU, one on each of `batches` (small_step(where, bf16, batch) ->
     (metrics, [trained models]), the models in bfloat16 compute, or in
-    float64 with bf16 False): the losses and every parameter gradient held
-    (with `hold`) to `bf16_oracle` with each tensor's errors and floors
-    summed over the batches (a gradient zero in exact arithmetic takes the
-    step's largest gradient as its scale). Returns the largest share of the
-    bound over the sums, and over each batch's step alone: those are
-    printed, not held, since one small bf16 step's error against f64 is too
-    noisy a yardstick (PERF.md: the rule fails between two correct bf16
-    runs on some batches)."""
-    pooled, shares = {}, []
-    for batch in batches:
-        (m_ref, ref_models), (m_cpu, cpu_models) = (small_step("cpu", False, batch),
-                                                    small_step("cpu", True, batch))
-        m_gpu, gpu_models = small_step("cuda", True, batch)
+    float64 with bf16 False): each loss of `loss_keys` and every parameter
+    gradient held (with `hold`) to `bf16_oracle` with each tensor's errors
+    and floors summed over the batches (a gradient zero in exact arithmetic
+    takes the step's largest gradient as its scale). With `witness` (a
+    context manager under which the card runs the step with a kernel
+    replaced by its plain version, on the card) the card's step runs that
+    way too, and the card's errors, summed so, are also held to twice the
+    witness's plus the floor: what the kernel adds to the step's error.
+
+    Returns {"share": the largest share of the bound over the sums,
+    "batches": each batch's largest share alone, "keys": each loss's
+    summed share, "first": each loss's share summed over the first `first`
+    batches, "key_batches": each loss's share a batch alone} and with `witness` {"witness_first": the witness's shares
+    against the CPU there, "vs_witness": the card's largest summed share
+    against the witness, "equal": the (batch, tensor) pairs in which the
+    card and the witness are bit-equal, and of how many}. Each batch's
+    share alone is printed, not held, since one small bf16 step's error
+    against f64 is too noisy a yardstick (PERF.md: the rule fails between
+    two correct bf16 runs on some batches)."""
+    pooled, head, w_head, vs_w, shares, equal = {}, {}, {}, {}, [], [0, 0]
+    key_batches = {k: [] for k in loss_keys}
+
+    def add(into, k, errs, floor):
+        sums, floors = into.get(k, ({"max": [0.0, 0.0], "rms": [0.0, 0.0]}, 0.0))
+        into[k] = ({stat: [a + b for a, b in zip(sums[stat], errs[stat])] for stat in sums},
+                   floors + floor)
+
+    for i, batch in enumerate(batches):
+        ref, cpu = small_step("cpu", False, batch), small_step("cpu", True, batch)
+        runs = [small_step("cuda", True, batch), cpu, ref]
+        if witness is not None:
+            with witness():
+                runs.append(small_step("cuda", True, batch))
         torch.cuda.synchronize()
-        tensors = {k: [torch.tensor(float(m[k])) for m in (m_gpu, m_cpu, m_ref)]
-                   for k in loss_keys}
-        for j, (m_r, m_c, m_g) in enumerate(zip(ref_models, cpu_models, gpu_models)):
-            on_cpu, on_card = dict(m_c.named_parameters()), dict(m_g.named_parameters())
-            for k, p in m_r.named_parameters():
-                tensors[f"{j}.{k}"] = [on_card[k].grad, on_cpu[k].grad, p.grad]
-        largest = max(float(r.abs().max()) for k, (_, _, r) in tensors.items()
+        tensors = {k: [torch.as_tensor(m[k]).detach().cpu().double().reshape(-1)
+                       for m, _ in runs] for k in loss_keys}
+        for j, models in enumerate(zip(*(r[1] for r in runs))):
+            params = [dict(m.named_parameters()) for m in models]
+            for k in params[2]:
+                tensors[f"{j}.{k}"] = [p[k].grad.detach().cpu().double() for p in params]
+        largest = max(float(ts[2].abs().max()) for k, ts in tensors.items()
                       if k not in loss_keys)
         share = 0.0
-        for k, (g, c, r) in tensors.items():
+        for k, (g, c, r, *w) in tensors.items():
             scale = float(r.abs().max())
             if k not in loss_keys and scale < 1e-6 * largest:
                 scale = largest
             errs, floor = bf16_errors(g, c, r), BF16_ORACLE_FLOOR * scale
             share = max(share, bound_share(errs, floor))
-            sums, floors = pooled.get(k, ({"max": [0.0, 0.0], "rms": [0.0, 0.0]}, 0.0))
-            pooled[k] = ({stat: [a + b for a, b in zip(sums[stat], errs[stat])]
-                          for stat in sums}, floors + floor)
+            if k in key_batches:
+                key_batches[k].append(round(bound_share(errs, floor), 3))
+            add(pooled, k, errs, floor)
+            if i < first:
+                add(head, k, errs, floor)
+            if w:
+                add(vs_w, k, bf16_errors(g, w[0], r), floor)
+                equal = [equal[0] + int(torch.equal(g, w[0])), equal[1] + 1]
+                if i < first:
+                    add(w_head, k, bf16_errors(w[0], c, r), floor)
         shares.append(round(share, 3))
-    return max(bf16_oracle(e, f, k) if hold else bound_share(e, f)
-               for k, (e, f) in pooled.items()), shares
+    if hold:
+        for what, sums in (("card and CPU", pooled), ("card and its witness", vs_w)):
+            failed = {k: (e, round(f, 6)) for k, (e, f) in sums.items() if bound_share(e, f) > 1}
+            if failed:
+                raise RuntimeError(f"bf16 card vs CPU: {what} errors against f64 over the "
+                                   f"bound (twice the second's plus the floor) in {len(failed)} "
+                                   f"of {len(sums)} tensors: {failed}")
+    of = lambda sums, keys: {k: round(bound_share(*sums[k]), 3) for k in keys}
+    out = {"share": max(bound_share(e, f) for e, f in pooled.values()), "batches": shares,
+           "keys": of(pooled, loss_keys), "first": of(head, loss_keys),
+           "key_batches": key_batches}
+    if witness is not None:
+        out |= {"witness_first": of(w_head, loss_keys), "equal": equal,
+                "vs_witness": max(bound_share(e, f) for e, f in vs_w.values())}
+    return out
+
+
+@contextlib.contextmanager
+def plain_train_pointnet():
+    """While it lasts, the models' bf16 train-mode PointNet runs through its
+    plain bf16 version (`pointnet_train_plain_bf16`), on the card too: the
+    witness beside the kernel in phase 40's small steps."""
+    from pose3d_tpu_torch.models import pointnet as model
+    from pose3d_tpu_torch.ops import pointnet_train
+
+    own = model.pointnet_train
+
+    def plain(points, layers, mask=None):
+        if points.dtype == torch.bfloat16:
+            return pointnet_train.pointnet_train_plain_bf16(points, layers, mask)
+        return own(points, layers, mask)
+
+    model.pointnet_train = plain
+    try:
+        yield
+    finally:
+        model.pointnet_train = own
 
 
 def parse_source(arg: str) -> tuple[str, str]:
@@ -1222,6 +1309,191 @@ def pt_kernel_vs_plain(pt, pts, layers, valid, g) -> dict:
         "same": same, "launches": launches}
 
 
+def damp_residuals(variables: dict, factor: float = 0.2) -> dict:
+    """`variables` (a teacher's or vanilla teacher's, flax layout) with the
+    ResNet's residual branches damped: each block's last BatchNorm scale
+    times `factor`, in place. At the seeded init (every scale 1) the
+    train-mode ResNet in bf16 is chaotic at the small sizes of the card-vs-
+    CPU steps: any bf16 implementation's features lie about as far from
+    float64's as they are large, so that no two can be held to each other;
+    damped residual branches, as in the common zero-gamma init, keep the
+    steps' bf16 errors a small share of their values
+    (tests/test_torch_bf16_train.py holds JAX's and the port's steps so)."""
+    for name, block in variables["params"]["ResNet_0"].items():
+        last = {"Bottleneck": "ConvBN_2", "BasicBlock": "ConvBN_1"}.get(name.split("_")[0])
+        if last is not None:
+            bn = block[last]["BatchNorm_0"]
+            bn["scale"] = (np.asarray(bn["scale"]) * factor).astype(np.float32)
+    return variables
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits): 2^(floor(log2 |x|) - 7)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp_min(2.0**-126))) - 7)
+
+
+def dense_share(got: torch.Tensor, ref: torch.Tensor, bias: torch.Tensor) -> float:
+    """The largest |got - ref| of a bf16 Dense's output (bf16(bf16(x W) +
+    b)) over one bf16 ulp of the larger of |ref| and |ref - b| there: the
+    most that f32 sums in another order can move it (x W rounded to the next
+    bf16 value, then + b rounded)."""
+    ref = ref.float()
+    scale = bf16_ulp(torch.maximum(ref.abs(), (ref - bias.float()).abs()))
+    return float(((got.float() - ref).abs() / scale).max())
+
+
+def pt_bf16_forward_from(pt, layers, stats, a1, a2):
+    """A bf16 forward's layers recomputed from its own a1, a2 and float32
+    statistics by cuBLAS at flax's rounding points: (y1, y2, the ReLUs'
+    inputs; a3; y3)."""
+    (w1, b1, g1, be1), (w2, b2, g2, be2), (w3, b3, g3, be3) = layers
+    (mu1, v1), (mu2, v2), (mu3, v3) = stats
+    y1 = pt._bn_relu_bf16(a1, mu1, v1, g1, be1, False)
+    y2 = pt._bn_relu_bf16(a2, mu2, v2, g2, be2, False)
+    a3 = pt._dense_bf16(torch.relu(y2), w3, b3)
+    return y1, y2, a3, pt._bn_relu_bf16(a3, mu3, v3, g3, be3, False)
+
+
+def pt_bf16_decisions(pt, layers, stats, out, a1, a2):
+    """The ReLU decisions (h1 > 0, h2 > 0) and the tie sets ((N, P, D) bool:
+    the points whose y3 equals the cloud's maximum) of a bf16 forward, from
+    its layer-1 and layer-2 outputs before BatchNorm (a1, a2), its float32
+    statistics and its output (`pt_bf16_forward_from`)."""
+    y1, y2, _, y3 = pt_bf16_forward_from(pt, layers, stats, a1, a2)
+    ties = y3 == out[:, None, :]
+    # where no y3 read off cuBLAS's a3 reaches the output (its a3 rounded to
+    # the next bf16 value at the maximum: `count_moved`), that y3's own max
+    lost = ~ties.any(1, keepdim=True)
+    return (y1 > 0, y2 > 0), ties | (lost & (y3 == y3.amax(1, keepdim=True)))
+
+
+def pt_bf16_layer_shares(pt, pts, layers, stats, out, a1, a2) -> tuple[float, float, float]:
+    """A bf16 forward's layers, each against cuBLAS on that forward's own
+    input to the layer and its own statistics: a1 and a2 by `dense_share`,
+    and out against the max over the points of y3 recomputed from its a2,
+    over |mul3| ulp(a3) + ulp(out) a channel (an a3 rounded to the next bf16
+    value moves y3 by |mul3| ulp(a3), several ulps of y3 where |a3| is the
+    larger; the ulps at the channel's largest |a3| or |a3 - b3|, and |out|)."""
+    (w1, b1, g1, be1), (w2, b2, _, _), (_, b3, g3, _) = layers
+    share1 = dense_share(a1, pt._dense_bf16(pts, w1, b1), b1)
+    share2 = dense_share(a2, pt._dense_bf16(pt._bn_relu_bf16(a1, *stats[0], g1, be1, True),
+                                            w2, b2), b2)
+    _, _, a3, y3 = pt_bf16_forward_from(pt, layers, stats, a1, a2)
+    a3 = a3.float()
+    largest = torch.maximum(a3.abs().amax((0, 1)), (a3 - b3.float()).abs().amax((0, 1)))
+    ref = y3.amax(1).float()
+    bound = ((g3 / torch.sqrt(stats[2][1] + 1e-5)).abs() * bf16_ulp(largest)
+             + bf16_ulp(ref.abs().amax(0)))
+    return share1, share2, float(((out.float() - ref).abs() / bound[None, :]).max())
+
+
+def pt_bf16_reference(pts, layers, valid, masks, ties, g):
+    """The 12 parameter gradients of sum(out * g) in float64 (no rounding),
+    with the ReLUs' decisions `masks` and the max's tie sets `ties`: out =
+    the mean of y3 over each cloud's tied points (the even split)."""
+    from pose3d_tpu_torch.models.common import BN_EPS, batch_stats
+
+    tracked = [[t.double().requires_grad_() for t in layer] for layer in layers]
+    x = pts.double()
+    for i, (w, b, gamma, beta) in enumerate(tracked):
+        a = x @ w.t() + b
+        mean, var = batch_stats(a, (0, 1), valid)
+        y = (a - mean) * (torch.rsqrt(var + BN_EPS) * gamma) + beta
+        x = y * masks[i] if i < 2 else y
+    weights = ties.double() / ties.sum(1, keepdim=True)
+    out = (x * weights).sum(1)
+    return torch.autograd.grad(out, [t for layer in tracked for t in layer], g.double())
+
+
+def pt_bf16_vs_plain(pt, pts, layers, valid, g) -> dict:
+    """The train-mode PointNet kernel's bf16 instance (forward and backward,
+    twice, and once under autograd) against the plain bf16 version on the
+    same inputs. out and the six statistics: max|d| over max|ref| (the
+    statistics held to one bf16 ulp; out, where an a2 or a3 rounded to the
+    next bf16 value moves y3 through the BatchNorms' multipliers, by its
+    layers: `pt_bf16_layer_shares`, a1_share, a2_share and out_share, each
+    held at 1); out_unequal: the share of outputs that differ. The
+    gradients at each side's own decisions: each side's ReLU decisions and
+    tie sets (`pt_bf16_decisions`; the kernel's from its own a1, a2 and
+    statistics, the plain version's from its forward), a float64
+    reference at them (`pt_bf16_reference`), and `grad_share`: the largest,
+    over the 12 gradients and both the largest and the RMS difference, of
+    the kernel's error against its reference over twice the plain
+    version's against its own plus 2^-10 of max|ref| (the dense biases'
+    gradients, zero in exact arithmetic, of the largest weight gradient):
+    the oracle rule, held at 1. relu_flips: ReLU decisions that differ
+    between the two; ties_moved: (cloud, channel) entries whose number of
+    tied points differs between them; count_moved: entries where the
+    kernel's own tie count differs from the count `pt_bf16_decisions`
+    reads off its a2 (cuBLAS's products rounding an a3 otherwise); tie_share:
+    the entries whose maximum more than one point reaches, in the kernel's
+    forward; bf16_grads: the weights' and biases' gradients bf16 values;
+    same: the same bits on a second run and under autograd; launches:
+    (forward, backward) calls of the autograd use."""
+    d = layers[2][0].shape[0]
+    prm = pt.pack_params(layers)
+    runs = []
+    for _ in range(2):
+        fwd = pt.train_forward_bf16(pts, prm, d, valid)
+        out, stats, count, tsum, a1, a2 = fwd
+        runs.append(fwd[:4] + (pt.train_backward_bf16(pts, prm, d, valid, stats, out, count,
+                                                      tsum, a1, a2, g),))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    out, stats, count, _, grads = runs[0]
+    del runs
+    grads = pt.unpack_grads(grads, d)
+    tracked = [[t.clone().requires_grad_() for t in layer] for layer in layers]
+    flat = lambda ls: [t for layer in ls for t in layer]
+    before = (pt.train_forward_bf16.launches, pt.train_backward_bf16.launches)
+    out_a, _ = pt.pointnet_train(pts, tracked, valid)
+    grads_a = torch.autograd.grad(out_a, flat(tracked), g)
+    launches = (pt.train_forward_bf16.launches - before[0],
+                pt.train_backward_bf16.launches - before[1])
+    same = same and torch.equal(out_a, out) and all(torch.equal(a, b)
+                                                    for a, b in zip(grads_a, grads))
+    del out_a, grads_a
+    own = [[t.clone().requires_grad_() for t in layer] for layer in layers]
+    out_p, stats_p = pt.pointnet_train_plain_bf16(pts, own, valid)
+    grads_p = torch.autograd.grad(out_p, flat(own), g)
+    out_p = out_p.detach()
+    stats_k = pt.split_stats(stats, d)
+    with torch.no_grad():
+        masks_k, ties_k = pt_bf16_decisions(pt, layers, stats_k, out, a1, a2)
+        layer_shares = pt_bf16_layer_shares(pt, pts, layers, stats_k, out, a1, a2)
+        _, stats_pp, (a1_p, a2_p, _) = pt.plain_bf16_parts(pts, layers, valid)
+        masks_p, ties_p = pt_bf16_decisions(pt, layers, stats_pp, out_p, a1_p, a2_p)
+    del a1, a2, a1_p, a2_p
+    relu_flips = sum(int((a != b).sum()) for a, b in zip(masks_k, masks_p))
+    ties_moved = int((ties_k.sum(1) != ties_p.sum(1)).sum())
+    count_moved = int((ties_k.sum(1) != count).sum())
+    ref_k = pt_bf16_reference(pts, layers, valid, masks_k, ties_k, g)
+    del masks_k, ties_k
+    ref_p = pt_bf16_reference(pts, layers, valid, masks_p, ties_p, g)
+    del masks_p, ties_p
+    scale = lambda r: max(float(r.abs().max()), 1e-30)
+    largest = max(scale(ref_p[4 * i]) for i in range(3))
+    share = 0.0
+    for i, (k, rk, p, rp) in enumerate(zip(grads, ref_k, grads_p, ref_p)):
+        floor = BF16_ORACLE_FLOOR * (largest if i % 4 == 1 else scale(rp))
+        dk, dp = k.double() - rk, p.double() - rp
+        for stat in (lambda t: float(t.abs().max()), lambda t: float(t.pow(2).mean().sqrt())):
+            ratio = stat(dk) / (2 * stat(dp) + floor)
+            share = max(share, ratio if math.isfinite(ratio) else math.inf)
+    diff = lambda a, r: float((a.float() - r.float()).abs().max()) / scale(r.float())
+    return {
+        "out": diff(out, out_p), "out_unequal": float((out != out_p).float().mean()),
+        "a1_share": layer_shares[0], "a2_share": layer_shares[1], "out_share": layer_shares[2],
+        "stats": max(diff(a, r.detach()) for pair, pair_r in zip(stats_k, stats_p)
+                     for a, r in zip(pair, pair_r)),
+        "grad_share": share, "relu_flips": relu_flips, "ties_moved": ties_moved,
+        "count_moved": count_moved, "tie_share": float((count > 1).float().mean()),
+        "bf16_grads": all(torch.equal(t, t.to(torch.bfloat16).float())
+                          for i, t in enumerate(grads) if i % 4 < 2),
+        "max_abs_err": float((out.float() - out_p.float()).abs().max()),
+        "grad_abs": max(float((k - p).abs().max()) for k, p in zip(grads, grads_p)),
+        "same": same, "launches": launches}
+
+
 class KDMemorySet(MemorySet):
     """KD samples (three views, labels, a cloud) held in memory, or, with
     `train` False, evaluation samples (one view, no cloud)."""
@@ -1267,6 +1539,8 @@ def main() -> int:
         pointnet_train.train_forward.launches = pointnet_train.train_backward.launches = 0
         vgg_stem.stem_forward.bf16_launches = vgg_stem.stem_backward.bf16_launches = 0
         pointnet.pointnet_eval_bf16.launches = 0
+        pointnet_train.train_forward_bf16.launches = 0
+        pointnet_train.train_backward_bf16.launches = 0
 
     def counts():
         """(geodesic, pointnet, NCE forward, NCE backward, stem forward,
@@ -1281,6 +1555,12 @@ def main() -> int:
         pointnet)."""
         return (vgg_stem.stem_forward.bf16_launches, vgg_stem.stem_backward.bf16_launches,
                 pointnet.pointnet_eval_bf16.launches)
+
+    def pt16_counts():
+        """The train-mode PointNet's bf16 instance's launches: (forward,
+        backward)."""
+        return (pointnet_train.train_forward_bf16.launches,
+                pointnet_train.train_backward_bf16.launches)
 
     def blocked_counts():
         """NCE forward and backward launches for the blocked entries (JAX's
@@ -3125,8 +3405,8 @@ def main() -> int:
                           lambda: kd_step(kd16_state, teacher16, kb), 3)
     lead = leads(lambda: kd_step(kd16_state, teacher16, kb))
     phase("KD bf16", t0, f"{len(small16)} small steps card vs CPU (bf16, against f64): the card's "
-          f"error summed over them at most {kd_ratio[0]:.3g} of the oracle's bound (each batch "
-          f"alone, phase 19's first: {kd_ratio[1]}, not held); {TRAIN_STEPS} "
+          f"error summed over them at most {kd_ratio['share']:.3g} of the oracle's bound (each "
+          f"batch alone, phase 19's first: {kd_ratio['batches']}, not held); {TRAIN_STEPS} "
           f"steps at batch {KD_BATCH} x 3 views: loss {[round(v, 4) for v in kd16_losses]}, "
           f"bf16 launches (stem forward, backward, pointnet) {kd16_counts}; trainer epoch "
           f"{kd16_fit}, its checkpoint f32, resumed into epoch 1; val_med "
@@ -3164,7 +3444,8 @@ def main() -> int:
     # the witness: phase 19's batch with cuBLAS's reduced-precision bf16
     # reductions on (PyTorch's default, which setup_device turns off)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
-    bl_reduced = bf16_card_vs_cpu(bl_small_step, ("loss",), small16[:1], hold=False)[1][0]
+    bl_reduced = bf16_card_vs_cpu(bl_small_step, ("loss",), small16[:1],
+                                  hold=False)["batches"][0]
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     s2_state16 = create_train_state(set_compute_dtype(kd_student(47), bf16), LR, [10**9],
                                     seed=47)
@@ -3199,8 +3480,9 @@ def main() -> int:
         witness = (f"; with cuBLAS's reduced-precision bf16 reductions on, phase 19's batch "
                    f"{bl_reduced}" if name.startswith("baseline") else "")
         phase(name, t0, f"{len(small16)} small steps card vs CPU (bf16, against f64): the "
-              f"card's error summed over them at most {ratio[0]:.3g} of the oracle's bound "
-              f"(each batch alone, phase 19's first: {ratio[1]}, not held{witness}); 2 steps: loss "
+              f"card's error summed over them at most {ratio['share']:.3g} of the oracle's bound "
+              f"(each batch alone, phase 19's first: {ratio['batches']}, not held{witness}); 2 "
+              f"steps: loss "
               f"{[round(v, 4) for v in losses]}, bf16 launches (stem forward, backward, "
               f"pointnet) {launched}")
         phase("time", t0, f"{what}: f32 {t['f32']} ms/step, bf16 {t['bf16']} ms/step = "
@@ -3209,6 +3491,327 @@ def main() -> int:
         phase("profile", t0, f"{name}: {lead}")
     del s2_state16, s2_teacher16, bl_state16, blb, kb
     bf16_paths = [sum(c) for c in zip(kd16_counts, variant16_counts, s2_counts16, bl_counts16)]
+
+    # 39. the train-mode PointNet kernel's bf16 instance (kernel 3 in its
+    # TPU dtype) vs the plain bf16 version, `pt_bf16_vs_plain`: N 1 / 7 /
+    # 160 x P 100 / 2500 x D 64 / 256 / 1024, unmasked and (N 7, 160) with
+    # a quarter of the clouds padded, stage 1's (46, 2500, 256) unmasked and
+    # padded, and clouds on a 2^-8 grid whose maxima tie; out and
+    # statistics within one bf16 ulp of max|ref|, the gradients by the
+    # oracle rule at each side's own decisions, the differing
+    # decisions counted and bounded; HMMA.16816.F32.BF16 in the passes'
+    # SASS; launches a call from a CUDA graph's kernel nodes; device times
+    # by graph replay at the two paths' shapes beside the f32 instance
+    pnb_hmma = sass_hmma(libs[4], "pnb_", needle="HMMA.16816.F32.BF16")
+    mma_passes = ("pnb_l2_kernel", "pnb_l3_kernel", "pnb_l3_back_kernel", "pnb_dh2_kernel",
+                  "pnb_l2_back_kernel")
+    if not all(pnb_hmma.get(k) for k in mma_passes) or any(
+            v for k, v in pnb_hmma.items() if k not in mma_passes):
+        raise RuntimeError(f"pointnet_train bf16 SASS: HMMA.16816.F32.BF16 in {pnb_hmma}")
+    pt16_launch = pointnet_train.kernel_launches_per_call(bf16)
+    trng = np.random.default_rng(39)
+    pt16_cases = [(n_c, p_c, d_c, masked, False) for n_c in (1, 7, 160) for p_c in (100, 2500)
+                  for d_c in (64, 256, 1024) for masked in (False, True)
+                  if not (masked and n_c == 1)] + [
+        (KD_BATCH, POINT_NUM, STAGE1_SHAPE_DIM, masked, False) for masked in (False, True)] + [
+        (16, 2500, 256, True, True)]
+    pt16_worst, pt16_total = {}, {"relu_flips": 0, "ties_moved": 0, "count_moved": 0}
+    outputs = 0
+    for n_c, p_c, d_c, masked, grid in pt16_cases:
+        pts_c, layers_c, valid_c, g_c = pt_inputs(trng, n_c, p_c, d_c, dev, masked=masked)
+        if grid:  # clouds on a 2^-8 grid, 3 steps each way around one point
+            base = torch.from_numpy(trng.uniform(0.5, 1.0, (n_c, 1, 3))).float()
+            steps_c = torch.from_numpy(trng.integers(-3, 4, (n_c, p_c, 3))).float()
+            pts_c = (base + steps_c * 2.0**-8).to(dev)
+        r = pt_bf16_vs_plain(pointnet_train, pts_c.to(bf16), layers_c, valid_c, g_c.to(bf16))
+        torch.cuda.synchronize()
+        case = (n_c, p_c, d_c, masked, grid)
+        if max(r["a1_share"], r["a2_share"], r["out_share"]) > 1 or r["stats"] > BF16_ULP or \
+                r["grad_share"] > 1 or \
+                not r["bf16_grads"] or not r["same"] or r["launches"] != (1, 1) or \
+                r["count_moved"] > PT16_MOVED * n_c * d_c + 2 or \
+                r["ties_moved"] > PT16_MOVED * n_c * d_c + 2 or \
+                r["relu_flips"] > PT16_FLIPS * n_c * p_c * 192 + 2 or \
+                (grid and r["tie_share"] < 0.1):
+            raise RuntimeError(f"bf16 train-mode pointnet case {case}: {r}")
+        pt16_worst = {k: max(pt16_worst.get(k, 0), v) for k, v in r.items()
+                      if isinstance(v, float)}
+        pt16_total = {k: pt16_total[k] + r[k] for k in pt16_total}
+        outputs += n_c * d_c
+        del pts_c, layers_c, valid_c, g_c
+    phase("pointnet_train bf16", t0, f"kernels vs the plain bf16 version in {len(pt16_cases)} "
+          f"cases (N 1/7/160 x P 100/2500 x D 64/256/1024, masked too; stage 1's "
+          f"({KD_BATCH}, {POINT_NUM}, {STAGE1_SHAPE_DIM}) unmasked and masked; tied clouds on a "
+          f"grid, "
+          f"tie share {r['tie_share']:.3f}): out max|d|/max|ref| {pt16_worst['out']:.3g} (one ulp "
+          f"{BF16_ULP:.3g}), unequal share at most {pt16_worst['out_unequal']:.3g}; each layer on "
+          f"its own input against cuBLAS: a1 and a2 within {pt16_worst['a1_share']:.3g} and "
+          f"{pt16_worst['a2_share']:.3g} ulp, out within {pt16_worst['out_share']:.3g} of |mul3| "
+          f"ulp(a3) + ulp(out) a channel (held at 1); statistics "
+          f"{pt16_worst['stats']:.3g}; gradients at each side's own decisions at most "
+          f"{pt16_worst['grad_share']:.3g} of the oracle's bound (twice the plain version's "
+          f"error against f64 plus 2^-10 max|ref|); decisions that differ, in all: "
+          f"{pt16_total['relu_flips']} ReLU (tol {PT16_FLIPS:.0e} of the ReLU inputs + 2 a "
+          f"case), {pt16_total['ties_moved']} of {outputs} tie sets (tol {PT16_MOVED:.0e} of "
+          f"the outputs + 2), {pt16_total['count_moved']} tie counts the kernel's a2 reads "
+          f"otherwise through cuBLAS; the weights' and biases' gradients bf16 values; one "
+          f"forward and one backward call a use, the same bits on a second run; launches a "
+          f"call {pt16_launch} (library); cuobjdump -sass: HMMA.16816.F32.BF16 in {pnb_hmma}")
+    pt16_times, pt16_bounds = {}, {}
+    for n_c in (TRAIN_BATCH, KD_BATCH):
+        d_c = TRAIN_SHAPE_DIM
+        pts_c, layers_c, _, g_c = pt_inputs(np.random.default_rng(29), n_c, POINT_NUM, d_c, dev)
+        prm = pointnet_train.pack_params(layers_c)
+        p16, g16 = pts_c.to(bf16), g_c.to(bf16)
+        saved16 = pointnet_train.train_forward_bf16(p16, prm, d_c, None)
+        saved32 = pointnet_train.train_forward(pts_c, prm, d_c, None)
+        tie_share = float((saved16[2] > 1).float().mean())
+        fns = {"bf16 forward": lambda: pointnet_train.train_forward_bf16(p16, prm, d_c, None),
+               "bf16 backward": lambda: pointnet_train.train_backward_bf16(
+                   p16, prm, d_c, None, saved16[1], saved16[0], *saved16[2:], g16),
+               "f32 forward": lambda: pointnet_train.train_forward(pts_c, prm, d_c, None),
+               "f32 backward": lambda: pointnet_train.train_backward(
+                   pts_c, prm, d_c, None, *saved32[1:], g_c)}
+        if n_c == TRAIN_BATCH:
+            graphs16 = (graph_kernel_launches(fns["bf16 forward"]),
+                        graph_kernel_launches(fns["bf16 backward"]))
+            if graphs16 != pt16_launch:
+                raise RuntimeError(f"bf16 train-mode pointnet: a CUDA graph of one call holds "
+                                   f"{graphs16} kernels, the library says {pt16_launch}")
+        runs = {k: [] for k in fns}
+        for order in (("f32", "bf16"), ("bf16", "f32")):
+            for who in order:
+                for part in ("forward", "backward"):
+                    runs[f"{who} {part}"].append(round(graph_ms(fns[f"{who} {part}"], side), 4))
+        tracked = [[t.clone().requires_grad_() for t in layer] for layer in layers_c]
+        flat = [t for layer in tracked for t in layer]
+        out_p = pointnet_train.pointnet_train_plain_bf16(p16, tracked)[0]
+
+        def plain16_fwd():
+            with torch.no_grad():
+                pointnet_train.pointnet_train_plain_bf16(p16, tracked)
+
+        plain = {"forward": cuda_ms(plain16_fwd, 5),
+                 "backward": cuda_ms(lambda: torch.autograd.grad(out_p, flat, g16,
+                                                                 retain_graph=True), 5)}
+        pt16_times[n_c] = {k: sum(v) / len(v) for k, v in runs.items()} | {
+            f"plain {k}": v for k, v in plain.items()}
+        # the bound: the points (bf16), the parameters and the outputs
+        # (features bf16, statistics) and, backward, the upstream gradient
+        # (bf16) and the parameters' gradients, each moved once; the useful
+        # products on the bf16 tensor cores: forward the three layers,
+        # backward dW and the input's gradient of layers 2 and 3 and dW1
+        rows_c, n_stats = n_c * POINT_NUM, 2 * (64 + 128 + d_c)
+        flops_f = 2.0 * rows_c * (3 * 64 + 64 * 128 + 128 * d_c)
+        flops_b = 2.0 * rows_c * (3 * 64 + 2 * 64 * 128 + 2 * 128 * d_c)
+        bytes_f = 2.0 * 3 * rows_c + 4.0 * prm.numel() + 2.0 * n_c * d_c + 4.0 * n_stats
+        bytes_b = 2.0 * 3 * rows_c + 8.0 * prm.numel() + 2.0 * n_c * d_c + 4.0 * n_stats
+        pt16_bounds[n_c] = (bound(bytes_f, flops_f, BF16_FLOPS),
+                            bound(bytes_b, flops_b, BF16_FLOPS))
+        t = pt16_times[n_c]
+        phase("time", t0, f"train-mode pointnet ({n_c}, {POINT_NUM}, {d_c}), device time a "
+              f"call by graph replay in turns (f32, bf16, bf16, f32): bf16 forward "
+              f"{runs['bf16 forward']} + backward {runs['bf16 backward']} ms, f32 forward "
+              f"{runs['f32 forward']} + backward {runs['f32 backward']} ms; the plain bf16 "
+              f"version by CUDA events {plain['forward']:.4f} + {plain['backward']:.4f} ms; "
+              f"bound forward {pt16_bounds[n_c][0][0]:.4f} ms ({pt16_bounds[n_c][0][1]}, bf16 "
+              f"tensor cores), backward {pt16_bounds[n_c][1][0]:.4f} ms "
+              f"({pt16_bounds[n_c][1][1]}); bf16 at {pt16_bounds[n_c][0][0] / t['bf16 forward']:.1%} "
+              f"and {pt16_bounds[n_c][1][0] / t['bf16 backward']:.1%} of its bound; tied maxima "
+              f"{tie_share:.4f} of the (cloud, channel) entries [{card}]")
+        del pts_c, layers_c, g_c, saved16, saved32, out_p, tracked, flat, p16, g16
+
+    # 40. the teacher's training (batch 160, --fused_nce, shape feature 256)
+    # and KD --stage 1 (batch 46, --fused_nce) in bf16, through the bf16
+    # kernel above: small steps card vs CPU by the oracle rule (the small
+    # teacher of phase 15 and a small vanilla teacher and student, their
+    # ResNets' residual branches damped (`damp_residuals`), each tensor's
+    # errors summed over eight batches, the last unpadded, each loss a
+    # tensor of its own; and the card against the same steps on the card
+    # with the PointNet's plain version, `plain_train_pointnet`), 6 steps at full
+    # width, the trainer's epoch and a resume (checkpoints f32), each step's
+    # time beside f32's in turns, and what leads a one-step profile
+    t_small16 = convert.pose_state_dict(damp_residuals(teacher_variables(
+        np.random.default_rng(14), 64, 64)))
+    v_small16 = convert.pose_vanilla_state_dict(damp_residuals(vanilla_variables(
+        np.random.default_rng(30), 64, 64)))
+    t_batches = [train_batch(np.random.default_rng(seed), 8, 64, 100)
+                 for seed in BF16_TRAIN_STEP_SEEDS]
+    s1_batches = [train_batch(np.random.default_rng(seed), 8, 32, 100)
+                  for seed in BF16_TRAIN_STEP_SEEDS]
+    for b in t_batches[:-1] + s1_batches[:-1]:
+        b["valid"] = np.arange(8) < 7
+    keep_np = [np.random.default_rng(40 + i).uniform(size=(8, 200)) < 0.7 for i in range(2)]
+
+    def small_teacher16(where, as_bf16, batch_np):
+        """One small teacher step (--fused_nce, no dropout) in bf16, or in
+        f64 with bf16 False, for `bf16_card_vs_cpu`."""
+        model = PoseEstimator(img_feature_dim=64, shape_feature_dim=64,
+                              compute_dtype=bf16 if as_bf16 else None)
+        model.load_state_dict(t_small16, strict=True)
+        state = create_train_state((model if as_bf16 else model.double()).to(where), LR, [100],
+                                   seed=0)
+        batch = {k: torch.from_numpy(v).to(where) for k, v in batch_np.items()}
+        if not as_bf16:
+            batch["im"], batch["shape"] = batch["im"].double(), batch["shape"].double()
+        m = steps.make_teacher_train_step(nce_dropout=0.0, use_fused_nce=True)(state, batch)
+        return {k: m[k] for k in T16_LOSSES}, [state.model]
+
+    def small_stage1_16(where, as_bf16, batch_np):
+        """One small KD --stage 1 step (--fused_nce, fixed NCE keep-masks)
+        of the vanilla teacher and the student, in bf16 or in f64."""
+        dtype = bf16 if as_bf16 else None
+        teacher = PoseEstimatorVanilla(img_feature_dim=64, shape_feature_dim=64,
+                                       compute_dtype=dtype)
+        teacher.load_state_dict(v_small16, strict=True)
+        student = BaselineEstimator(img_feature_dim=64, width_mult=0.25, input_dim=32,
+                                    dropout_rate=0.0, compute_dtype=dtype)
+        student.load_state_dict(s_small, strict=True)
+        states = [create_train_state((m if as_bf16 else m.double()).to(where), LR, [100], seed=i)
+                  for i, m in enumerate((teacher, student))]
+        batch = {k: torch.from_numpy(v).to(where) for k, v in batch_np.items()}
+        if not as_bf16:
+            batch["im"], batch["shape"] = batch["im"].double(), batch["shape"].double()
+        keep = [torch.from_numpy(k).to(where) for k in keep_np]
+        m = steps.make_stage1_step(tau=0.5, use_fused_nce=True)(*states, batch, keep=keep)
+        return {k: m[k] for k in S1_16_LOSSES}, [s.model for s in states]
+
+    # each loss its own tensor; the witness: the same steps on the card with
+    # the PointNet through its plain bf16 version
+    t16_ratio = bf16_card_vs_cpu(small_teacher16, T16_LOSSES, t_batches,
+                                 witness=plain_train_pointnet)
+    s116_ratio = bf16_card_vs_cpu(small_stage1_16, S1_16_LOSSES, s1_batches,
+                                  witness=plain_train_pointnet)
+
+    def fit_twice(make_state, make_trainer, fit, name):
+        """The trainer's epoch 0 in bf16, its checkpoint (float32 values
+        only), then a fresh bf16 state resumed from it into epoch 1.
+        Returns (the bf16 train-mode PointNet's launches in epoch 0, the
+        records)."""
+        with tempfile.TemporaryDirectory() as tmp:
+            states = make_state(16)
+            reset_counts()
+            fit(make_trainer(states, tmp), 1, 0)
+            torch.cuda.synchronize()
+            fitted = pt16_counts()
+            saved = torch.load(os.path.join(tmp, "ckpt", "checkpoint.pth"), map_location="cpu",
+                               weights_only=True)
+            floats = [v for v in torch.utils._pytree.tree_leaves(saved)
+                      if isinstance(v, torch.Tensor) and v.is_floating_point()]
+            if fitted != (2, 2) or not floats or any(v.dtype != torch.float32 for v in floats):
+                raise RuntimeError(f"{name}: bf16 train-mode pointnet launches {fitted}, "
+                                   f"checkpoint dtypes {sorted({str(v.dtype) for v in floats})}")
+            resumed = make_state(99)
+            if len(resumed) == 1:  # fit_stage1 restores both train states itself
+                resumed[0].load_state_dict(torch.load(
+                    os.path.join(tmp, "ckpt", "checkpoint.pth"), map_location="cpu",
+                    weights_only=True))
+            fit(make_trainer(resumed, tmp), 2, 1)
+            with open(os.path.join(tmp, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            if [r["epoch"] for r in records] != [0, 1] or any(s.step != 4 for s in resumed) or \
+                    not all(math.isfinite(r["train_loss"]) for r in records):
+                raise RuntimeError(f"{name} resume: steps {[s.step for s in resumed]}, "
+                                   f"records {records}")
+        return fitted, records
+
+    # the teacher step
+    teacher16_state = create_train_state(set_compute_dtype(recipe_teacher(46), bf16), LR,
+                                         [10**9], seed=46)
+    t16_step = steps.make_teacher_train_step(use_fused_nce=True)
+    tb16 = {k: torch.from_numpy(v).to(dev) for k, v in
+            train_batch(np.random.default_rng(15), TRAIN_BATCH, 224, POINT_NUM).items()}
+    reset_counts()
+    history = [t16_step(teacher16_state, tb16) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    t16_counts = pt16_counts()
+    t16_losses = [float(m["loss"]) for m in history]
+    if t16_counts != (TRAIN_STEPS,) * 2 or counts()[2:4] != (TRAIN_STEPS,) * 2 or \
+            any(counts()[i] for i in (6, 7)) or not all(math.isfinite(v) for v in t16_losses) \
+            or not t16_losses[-1] < t16_losses[0]:
+        raise RuntimeError(f"bf16 teacher training: bf16 train-mode pointnet launches "
+                           f"{t16_counts}, f32 {counts()}, losses {t16_losses}")
+
+    def teacher_fit_trainer(states, tmp):
+        sets = (MemorySet(64, 16, 224), MemorySet(40, 17, 224), MemorySet(40, 18, 224))
+        return TeacherTrainer(states[0], DataLoader(sets[0], 32, shuffle=True, drop_last=True,
+                                                    num_workers=2),
+                              DataLoader(sets[1], 32, shuffle=False, num_workers=2),
+                              EVAL_CATEGORIES, tmp, print_freq=100,
+                              cat_eval_loader=DataLoader(sets[2], 32, shuffle=False,
+                                                         num_workers=2), use_fused_nce=True)
+
+    t16_fit, t16_records = fit_twice(
+        lambda seed: [create_train_state(set_compute_dtype(recipe_teacher(seed), bf16), LR,
+                                         [10**9], seed=seed)],
+        teacher_fit_trainer, lambda tr, n, start: tr.fit(n, start_epoch=start), "bf16 teacher")
+    t16_times = in_turns([teacher16_state.model], lambda: t16_step(teacher16_state, tb16), 3)
+    t16_lead = leads(lambda: t16_step(teacher16_state, tb16))
+    del teacher16_state, tb16, history
+    # the stage-1 step
+    t1_16, s1_16 = stage1_states(46)
+    for st in (t1_16, s1_16):
+        set_compute_dtype(st.model, bf16)
+    s1_16_step = steps.make_stage1_step(tau=0.5, use_fused_nce=True)
+    sb16 = {k: torch.from_numpy(v).to(dev) for k, v in
+            train_batch(np.random.default_rng(26), KD_BATCH, 224, POINT_NUM).items()}
+    reset_counts()
+    history = [s1_16_step(t1_16, s1_16, sb16) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    s116_counts, s116_stem = pt16_counts(), bf16_counts()[:2]
+    s116_losses = [float(m["loss"]) for m in history]
+    if s116_counts != (TRAIN_STEPS,) * 2 or s116_stem != (TRAIN_STEPS,) * 2 or \
+            any(counts()[i] for i in (4, 5, 6, 7)) or \
+            not all(math.isfinite(v) for v in s116_losses):
+        raise RuntimeError(f"bf16 stage 1: bf16 train-mode pointnet launches {s116_counts}, "
+                           f"bf16 stem {s116_stem}, f32 {counts()}, losses {s116_losses}")
+
+    def stage1_fit_state(seed):
+        states = stage1_states(seed)
+        for st in states:
+            set_compute_dtype(st.model, bf16)
+        return list(states)
+
+    def stage1_fit_trainer(states, tmp):
+        return KDTrainer(states[1], None,
+                         DataLoader(MemorySet(2 * KD_BATCH, 27, 224), KD_BATCH, shuffle=True,
+                                    drop_last=True, num_workers=2),
+                         DataLoader(MemorySet(40, 28, 224), KD_BATCH, shuffle=False,
+                                    num_workers=2),
+                         EVAL_CATEGORIES, tmp, teacher_state=states[0], tau=0.5,
+                         use_fused_nce=True)
+
+    s116_fit, s116_records = fit_twice(stage1_fit_state, stage1_fit_trainer,
+                                       lambda tr, n, start: tr.fit_stage1(n, start_epoch=start),
+                                       "bf16 stage 1")
+    s116_times = in_turns([t1_16.model, s1_16.model], lambda: s1_16_step(t1_16, s1_16, sb16), 3)
+    s116_lead = leads(lambda: s1_16_step(t1_16, s1_16, sb16))
+    del t1_16, s1_16, sb16, history
+    for name, what, ratio, losses, launched, fitted, records, t, rows, lead in (
+            ("teacher training bf16", f"teacher train step batch {TRAIN_BATCH}, --fused_nce",
+             t16_ratio, t16_losses, t16_counts, t16_fit, t16_records, t16_times, TRAIN_BATCH,
+             t16_lead),
+            ("stage 1 bf16", f"KD --stage 1 step batch {KD_BATCH}, --fused_nce", s116_ratio,
+             s116_losses, s116_counts, s116_fit, s116_records, s116_times, KD_BATCH,
+             s116_lead)):
+        phase(name, t0, f"{len(t_batches)} small steps card vs CPU (bf16, against f64; "
+              f"residual branches damped): the card's error summed over them at most "
+              f"{ratio['share']:.3g} of the oracle's bound, each loss {ratio['keys']}; over the "
+              f"first {len(BF16_STEP_SEEDS)} each loss {ratio['first']}, with the PointNet's "
+              f"plain version on the card {ratio['witness_first']} (not held); against that "
+              f"witness at most {ratio['vs_witness']:.3g} of the bound, bit-equal in "
+              f"{ratio['equal'][0]} of {ratio['equal'][1]} (batch, tensor) pairs; each batch "
+              f"alone: {ratio['batches']}, each loss {ratio['key_batches']}, not held; "
+              f"{TRAIN_STEPS} steps at full width: loss "
+              f"{[round(v, 4) for v in losses]}, bf16 train-mode pointnet launches (forward, "
+              f"backward) {launched}; trainer epoch {fitted}, its checkpoint f32, resumed into "
+              f"epoch 1: train_loss {[round(r['train_loss'], 4) for r in records]} [{card}]")
+        phase("time", t0, f"{what}: f32 {t['f32']} ms/step, bf16 {t['bf16']} ms/step = "
+              f"{rows * 1000.0 / mean(t['bf16']):.1f} samples/s (f32 "
+              f"{rows * 1000.0 / mean(t['f32']):.1f}) [{card}]")
+        phase("profile", t0, f"{name}: {lead}")
+    pt16_paths = [a + b + c + d for a, b, c, d in zip(t16_counts, t16_fit, s116_counts,
+                                                      s116_fit)]
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3272,7 +3875,17 @@ def main() -> int:
               stem16["kernel backward"], stem16["plain backward"], stem16_bounds[1]),
         entry("pointnet_eval_bf16", "pose3d_tpu_torch/csrc/pointnet_eval.cu",
               "pose3d_tpu/ops/pointnet_fused.py:78", bf16_paths[2] + teacher16_serving,
-              pn16_err, *pn16_times[TEACHER_BATCH, 1024], pn16_bounds[TEACHER_BATCH, 1024])]}))
+              pn16_err, *pn16_times[TEACHER_BATCH, 1024], pn16_bounds[TEACHER_BATCH, 1024]),
+        # the train-mode PointNet's bf16 instance, its launches on the bf16
+        # teacher's and stage 1's paths (phase 40)
+        entry("pointnet_train_forward_bf16", "pose3d_tpu_torch/csrc/pointnet_train.cu",
+              "pose3d_tpu/ops/pointnet_train_fused.py:545", pt16_paths[0],
+              pt16_worst["max_abs_err"], pt16_times[TRAIN_BATCH]["bf16 forward"],
+              pt16_times[TRAIN_BATCH]["plain forward"], pt16_bounds[TRAIN_BATCH][0]),
+        entry("pointnet_train_backward_bf16", "pose3d_tpu_torch/csrc/pointnet_train.cu",
+              "pose3d_tpu/ops/pointnet_train_fused.py:545", pt16_paths[1],
+              pt16_worst["grad_abs"], pt16_times[TRAIN_BATCH]["bf16 backward"],
+              pt16_times[TRAIN_BATCH]["plain backward"], pt16_bounds[TRAIN_BATCH][1])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,10 +25,10 @@ MANUAL_SEED = 46  # the reference's fixed seed
 BF16_HELP = ("bfloat16 compute with float32 parameters, optimizer state and "
              "checkpoints (flax's dtype): each layer casts its input and weights to "
              "bf16, BatchNorm statistics and the losses stay float32; the VGG stem "
-             "and the eval PointNet run in their bf16 kernels on the card. Serving, "
-             "evaluation, KD --crd / --contrast / --vid / --stage 2 and the RGB-only "
-             "baseline take it; the teacher's training and KD --stage 1 refuse it "
-             "(the train-mode PointNet kernel's bf16 instance: ROADMAP.md Queue 1)")
+             "and the eval and train-mode PointNets run in their bf16 kernels on the "
+             "card. Serving, evaluation, the teacher's training, KD --crd / "
+             "--contrast / --vid / --stage 1 / --stage 2 and the RGB-only baseline "
+             "take it")
 DEVICE_HELP = ("torch device (default cuda). On a CUDA device the geodesic error, the "
                "VGG stem and the PointNet encoders run in their CUDA kernels; on cpu the "
                "plain PyTorch versions run, and only when asked for. TF32 is turned off "

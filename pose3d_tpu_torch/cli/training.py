@@ -6,8 +6,10 @@ on ObjectNet3D and Pascal3D:
     `--nce multipose`;
   * `--shape None`: the RGB-only supervised baseline, the student
     (`--img_feature_dim`, `--student_width_mult`) under the 4-term pose
-    loss alone, its stem in the VGG stem kernel on the card; `--bf16`
-    computes in bfloat16 (float32 parameters and checkpoints).
+    loss alone, its stem in the VGG stem kernel on the card.
+`--bf16` computes both in bfloat16 (float32 parameters and checkpoints);
+the teacher's PointNet then trains in the train-mode PointNet kernel's
+bf16 instance on the card.
 
     python -m pose3d_tpu_torch.cli.training --dataset ObjectNet3D \\
         --shape PointCloud --shape_dir pointcloud --batch_size 160 \\
@@ -97,7 +99,7 @@ def parse_args(argv=None):
                         help="torch device (default cuda); cpu runs the plain "
                              "versions and must be asked for")
     parser.add_argument("--bf16", action="store_true",
-                        help=common.BF16_HELP + "; here: --shape None only")
+                        help=common.BF16_HELP + "; here: the teacher and the baseline")
     for flag, what in (("device_shapes", "a device-resident cloud bank"),
                        ("device_augment", "on-device photometric augmentation")):
         parser.add_argument(f"--{flag}", action="store_true",
@@ -130,11 +132,6 @@ def parse_args(argv=None):
     if opt.shape == "None" and opt.fused_nce:
         raise SystemExit("--fused_nce: the RGB baseline has no contrastive term "
                          "(ROADMAP.md Queue 1 lists the ported regimes)")
-    if opt.bf16 and opt.shape != "None":
-        raise SystemExit("--bf16 with --shape PointCloud: the teacher's training needs the "
-                         "train-mode PointNet kernel's bf16 instance, which is not ported to "
-                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1 (--bf16 trains the "
-                         "RGB-only baseline, --shape None)")
     if opt.shape != "None" and opt.student_width_mult != 1.0:
         raise SystemExit("--student_width_mult applies to --shape None, the RGB baseline "
                          "(ROADMAP.md Queue 1 lists the ported regimes)")
@@ -169,7 +166,8 @@ def main(argv=None):
         model = PoseEstimator(img_feature_dim=opt.img_feature_dim,
                               shape_feature_dim=opt.shape_feature_dim, azi_classes=azi,
                               ele_classes=ele, inp_classes=inp, bin_size=opt.bin_size,
-                              generator=torch.Generator().manual_seed(common.MANUAL_SEED))
+                              generator=torch.Generator().manual_seed(common.MANUAL_SEED),
+                              compute_dtype=common.compute_dtype(opt))
     state = create_train_state(model.to(device), opt.lr, [opt.decrease * steps_per_epoch],
                                seed=common.MANUAL_SEED)
 

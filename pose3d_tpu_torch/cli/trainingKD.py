@@ -143,8 +143,8 @@ def parse_args(argv=None):
         parser.add_argument(f"--{flag}", action="store_true",
                             help=f"{what}: not ported yet, refused (ROADMAP.md)")
     parser.add_argument("--bf16", action="store_true",
-                        help=common.BF16_HELP + "; here: the student and its frozen "
-                             "teacher, every regime but --stage 1")
+                        help=common.BF16_HELP + "; here: the student and its teacher, "
+                             "frozen or (--stage 1) trained, in every regime")
     parser.add_argument("--fused_nce", action="store_true",
                         help="--stage 1: both NCE directions in the NCE kernels")
     parser.add_argument("--tau", type=float, default=None,
@@ -205,11 +205,6 @@ def parse_args(argv=None):
         if set_ and opt.stage != 1:
             raise SystemExit(f"{flag} applies to --stage 1 only; the other regimes have no "
                              "use for it (ROADMAP.md Queue 1 lists the ported regimes)")
-    if opt.bf16 and opt.stage == 1:
-        raise SystemExit("--bf16 with --stage 1: the vanilla teacher's training needs the "
-                         "train-mode PointNet kernel's bf16 instance, which is not ported to "
-                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1 (--bf16 runs --crd, "
-                         "--contrast, --vid and --stage 2)")
     if opt.stage == 1 and opt.teacher_model is not None:
         raise SystemExit("--teacher_model: --stage 1 trains its vanilla teacher from "
                          "scratch (ROADMAP.md Queue 1 lists the ported regimes)")

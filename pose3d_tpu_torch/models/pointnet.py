@@ -25,8 +25,12 @@ With a compute dtype (`compute_dtype=torch.bfloat16`, `--bf16`) the eval
 forward takes flax's bf16 rounding points, which a folded (W, b) cannot:
 `ops.pointnet.eval_layers_bf16` hands the unfolded layers to
 `ops.pointnet.pointnet_eval_bf16` (the kernel's bf16 instance on the card,
-the plain version on the CPU). The bf16 train forward (the train-mode
-kernel's bf16 instance) is not ported yet and raises (ROADMAP.md).
+the plain version on the CPU). The bf16 train forward hands the bf16
+points and the float32 layers to `ops.pointnet_train.pointnet_train` (the
+train-mode kernel's bf16 instance on the card, `pointnet_train_plain_bf16`
+on the CPU): flax's rounding points, the statistics float32, the running
+statistics updated from them in float32, and the max's gradient split
+evenly over tied points, as JAX's `jnp.max` splits it.
 """
 
 from __future__ import annotations
@@ -65,9 +69,7 @@ class ShapeEncoderPC(nn.Module):
                                               eval_layers_bf16(self.state_dict()))
                 return pointnet_eval(points, fold_pointnet_params(self.state_dict()))
         if cd is not None:
-            raise NotImplementedError(
-                f"ShapeEncoderPC in train mode with compute dtype {cd}: the train-mode "
-                "PointNet kernel's bf16 instance is not ported yet; see ROADMAP.md Queue 1")
+            points = points.to(cd)
         layers = [(getattr(self, f"conv{i}").weight[:, :, 0], getattr(self, f"conv{i}").bias,
                    getattr(self, f"bn{i}").weight, getattr(self, f"bn{i}").bias)
                   for i in (1, 2, 3)]

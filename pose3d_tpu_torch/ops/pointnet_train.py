@@ -18,12 +18,28 @@ dropped) and BatchNorm. A CPU tensor takes `pointnet_train_plain`,
 differentiated by autograd. A CUDA tensor goes through `_PointNetTrain`,
 whose forward and backward launch the kernels (`train_forward`,
 `train_backward`, one count each a call), or the call raises: there is no
-fallback. The kernels take float32 or float64 and D a multiple of 64.
+fallback. The kernels take float32, float64 or (with float32 layers) bf16
+points, and D a multiple of 64.
 
 The kernels compute layer 3's statistics and gradients from h2's Gram sums
 (G = sum h2 h2^T, s = sum h2 over the valid clouds' points), which the
 forward keeps for the backward; only the max computes the D-wide layer
 over the points (`csrc/pointnet_train.cu`'s header has the forms).
+
+bf16 (`--bf16`, flax's `dtype=bfloat16` over float32 parameters: JAX's
+`models/pointnet.py dense_bn_forward` and the `jnp.max` after it): bf16
+points with float32 (weight, bias, gamma, beta) layers. Each layer rounds
+where flax's does (x W to bf16, + b to bf16; the statistics of those
+rounded values and the normalisation in float32, rounded to bf16), and
+the max's gradient is split evenly over the points that tie at the
+maximum, as JAX's VJP of `jnp.max` (and torch's `amax`) splits it: in
+bf16 ties are common (about 2 % of the maxima at 2,500 points), where in
+float32 and float64 they are rare enough that the first-argmax rule above
+stays. A CPU tensor takes `pointnet_train_plain_bf16`; a CUDA tensor the
+kernels' bf16 instance (`train_forward_bf16`, `train_backward_bf16`, one
+count each a call), whose gradients of the weights and biases are bf16
+values in float32, as JAX's gradient of `kernel.astype(bfloat16)` is.
+The statistics are float32 in every dtype.
 """
 
 from __future__ import annotations
@@ -41,7 +57,8 @@ from pose3d_tpu_torch.ops import _build
 HIDDEN = (64, 128)
 CHUNK_D = 64  # csrc/pointnet_train.cu kChunk: D a multiple of it
 GRAM_SIZE = HIDDEN[1] * (HIDDEN[1] + 1)  # G (128 x 128) and s (128), float64
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+BF16 = torch.bfloat16
 
 Layer = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 Stats = tuple[tuple[torch.Tensor, torch.Tensor], ...]
@@ -66,20 +83,78 @@ def pointnet_train_plain(points: torch.Tensor, params: Sequence[Layer],
     return x.gather(1, index[:, None, :])[:, 0], tuple(stats), index
 
 
+def _bn_relu_bf16(a: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, gamma: torch.Tensor,
+                  beta: torch.Tensor, relu: bool) -> torch.Tensor:
+    """flax's BatchNorm(dtype=bfloat16) after its statistics: in float32,
+    rounded to bf16 (JAX widens the bf16 input once here and once for the
+    statistics, so each use's gradient is rounded to bf16 before the two
+    are added, as autograd adds them here). rsqrt(var + eps) as 1 / sqrt,
+    each step rounded to nearest, as the kernel computes it (CUDA's rsqrt
+    is within 2 ulps, not rounded)."""
+    y = ((a.float() - mean) * ((1.0 / torch.sqrt(var + BN_EPS)) * gamma) + beta).to(BF16)
+    return torch.relu(y) if relu else y
+
+
+def _dense_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """flax's Dense(dtype=bfloat16) on float32 (weight (out, in), bias):
+    x W rounded to bf16, then + b rounded (`models.common.linear`'s
+    rounding points); the gradients of w and b come back through their
+    casts as bf16 values."""
+    return F.linear(x, w.to(BF16)) + b.to(BF16)
+
+
+def _max_over_points(y: torch.Tensor) -> torch.Tensor:
+    """JAX's `jnp.max(y, axis=1)`: `amax`, whose gradient splits a tied
+    maximum evenly over the points that reach it, as JAX's VJP does."""
+    return y.amax(dim=1)
+
+
+def plain_bf16_parts(points: torch.Tensor, params: Sequence[Layer],
+                     valid: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, Stats, list[torch.Tensor]]:
+    """`pointnet_train_plain_bf16` with each dense layer's rounded output
+    before its BatchNorm (a1, a2, a3) beside (out, stats)."""
+    x, stats, pre = points.to(BF16), [], []
+    for i, (w, b, gamma, beta) in enumerate(params):
+        a = _dense_bf16(x, w, b)
+        mean, var = batch_stats(a.float(), (0, 1), valid)
+        stats.append((mean, var))
+        pre.append(a)
+        x = _bn_relu_bf16(a, mean, var, gamma, beta, i < 2)
+    return _max_over_points(x), tuple(stats), pre
+
+
+def pointnet_train_plain_bf16(points: torch.Tensor, params: Sequence[Layer],
+                              valid: torch.Tensor | None = None
+                              ) -> tuple[torch.Tensor, Stats]:
+    """The plain bf16 version: bf16 points and float32 layers -> (out (N, D)
+    bf16, ((mu, var) x 3) float32). Each Dense rounds where flax's does
+    (`_dense_bf16`), the statistics come from those values in float32
+    (`batch_stats`), and the max splits ties (`_max_over_points`)."""
+    return plain_bf16_parts(points, params, valid)[:2]
+
+
 @functools.cache
 def _lib():
     lib = _build.load("pointnet_train")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     # pointers and the stream are 64-bit: ctypes' default int would cut them
-    for suffix in _SUFFIX.values():
+    for suffix in ("f32", "f64"):
         fwd = getattr(lib, f"pointnet_train_forward_{suffix}")
         fwd.argtypes = [p, p, i64, i64, i64] + [p] * 9 + [ctypes.c_int, p]
         fwd.restype = ctypes.c_int
         bwd = getattr(lib, f"pointnet_train_backward_{suffix}")
         bwd.argtypes = [p, p, i64, i64, i64] + [p] * 10 + [ctypes.c_int, p]
         bwd.restype = ctypes.c_int
-    lib.pointnet_train_workspace.argtypes = [i64, i64, i64, ctypes.c_int, ctypes.c_int]
-    lib.pointnet_train_workspace.restype = i64
+    lib.pointnet_train_forward_bf16.argtypes = [p, p, i64, i64, i64] + [p] * 9 + [ctypes.c_int,
+                                                                                  p]
+    lib.pointnet_train_forward_bf16.restype = ctypes.c_int
+    lib.pointnet_train_backward_bf16.argtypes = [p, p, i64, i64, i64] + [p] * 11 + [
+        ctypes.c_int, p]
+    lib.pointnet_train_backward_bf16.restype = ctypes.c_int
+    for name in ("pointnet_train_workspace", "pointnet_train_bf16_workspace"):
+        getattr(lib, name).argtypes = [i64, i64, i64, ctypes.c_int, ctypes.c_int]
+        getattr(lib, name).restype = i64
     lib.pointnet_train_launches.argtypes = [ctypes.c_int]
     lib.pointnet_train_launches.restype = ctypes.c_int
     lib.pointnet_train_smem_bytes.argtypes = [ctypes.c_int]
@@ -87,11 +162,12 @@ def _lib():
     return lib
 
 
-def kernel_launches_per_call() -> tuple[int, int]:
-    """The CUDA kernels one forward call and one backward call launch
-    (builds the library)."""
-    lib = _lib()
-    return lib.pointnet_train_launches(0), lib.pointnet_train_launches(1)
+def kernel_launches_per_call(dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+    """The CUDA kernels one forward call and one backward call launch, of
+    the float32 and float64 instances or of the bf16 one (builds the
+    library)."""
+    lib, at = _lib(), 2 if dtype == BF16 else 0
+    return lib.pointnet_train_launches(at), lib.pointnet_train_launches(at + 1)
 
 
 def shared_memory_bytes(dtype: torch.dtype = torch.float32) -> int:
@@ -188,6 +264,74 @@ def train_backward(points: torch.Tensor, prm: torch.Tensor, d: int,
 train_backward.launches = 0
 
 
+def train_forward_bf16(points: torch.Tensor, prm: torch.Tensor, d: int,
+                       valid: torch.Tensor | None):
+    """Launch the bf16 instance's forward kernels on CUDA tensors (checked
+    by the caller): points (N, P, 3) bf16 contiguous, prm float32 from
+    `pack_params` (the kernels round W and b to bf16), valid (N,) bool or
+    None. Returns (out (N, D) bf16, stats (2 (64 + 128 + D),) float32,
+    and for the backward count (N, D) int32, the points that tie at each
+    maximum; tsum (N, D) float32, the sum of a3 - mu3 over them; a1 (N, P,
+    64) and a2 (N, P, 128) bf16, layers 1 and 2 before their BatchNorm)."""
+    n, p, _ = points.shape
+    sms = _sm_count(points.device)
+    lib = _lib()
+    dev = points.device
+    out = torch.empty((n, d), dtype=BF16, device=dev)
+    stats = torch.empty(2 * (sum(HIDDEN) + d), dtype=torch.float32, device=dev)
+    count = torch.empty((n, d), dtype=torch.int32, device=dev)
+    tsum = torch.empty((n, d), dtype=torch.float32, device=dev)
+    a1 = torch.empty((n, p, HIDDEN[0]), dtype=BF16, device=dev)
+    a2 = torch.empty((n, p, HIDDEN[1]), dtype=BF16, device=dev)
+    ws = torch.empty(lib.pointnet_train_bf16_workspace(n, p, d, sms, 0), dtype=torch.float32,
+                     device=dev)
+    iws = torch.empty(lib.pointnet_train_bf16_workspace(n, p, d, sms, 1), dtype=torch.int32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pointnet_train_forward_bf16(
+            points.data_ptr(), _ptr(valid), n, p, d, prm.data_ptr(), stats.data_ptr(),
+            out.data_ptr(), count.data_ptr(), tsum.data_ptr(), a1.data_ptr(), a2.data_ptr(),
+            ws.data_ptr(), iws.data_ptr(), sms, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pointnet_train bf16 forward kernel launch failed: cudaError_t {err}")
+    train_forward_bf16.launches += 1
+    return out, stats, count, tsum, a1, a2
+
+
+train_forward_bf16.launches = 0
+
+
+def train_backward_bf16(points: torch.Tensor, prm: torch.Tensor, d: int,
+                        valid: torch.Tensor | None, stats: torch.Tensor, out: torch.Tensor,
+                        count: torch.Tensor, tsum: torch.Tensor, a1: torch.Tensor,
+                        a2: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the bf16 instance's backward kernels: the gradient of
+    sum(out * g) (g rounded to bf16) with respect to the packed float32
+    parameters, in `pack_params`' layout; W and b's entries bf16 values."""
+    n, p, _ = points.shape
+    sms = _sm_count(points.device)
+    lib = _lib()
+    g = g.to(BF16).contiguous()
+    grads = torch.empty_like(prm)
+    ws = torch.empty(lib.pointnet_train_bf16_workspace(n, p, d, sms, 2), dtype=torch.float32,
+                     device=points.device)
+    hws = torch.empty(lib.pointnet_train_bf16_workspace(n, p, d, sms, 3), dtype=BF16,
+                      device=points.device)
+    with torch.cuda.device(points.device):
+        err = lib.pointnet_train_backward_bf16(
+            points.data_ptr(), _ptr(valid), n, p, d, prm.data_ptr(), stats.data_ptr(),
+            out.data_ptr(), count.data_ptr(), tsum.data_ptr(), a1.data_ptr(), a2.data_ptr(),
+            g.data_ptr(), grads.data_ptr(), ws.data_ptr(), hws.data_ptr(), sms,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pointnet_train bf16 backward kernel launch failed: cudaError_t {err}")
+    train_backward_bf16.launches += 1
+    return grads
+
+
+train_backward_bf16.launches = 0
+
+
 def split_stats(stats: torch.Tensor, d: int) -> Stats:
     c1, c2 = HIDDEN
     sizes = (c1, c1, c2, c2, d, d)
@@ -218,8 +362,33 @@ class _PointNetTrain(torch.autograd.Function):
         return (None, None, *unpack_grads(grads, ctx.d))
 
 
+class _PointNetTrainBf16(torch.autograd.Function):
+    """The bf16 instance under autograd: the forward keeps the packed
+    float32 parameters, the statistics, the output, the tie counts and
+    sums, a1 and a2; the backward launches the gradient passes with the
+    upstream gradient of the features."""
+
+    @staticmethod
+    def forward(ctx, points, valid, *flat):
+        d = flat[8].shape[0]
+        prm = pack_params([flat[4 * i:4 * i + 4] for i in range(3)])
+        out, stats, count, tsum, a1, a2 = train_forward_bf16(points, prm, d, valid)
+        ctx.save_for_backward(points, prm, stats, out, count, tsum, a1, a2)
+        ctx.valid, ctx.d = valid, d
+        ctx.mark_non_differentiable(stats)
+        return out, stats
+
+    @staticmethod
+    def backward(ctx, g, _g_stats):
+        grads = train_backward_bf16(*ctx.saved_tensors[:2], ctx.d, ctx.valid,
+                                    *ctx.saved_tensors[2:], g)
+        return (None, None, *unpack_grads(grads, ctx.d))
+
+
 def _check(points: torch.Tensor, params: Sequence[Layer], valid: torch.Tensor | None) -> int:
-    """Validate shapes, dtypes and devices; return D."""
+    """Validate shapes, dtypes and devices; return D. bf16 points take
+    float32 layers (the parameters' dtype); other points layers of their
+    own dtype."""
     if len(params) != 3 or any(len(layer) != 4 for layer in params):
         raise ValueError("pointnet_train takes three (weight, bias, gamma, beta) layers")
     if points.dim() != 3 or points.shape[2] != 3 or points.shape[1] == 0:
@@ -232,10 +401,12 @@ def _check(points: torch.Tensor, params: Sequence[Layer], valid: torch.Tensor | 
         if [tuple(t.shape) for t in layer] != want:
             raise ValueError(f"pointnet_train: layer {i + 1} shapes "
                              f"{[tuple(t.shape) for t in layer]}, expected {want}")
+    want_dtype = torch.float32 if points.dtype == BF16 else points.dtype
+    for t in [t for layer in params for t in layer]:
+        if t.dtype != want_dtype or not t.dtype.is_floating_point:
+            raise TypeError(f"pointnet_train takes floating layers of the points' dtype, or "
+                            f"float32 layers with bf16 points; got {points.dtype} and {t.dtype}")
     for t in [points] + [t for layer in params for t in layer]:
-        if t.dtype != points.dtype or not t.dtype.is_floating_point:
-            raise TypeError(f"pointnet_train takes floating tensors of one dtype; got "
-                            f"{points.dtype} and {t.dtype}")
         if t.device != points.device:
             raise ValueError(f"pointnet_train: inputs on different devices ({points.device}, "
                              f"{t.device})")
@@ -250,20 +421,26 @@ def pointnet_train(points: torch.Tensor, params: Sequence[Layer],
                    valid: torch.Tensor | None = None) -> tuple[torch.Tensor, Stats]:
     """(N, P, 3) points, three (weight, bias, gamma, beta) layers and the
     (N,) bool validity of a padded batch (None: all clouds count) ->
-    (out (N, D), ((mu, var) x 3)). Differentiable in the parameters."""
+    (out (N, D), ((mu, var) x 3)). Differentiable in the parameters.
+    bf16 points take float32 layers and give a bf16 out (flax's bf16
+    compute; the statistics float32)."""
     d = _check(points, params, valid)
     if points.device.type == "cpu":
+        if points.dtype == BF16:
+            return pointnet_train_plain_bf16(points, params, valid)
         out, stats, _ = pointnet_train_plain(points, params, valid)
         return out, stats
     if points.device.type != "cuda":
         raise ValueError(f"pointnet_train has no kernel for device {points.device}")
     if points.dtype not in _SUFFIX:
-        raise TypeError(f"pointnet_train's kernels take float32 or float64; got {points.dtype}")
+        raise TypeError(f"pointnet_train's kernels take float32, float64 or bfloat16; got "
+                        f"{points.dtype}")
     n, p = points.shape[:2]
     if d % CHUNK_D or n * p >= 2**31 or n * d >= 2**31:
         raise ValueError(f"pointnet_train's kernels take D a multiple of {CHUNK_D} and fewer "
                          f"than 2^31 points and outputs; got {(n, p, d)}")
     flat = [t for layer in params for t in layer]
-    out, stats = _PointNetTrain.apply(points.detach().contiguous(),
-                                      None if valid is None else valid.contiguous(), *flat)
+    fn = _PointNetTrainBf16 if points.dtype == BF16 else _PointNetTrain
+    out, stats = fn.apply(points.detach().contiguous(),
+                          None if valid is None else valid.contiguous(), *flat)
     return out, split_stats(stats, d)

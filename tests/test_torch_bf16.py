@@ -35,10 +35,11 @@ Tolerances.
     shows that the rule fails a step with a zeroed stem gradient, with
     BatchNorm statistics taken in bf16, and with the stem's weight gradient
     not rounded to bf16.
-The CLIs run on the synthetic fixture: KD --crd under --bf16 for one epoch
-(its checkpoint all f32) and --resume without it, the testing and
-inference CLIs with --bf16, and the two regimes that need the train-mode
-PointNet kernel's bf16 instance refused with a message naming ROADMAP.md.
+The CLIs run on the synthetic fixture: KD --crd, KD --stage 1 and the
+teacher's training under --bf16 for one epoch (each checkpoint all f32)
+and --resume without it, the testing and inference CLIs with --bf16.
+tests/test_torch_bf16_train.py holds the train-mode PointNet in bf16, the
+teacher step and the stage-1 step against JAX.
 """
 
 import functools
@@ -70,56 +71,23 @@ from pose3d_tpu_torch.models.vgg import KeepMaskDropout
 from pose3d_tpu_torch.ops.vgg_stem import vgg_stem_plain
 from pose3d_tpu_torch.train import convert, steps
 from pose3d_tpu_torch.train.state import create_train_state
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
+_spec = importlib.util.spec_from_file_location(
+    "torch_bf16_rules", pathlib.Path(__file__).resolve().parent / "torch_bf16_rules.py")
+rules = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(rules)
+BF16, ULP, UNEQUAL_MAX, ORACLE_FLOOR, AGREE = (rules.BF16, rules.ULP, rules.UNEQUAL_MAX,
+                                               rules.ORACLE_FLOOR, rules.AGREE)
+_np, one_ulp, oracle = rules._np, rules.one_ulp, rules.oracle
 
-BF16 = torch.bfloat16
-ULP = 2.0**-7        # one bf16 ulp, relative to max|ref|
-UNEQUAL_MAX = 0.01   # the share of elements allowed to differ by that ulp
-ORACLE_FLOOR = 2.0**-10
-AGREE = 0.5          # the port's RMS distance from JAX's bf16, over that result's RMS
 STUDENT_DIM, WIDTH_MULT, INPUT_DIM = 64, 0.25, 32
 TEACHER_DIM, POINT_NUM, BATCH = 64, 100, 4
 CATS = ("bed", "bookshelf", "calculator")
-
-
-def _np(t):
-    return np.asarray(t.detach().float() if isinstance(t, torch.Tensor) else
-                      jnp.asarray(t, jnp.float32), np.float64)
-
-
-def one_ulp(got, want, name=""):
-    """Each element of `got` within 2^-7 max|want| of `want`, and under 1 %
-    of them unequal."""
-    got, want = _np(got), _np(want)
-    scale = np.abs(want).max()
-    err, unequal = np.abs(got - want).max() / scale, float(np.mean(got != want))
-    print(f"{name}: max|d|/max|ref| {err:.3g} (one ulp {ULP:.3g}), unequal {unequal:.3g}")
-    assert err <= ULP and unequal < UNEQUAL_MAX, name
-
-
-def oracle(got, jax_bf16, ref, name, scale=None):
-    """The port's bf16 error against the f64 `ref` at most twice JAX's bf16
-    error plus 2^-10 of max|ref| (or of `scale`), as the largest and as the
-    root-mean-square difference; and the port's RMS distance from JAX's
-    bf16 result at most AGREE of that result's RMS plus the same floor."""
-    got, jax_bf16, ref = _np(got), _np(jax_bf16), _np(ref)
-    scale = np.abs(ref).max() if scale is None else scale
-    floor = ORACLE_FLOOR * scale
-    rms = lambda a: np.sqrt(np.mean(a**2))
-    port_max, jax_max = np.abs(got - ref).max(), np.abs(jax_bf16 - ref).max()
-    port_rms, jax_rms = rms(got - ref), rms(jax_bf16 - ref)
-    apart, size = rms(got - jax_bf16), rms(jax_bf16)
-    print(f"{name}: largest port {port_max:.3g}, JAX {jax_max:.3g} (ratio "
-          f"{port_max / max(jax_max, 1e-300):.3g}); RMS port {port_rms:.3g}, JAX "
-          f"{jax_rms:.3g} (ratio {port_rms / max(jax_rms, 1e-300):.3g}); apart "
-          f"{apart / max(size, 1e-300):.3g} of JAX's RMS; max|ref| {scale:.3g}")
-    assert port_max <= 2 * jax_max + floor, f"{name}: largest difference"
-    assert port_rms <= 2 * jax_rms + floor, f"{name}: RMS difference"
-    assert apart <= AGREE * size + floor, f"{name}: apart from JAX's bf16"
 
 
 def _as(tree, dtype):
@@ -453,18 +421,38 @@ def test_bf16_cli_builds_bf16_models():
     assert opt.bf16 and common.compute_dtype(opt) == BF16
 
 
+def _floats(state):
+    return [v for v in state.values() if v.is_floating_point()]
+
+
 @pytest.mark.parametrize("cli", ["stage1", "teacher"])
-def test_bf16_refused_where_the_train_mode_pointnet_runs(cli):
-    """KD --stage 1 and the teacher's training run the train-mode PointNet,
-    whose kernel has no bf16 instance yet: --bf16 is refused, naming
-    ROADMAP.md; the model refuses it too."""
-    flags = ["--dataset", "ObjectNet3D", "--shape", "PointCloud", "--device", "cpu", "--bf16"]
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        if cli == "stage1":
-            trainingKD.main(flags + ["--stage", "1"])
-        else:
-            training.main(flags)
-    model = PoseEstimatorVanilla(img_feature_dim=16, shape_feature_dim=16,
-                                 compute_dtype=BF16).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.shape_encoder(torch.rand((2, 10, 3)))
+def test_bf16_cli_trains_where_the_train_mode_pointnet_runs(cli, fixture_dir, monkeypatch):
+    """KD --stage 1 and the teacher's training run the train-mode PointNet
+    (its bf16 plain version here, the kernel's bf16 instance on the card):
+    one epoch under --bf16 (config.json records it, the checkpoint is all
+    f32), then --resume without the flag into a second epoch in f32."""
+    monkeypatch.chdir(fixture_dir)
+    flags = ["--dataset", "ObjectNet3D", "--shape", "PointCloud", "--shape_dir", "pointcloud",
+             "--data_root", str(fixture_dir / "data"), "--batch_size", "4", "--workers", "2",
+             "--input_dim", str(INPUT_DIM), "--point_num", str(POINT_NUM),
+             "--img_feature_dim", str(TEACHER_DIM), "--shape_feature_dim", str(TEACHER_DIM),
+             "--decrease", "1", "--fused_nce", "--device", "cpu", "--result_dir", f"result_{cli}"]
+    if cli == "stage1":
+        flags += ["--stage", "1", "--student_feature_dim", str(STUDENT_DIM),
+                  "--student_width_mult", str(WIDTH_MULT)]
+        main, run = trainingKD.main, fixture_dir / f"result_{cli}" / "KD_ObjectNet3D"
+    else:
+        main, run = training.main, fixture_dir / f"result_{cli}" / "PointCloud_ObjectNet3D"
+    main(flags + ["--bf16", "--n_epoch", "1"])
+    assert json.loads((run / "config.json").read_text())["bf16"] is True
+    saved = torch.load(run / "ckpt" / "checkpoint.pth", weights_only=True)
+    states = [saved["teacher"]["model"], saved["student"]["model"]] if cli == "stage1" else [
+        saved["model"]]
+    assert all(_floats(s) and all(v.dtype == torch.float32 for v in _floats(s))
+               for s in states)
+    main(flags + ["--n_epoch", "2", "--resume"])
+    assert json.loads((run / "config.json").read_text())["bf16"] is False
+    assert (run / "ckpt" / "EPOCH").read_text() == "1"
+    records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in records] == [0, 1]
+    assert all(np.isfinite(r["train_loss"]) for r in records)

@@ -39,6 +39,7 @@ from pose3d_tpu_torch.models.estimators import BaselineEstimator, PoseEstimator
 from pose3d_tpu_torch.train import steps
 from pose3d_tpu_torch.train.convert import baseline_state_dict, pose_state_dict
 from pose3d_tpu_torch.train.evaluate import evaluate_categories
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

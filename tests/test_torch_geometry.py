@@ -19,6 +19,7 @@ from pose3d_tpu.ops.geodesic import rotation_err_pallas
 from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.losses.binned import pose_loss_per_sample
 from pose3d_tpu_torch.ops import geodesic
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

@@ -18,6 +18,7 @@ from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator
                                                 PoseEstimatorVanilla)
 from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
 from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet, pointnet_train, vgg_stem
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -562,7 +563,7 @@ def test_pointnet_train_kernels_check_their_inputs(cuda):
     with pytest.raises(ValueError, match="multiple of 64"):
         pointnet_train.pointnet_train(pts, layers)
     pts, layers, _, _ = chip_smoke.pt_inputs(np.random.default_rng(0), 2, 50, 64, cuda)
-    with pytest.raises(TypeError, match="float32 or float64"):
+    with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
         pointnet_train.pointnet_train(pts.half(), [[t.half() for t in layer]
                                                    for layer in layers])
     # a non-contiguous cloud is read through one copy; the result agrees
@@ -591,6 +592,76 @@ def test_shape_encoder_train_mode_launches_the_kernels(cuda, masked):
     torch.testing.assert_close(out.detach().cpu(), want.detach(), rtol=1e-4, atol=1e-5)
     for (name, a), b in zip(enc.state_dict().items(), enc_cpu.state_dict().values()):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,d,masked", [(1, 100, 64, False), (7, 2500, 256, True),
+                                          (46, 2500, 256, False), (7, 511, 1024, False)])
+def test_pointnet_train_bf16_kernels_match_plain_on_cuda(cuda, monkeypatch, n, p, d, masked):
+    """The bf16 instance against the plain bf16 version with chip_smoke.py's
+    rule (phase 39): statistics within one bf16 ulp, each layer within an
+    ulp on its own input (out: an ulp of a3 through BN3's multiplier plus
+    one of out), the gradients
+    by the oracle rule at each side's own decisions, the differing
+    decisions bounded, the weights' and biases' gradients bf16 values.
+    cuBLAS's reduced-precision bf16 reductions off, as the CLIs set the card,
+    for this test only."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction",
+                        False)
+    pts, layers, valid, g = chip_smoke.pt_inputs(np.random.default_rng(n * p + d), n, p, d,
+                                                 cuda, masked=masked)
+    r = chip_smoke.pt_bf16_vs_plain(pointnet_train, pts.to(torch.bfloat16), layers, valid,
+                                    g.to(torch.bfloat16))
+    assert r["same"] and r["launches"] == (1, 1) and r["bf16_grads"], r
+    assert max(r["a1_share"], r["a2_share"], r["out_share"]) <= 1, r
+    assert r["stats"] <= chip_smoke.BF16_ULP, r
+    assert r["grad_share"] <= 1, r
+    assert max(r["ties_moved"], r["count_moved"]) <= chip_smoke.PT16_MOVED * n * d + 2, r
+    assert r["relu_flips"] <= chip_smoke.PT16_FLIPS * n * p * 192 + 2, r
+
+
+@pytest.mark.cuda
+def test_pointnet_train_bf16_launches_per_call(cuda):
+    """The bf16 instance: 8 CUDA launches a forward call and 10 a backward
+    call, as the library says and as a CUDA graph of one call counts them."""
+    assert pointnet_train.kernel_launches_per_call(torch.bfloat16) == (8, 10)
+    pts, layers, _, g = chip_smoke.pt_inputs(np.random.default_rng(1), 3, 300, 128, cuda)
+    pts, g = pts.to(torch.bfloat16), g.to(torch.bfloat16)
+    prm = pointnet_train.pack_params(layers)
+    out, stats, *rest = pointnet_train.train_forward_bf16(pts, prm, 128, None)
+    counted = (
+        chip_smoke.graph_kernel_launches(
+            lambda: pointnet_train.train_forward_bf16(pts, prm, 128, None)),
+        chip_smoke.graph_kernel_launches(
+            lambda: pointnet_train.train_backward_bf16(pts, prm, 128, None, stats, out, *rest,
+                                                       g)))
+    assert counted == (8, 10)
+
+
+@pytest.mark.cuda
+def test_shape_encoder_train_mode_bf16_launches_the_kernels(cuda):
+    """Train mode under bf16 on the card runs the bf16 instance, once each
+    way, and moves the running statistics as on the CPU to one bf16 ulp."""
+    enc_cpu = ShapeEncoderPC(64, generator=torch.Generator().manual_seed(0),
+                             compute_dtype=torch.bfloat16)
+    enc = ShapeEncoderPC(64, generator=torch.Generator().manual_seed(0),
+                         compute_dtype=torch.bfloat16).to(cuda)
+    pts = torch.rand((6, 200, 3))
+    valid = torch.arange(6) < 4
+    before = (pointnet_train.train_forward_bf16.launches,
+              pointnet_train.train_backward_bf16.launches)
+    out = enc.train()(pts.to(cuda), valid.to(cuda))
+    out.float().sum().backward()
+    assert (pointnet_train.train_forward_bf16.launches - before[0],
+            pointnet_train.train_backward_bf16.launches - before[1]) == (1, 1)
+    assert out.dtype == torch.bfloat16
+    want = enc_cpu.train()(pts, valid)
+    scale = float(want.float().abs().max())
+    assert float((out.cpu().float() - want.float()).abs().max()) <= chip_smoke.BF16_ULP * scale
+    for (name, a), b in zip(enc.state_dict().items(), enc_cpu.state_dict().values()):
+        if a.is_floating_point():
+            assert float((a.cpu() - b).abs().max()) <= chip_smoke.BF16_ULP * max(
+                float(b.abs().max()), 1e-6), name
 
 
 def test_cpu_vanilla_teacher_train_forward_makes_no_kernel_launch():

@@ -13,6 +13,7 @@ import torch
 from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.cli import inference, testing, training, trainingKD
 from pose3d_tpu_torch.ops import geodesic, pointnet, vgg_stem
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -156,10 +157,10 @@ def test_training_cli_default_device_refuses_without_cuda(tmp_path):
     ["--student_width_mult", "0.5"]])
 def test_training_cli_refuses_unported_flags(argv):
     """Each flag of a path not ported is refused, naming ROADMAP.md; --shape
-    None and --nce pose/multipose are ported (parsed), and where JAX refuses
-    a combination the port refuses it with JAX's message."""
+    None, --nce pose/multipose and --bf16 are ported (parsed), and where JAX
+    refuses a combination the port refuses it with JAX's message."""
     outcomes = {("--shape", "None"): None, ("--nce", "pose"): None,
-                ("--nce", "multipose"): None,
+                ("--nce", "multipose"): None, ("--bf16",): None,
                 ("--weighting", "sqrt"): "--weighting is consumed only by --nce pose",
                 ("--shape", "None", "--nce", "pose"): "applies to teacher training"}
     flags = ["--dataset", "ObjectNet3D", "--shape", "PointCloud", "--device", "cpu"]

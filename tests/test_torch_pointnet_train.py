@@ -25,6 +25,7 @@ from pose3d_tpu_torch.models.common import batch_stats
 from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
 from pose3d_tpu_torch.ops import pointnet, pointnet_train
 from pose3d_tpu_torch.train import convert
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 D = 256
 

@@ -45,6 +45,7 @@ from pose3d_tpu_torch.models.estimators import BaselineEstimator, PoseEstimatorV
 from pose3d_tpu_torch.ops import pointnet_train
 from pose3d_tpu_torch.train import convert, steps
 from pose3d_tpu_torch.train.state import create_train_state
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -323,10 +324,11 @@ def test_stage1_cli_two_epochs_then_resume(fixture_dir, monkeypatch):
     ["--n_devices", "2"], ["--shape", "MultiView"],
     ["--use_memory_bank", "--nce", "multipose"], ["--weighting", "sqrt"]])
 def test_stage1_cli_refuses_what_is_not_ported(argv):
-    """--use_memory_bank and --nce pose/multipose are ported: parsed (and
-    --weighting without --nce pose dropped with JAX's warning); a bank with
-    a pose variant is refused with JAX's reason; the rest name ROADMAP.md."""
-    outcomes = {("--use_memory_bank",): None, ("--nce", "pose"): None,
+    """--use_memory_bank, --nce pose/multipose and --bf16 are ported: parsed
+    (and --weighting without --nce pose dropped with JAX's warning); a bank
+    with a pose variant is refused with JAX's reason; the rest name
+    ROADMAP.md."""
+    outcomes = {("--use_memory_bank",): None, ("--nce", "pose"): None, ("--bf16",): None,
                 ("--nce", "multipose"): None, ("--weighting", "sqrt"): None,
                 ("--use_memory_bank", "--nce", "multipose"): "no memory-bank form"}
     expected = outcomes.get(tuple(argv), "ROADMAP")

@@ -49,6 +49,7 @@ from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator
 from pose3d_tpu_torch.ops import pointnet, vgg_stem
 from pose3d_tpu_torch.train import convert, steps
 from pose3d_tpu_torch.train.state import create_train_state
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

@@ -20,6 +20,7 @@ from pose3d_tpu.train.torch_export import export_baseline_estimator
 from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.models.estimators import BaselineEstimator
 from pose3d_tpu_torch.train.convert import baseline_state_dict
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

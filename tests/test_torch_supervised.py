@@ -45,6 +45,7 @@ from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator
                                                 PoseEstimatorVanilla)
 from pose3d_tpu_torch.train import convert, steps
 from pose3d_tpu_torch.train.state import create_train_state
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 _here = pathlib.Path(__file__).resolve().parent
 _spec = importlib.util.spec_from_file_location("chip_smoke", _here.parent / "chip_smoke.py")

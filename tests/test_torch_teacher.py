@@ -26,6 +26,7 @@ from pose3d_tpu_torch.models.estimators import PoseEstimator
 from pose3d_tpu_torch.models.resnet import resnet18, resnet50
 from pose3d_tpu_torch.ops import pointnet
 from pose3d_tpu_torch.train.convert import pose_state_dict
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

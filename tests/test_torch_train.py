@@ -59,6 +59,7 @@ from pose3d_tpu_torch.train import convert, steps
 from pose3d_tpu_torch.train import trainer as trainer_lib
 from pose3d_tpu_torch.train.ckpt import Checkpointer
 from pose3d_tpu_torch.train.state import create_train_state, multistep_lr, torch_style_adam
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

@@ -34,6 +34,7 @@ from pose3d_tpu.models.vgg import _ConvPool2x2
 from pose3d_tpu.ops.vgg_stem import fused_vgg_stem, fused_vgg_stem_cf, xla_vgg_stem
 from pose3d_tpu_torch.models.estimators import BaselineEstimator
 from pose3d_tpu_torch.ops import vgg_stem as stem
+import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
 
 TOL = 1e-5
 TAPS, K = 27, 32  # the taps, padded to four k-steps of 8
