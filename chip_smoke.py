@@ -35,7 +35,15 @@ width with random weights from a seed:
   * the other regimes, 2 steps each at the same widths: KD --contrast and
     --vid, stage 1 with the memory bank and with --nce pose / multipose,
     the teacher step with --nce pose / multipose (batch 160), and the
-    RGB-only baseline (training --shape None, batch 64).
+    RGB-only baseline (training --shape None, batch 64);
+  * the MultiView teacher as the CLIs build it (ResNet-50, image feature
+    1024; ResNet-18, feature 256 over 12 renders of 224x224, tour 2;
+    DeformNet bottleneck 4096): serving and an evaluation with renders,
+    its training with --fused_nce (batch 64; 160 in bf16), the training,
+    testing and inference CLIs on generated files, KD --crd from it,
+    --stage 1 with the MultiView vanilla teacher and --stage 2 from that
+    stage's checkpoint; the testing CLI on LineMod and Pix3D and one
+    ShapeNetCore epoch of the RGB-only baseline.
 The student's stem (conv3x3 + ReLU + 2x2 pool) runs in the VGG stem
 kernel in every student forward. Phases:
 
@@ -91,10 +99,28 @@ kernel in every student forward. Phases:
   (batch 46) in bf16: eight small steps card vs CPU (the ResNets' residual
   branches damped), 6 steps, the trainer's epoch and resume, the step
   beside f32, a profile
+  MultiView and the datasets (`multiview_phases`): 41 the MultiView
+  teacher from convert.pose_state_dict(..., "MultiView") loaded strictly,
+  card vs CPU at batch 2, serving 64 requests and an evaluation of 2 x 64
+  + 37 rows with renders (the geodesic kernel), view_tile=3 against the
+  renders tiled, serving at batch 1 and 64 in f32 and bf16 in turns with
+  peak memory and a profile    42 its step card vs CPU at small width
+  (f64 model, f32 losses), 6 steps at batch 64 (--fused_nce), f32 and bf16
+  in turns with peak memory, batch 160 in bf16 and in f32 (out of memory
+  recorded, not failed), the NCE kernel's launches a call from a CUDA
+  graph, a profile; the training CLI on generated files (12 PNG renders a
+  sample) one epoch and --resume, its train samples/s, then the testing
+  CLI and inference --render_dir on its checkpoint    43 KD --crd at 46 x
+  3 views from the MultiView teacher (view_tile 3), 6 steps f32 and 2
+  bf16, the step in turns; --stage 1 with the MultiView vanilla teacher 2
+  steps, --stage 2 from its checkpoint.pth (the CLI's loader) 2 steps
+  44 the testing CLI on generated LineMod and Pix3D files with the
+  student, and one ShapeNetCore epoch of the RGB-only baseline validated
+  on Pix3D
 Each path (7-8, 10-11, 16-17, 20-21, 24-25, 28-29, each variant of 31,
-and 35-38's and 40's) is driven with the kernels' launch counts set to 0
-just before it and read just after it; 16, 20, 24, 28 and 31's are the
-training paths' main paths, 35-38's and 40's the bf16 ones. The total
+35-38's, 40's and 41-44's) is driven with the kernels' launch counts set
+to 0 just before it and read just after it; 16, 20, 24, 28 and 31's are
+the training paths' main paths, 35-38's and 40's the bf16 ones. The total
 seconds are printed before the card's line.
 
 With --source NAME=FILE (repeatable), another version of csrc/NAME.cu
@@ -164,6 +190,10 @@ KD_BATCH = 46  # samples a KD step (x 3 views: 138 student rows), bench.py's
 PT_OUT_TOL, PT_GRAD_TOL, PT_BIAS_TOL, PT_TIE_TOL = 1e-5, 1e-3, 1e-2, 1e-5
 PT_RELU_TOL = 2.0**-21
 STAGE1_SHAPE_DIM = 256  # PoseEstimatorVanilla's shape_feature_dim
+# the MultiView teacher as the CLIs build it by default: 12 renders (tour
+# 2) of feature 256 each; its step timed at batch 64 (and 160 where it
+# fits), its evaluation over 2 x 64 + 37 rows
+MV_VIEWS, MV_SHAPE_DIM, MV_TRAIN_BATCH, MV_EVAL_COUNTS = 12, 256, 64, [64, 64, 37]
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense TF32 FLOP/s on the tensor cores
 HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
@@ -328,42 +358,56 @@ class _Init:
             stats[f"DenseBNRelu_{start + i}"] = {"BatchNorm_0": s}
 
 
+def _shape_encoder(init: _Init, shape_feature_dim: int, view_num: int | None):
+    """The shape encoder's (name, params, batch_stats, feature width): the
+    PointNet (view_num None), or ShapeEncoderMV's ResNet-18 over view_num
+    renders."""
+    if view_num is None:
+        return ("ShapeEncoderPC_0", *init.pointnet(shape_feature_dim), shape_feature_dim)
+    params, stats = init.resnet((2, 2, 2, 2), False, shape_feature_dim)
+    return ("ShapeEncoderMV_0", {"ResNet_0": params}, {"ResNet_0": stats},
+            shape_feature_dim * view_num)
+
+
 def teacher_variables(rng: np.random.Generator, img_feature_dim: int = 1024,
-                      shape_feature_dim: int = 1024) -> dict:
+                      shape_feature_dim: int = 1024, view_num: int | None = None) -> dict:
     """Seeded numpy {"params", "batch_stats"} with the shapes of the JAX
-    `pose3d_tpu.models.estimators.PoseEstimator(shape="PointCloud")`, written
-    out by hand like `student_variables` (tests/test_torch_teacher.py holds
-    them against jax.eval_shape). The DeformNet's last layer has gain 0.25,
-    so that most of the fused feature stays off tanh's flat ends."""
+    `pose3d_tpu.models.estimators.PoseEstimator(shape="PointCloud")` (with
+    `view_num`, of `PoseEstimator(shape="MultiView", view_num=view_num)`),
+    written out by hand like `student_variables` (tests/test_torch_teacher.py
+    and tests/test_torch_multiview.py hold them against jax.eval_shape). The
+    DeformNet's last layer has gain 0.25, so that most of the fused feature
+    stays off tanh's flat ends."""
     init = _Init(rng)
     resnet, resnet_stats = init.resnet(RESNET50_STAGES, True, img_feature_dim)
-    pointnet, pointnet_stats = init.pointnet(shape_feature_dim)
-    b = shape_feature_dim + img_feature_dim
+    name, shape_params, shape_stats, shape_width = _shape_encoder(init, shape_feature_dim,
+                                                                  view_num)
+    b = shape_width + img_feature_dim
     deform, deform_stats = {}, {}
     init.dense_bn_relu(deform, deform_stats, 0, (b, b, b // 2, b // 4))
     deform["Dense_0"] = init.dense(b // 4, 200, gain=0.25)
-    params = {"ResNet_0": resnet, "ShapeEncoderPC_0": pointnet, "DeformNet_0": deform,
+    params = {"ResNet_0": resnet, name: shape_params, "DeformNet_0": deform,
               "_SixHeads_0": init.heads(200)}
-    stats = {"ResNet_0": resnet_stats, "ShapeEncoderPC_0": pointnet_stats,
-             "DeformNet_0": deform_stats}
+    stats = {"ResNet_0": resnet_stats, name: shape_stats, "DeformNet_0": deform_stats}
     init.dense_bn_relu(params, stats, 0, (img_feature_dim, 800, 400))
     params["Dense_0"] = init.dense(400, 200, gain=1.0)
     return {"params": params, "batch_stats": stats}
 
 
 def vanilla_variables(rng: np.random.Generator, img_feature_dim: int = 1024,
-                      shape_feature_dim: int = 256) -> dict:
+                      shape_feature_dim: int = 256, view_num: int | None = None) -> dict:
     """Seeded numpy {"params", "batch_stats"} with the shapes of the JAX
-    `PoseEstimatorVanilla(shape="PointCloud")`: ResNet-18, the PointNet, the
-    compress MLP and the six heads (tests/test_torch_stage1.py holds them
-    against jax.eval_shape)."""
+    `PoseEstimatorVanilla(shape="PointCloud")` (with `view_num`, of its
+    MultiView instance): ResNet-18, the shape encoder, the compress MLP and
+    the six heads (tests/test_torch_stage1.py and
+    tests/test_torch_multiview.py hold them against jax.eval_shape)."""
     init = _Init(rng)
     resnet, resnet_stats = init.resnet((2, 2, 2, 2), False, img_feature_dim)
-    pointnet, pointnet_stats = init.pointnet(shape_feature_dim)
-    params = {"ResNet_0": resnet, "ShapeEncoderPC_0": pointnet}
-    stats = {"ResNet_0": resnet_stats, "ShapeEncoderPC_0": pointnet_stats}
-    init.dense_bn_relu(params, stats, 0,
-                       (shape_feature_dim + img_feature_dim, 800, 400, 200))
+    name, shape_params, shape_stats, shape_width = _shape_encoder(init, shape_feature_dim,
+                                                                  view_num)
+    params = {"ResNet_0": resnet, name: shape_params}
+    stats = {"ResNet_0": resnet_stats, name: shape_stats}
+    init.dense_bn_relu(params, stats, 0, (shape_width + img_feature_dim, 800, 400, 200))
     params["_SixHeads_0"] = init.heads(200)
     return {"params": params, "batch_stats": stats}
 
@@ -465,25 +509,29 @@ def pointnet_params(rng: np.random.Generator, d: int, dev, b3: float | None = No
     return folded
 
 
-def eval_batches(seed: int, with_clouds: bool):
-    """The evaluation input: 8 x 64 + 37 rows over 3 categories, as the loader
-    emits them (padded tail, 'valid' mask), with clouds for the teacher."""
+def eval_batches(seed: int, with_clouds: bool, views: int = 0, counts=EVAL_COUNTS):
+    """The evaluation input: 8 x 64 + 37 rows (`counts`) over 3 categories,
+    as the loader emits them (padded tail, 'valid' mask), with clouds for the
+    PointCloud teacher, or with `views` renders in [0, 1] a row for the
+    MultiView teacher."""
     rng = np.random.default_rng(seed)
-    for count in EVAL_COUNTS:
+    for count in counts:
         batch = {"im": rng.standard_normal((64, 224, 224, 3), dtype=np.float32),
                  "label": random_labels(rng, 64),
                  "cat_id": rng.integers(0, 3, 64).astype(np.int32),
                  "valid": np.arange(64) < count}
         if with_clouds:
             batch["shape"] = rng.uniform(0, 1, (64, POINT_NUM, 3)).astype(np.float32)
+        if views:
+            batch["shape"] = rng.random((64, views, 224, 224, 3), dtype=np.float32)
         yield batch
 
 
-def check_eval(result, geometry, name: str) -> None:
+def check_eval(result, geometry, name: str, counts=EVAL_COUNTS) -> None:
     """Rows kept, finite errors, and per-category Acc / Med equal to the
     plain CPU recomputation from the same predictions."""
     n_eval = len(result.cat_ids)
-    if n_eval != sum(EVAL_COUNTS) or not np.all(np.isfinite(result.errors)):
+    if n_eval != sum(counts) or not np.all(np.isfinite(result.errors)):
         raise RuntimeError(f"{name} evaluation kept {n_eval} rows, or errors not finite")
     errs_cpu = geometry.rotation_err(torch.from_numpy(result.predictions),
                                      torch.from_numpy(result.labels).float()).numpy()
@@ -494,6 +542,113 @@ def check_eval(result, geometry, name: str) -> None:
                 abs(med - result.per_category_med[cat]) > 1e-3:
             raise RuntimeError(f"{name} {cat}: card Acc/Med {result.per_category_acc[cat]}/"
                                f"{result.per_category_med[cat]} vs CPU {acc}/{med}")
+
+
+def write_fixtures(root: str, rng: np.random.Generator) -> dict:
+    """Small datasets in the layouts the CLIs read, at the recipes' image
+    sizes: <root>/train/ObjectNet3D (256x256 JPEGs of 2 test categories, 96
+    train and 32 val rows; 12 of each model's 216 224x224 renders distinct),
+    ShapeNetCore (48 240x240 RGBA renders, the SUN backgrounds beside it)
+    and Pix3D (24 rows of the evaluation layout); <root>/test/LineMod (24
+    rows) and Pix3D (the contrastive layout, 24 val rows). Returns the two
+    data roots."""
+    import csv
+
+    from PIL import Image
+
+    def image(path, size, mode="RGB"):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        arr = (rng.random((size, size, len(mode))) * 255).astype(np.uint8)
+        Image.fromarray(arr, mode).save(path)
+
+    def table(path, rows):
+        with open(path, "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+            writer.writeheader()
+            writer.writerows(rows)
+
+    def pose():
+        return dict(azimuth=float(rng.integers(0, 360)), elevation=float(rng.integers(-80, 80)),
+                    inplane_rotation=float(rng.integers(-170, 170)))
+
+    def box(size):
+        w, h = int(rng.integers(size // 2, size - 8)), int(rng.integers(size // 2, size - 8))
+        left, upper = int(rng.integers(0, size - w)), int(rng.integers(0, size - h))
+        return dict(left=left, upper=upper, right=left + w, lower=upper + h)
+
+    train, test = os.path.join(root, "train"), os.path.join(root, "test")
+    flags = dict(difficult=0, truncated=0, occluded=0, has_keypoints=1)
+    rows = []
+    for cat in ("bed", "bookshelf"):
+        for split, n in (("train", 48), ("val", 16)):
+            for i in range(n):
+                name = f"Images/{cat}_{split}_{i}.jpg"
+                image(os.path.join(train, "ObjectNet3D", name), 256)
+                rows.append(dict(im_path=name, cat=cat, cad_index=1 + i % 2, set=split,
+                                 **box(256), **pose(), **flags))
+        for cad in (1, 2):
+            crop = os.path.join(train, "ObjectNet3D", "Renders_semi_sphere", cat, f"{cad:02d}",
+                                "crop")
+            for k in range(12):
+                image(os.path.join(crop, f"render_{k:03d}.png"), 224)
+            for k in range(12, 216):
+                with open(os.path.join(crop, f"render_{k % 12:03d}.png"), "rb") as f:
+                    data = f.read()
+                with open(os.path.join(crop, f"render_{k:03d}.png"), "wb") as f:
+                    f.write(data)
+    table(os.path.join(train, "ObjectNet3D", "ObjectNet3D.txt"), rows)
+    rows = []
+    for ex in range(2):
+        for v in range(24):
+            name = f"renders/{ex}_{v}.png"
+            image(os.path.join(train, "ShapeNetCore", name), 240, "RGBA")
+            rows.append(dict(cat_id=2818832, example_id=f"ex{ex}", image_path=name,
+                             azimuth=float(rng.integers(0, 360)),
+                             elevation=float(rng.integers(-80, 80))))
+    table(os.path.join(train, "ShapeNetCore", "ShapeNetCore.txt"), rows)
+    for i in range(4):
+        image(os.path.join(train, "SUN", f"bg/{i}.jpg"), 240)
+    table(os.path.join(train, "SUN", "SUN_database.txt"),
+          [dict(idx=i, path=f"bg/{i}.jpg") for i in range(4)])
+    rows = []
+    for i in range(24):
+        name = f"img/{i}.jpg"
+        image(os.path.join(train, "Pix3D", name), 200)
+        rows.append(dict(image_path=name, cat_id=("bed", "chair")[i % 2], example_id=f"e{i}",
+                         model_name="model", truncated=False, occluded=False,
+                         slightly_occluded=False, azimuth=float(rng.integers(0, 360)),
+                         elevation=float(rng.integers(-80, 80)),
+                         inplane_rotation=float(rng.uniform(-3, 3))))
+    table(os.path.join(train, "Pix3D", "Pix3D.txt"), rows)
+    rows = []
+    for i in range(24):
+        name = f"imgs/{i}.jpg"
+        image(os.path.join(test, "LineMod", name), 256)
+        b = box(256)
+        rows.append(dict(obj_id=1 + i % 2, image_path=name, x=b["left"], y=b["upper"],
+                         w=b["right"] - b["left"], h=b["lower"] - b["upper"], **pose()))
+    table(os.path.join(test, "LineMod", "LineMod.txt"), rows)
+    rows = []
+    for i in range(24):
+        name = f"imgs/{i}.jpg"
+        image(os.path.join(test, "Pix3D", name), 256)
+        rows.append(dict(im_path=name, cls_name=("bed", "chair")[i % 2], set="val", **box(256),
+                         **pose(), **flags))
+    table(os.path.join(test, "Pix3D", "Pix3D.txt"), rows)
+    return {"train": train, "test": test}
+
+
+def quiet(main, argv):
+    """A CLI's main(argv), its printing held back (shown if it fails)."""
+    import io
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            return main(argv)
+    except BaseException:
+        print(out.getvalue(), flush=True)
+        raise
 
 
 def steps_ms(run_step, steps: int = TRAIN_STEPS) -> float:
@@ -1311,7 +1466,8 @@ def pt_kernel_vs_plain(pt, pts, layers, valid, g) -> dict:
 
 def damp_residuals(variables: dict, factor: float = 0.2) -> dict:
     """`variables` (a teacher's or vanilla teacher's, flax layout) with the
-    ResNet's residual branches damped: each block's last BatchNorm scale
+    ResNets' residual branches damped (the image encoder's, and a MultiView
+    encoder's): each block's last BatchNorm scale
     times `factor`, in place. At the seeded init (every scale 1) the
     train-mode ResNet in bf16 is chaotic at the small sizes of the card-vs-
     CPU steps: any bf16 implementation's features lie about as far from
@@ -1319,11 +1475,15 @@ def damp_residuals(variables: dict, factor: float = 0.2) -> dict:
     damped residual branches, as in the common zero-gamma init, keep the
     steps' bf16 errors a small share of their values
     (tests/test_torch_bf16_train.py holds JAX's and the port's steps so)."""
-    for name, block in variables["params"]["ResNet_0"].items():
-        last = {"Bottleneck": "ConvBN_2", "BasicBlock": "ConvBN_1"}.get(name.split("_")[0])
-        if last is not None:
-            bn = block[last]["BatchNorm_0"]
-            bn["scale"] = (np.asarray(bn["scale"]) * factor).astype(np.float32)
+    params = variables["params"]
+    resnets = [params["ResNet_0"]] + [params[k]["ResNet_0"] for k in ("ShapeEncoderMV_0",)
+                                      if k in params]
+    for resnet in resnets:
+        for name, block in resnet.items():
+            last = {"Bottleneck": "ConvBN_2", "BasicBlock": "ConvBN_1"}.get(name.split("_")[0])
+            if last is not None:
+                bn = block[last]["BatchNorm_0"]
+                bn["scale"] = (np.asarray(bn["scale"]) * factor).astype(np.float32)
     return variables
 
 
@@ -1505,6 +1665,504 @@ class KDMemorySet(MemorySet):
             self.batch = {"im": self.batch["im"], "label": self.batch["label"]}
         self.batch["cat_id"] = rng.integers(0, len(EVAL_CATEGORIES), n).astype(np.int32)
         self.category_names = list(EVAL_CATEGORIES)
+
+
+def multiview_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
+    """Phases 41-44: the MultiView teacher's serving, evaluation, training
+    (steps, the training CLI on generated files, testing and inference),
+    KD --crd, --stage 1 and --stage 2 with it, and the testing and training
+    CLIs on LineMod, Pix3D and ShapeNetCore, each path driven with the
+    launch counts set to 0 just before it (`reset_counts`) and read just
+    after it (`counts`, `bf16_counts`). Returns the paths' launches summed
+    (as `counts` orders them, and as `bf16_counts` does) and the geodesic
+    kernel's largest difference from its plain version on the evaluation's
+    rows."""
+    from types import SimpleNamespace
+
+    from pose3d_tpu_torch import geometry
+    from pose3d_tpu_torch.cli import common as cli_common
+    from pose3d_tpu_torch.cli import inference as inference_cli
+    from pose3d_tpu_torch.cli import testing as testing_cli
+    from pose3d_tpu_torch.cli import training as training_cli
+    from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator,
+                                                    PoseEstimatorVanilla)
+    from pose3d_tpu_torch.ops import geodesic, nce
+    from pose3d_tpu_torch.train import convert, steps
+    from pose3d_tpu_torch.train.evaluate import evaluate_categories
+    from pose3d_tpu_torch.train.state import create_train_state
+
+    def mean(v):
+        return sum(v) / len(v)
+
+    geo_err = 0.0
+    # 41. the MultiView teacher at full width (ResNet-50, image feature
+    # 1024; ResNet-18, feature 256 over 12 renders of 224x224, tour 2;
+    # DeformNet bottleneck 4096), random weights from a seed through
+    # convert.py, loaded strictly: card vs CPU at batch 2, then its main
+    # path (serving a batch of 64 requests, an evaluation with renders
+    # through the geodesic kernel), view_tile=3, and serving times at
+    # batch 1 and 64, f32 and bf16 in turns
+    torch.cuda.empty_cache()
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    mv_counts, mv16_counts = [], []  # the MultiView paths' launches
+    mv_sd = convert.pose_state_dict(teacher_variables(
+        np.random.default_rng(41), 1024, MV_SHAPE_DIM, view_num=MV_VIEWS), "MultiView")
+
+    def mv_built(where, sd=mv_sd):
+        with torch.device("meta"):
+            m = PoseEstimator(shape="MultiView", view_num=MV_VIEWS, img_feature_dim=1024,
+                              shape_feature_dim=MV_SHAPE_DIM)
+        m.load_state_dict({k: v.to(where) for k, v in sd.items()}, strict=True, assign=True)
+        return m.eval()
+
+    mv_cpu, mv = mv_built("cpu"), mv_built(dev)
+    n_mv = sum(p.numel() for p in mv.parameters())
+    xm = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        (TEACHER_BATCH, 224, 224, 3), dtype=np.float32)).to(dev)
+    gm = torch.Generator(device=dev).manual_seed(42)
+    rm = torch.rand((TEACHER_BATCH, MV_VIEWS, 224, 224, 3), generator=gm, device=dev)
+    with torch.no_grad():
+        got = mv(xm[:2], rm[:2])
+        want = mv_cpu(xm[:2].cpu(), rm[:2].cpu())
+    got, want = got[0] + list(got[1:]), want[0] + list(want[1:])
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise RuntimeError("MultiView teacher: non-finite output on the card")
+    worst = max(rel_err(g, w) for g, w in zip(got, want))
+    if worst > HEADS_REL_TOL:
+        raise RuntimeError(f"MultiView teacher card vs CPU: max|d|/max|ref| {worst:.3g}")
+    phase("MultiView teacher", t0, f"{n_mv} params loaded strict from convert.pose_state_dict"
+          f"(..., 'MultiView'); batch 2 card vs CPU (heads, fused, projector) max|d|/max|ref| "
+          f"{worst:.3g} (tol {HEADS_REL_TOL}); {resident_gib:.2f} GiB resident before it")
+    del mv_cpu
+
+    reset_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vp = mv.predict_viewpoint(xm, rm)
+    torch.cuda.synchronize()
+    serve_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if vp.shape != (TEACHER_BATCH, 3) or not bool(((vp >= 0) & (vp <= 360)).all()):
+        raise RuntimeError(f"MultiView serving output {tuple(vp.shape)} outside [0, 360]")
+    result = evaluate_categories(steps.make_eval_step(mv, "teacher"),
+                                 eval_batches(43, False, MV_VIEWS, MV_EVAL_COUNTS),
+                                 EVAL_CATEGORIES, dev)
+    torch.cuda.synchronize()
+    mv_eval = counts()
+    if mv_eval != (1, 0, 0, 0, 0, 0, 0, 0):
+        raise RuntimeError(f"MultiView serving and evaluation: launches {mv_eval}, expected "
+                           "one geodesic")
+    mv_counts.append(mv_eval)
+    check_eval(result, geometry, "MultiView teacher", MV_EVAL_COUNTS)
+    if not math.isfinite(result.val_nce_loss) or not math.isfinite(result.val_loss):
+        raise RuntimeError(f"MultiView val losses {result.val_loss}, {result.val_nce_loss}")
+    p_eval = torch.from_numpy(result.predictions).to(dev)
+    l_eval = torch.from_numpy(result.labels).float().to(dev)
+    geo_err = max(geo_err, float((geodesic.rotation_err(p_eval, l_eval)
+                                  - geometry.rotation_err(p_eval, l_eval)).abs().max()))
+    phase("MultiView serving", t0, f"{TEACHER_BATCH} requests (images and 12 renders each) -> "
+          f"{tuple(vp.shape)} degrees in [0, 360], peak {serve_peak:.2f} GiB over the resident; "
+          f"evaluation of {len(result.cat_ids)} rows with renders: geodesic launches "
+          f"{mv_eval[0]}, Acc {result.per_category_acc} val_loss {result.val_loss:.4f} "
+          f"val_nce_loss {result.val_nce_loss:.4f}, equal to the plain CPU recomputation")
+    with torch.no_grad():
+        tiled = mv(xm[:48], rm[:16], view_tile=3)
+        by_hand = mv(xm[:48], rm[:16].repeat(3, 1, 1, 1, 1))
+    tiled, by_hand = tiled[0] + list(tiled[1:]), by_hand[0] + list(by_hand[1:])
+    worst = max(rel_err(a, b) for a, b in zip(tiled, by_hand))
+    if worst > 1e-5:
+        raise RuntimeError(f"MultiView view_tile=3 vs tiled renders: {worst:.3g}")
+    phase("view_tile", t0, f"MultiView teacher(im x3, 16 render stacks, view_tile=3) vs the "
+          f"renders tiled x3: max|d|/max|ref| {worst:.3g} (tol 1e-5: cuDNN may take another "
+          f"algorithm at another batch)")
+    mv_serve, mv_serve_peak, mv_lead = {}, {}, {}
+    with torch.no_grad():
+        for b in (1, TEACHER_BATCH):
+            xb, rb = xm[:b], rm[:b]
+            t = {"f32": [], "bf16": []}
+            for who in ("f32", "bf16", "bf16", "f32"):
+                set_compute_dtype(mv, torch.bfloat16 if who == "bf16" else None)
+                torch.cuda.reset_peak_memory_stats()
+                t[who].append(cuda_ms(lambda: mv(xb, rb), iters=20 if b == 1 else 8))
+                mv_serve_peak[b, who] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            mv_serve[b] = t
+        for who in ("f32", "bf16"):
+            set_compute_dtype(mv, torch.bfloat16 if who == "bf16" else None)
+            rows, device_ms, wall_ms = profile_steps(lambda: mv(xm, rm))
+            mv_lead[who] = (device_ms / wall_ms, rows[0].key[:60] if rows else "",
+                            rows[0].self_device_time_total / 1e3 / device_ms if rows else 0.0)
+        vp16 = mv.predict_viewpoint(xm, rm)
+        set_compute_dtype(mv, None)
+    vp_d = (vp16.float() - vp).abs()
+    vp_d = torch.minimum(vp_d, 360 - vp_d)
+    for b, t in mv_serve.items():
+        phase("time", t0, f"MultiView serving batch {b}: f32 {t['f32']} ms/batch, bf16 "
+              f"{t['bf16']} ms/batch = {b * 1000.0 / mean(t['bf16']):.1f} requests/s (f32 "
+              f"{b * 1000.0 / mean(t['f32']):.1f}); peak over the resident f32 "
+              f"{mv_serve_peak[b, 'f32']:.2f} GiB, bf16 {mv_serve_peak[b, 'bf16']:.2f} GiB "
+              f"[{card}]")
+    phase("profile", t0, "MultiView serving batch 64: " + "; ".join(
+        f"{who} busy {v[0]:.3f}, leading {v[1]} ({v[2]:.3f} of device time)"
+        for who, v in mv_lead.items()) + f"; bf16 vs f32 predictions: median "
+        f"{float(vp_d.median()):.3g} deg, largest {float(vp_d.max()):.3g} deg (not held) [{card}]")
+
+    # 42. the MultiView teacher's training with --fused_nce: one small step
+    # card vs CPU (f64 model, f32 losses), then its main path, 6 steps at
+    # the training CLI's width (1024 / 256 x 12) and batch 64, f32; the step
+    # in f32 and bf16 in turns with the peak memory of each, batch 160 in
+    # bf16 (and f32, where it fits); the NCE kernel's launches a call from a
+    # CUDA graph at the step's (64, 200)
+    mv_small = convert.pose_state_dict(teacher_variables(np.random.default_rng(44), 64, 16,
+                                                         view_num=4), "MultiView")
+    mrng = np.random.default_rng(45)
+    mv_small_batch = {"im": mrng.standard_normal((8, 64, 64, 3)),
+                      "shape": mrng.random((8, 4, 32, 32, 3)),
+                      "label": random_labels(mrng, 8)}
+
+    def small_mv_step(launched):
+        def run(where):
+            model = PoseEstimator(shape="MultiView", view_num=4, img_feature_dim=64,
+                                  shape_feature_dim=16)
+            model.load_state_dict(mv_small, strict=True)
+            state = create_train_state(model.double().to(where), LR, [100], seed=0)
+            batch = {k: torch.from_numpy(v).to(where) for k, v in mv_small_batch.items()}
+            before = counts()
+            metrics = steps.make_teacher_train_step(nce_dropout=0.0, use_fused_nce=True)(
+                state, batch)
+            torch.cuda.synchronize()
+            launched[where] = tuple(a - b for a, b in zip(counts(), before))
+            return metrics, [state.model]
+        return run
+
+    launched = {}
+    loss_err, grad_err, stat_err = card_vs_cpu(small_mv_step(launched),
+                                               ("loss", "pose_loss", "nce_loss"))
+    if launched["cuda"] != (0, 0, 1, 1, 0, 0, 0, 0) or any(launched["cpu"]):
+        raise RuntimeError(f"MultiView train step launches: card {launched['cuda']}, CPU "
+                           f"{launched['cpu']}")
+    phase("MultiView step", t0, f"card vs CPU at width 64 / 16 x 4 views, 64x64 images, 32x32 "
+          f"renders, batch 8 (f64 model, f32 losses): losses rel {loss_err:.3g} (tol "
+          f"{STEP_LOSS_RTOL}), gradients max|d|/max|ref| {grad_err:.3g} (tol "
+          f"{STEP_GRAD_TOL}), running statistics max|d| {stat_err:.3g}; the card's step "
+          f"launched NCE forward, backward {launched['cuda'][2:4]}")
+
+    def mv_batch(n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return {"im": torch.randn((n, 224, 224, 3), generator=g, device=dev),
+                "shape": torch.rand((n, MV_VIEWS, 224, 224, 3), generator=g, device=dev),
+                "label": torch.from_numpy(random_labels(np.random.default_rng(seed), n)).to(dev)}
+
+    mv_state = create_train_state(PoseEstimator(
+        shape="MultiView", view_num=MV_VIEWS, img_feature_dim=1024,
+        shape_feature_dim=MV_SHAPE_DIM, generator=torch.Generator().manual_seed(46)).to(dev),
+        LR, [10**9], seed=46)
+    mv_step = steps.make_teacher_train_step(use_fused_nce=True)
+    mb = mv_batch(MV_TRAIN_BATCH, 46)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    history = [mv_step(mv_state, mb) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    mvt_counts = counts()
+    mv_counts.append(mvt_counts)
+    losses = [float(m["loss"]) for m in history]
+    pose_losses = [float(m["pose_loss"]) for m in history]
+    if mvt_counts != (0, 0, TRAIN_STEPS, TRAIN_STEPS, 0, 0, 0, 0):
+        raise RuntimeError(f"MultiView teacher training: launches {mvt_counts}, expected one "
+                           "NCE forward and backward a step")
+    if not all(math.isfinite(v) for v in losses + pose_losses) or \
+            not (losses[-1] < losses[0] and pose_losses[-1] < pose_losses[0]):
+        raise RuntimeError(f"MultiView training on one repeated batch: losses {losses}, "
+                           f"pose losses {pose_losses}")
+    phase("MultiView training", t0, f"{sum(p.numel() for p in mv_state.model.parameters())} "
+          f"params, batch {MV_TRAIN_BATCH} (x 12 renders), 224x224, {TRAIN_STEPS} steps on one "
+          f"batch: loss {[round(v, 4) for v in losses]} (pose "
+          f"{[round(v, 4) for v in pose_losses]}); NCE launches {mvt_counts[2:4]}; peak "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB over the resident")
+    mv_steps, mv_peak = {"f32": [], "bf16": []}, {}
+    set_compute_dtype(mv_state.model, torch.bfloat16)
+    mv_step(mv_state, mb)  # bf16's first step (cuDNN's bf16 engines), untimed
+    for who in ("f32", "bf16", "bf16", "f32"):
+        set_compute_dtype(mv_state.model, torch.bfloat16 if who == "bf16" else None)
+        torch.cuda.reset_peak_memory_stats()
+        mv_steps[who].append(steps_ms(lambda: mv_step(mv_state, mb)))
+        mv_peak[MV_TRAIN_BATCH, who] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    set_compute_dtype(mv_state.model, None)
+    rows, device_ms, wall_ms = profile_steps(lambda: mv_step(mv_state, mb))
+    nce_ms = sum(e.self_device_time_total for e in rows if "nce_" in e.key) / 1e3
+    del mb
+    for who in ("bf16", "f32"):  # batch 160: bf16, then f32 where it fits
+        torch.cuda.empty_cache()
+        set_compute_dtype(mv_state.model, torch.bfloat16 if who == "bf16" else None)
+        try:
+            mb = mv_batch(TRAIN_BATCH, 47)
+            torch.cuda.reset_peak_memory_stats()
+            mv_steps[TRAIN_BATCH, who] = steps_ms(lambda: mv_step(mv_state, mb), steps=3)
+            mv_peak[TRAIN_BATCH, who] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        except torch.cuda.OutOfMemoryError:
+            mv_steps[TRAIN_BATCH, who] = None
+            mv_peak[TRAIN_BATCH, who] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        finally:
+            mb = None
+            mv_state.optimizer.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+    set_compute_dtype(mv_state.model, None)
+    capacity = torch.cuda.get_device_properties(0).total_memory / 2**30
+    s_n = torch.randn((MV_TRAIN_BATCH, 200), device=dev)
+    k_n = torch.randn((MV_TRAIN_BATCH, 200), device=dev)
+    _, saved = nce.nce_forward(s_n, k_n, None, None, 0, 0.1, True)
+    one = torch.ones((), device=dev)
+    mv_nce_graph = (
+        graph_kernel_launches(lambda: nce.nce_forward(s_n, k_n, None, None, 0, 0.1, True)),
+        graph_kernel_launches(lambda: nce.nce_backward(
+            saved, None, None, one, (MV_TRAIN_BATCH, MV_TRAIN_BATCH, 200), 0, 0.1, True)))
+    if mv_nce_graph != (1, 1):
+        raise RuntimeError(f"NCE at ({MV_TRAIN_BATCH}, 200): CUDA graph kernel nodes (forward, "
+                           f"backward) {mv_nce_graph}")
+    del s_n, k_n, saved
+    b160 = {who: (f"{mv_steps[TRAIN_BATCH, who]:.3f} ms/step"
+                  if mv_steps[TRAIN_BATCH, who] is not None else "out of memory")
+            + f", peak {mv_peak[TRAIN_BATCH, who]:.2f} GiB" for who in ("bf16", "f32")}
+    phase("time", t0, f"MultiView teacher step batch {MV_TRAIN_BATCH}, --fused_nce: f32 "
+          f"{mv_steps['f32']} ms/step ({MV_TRAIN_BATCH * 1000.0 / mean(mv_steps['f32']):.1f} "
+          f"samples/s, peak {mv_peak[MV_TRAIN_BATCH, 'f32']:.2f} GiB over the resident), bf16 "
+          f"{mv_steps['bf16']} ms/step ({MV_TRAIN_BATCH * 1000.0 / mean(mv_steps['bf16']):.1f} "
+          f"samples/s, peak {mv_peak[MV_TRAIN_BATCH, 'bf16']:.2f} GiB); batch {TRAIN_BATCH}: "
+          f"bf16 {b160['bf16']}, f32 {b160['f32']} (of {capacity:.1f} GiB; {base / 2**30:.2f} "
+          f"GiB resident); NCE CUDA graph kernel nodes a call (forward, backward) "
+          f"{mv_nce_graph} [{card}]")
+    phase("profile", t0, f"2 MultiView train steps f32 batch {MV_TRAIN_BATCH}: {device_ms:.2f} "
+          f"ms device of {wall_ms:.2f} ms wall (busy {device_ms / wall_ms:.3f}); the NCE "
+          f"kernels {nce_ms:.4f} ms [{card}]; by self device time:")
+    print_rows(rows, device_ms, top=8)
+    del mv_state, history
+
+    # the training CLI on generated files: one epoch of the MultiView
+    # teacher (12 PNG renders decoded a sample) with --fused_nce, then
+    # --resume into a second; its testing CLI and single-image inference
+    # on that checkpoint
+    fixture = tempfile.TemporaryDirectory()
+    tf = time.perf_counter()
+    roots = write_fixtures(fixture.name, np.random.default_rng(48))
+    fixture_s = time.perf_counter() - tf
+    cwd = os.getcwd()
+    os.chdir(fixture.name)
+    try:
+        mv_flags = ["--dataset", "ObjectNet3D", "--shape", "MultiView", "--data_root",
+                    roots["train"], "--batch_size", "32", "--workers", "8", "--fused_nce",
+                    "--decrease", "100", "--print_freq", "100"]
+        reset_counts()
+        quiet(training_cli.main, mv_flags + ["--n_epoch", "1"])
+        quiet(training_cli.main, mv_flags + ["--n_epoch", "2", "--resume"])
+        torch.cuda.synchronize()
+        cli_train = counts()
+        mv_counts.append(cli_train)
+        run = os.path.join(fixture.name, "result", "MultiView_ObjectNet3D")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        if cli_train != (4, 0, 6, 6, 0, 0, 0, 0) or [r["epoch"] for r in records] != [0, 1] \
+                or not all(math.isfinite(r["train_loss"]) for r in records):
+            raise RuntimeError(f"MultiView training CLI: launches {cli_train}, records {records}")
+        # the train loader alone over the same files (no step): the host's
+        # own rate
+        opt = training_cli.parse_args(mv_flags)
+        loader = cli_common.make_train_loader(
+            cli_common.build_train_eval_datasets(opt)[0], opt)
+        tl = time.perf_counter()
+        loaded = sum(int(b["valid"].sum()) for b in loader)
+        loader_rate = loaded / (time.perf_counter() - tl)
+        ckpt = os.path.join(run, "ckpt", "checkpoint.pth")
+        reset_counts()
+        tested = quiet(testing_cli.main, [
+            "--dataset", "ObjectNet3D", "--shape", "MultiView", "--data_root", roots["train"],
+            "--model", ckpt, "--batch_size", "32", "--workers", "8",
+            "--output_dir", os.path.join(fixture.name, "preds")])
+        crop = os.path.join(roots["train"], "ObjectNet3D", "Renders_semi_sphere", "bed", "01",
+                            "crop")
+        vp1 = quiet(inference_cli.main, [
+            "--ckpt", ckpt, "--img_path", os.path.join(roots["train"], "ObjectNet3D", "Images",
+                                                       "bed_val_0.jpg"),
+            "--render_dir", crop, "--shape_feature_dim", str(MV_SHAPE_DIM)])
+        torch.cuda.synchronize()
+        cli_test = counts()
+        mv_counts.append(cli_test)
+        if cli_test != (1, 0, 0, 0, 0, 0, 0, 0) or not np.isfinite(tested.sample_med) or \
+                not np.all(np.isfinite(vp1)):
+            raise RuntimeError(f"MultiView testing / inference CLI: launches {cli_test}, "
+                               f"Med_Err {tested.sample_med}, prediction {vp1}")
+    finally:
+        os.chdir(cwd)
+    phase("MultiView CLI", t0, f"files written in {fixture_s:.1f} s; training --shape "
+          f"MultiView --fused_nce on the card, batch 32, 8 loader threads: epoch 0, then "
+          f"--resume into epoch 1: train_loss {[round(r['train_loss'], 4) for r in records]}, "
+          f"train samples/s "
+          f"{[round(r['train_samples'] / r['train_seconds'], 1) for r in records]} (12 PNG "
+          f"renders and one JPEG decoded a sample; the train loader alone over the files "
+          f"{loader_rate:.1f} samples/s), launches (geodesic, NCE forward, "
+          f"backward) {(cli_train[0],) + cli_train[2:4]}; testing --shape MultiView on its "
+          f"checkpoint.pth: {len(tested.cat_ids)} rows, Med_Err {tested.sample_med:.2f}; "
+          f"inference --render_dir: {np.round(vp1, 2).tolist()} [{card}]")
+
+    # 43. KD with a MultiView teacher: --crd at batch 46 x 3 views (the
+    # student at full width, the frozen teacher of phase 41 encoding each
+    # sample's 12 renders once, view_tile 3), 6 steps f32 (its main path),
+    # then 2 in bf16 (the bf16 stem's), the step in f32 and bf16 in turns;
+    # --stage 1 with the MultiView vanilla teacher (ResNet-18 1024, 256 x 12)
+    # at batch 46, 2 steps, then --stage 2 from its checkpoint.pth read by
+    # the CLI's loader, 2 steps
+    mv.requires_grad_(False)
+    kmb = {k: v for k, v in mv_batch(KD_BATCH, 49).items()}
+    g = torch.Generator(device=dev).manual_seed(50)
+    for view in ("_flip", "_rot"):
+        kmb["im" + view] = torch.randn((KD_BATCH, 224, 224, 3), generator=g, device=dev)
+        kmb["label" + view] = torch.from_numpy(random_labels(np.random.default_rng(51),
+                                                             KD_BATCH)).to(dev)
+    kd_mv = create_train_state(BaselineEstimator(
+        generator=torch.Generator().manual_seed(47)).to(dev), LR, [10**9], seed=47)
+    kd_step = steps.make_kd_crd_step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    history = [kd_step(kd_mv, mv, kmb) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    kdm_counts = counts()
+    mv_counts.append(kdm_counts)
+    kd_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    kd_losses = [float(m["loss"]) for m in history]
+    if kdm_counts != (0, 0, 0, 0, TRAIN_STEPS, TRAIN_STEPS, 0, 0) or \
+            not all(math.isfinite(v) for v in kd_losses):
+        raise RuntimeError(f"KD --crd with the MultiView teacher: launches {kdm_counts}, "
+                           f"losses {kd_losses}")
+    set_compute_dtype(kd_mv.model, torch.bfloat16)
+    set_compute_dtype(mv, torch.bfloat16)
+    reset_counts()
+    history16 = [kd_step(kd_mv, mv, kmb) for _ in range(2)]
+    torch.cuda.synchronize()
+    kd16 = bf16_counts()
+    mv16_counts.append(kd16)
+    if kd16[:2] != (2, 2) or counts()[4:6] != (0, 0) or \
+            not all(math.isfinite(float(m["loss"])) for m in history16):
+        raise RuntimeError(f"KD --crd bf16 with the MultiView teacher: bf16 stem launches "
+                           f"{kd16}, f32 {counts()[4:6]}")
+    kd_t = {"f32": [], "bf16": []}
+    for who in ("f32", "bf16", "bf16", "f32"):
+        for m in (kd_mv.model, mv):
+            set_compute_dtype(m, torch.bfloat16 if who == "bf16" else None)
+        kd_t[who].append(steps_ms(lambda: kd_step(kd_mv, mv, kmb), steps=4))
+    for m in (kd_mv.model, mv):
+        set_compute_dtype(m, None)
+    with torch.no_grad():
+        teacher_ms = cuda_ms(lambda: mv(torch.cat([kmb["im"], kmb["im_flip"], kmb["im_rot"]]),
+                                        kmb["shape"], view_tile=3), iters=3)
+    phase("KD MultiView", t0, f"--crd, student {sum(p.numel() for p in kd_mv.model.parameters())} "
+          f"params, batch {KD_BATCH} x 3 views, the frozen MultiView teacher at view_tile 3: "
+          f"{TRAIN_STEPS} steps f32, loss {[round(v, 4) for v in kd_losses]}, stem launches "
+          f"{kdm_counts[4:6]}, peak {kd_peak:.2f} GiB over the resident; 2 steps bf16, loss "
+          f"{[round(float(m['loss']), 4) for m in history16]}, bf16 stem launches {kd16[:2]}")
+    phase("time", t0, f"KD --crd step with the MultiView teacher, batch {KD_BATCH} x 3 views: "
+          f"f32 {kd_t['f32']} ms/step, bf16 {kd_t['bf16']} ms/step = "
+          f"{KD_BATCH * 1000.0 / mean(kd_t['bf16']):.1f} samples/s (f32 "
+          f"{KD_BATCH * 1000.0 / mean(kd_t['f32']):.1f}); the frozen teacher's forward "
+          f"{teacher_ms:.3f} ms of it in f32 [{card}]")
+    del kd_mv, history, history16
+
+    t1 = create_train_state(PoseEstimatorVanilla(
+        shape="MultiView", view_num=MV_VIEWS, img_feature_dim=1024,
+        shape_feature_dim=MV_SHAPE_DIM, generator=torch.Generator().manual_seed(52)).to(dev),
+        LR, [10**9], seed=52)
+    s1 = create_train_state(BaselineEstimator(
+        generator=torch.Generator().manual_seed(53)).to(dev), LR, [10**9], seed=53)
+    s1_step = steps.make_stage1_step(tau=0.5, use_fused_nce=True)
+    sbm = {k: kmb[k] for k in ("im", "shape", "label")}
+    reset_counts()
+    tt = time.perf_counter()
+    history = [s1_step(t1, s1, sbm) for _ in range(2)]
+    torch.cuda.synchronize()
+    s1m_ms = (time.perf_counter() - tt) * 1e3 / 2
+    s1m_counts = counts()
+    mv_counts.append(s1m_counts)
+    if s1m_counts != (0, 0, 4, 4, 2, 2, 0, 0) or \
+            not all(math.isfinite(float(m["loss"])) for m in history):
+        raise RuntimeError(f"stage 1 with the MultiView vanilla teacher: launches {s1m_counts}")
+    with tempfile.TemporaryDirectory() as tmp:
+        s1m_ckpt = os.path.join(tmp, "checkpoint.pth")
+        torch.save({"teacher": t1.state_dict(), "student": s1.state_dict()}, s1m_ckpt)
+        s2m_teacher = cli_common.build_vanilla(SimpleNamespace(
+            img_feature_dim=1024, shape_feature_dim=MV_SHAPE_DIM, bin_size=15,
+            shape="MultiView", view_num=MV_VIEWS), dev, s1m_ckpt).requires_grad_(False)
+    same = all(torch.equal(v, t1.model.state_dict()[k])
+               for k, v in s2m_teacher.state_dict().items())
+    del t1, s1
+    s2m = create_train_state(BaselineEstimator(
+        generator=torch.Generator().manual_seed(54)).to(dev), LR, [10**9], seed=54)
+    s2_step = steps.make_stage2_step()
+    reset_counts()
+    tt = time.perf_counter()
+    history2 = [s2_step(s2m, s2m_teacher, kmb) for _ in range(2)]
+    torch.cuda.synchronize()
+    s2m_ms = (time.perf_counter() - tt) * 1e3 / 2
+    s2m_counts = counts()
+    mv_counts.append(s2m_counts)
+    if not same or s2m_counts != (0, 0, 0, 0, 2, 2, 0, 0) or \
+            not all(math.isfinite(float(m["loss"])) for m in history2):
+        raise RuntimeError(f"stage 2 from the MultiView stage-1 checkpoint: teacher equal "
+                           f"{same}, launches {s2m_counts}")
+    phase("KD MultiView", t0, f"--stage 1 (--fused_nce) with the MultiView vanilla teacher, "
+          f"batch {KD_BATCH}: 2 steps, loss {[round(float(m['loss']), 4) for m in history]}, "
+          f"launches (NCE forward, backward, stem forward, backward) {s1m_counts[2:6]}, "
+          f"{s1m_ms:.1f} ms/step (first steps); --stage 2 from its checkpoint.pth (the teacher "
+          f"read by the CLI's loader, equal): 2 steps at {KD_BATCH} x 3 views, loss "
+          f"{[round(float(m['loss']), 4) for m in history2]}, stem launches "
+          f"{s2m_counts[4:6]}, {s2m_ms:.1f} ms/step (first steps) [{card}]")
+    del s2m, s2m_teacher, history, history2, kmb, sbm, mv, xm, rm
+
+    # 44. the datasets through the CLIs on the card: the testing CLI on
+    # LineMod and on Pix3D with the student (full width, its seeded init),
+    # and one epoch of the RGB-only baseline on ShapeNetCore validated on
+    # Pix3D
+    os.chdir(fixture.name)
+    try:
+        tested = {}
+        reset_counts()
+        for name in ("LineMod", "Pix3D"):
+            tested[name] = quiet(testing_cli.main, [
+                "--dataset", name, "--shape", "None", "--data_root", roots["test"],
+                "--img_feature_dim", "2048", "--batch_size", "16", "--workers", "8",
+                "--output_dir", os.path.join(fixture.name, f"preds_{name}")])
+        torch.cuda.synchronize()
+        ds_test = counts()
+        mv_counts.append(ds_test)
+        reset_counts()
+        quiet(training_cli.main, ["--dataset", "ShapeNetCore", "--shape", "None",
+                                  "--data_root", roots["train"], "--img_feature_dim", "2048",
+                                  "--batch_size", "16", "--workers", "8", "--n_epoch", "1",
+                                  "--decrease", "100"])
+        torch.cuda.synchronize()
+        ds_train = counts()
+        mv_counts.append(ds_train)
+        with open(os.path.join(fixture.name, "result", "baseline_ShapeNetCore",
+                               "metrics.jsonl")) as f:
+            sn = json.loads(f.readline())
+    finally:
+        os.chdir(cwd)
+        fixture.cleanup()
+    if ds_test != (2, 0, 0, 0, 4, 0, 0, 0) or ds_train[:2] != (1, 0) or \
+            ds_train[4:6] != (5, 3) or not math.isfinite(sn["train_loss"]) or \
+            not all(np.isfinite(r.sample_med) for r in tested.values()):
+        raise RuntimeError(f"datasets: testing launches {ds_test}, ShapeNetCore launches "
+                           f"{ds_train}, record {sn}")
+    phase("datasets", t0, "testing --shape None on the card: " + "; ".join(
+        f"{name} {len(r.cat_ids)} rows, categories {sorted(r.per_category_acc)}, Med_Err "
+        f"{r.sample_med:.2f}" for name, r in tested.items()) + f" (launches: geodesic "
+        f"{ds_test[0]}, stem forward {ds_test[4]}); training --dataset ShapeNetCore --shape "
+        f"None: 3 steps of 16 at 224x224, train_loss {sn['train_loss']:.4f}, val_med "
+        f"{sn['val_med']:.2f} on Pix3D's 24 rows, "
+        f"train_samples_per_s {sn['train_samples_per_s']:.1f} (launches: geodesic "
+        f"{ds_train[0]}, stem forward {ds_train[4]}, backward {ds_train[5]}) [{card}]")
+    return ([sum(c[i] for c in mv_counts) for i in range(8)],
+            [sum(c[i] for c in mv16_counts) for i in range(3)], geo_err)
 
 
 def main() -> int:
@@ -2728,8 +3386,8 @@ def main() -> int:
     from pose3d_tpu_torch.train.ckpt import Checkpointer
     tr = time.perf_counter()
     s2_teacher = cli_common.build_vanilla(
-        SimpleNamespace(img_feature_dim=1024, shape_feature_dim=STAGE1_SHAPE_DIM, bin_size=15),
-        dev, s1_ckpt).requires_grad_(False)
+        SimpleNamespace(img_feature_dim=1024, shape_feature_dim=STAGE1_SHAPE_DIM, bin_size=15,
+                        shape="PointCloud", view_num=12), dev, s1_ckpt).requires_grad_(False)
     load_s = time.perf_counter() - tr
     same = all(torch.equal(v.cpu(), s1_teacher_sd[k])
                for k, v in s2_teacher.state_dict().items())
@@ -2740,7 +3398,8 @@ def main() -> int:
     # the same checkpoint read by the CLI's loader under --bf16 (phase 38)
     s2_teacher16 = cli_common.build_vanilla(
         SimpleNamespace(img_feature_dim=1024, shape_feature_dim=STAGE1_SHAPE_DIM, bin_size=15,
-                        bf16=True), dev, s1_ckpt).requires_grad_(False)
+                        shape="PointCloud", view_num=12, bf16=True), dev,
+        s1_ckpt).requires_grad_(False)
     if s2_teacher16.shape_encoder.compute_dtype != torch.bfloat16:
         raise RuntimeError("stage 2: the CLI's loader built no bf16 teacher under --bf16")
     s2_dir.cleanup()
@@ -3810,6 +4469,10 @@ def main() -> int:
               f"{rows * 1000.0 / mean(t['bf16']):.1f} samples/s (f32 "
               f"{rows * 1000.0 / mean(t['f32']):.1f}) [{card}]")
         phase("profile", t0, f"{name}: {lead}")
+    # 41-44. the MultiView teacher's paths and the remaining datasets
+    mv_added, mv16_added, mv_geo_err = multiview_phases(dev, card, t0, reset_counts, counts,
+                                                        bf16_counts)
+    geo_err = max(geo_err, mv_geo_err)
     pt16_paths = [a + b + c + d for a, b, c, d in zip(t16_counts, t16_fit, s116_counts,
                                                       s116_fit)]
 
@@ -3826,7 +4489,8 @@ def main() -> int:
     for tag, n_c, wheres, launched in (
             ("", TRAIN_BATCH, ("pose3d_tpu/ops/nce_fused.py:109",
                                "pose3d_tpu/ops/nce_fused.py:134"),
-             tuple(a - b for a, b in zip(train_counts[2:4], train_blocked))),
+             tuple(a - b + c for a, b, c in zip(train_counts[2:4], train_blocked,
+                                                mv_added[2:4]))),
             ("_blocked", 4096, ("pose3d_tpu/ops/nce_blocked.py:191",
                                 "pose3d_tpu/ops/nce_blocked.py:224"),
              tuple(a + b for a, b in zip(train_blocked, s1_blocked)))):
@@ -3844,18 +4508,18 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": [
         entry("geodesic_rotation_err", "pose3d_tpu_torch/csrc/geodesic.cu",
-              "pose3d_tpu/ops/geodesic.py:65", student_geo + teacher_geo, geo_err,
+              "pose3d_tpu/ops/geodesic.py:65", student_geo + teacher_geo + mv_added[0], geo_err,
               geo_times[1_000_000][0], geo_times[1_000_000][1], geo_bound),
         entry("pointnet_eval", "pose3d_tpu_torch/csrc/pointnet_eval.cu",
               "pose3d_tpu/ops/pointnet_fused.py:78", teacher_pn + added[1], pn_err,
               *pn_times[TEACHER_BATCH, 1024], pn_bounds[TEACHER_BATCH, 1024]),
         *nce_entries,
         entry("vgg_stem_forward", "pose3d_tpu_torch/csrc/vgg_stem.cu",
-              "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[4] + added[4], stem_err,
+              "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[4] + added[4] + mv_added[4], stem_err,
               stem_times[3 * KD_BATCH]["kernel forward"],
               stem_times[3 * KD_BATCH]["plain forward"], stem_bounds[3 * KD_BATCH][0]),
         entry("vgg_stem_backward", "pose3d_tpu_torch/csrc/vgg_stem.cu",
-              "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[5] + added[5], stem_err,
+              "pose3d_tpu/ops/vgg_stem.py:93", kd_counts[5] + added[5] + mv_added[5], stem_err,
               stem_times[3 * KD_BATCH]["kernel backward"],
               stem_times[3 * KD_BATCH]["plain backward"], stem_bounds[3 * KD_BATCH][1]),
         entry("pointnet_train_forward", "pose3d_tpu_torch/csrc/pointnet_train.cu",
@@ -3868,10 +4532,11 @@ def main() -> int:
               pt_bounds[TRAIN_BATCH][1]),
         # the bf16 instances, their launches on the bf16 paths (phases 35-38)
         entry("vgg_stem_forward_bf16", "pose3d_tpu_torch/csrc/vgg_stem.cu",
-              "pose3d_tpu/ops/vgg_stem.py:93", bf16_paths[0] + student16_serving, stem16_err,
+              "pose3d_tpu/ops/vgg_stem.py:93", bf16_paths[0] + student16_serving + mv16_added[0],
+              stem16_err,
               stem16["kernel forward"], stem16["plain forward"], stem16_bounds[0]),
         entry("vgg_stem_wgrad_bf16", "pose3d_tpu_torch/csrc/vgg_stem.cu",
-              "pose3d_tpu/ops/vgg_stem.py:93", bf16_paths[1], stem16_wgrad_err,
+              "pose3d_tpu/ops/vgg_stem.py:93", bf16_paths[1] + mv16_added[1], stem16_wgrad_err,
               stem16["kernel backward"], stem16["plain backward"], stem16_bounds[1]),
         entry("pointnet_eval_bf16", "pose3d_tpu_torch/csrc/pointnet_eval.cu",
               "pose3d_tpu/ops/pointnet_fused.py:78", bf16_paths[2] + teacher16_serving,

@@ -1,7 +1,8 @@
 """Shared CLI plumbing. Port of `pose3d_tpu/cli/common.py`: the flags of the
 evaluation and serving CLIs, the device, the construction of the student,
-of the PointCloud teacher and of the vanilla teacher, and the training
-datasets (the teacher's and the KD regimes') and loader.
+of the teacher and of the vanilla teacher (each with a PointCloud or a
+MultiView shape encoder), and the training datasets (the teacher's and the
+KD regimes') and loader.
 
 Flags of the JAX CLIs whose paths are not ported yet are still accepted
 where a user would pass them, and refused with a message that names
@@ -36,7 +37,25 @@ DEVICE_HELP = ("torch device (default cuda). On a CUDA device the geodesic error
                "reductions too, matching the JAX package's float32 and bfloat16 "
                "semantics.")
 TEST_CATS = {"ObjectNet3D": annotations.OBJECTNET3D_TEST_CATS,
-             "Pascal3D": annotations.PASCAL3D_TEST_CATS}
+             "Pascal3D": annotations.PASCAL3D_TEST_CATS,
+             "Pix3D": annotations.PIX3D_TEST_CATS,
+             "LineMod": annotations.LINEMOD_TEST_CATS}
+# JAX's ShapeNetCore cat_choice: the categories --novel leaves out of training
+SHAPENET_CATS = ["2818832", "2871439", "2933112", "3001627", "4256520", "4379243"]
+# JAX's ShapeNetCore runs validate on Pix3D, whose samples carry no shape:
+# its teacher evaluation fails there on the missing 'shape'
+SHAPENET_TEACHER = ("--dataset ShapeNetCore validates on Pix3D, whose samples carry no "
+                    "shape, so a teacher cannot be evaluated on it (JAX's run fails at its "
+                    "first evaluation)")
+
+
+def add_shape_flags(parser: argparse.ArgumentParser) -> None:
+    """The MultiView teacher's render ring: views a sample and rings."""
+    parser.add_argument("--view_num", type=int, default=12,
+                        help="MultiView: renders a sample (view_num / tour per ring)")
+    parser.add_argument("--tour", type=int, default=2,
+                        help="MultiView: elevation rings (1 the middle one, 2 the lower "
+                             "two, 3 all three)")
 
 
 def add_student_flags(parser: argparse.ArgumentParser, img_feature_dim: int) -> None:
@@ -100,11 +119,12 @@ def build_student(opt, checkpoint: str | None, device: torch.device,
 
 def build_teacher(opt, checkpoint: str | None, device: torch.device,
                   img_feature_dim: int | None = None) -> PoseEstimator:
-    """The PointCloud teacher of the flags, with weights from `checkpoint`
-    (a reference-layout .pth, loaded strictly) or, without one, a seeded
-    random init. In eval mode, on `device`."""
+    """The teacher of the flags (--shape PointCloud or MultiView), with
+    weights from `checkpoint` (a reference-layout .pth, loaded strictly) or,
+    without one, a seeded random init. In eval mode, on `device`."""
     azi, ele, inp = num_classes(opt.bin_size)
     model = PoseEstimator(
+        shape=opt.shape, view_num=opt.view_num,
         img_feature_dim=img_feature_dim or opt.img_feature_dim,
         shape_feature_dim=opt.shape_feature_dim, azi_classes=azi, ele_classes=ele,
         inp_classes=inp, bin_size=opt.bin_size,
@@ -114,14 +134,15 @@ def build_teacher(opt, checkpoint: str | None, device: torch.device,
 
 def build_vanilla(opt, device: torch.device,
                   checkpoint: str | None = None) -> PoseEstimatorVanilla:
-    """The vanilla PointCloud teacher of the flags (ResNet-18, PointNet,
-    compress MLP) on `device`. Without `checkpoint`, from a seeded random
-    init in train mode: KD `--stage 1` trains it from scratch, as JAX's CLI
-    does. With one (KD `--stage 2`'s frozen teacher), loaded strictly and
+    """The vanilla teacher of the flags (ResNet-18, the shape encoder of
+    --shape, compress MLP) on `device`. Without `checkpoint`, from a seeded
+    random init in train mode: KD `--stage 1` trains it from scratch, as
+    JAX's CLI does. With one (KD `--stage 2`'s frozen teacher), loaded strictly and
     in eval mode: the "teacher" train state of the port's stage-1
     `checkpoint.pth`, or a reference-layout vanilla `.pth`."""
     azi, ele, inp = num_classes(opt.bin_size)
     model = PoseEstimatorVanilla(
+        shape=opt.shape, view_num=opt.view_num,
         img_feature_dim=opt.img_feature_dim, shape_feature_dim=opt.shape_feature_dim,
         azi_classes=azi, ele_classes=ele, inp_classes=inp, bin_size=opt.bin_size,
         generator=torch.Generator().manual_seed(1), compute_dtype=compute_dtype(opt))
@@ -151,15 +172,21 @@ def make_train_loader(dataset, opt, seed: int = MANUAL_SEED) -> DataLoader:
                       seed=seed)
 
 
+def _shape_kwargs(opt) -> dict:
+    return dict(shape=opt.shape, shape_dir=opt.shape_dir, input_dim=opt.input_dim,
+                point_num=opt.point_num, view_num=opt.view_num, tour=opt.tour)
+
+
 def build_train_eval_datasets(opt):
     """The train set and the validation (val_new) set of --dataset, as the
     JAX CLI builds them: ObjectNet3D trains on the contrastive three-view
     samples and validates on Pascal3D-style samples of the test categories;
-    Pascal3D trains and validates on Pascal3D samples."""
+    Pascal3D trains and validates on Pascal3D samples; ShapeNetCore trains
+    on its renders over SUN backgrounds (`<data_root>/SUN`) and validates on
+    Pix3D (`<data_root>/Pix3D`)."""
     root_dir = os.path.join(opt.data_root, opt.dataset)
     annotation_file = f"{opt.dataset}.txt"
-    shape = dict(shape=opt.shape, shape_dir=opt.shape_dir, input_dim=opt.input_dim,
-                 point_num=opt.point_num)
+    shape = _shape_kwargs(opt)
     if opt.dataset == "ObjectNet3D":
         cats = annotations.OBJECTNET3D_TEST_CATS
         train = datasets.Pascal3DContrast(
@@ -174,9 +201,15 @@ def build_train_eval_datasets(opt):
                                   random_range=opt.random_range, **shape)
         val = datasets.Pascal3D(root_dir, annotation_file, train=False, cat_choice=cats,
                                 novel=opt.novel, random=False, **shape)
+    elif opt.dataset == "ShapeNetCore":
+        train = datasets.ShapeNet(
+            root_dir, annotation_file, bg_dir=os.path.join(opt.data_root, "SUN"), train=True,
+            random=opt.random, cat_choice=SHAPENET_CATS, novel=opt.novel, shape=opt.shape,
+            shape_dir=opt.shape_dir, view_num=opt.view_num, tour=opt.tour,
+            random_range=opt.random_range)
+        val = datasets.Pix3D(os.path.join(opt.data_root, "Pix3D"), "Pix3D.txt")
     else:
-        raise SystemExit(f"--dataset {opt.dataset}: training on it is not ported to "
-                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+        raise SystemExit(f"unsupported training dataset {opt.dataset}")  # JAX's
     return train, val
 
 
@@ -185,7 +218,8 @@ def build_kd_datasets(opt):
     them. `--crd`, `--contrast`, `--vid` and `--stage 2`: Pascal3DContrast
     (three views a sample, with its cloud) on ObjectNet3D's test categories
     or on Pascal3D's; the validation set evaluates the RGB-only student, so
-    it loads no clouds (JAX loads and ignores them). `--stage 1`: plain Pascal3D samples with their clouds,
+    it loads no shapes (JAX loads and ignores them). `--stage 1`: plain
+    Pascal3D samples with their clouds or renders,
     train (with `--random` / `--random_range`) and validation, since the
     vanilla teacher is what stage 1 evaluates."""
     root_dir = os.path.join(opt.data_root, opt.dataset)
@@ -195,11 +229,9 @@ def build_kd_datasets(opt):
     elif opt.dataset == "Pascal3D":
         cats, extra = (["bus", "motorbike"] if opt.novel else None), {}
     else:
-        raise SystemExit(f"--dataset {opt.dataset}: KD training on it is not ported to "
-                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+        raise SystemExit(f"unsupported KD training dataset {opt.dataset}")  # JAX's
     if opt.stage == 1:
-        shape = dict(shape=opt.shape, shape_dir=opt.shape_dir, input_dim=opt.input_dim,
-                     point_num=opt.point_num, cat_choice=cats, novel=opt.novel, **extra)
+        shape = dict(_shape_kwargs(opt), cat_choice=cats, novel=opt.novel, **extra)
         return (datasets.Pascal3D(root_dir, annotation_file, train=True, random=opt.random,
                                   random_range=opt.random_range, **shape),
                 datasets.Pascal3D(root_dir, annotation_file, train=False, random=False,
@@ -207,8 +239,7 @@ def build_kd_datasets(opt):
     train = datasets.Pascal3DContrast(
         root_dir, annotation_file, train=True, cat_choice=cats, novel=opt.novel,
         shot=opt.shot if opt.dataset == "ObjectNet3D" else None, seed=MANUAL_SEED,
-        shape=opt.shape, shape_dir=opt.shape_dir, input_dim=opt.input_dim,
-        point_num=opt.point_num, **extra)
+        **_shape_kwargs(opt), **extra)
     val = datasets.Pascal3DContrast(root_dir, annotation_file, train=False, cat_choice=cats,
                                     novel=opt.novel, shape=None, input_dim=opt.input_dim,
                                     **extra)

@@ -1,27 +1,35 @@
 """Single-image inference CLI. Port of `pose3d_tpu/cli/inference.py` for the
-student and the PointCloud teacher (`--ply_path`).
+student, the PointCloud teacher (`--ply_path`) and the MultiView teacher
+(`--render_dir`).
 
 Loads a checkpoint (a reference-layout .pth), resize-pads the image to
 --input_dim, normalizes it, runs the inference decoder ((bin + raw delta)
 * bin_size, clamped to [0, 360]) and converts the result back to the
 annotation convention (ele -= 90, inp -= 180). With `--ply_path` the
 teacher also takes a cloud of --point_num points sampled from that file
-(seed 0, as in JAX). `--bf16` computes in bfloat16 (the stem and the eval
-PointNet in their bf16 kernels on the card). The MultiView teacher
-(`--render_dir`), `--int8` and the AOT artifacts are refused with a
-message until they are ported (ROADMAP.md).
+(seed 0, as in JAX). With `--render_dir` (a model's `crop/` directory) the
+MultiView teacher takes the `--view_num` renders of its sorted files that
+`--tour` rings rolled by `--mutation` steps select, each resized to
+--input_dim where it is another size, in [0, 1]. `--bf16` computes in
+bfloat16 (the stem and the eval PointNet in their bf16 kernels on the
+card). `--int8` and the AOT artifacts are refused with a message until
+they are ported (ROADMAP.md).
 
     python -m pose3d_tpu_torch.cli.inference --ckpt student.pth --img_path img.jpg
     python -m pose3d_tpu_torch.cli.inference --ckpt teacher.pth --img_path img.jpg \\
         --ply_path compressed.ply
+    python -m pose3d_tpu_torch.cli.inference --ckpt mv_teacher.pth --img_path img.jpg \\
+        --render_dir Renders_semi_sphere/bed/01/crop --shape_feature_dim 256
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
+from PIL import Image
 
 from pose3d_tpu_torch.cli import common
 from pose3d_tpu_torch.data import ply
@@ -36,15 +44,24 @@ def parse_args(argv=None):
     common.add_student_flags(parser, img_feature_dim=2048)
     parser.add_argument("--ply_path", type=str, default=None,
                         help="point cloud for PointCloud-teacher inference")
+    parser.add_argument("--render_dir", type=str, default=None,
+                        help="a model's render directory for MultiView-teacher inference")
+    common.add_shape_flags(parser)
+    parser.add_argument("--mutation", type=int, default=0,
+                        help="azimuth-ring roll for --render_dir")
     parser.add_argument("--shape_feature_dim", type=int, default=1024)
     parser.add_argument("--point_num", type=int, default=2500)
     parser.add_argument("--int8", action="store_true",
                         help="not ported yet: refused (ROADMAP.md)")
-    for flag in ("export_aot", "load_aot", "render_dir"):
+    for flag in ("export_aot", "load_aot", "save_quantized", "load_quantized"):
         parser.add_argument(f"--{flag}", type=str, default=None,
                             help="not ported yet: refused (ROADMAP.md)")
     opt = parser.parse_args(argv)
-    common.refuse_unported(opt, ("int8", "export_aot", "load_aot", "render_dir"))
+    common.refuse_unported(opt, ("int8", "export_aot", "load_aot", "save_quantized",
+                                 "load_quantized"))
+    if opt.ply_path and opt.render_dir:
+        raise SystemExit("--ply_path (PointCloud teacher) and --render_dir "
+                         "(MultiView teacher) are mutually exclusive")  # JAX's
     if not opt.ckpt:
         raise SystemExit("--ckpt is required")
     return opt
@@ -62,17 +79,41 @@ def sample_cloud(ply_path: str, point_num: int) -> np.ndarray:
                                np.random.default_rng(0))[None]
 
 
+def load_renders(render_dir: str, view_num: int, tour: int, mutation: int,
+                 size: int) -> np.ndarray:
+    """A model's render directory -> (1, view_num, size, size, 3) float32
+    in [0, 1]: the `multiview_ids` of its sorted files, each resized
+    (bilinear) where it is not size x size."""
+    names = sorted(os.listdir(render_dir))
+    ids = T.multiview_ids(view_num, tour, mutation)
+    if len(names) <= int(ids.max()):
+        raise SystemExit(f"--render_dir has {len(names)} files; the view_num={view_num}/"
+                         f"tour={tour} ring needs {int(ids.max()) + 1}")
+    renders = []
+    for i in ids:
+        im = T.load_rgb(os.path.join(render_dir, names[int(i)]))
+        if im.size != (size, size):
+            im = im.resize((size, size), Image.BILINEAR)
+        renders.append(T.to_float_array(im))
+    return np.stack(renders)[None].astype(np.float32)
+
+
 def main(argv=None):
     opt = parse_args(argv)
     device = common.setup_device(opt)
     im = torch.from_numpy(prep_image(opt.img_path, opt.input_dim)).to(device)
-    if opt.ply_path:
+    if opt.ply_path or opt.render_dir:
         # the teacher's image feature is 1024 unless set: the student's
         # default 2048 does not carry over (as in JAX)
+        opt.shape = "MultiView" if opt.render_dir else "PointCloud"
         model = common.build_teacher(opt, opt.ckpt, device, img_feature_dim=(
             opt.img_feature_dim if opt.img_feature_dim != 2048 else 1024))
-        pc = torch.from_numpy(sample_cloud(opt.ply_path, opt.point_num)).to(device)
-        vp = model.predict_viewpoint(im, pc)[0].cpu().numpy()
+        if opt.render_dir:
+            shape = load_renders(opt.render_dir, opt.view_num, opt.tour, opt.mutation,
+                                 opt.input_dim)
+        else:
+            shape = sample_cloud(opt.ply_path, opt.point_num)
+        vp = model.predict_viewpoint(im, torch.from_numpy(shape).to(device))[0].cpu().numpy()
     else:
         model = common.build_student(opt, opt.ckpt, device)
         vp = model.predict_viewpoint(im)[0].cpu().numpy()

@@ -1,17 +1,23 @@
 """Evaluation CLI. Port of `pose3d_tpu/cli/testing.py` for the student
-(`--shape None`) and the PointCloud teacher (`--shape PointCloud`).
+(`--shape None`) and the teacher (`--shape PointCloud` with its clouds,
+`--shape MultiView` with `--view_num` renders over `--tour` rings).
 
-One pass over the validation set, reduced per category. Writes the same
-artifacts as the JAX CLI: testing_log.txt with the per-category lines and
-predictions_{cat}.npy dumps. `--bf16` computes in bfloat16 (float32
-parameters). The MultiView teacher, `--int8`, `--device_shapes`,
-`--n_devices` and the LineMod / Pix3D datasets are refused with a message
-until they are ported (ROADMAP.md).
+One pass over the validation set, reduced per category: ObjectNet3D's or
+Pascal3D's test categories, or (the student) LineMod's objects or Pix3D's
+categories. Writes the same artifacts as the JAX CLI: testing_log.txt with
+the per-category lines and predictions_{cat}.npy dumps. `--bf16` computes
+in bfloat16 (float32 parameters). `--int8`, `--device_shapes` and
+`--n_devices` are refused with a message until they are ported
+(ROADMAP.md).
 
     python -m pose3d_tpu_torch.cli.testing --dataset ObjectNet3D --shape None \\
         --img_feature_dim 2048 --model student.pth
     python -m pose3d_tpu_torch.cli.testing --dataset ObjectNet3D \\
         --shape PointCloud --shape_dir pointcloud --model teacher.pth
+    python -m pose3d_tpu_torch.cli.testing --dataset ObjectNet3D \\
+        --shape MultiView --shape_dir Renders_semi_sphere --model teacher.pth
+    python -m pose3d_tpu_torch.cli.testing --dataset LineMod --shape None \\
+        --img_feature_dim 2048 --model student.pth
 """
 
 from __future__ import annotations
@@ -41,11 +47,13 @@ def parse_args(argv=None):
     parser.add_argument("--shape", type=str, default="MultiView",
                         choices=["MultiView", "PointCloud", "None"],
                         help="None evaluates the RGB-only student, PointCloud the "
-                             "teacher with its clouds; MultiView is not ported yet")
+                             "teacher with its clouds, MultiView the teacher with its "
+                             "renders")
     parser.add_argument("--shape_dir", type=str, default="Renders_semi_sphere",
                         choices=["Renders_semi_sphere", "pointcloud"])
     parser.add_argument("--shape_feature_dim", type=int, default=256)
     parser.add_argument("--point_num", type=int, default=2500)
+    common.add_shape_flags(parser)
     parser.add_argument("--random_model", action="store_true",
                         help="pair each image with another CAD model of its category")
     parser.add_argument("--output_dir", type=str, default=None)
@@ -56,24 +64,31 @@ def parse_args(argv=None):
     parser.add_argument("--n_devices", type=int, default=None,
                         help="not ported yet: refused (ROADMAP.md)")
     opt = parser.parse_args(argv)
-    if opt.shape == "MultiView":
-        raise SystemExit("--shape MultiView: the MultiView teacher is not ported "
-                         "to pose3d_tpu_torch yet; see ROADMAP.md Queue 1 "
-                         "(--shape None for the student, PointCloud for the "
-                         "PointCloud teacher)")
     common.refuse_unported(opt, ("int8", "device_shapes", "n_devices"))
+    if opt.dataset in ("LineMod", "Pix3D") and opt.shape != "None":
+        # JAX builds the teacher and fails on the samples' missing 'shape'
+        raise SystemExit(f"--dataset {opt.dataset}: its samples carry no shape, so only the "
+                         "RGB-only student (--shape None) is evaluated on it")
     return opt
 
 
 def build_eval_dataset(opt):
+    """The evaluation set of --dataset, as the JAX CLI builds it."""
     if opt.dataset not in common.TEST_CATS:
-        raise SystemExit(f"--dataset {opt.dataset} is not ported to "
-                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+        raise SystemExit(f"unsupported dataset {opt.dataset}")  # JAX's
+    root_dir, annotation_file = os.path.join(opt.data_root, opt.dataset), f"{opt.dataset}.txt"
+    cats = common.TEST_CATS[opt.dataset]
+    if opt.dataset == "LineMod":
+        return datasets.Linemod(root_dir, annotation_file, input_dim=opt.input_dim,
+                                cat_choice=cats)
+    if opt.dataset == "Pix3D":
+        return datasets.Pix3DContrast(root_dir, annotation_file, train=False,
+                                      input_dim=opt.input_dim, cls_choice=cats)
     return datasets.Pascal3DContrast(
-        os.path.join(opt.data_root, opt.dataset), f"{opt.dataset}.txt",
-        input_dim=opt.input_dim, keypoint=opt.dataset == "Pascal3D",
-        cat_choice=common.TEST_CATS[opt.dataset], shape=opt.shape, shape_dir=opt.shape_dir,
-        point_num=opt.point_num, random_model=opt.random_model)
+        root_dir, annotation_file, input_dim=opt.input_dim,
+        keypoint=opt.dataset == "Pascal3D", cat_choice=cats, shape=opt.shape,
+        shape_dir=opt.shape_dir, point_num=opt.point_num, random_model=opt.random_model,
+        view_num=opt.view_num, tour=opt.tour)
 
 
 def main(argv=None):

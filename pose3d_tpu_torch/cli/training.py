@@ -1,12 +1,17 @@
 """Teacher and baseline training CLI. Port of `pose3d_tpu/cli/training.py`
-on ObjectNet3D and Pascal3D:
-  * `--shape PointCloud`: the contrastive PointCloud teacher, its NCE the
-    infoNCE-KD (through the CUDA kernels of `csrc/info_nce.cu` on the card
-    with `--fused_nce`), or `--nce pose` (weighted by `--weighting`) or
-    `--nce multipose`;
+on ObjectNet3D and Pascal3D, and (the baseline) ShapeNetCore:
+  * `--shape PointCloud` / `--shape MultiView`: the contrastive teacher
+    with a PointNet over the object's cloud or a ResNet-18 over its
+    `--view_num` renders (`--tour` rings), its NCE the infoNCE-KD (through
+    the CUDA kernels of `csrc/info_nce.cu` on the card with `--fused_nce`),
+    or `--nce pose` (weighted by `--weighting`) or `--nce multipose`;
   * `--shape None`: the RGB-only supervised baseline, the student
     (`--img_feature_dim`, `--student_width_mult`) under the 4-term pose
-    loss alone, its stem in the VGG stem kernel on the card.
+    loss alone, its stem in the VGG stem kernel on the card. On
+    `--dataset ShapeNetCore` it trains on ShapeNetCore's renders over SUN
+    backgrounds (`<data_root>/SUN`) at 224 x 224 and validates on Pix3D
+    (`<data_root>/Pix3D`); a teacher is refused there, since Pix3D's
+    samples carry no shape to evaluate it with.
 `--bf16` computes both in bfloat16 (float32 parameters and checkpoints);
 the teacher's PointNet then trains in the train-mode PointNet kernel's
 bf16 instance on the card.
@@ -14,11 +19,13 @@ bf16 instance on the card.
     python -m pose3d_tpu_torch.cli.training --dataset ObjectNet3D \\
         --shape PointCloud --shape_dir pointcloud --batch_size 160 \\
         --n_epoch 300 --lr 1e-4 --decrease 200 --fused_nce
+    python -m pose3d_tpu_torch.cli.training --dataset ObjectNet3D \\
+        --shape MultiView --shape_dir Renders_semi_sphere --batch_size 64 --fused_nce
     python -m pose3d_tpu_torch.cli.training --dataset ObjectNet3D --shape None \\
         --img_feature_dim 2048 --batch_size 64
 
 Runs on the card (`--device cuda`, the default); `--device cpu` runs the
-plain versions. Writes, under <result_dir>/PointCloud_<dataset>[_novel]/
+plain versions. Writes, under <result_dir>/<shape>_<dataset>[_novel]/
 (the baseline: baseline_<dataset>[_novel]/), training_log.txt,
 config.json, metrics.jsonl, the curves and ckpt/ (checkpoint.pth, best.pth,
 EPOCH and, for the teacher, the image encoder alone; checkpoint.pth is
@@ -65,8 +72,9 @@ def parse_args(argv=None):
                         choices=["Renders_semi_sphere", "pointcloud"])
     parser.add_argument("--shape", type=str, default="MultiView",
                         choices=["MultiView", "PointCloud", "None"],
-                        help="PointCloud: the contrastive teacher; None: the RGB-only "
-                             "supervised baseline; MultiView is not ported yet")
+                        help="PointCloud / MultiView: the contrastive teacher with "
+                             "that shape encoder; None: the RGB-only supervised baseline")
+    common.add_shape_flags(parser)
     parser.add_argument("--student_width_mult", type=float, default=1.0,
                         help="--shape None: the student's VGG conv width multiplier")
     parser.add_argument("--novel", action="store_true")
@@ -111,12 +119,18 @@ def parse_args(argv=None):
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="not ported yet, refused (ROADMAP.md)")
     opt = parser.parse_args(argv)
-    if opt.shape == "MultiView":
-        raise SystemExit("--shape MultiView: the MultiView teacher's training is not ported "
-                         "to pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
-    if opt.dataset in (None, "ShapeNetCore", "Pix3D", "LineMod"):
-        raise SystemExit(f"--dataset {opt.dataset}: training on it is not ported to "
-                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+    if opt.dataset is None:
+        raise SystemExit("--dataset is required")
+    if opt.dataset in ("Pix3D", "LineMod"):
+        raise SystemExit(f"unsupported training dataset {opt.dataset}")  # JAX's
+    if opt.dataset == "ShapeNetCore":
+        if opt.shape != "None":
+            raise SystemExit(common.SHAPENET_TEACHER + "; train the RGB-only baseline "
+                             "(--shape None) on it")
+        if opt.input_dim != 224:
+            raise SystemExit("--dataset ShapeNetCore crops its renders to 224 x 224 and "
+                             "Pix3D evaluates at 224 whatever --input_dim (as in JAX): "
+                             "leave --input_dim at 224")
     # JAX's refusals, with its messages
     if opt.weighting is not None and opt.nce != "pose":
         raise SystemExit("--weighting is consumed only by --nce pose "
@@ -163,7 +177,8 @@ def main(argv=None):
         model = common.build_student(opt, None, device).train()
     else:
         azi, ele, inp = common.num_classes(opt.bin_size)
-        model = PoseEstimator(img_feature_dim=opt.img_feature_dim,
+        model = PoseEstimator(shape=opt.shape, view_num=opt.view_num,
+                              img_feature_dim=opt.img_feature_dim,
                               shape_feature_dim=opt.shape_feature_dim, azi_classes=azi,
                               ele_classes=ele, inp_classes=inp, bin_size=opt.bin_size,
                               generator=torch.Generator().manual_seed(common.MANUAL_SEED),
@@ -193,7 +208,8 @@ def main(argv=None):
         cat_ds = datasets.Pascal3DContrast(
             os.path.join(opt.data_root, opt.dataset), f"{opt.dataset}.txt", train=False,
             cat_choice=common.TEST_CATS[opt.dataset], keypoint=False, shape=opt.shape,
-            shape_dir=opt.shape_dir, input_dim=opt.input_dim, point_num=opt.point_num)
+            shape_dir=opt.shape_dir, input_dim=opt.input_dim, point_num=opt.point_num,
+            view_num=opt.view_num, tour=opt.tour)
         cat_eval_loader = DataLoader(cat_ds, opt.batch_size, shuffle=False,
                                      num_workers=opt.workers, seed=common.MANUAL_SEED)
         trainer = TeacherTrainer(state, train_loader, eval_loader, cat_ds.category_names,

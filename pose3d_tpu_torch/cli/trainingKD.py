@@ -1,15 +1,18 @@
 """Student KD training CLI. Port of `pose3d_tpu/cli/trainingKD.py`, on
-ObjectNet3D or Pascal3D, with a PointCloud teacher:
+ObjectNet3D or Pascal3D, with a PointCloud or a MultiView teacher
+(`--shape`; a MultiView teacher sees `--view_num` renders a sample, over
+`--tour` rings):
   * `--crd`: the RGB-only student (VGG-11) distilled from a frozen
-    PointCloud teacher, with the stem's CUDA kernel (`csrc/vgg_stem.cu`) in
-    every step and the teacher's PointNet kernel in its forward on the card;
+    teacher, with the stem's CUDA kernel (`csrc/vgg_stem.cu`) in every step
+    and a PointCloud teacher's PointNet kernel in its forward on the card;
     `--contrast` drops the features' KL (30 epochs), `--vid` takes the VID
     loss instead (60);
-  * `--stage 1`: the vanilla PointCloud teacher (ResNet-18, PointNet,
+  * `--stage 1`: the vanilla teacher (ResNet-18, the shape encoder,
     compress MLP) and the student trained together from scratch, with the
     teacher's pose loss and the symmetric infoNCE-KD at `--tau` (its two
-    directions in the NCE kernels with `--fused_nce`), the train-mode
-    PointNet kernel (`csrc/pointnet_train.cu`) in every step; with
+    directions in the NCE kernels with `--fused_nce`), a PointCloud
+    teacher's train-mode PointNet kernel (`csrc/pointnet_train.cu`) in
+    every step; with
     `--use_memory_bank` a queue of `--memory_bank_size` past teacher
     features joins the negatives, and `--nce pose` (weighted by
     `--weighting`) or `--nce multipose` replaces the infoNCE;
@@ -20,6 +23,10 @@ ObjectNet3D or Pascal3D, with a PointCloud teacher:
     python -m pose3d_tpu_torch.cli.trainingKD --crd --dataset ObjectNet3D \\
         --shape PointCloud --shape_dir pointcloud --batch_size 46 \\
         --teacher_model result/PointCloud_ObjectNet3D/ckpt/checkpoint.pth
+    python -m pose3d_tpu_torch.cli.trainingKD --crd --dataset ObjectNet3D \\
+        --shape MultiView --shape_dir Renders_semi_sphere --batch_size 46 \\
+        --shape_feature_dim 256 \\
+        --teacher_model result/MultiView_ObjectNet3D/ckpt/checkpoint.pth
     python -m pose3d_tpu_torch.cli.trainingKD --stage 1 --fused_nce \\
         --dataset ObjectNet3D --shape PointCloud --shape_dir pointcloud \\
         --batch_size 46 --shape_feature_dim 256
@@ -85,8 +92,9 @@ def parse_args(argv=None):
                         choices=["Renders_semi_sphere", "pointcloud"])
     parser.add_argument("--shape", type=str, default="MultiView",
                         choices=["MultiView", "PointCloud", "None"],
-                        help="the teacher's shape input: PointCloud; MultiView is not "
-                             "ported yet")
+                        help="the teacher's shape encoder: PointCloud (a PointNet over "
+                             "the object's cloud) or MultiView (a ResNet-18 over its renders)")
+    common.add_shape_flags(parser)
     parser.add_argument("--novel", action="store_true")
     parser.add_argument("--keypoint", action="store_true")
     parser.add_argument("--shot", type=int, default=None)
@@ -166,12 +174,17 @@ def parse_args(argv=None):
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="not ported yet, refused (ROADMAP.md)")
     opt = parser.parse_args(argv)
-    if opt.shape != "PointCloud":
-        raise SystemExit(f"--shape {opt.shape}: only the PointCloud teacher's KD is ported "
-                         "to pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
-    if opt.dataset in (None, "ShapeNetCore", "Pix3D", "LineMod"):
-        raise SystemExit(f"--dataset {opt.dataset}: KD training on it is not ported to "
-                         "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+    if opt.shape == "None":
+        raise SystemExit("--shape None: KD distils from a teacher; give its shape encoder, "
+                         "--shape PointCloud or MultiView")
+    if opt.dataset is None:
+        raise SystemExit("--dataset is required")
+    if opt.dataset in ("Pix3D", "LineMod"):
+        raise SystemExit(f"unsupported KD training dataset {opt.dataset}")  # JAX's
+    if opt.dataset == "ShapeNetCore":
+        raise SystemExit(common.SHAPENET_TEACHER + "; and its one-view ShapeNet samples "
+                         "lack the flipped and rotated views that --crd, --contrast, --vid "
+                         "and --stage 2 take (JAX's run fails at their first step)")
     if opt.stage not in (0, 1, 2):
         raise SystemExit(f"--stage {opt.stage}: pose3d_tpu_torch's KD training takes --stage "
                          "1 or 2, or none for --crd (ROADMAP.md Queue 1 lists the regimes)")

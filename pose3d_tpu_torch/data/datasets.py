@@ -1,17 +1,20 @@
 """Dataset sample producers (host side, fixed-shape numpy outputs). Port of
-`pose3d_tpu/data/datasets.py` `_finalize`, `Pascal3D` and
-`Pascal3DContrast`, train and evaluation branches, with images only
-(`shape=None`) or with the object's point cloud (`shape="PointCloud"`); the
-MultiView renders, ShapeNet, Pix3D and LineMod come with their paths
-(ROADMAP.md Queue 1).
+`pose3d_tpu/data/datasets.py` `_finalize`, `Pascal3D`, `Pascal3DContrast`,
+`ShapeNet`, `Pix3D`, `Linemod` and `Pix3DContrast`, train and evaluation
+branches, with images only (`shape=None`), with the object's point cloud
+(`shape="PointCloud"`) or with its ring of renders (`shape="MultiView"`).
+JAX's decode cache (`--cache_decoded_mb`) and device-resident banks
+(`--device_shapes`) are not ported: every image is decoded where it is
+used.
 
 Samples are dicts of numpy arrays: 'im' NHWC float32, 'label' the canonical
 int triple, 'cat_id' the index of the sample's category in
 `category_names`, so evaluation is one pass reduced per category, and
-'shape' the (point_num, 3) float32 cloud. Contrastive train samples also
-carry the flipped and the rotated view ('im_flip', 'label_flip', 'im_rot',
-'label_rot'). Random draws come from the `rng` the loader passes, in JAX's
-order, so the same seed gives the JAX loader's samples.
+'shape' the (point_num, 3) float32 cloud or the (view_num, H, W, 3)
+float32 renders. Contrastive train samples also carry the flipped and the
+rotated view ('im_flip', 'label_flip', 'im_rot', 'label_rot'). Random
+draws come from the `rng` the loader passes, in JAX's order, so the same
+seed gives the JAX loader's samples.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import os
 from typing import Any
 
 import numpy as np
+import pandas as pd
 from PIL import Image
 
 from pose3d_tpu_torch.data import annotations as anno
@@ -46,14 +50,53 @@ def _finalize(im: Image.Image, rng: np.random.Generator, train: bool,
     return arr.astype(np.float32)
 
 
+def _mutation(random_range: int, rng: np.random.Generator) -> int:
+    """The canonical frame's azimuth turn, in 5-degree steps of the 72-step
+    render ring: +-8 steps (random_range 0), +-17 (1), or any (2)."""
+    if random_range == 0:
+        return int(rng.integers(-8, 9)) % 72
+    if random_range == 1:
+        return int(rng.integers(-17, 18)) % 72
+    return int(rng.integers(0, 72))
+
+
+def _category_ids(frame: pd.DataFrame, column: str) -> tuple[list, dict]:
+    names = sorted(np.unique(frame[column]).tolist()) if len(frame) else []
+    return names, {c: i for i, c in enumerate(names)}
+
+
+class _Renders:
+    """A model's ring of renders: the `multiview_ids` of its sorted
+    `<render_dir>/*` files, each to float in [0, 1] (no normalisation, no
+    augmentation). Sorted listings are kept per directory."""
+
+    def __init__(self, view_num: int, tour: int):
+        self.view_num = view_num
+        self.tour = tour
+        self._names: dict[str, list[str]] = {}
+
+    def load(self, render_dir: str, mutation: int, size: int | None) -> np.ndarray:
+        """(view_num, H, W, 3) float32; each render resized (bilinear) to
+        size x size unless `size` is None."""
+        names = self._names.get(render_dir)
+        if names is None:
+            names = self._names[render_dir] = sorted(os.listdir(render_dir))
+        renders = []
+        for i in T.multiview_ids(self.view_num, self.tour, mutation):
+            im = T.load_rgb(os.path.join(render_dir, names[i]))
+            if size is not None:
+                im = im.resize((size, size), Image.BILINEAR)
+            renders.append(T.to_float_array(im))
+        return np.stack(renders).astype(np.float32)
+
+
 class _PascalBase:
-    """The annotation frame, category ids and the point-cloud loader."""
+    """The annotation frame, category ids and the shape loaders."""
 
     def __init__(self, root_dir, frame, shape, shape_dir, point_num, input_dim,
-                 random_model):
-        if shape not in (None, "None", "PointCloud"):
-            raise NotImplementedError(f"shape={shape!r} datasets are not ported to "
-                                      "pose3d_tpu_torch yet; see ROADMAP.md Queue 1")
+                 random_model, view_num=12, tour=2):
+        if shape not in (None, "None", "PointCloud", "MultiView"):
+            raise ValueError(f"shape={shape!r}: None, 'PointCloud' or 'MultiView'")
         self.root_dir = root_dir
         self.frame = frame
         self.shape = None if shape == "None" else shape
@@ -61,8 +104,8 @@ class _PascalBase:
         self.point_num = point_num
         self.input_dim = input_dim
         self.random_model = random_model
-        self.category_names = (sorted(np.unique(frame.cat).tolist()) if len(frame) else [])
-        self._cat_to_id = {c: i for i, c in enumerate(self.category_names)}
+        self.renders = _Renders(view_num, tour)
+        self.category_names, self._cat_to_id = _category_ids(frame, "cat")
 
     def __len__(self):
         return len(self.frame)
@@ -78,26 +121,34 @@ class _PascalBase:
                 cad_index = others.iloc[rng.integers(len(others))]["cad_index"]
         return row, cat, cad_index, row[anno.LABEL_COLS].to_numpy(dtype=np.float64)
 
-    def _cloud(self, cat, cad_index, rotation_deg, rng) -> np.ndarray:
-        path = os.path.join(self.root_dir, self.shape_dir, str(cat),
-                            "%02d" % int(cad_index), "compressed.ply")
-        return T.sample_pointcloud(ply.load_vertices(path), self.point_num, rotation_deg, rng)
+    def _shape(self, cat, cad_index, mutation, rng) -> np.ndarray:
+        """The cloud under `<shape_dir>/<cat>/<XX>/compressed.ply`, turned by
+        `mutation` 5-degree steps, or the renders under `.../<XX>/crop/`
+        rolled by `mutation` ring steps (resized to input_dim when it is not
+        224: at 224 the files' own size is kept, as in JAX)."""
+        model_dir = os.path.join(self.root_dir, self.shape_dir, str(cat),
+                                 "%02d" % int(cad_index))
+        if self.shape == "MultiView":
+            return self.renders.load(os.path.join(model_dir, "crop"), mutation,
+                                     None if self.input_dim == 224 else self.input_dim)
+        return T.sample_pointcloud(ply.load_vertices(os.path.join(model_dir, "compressed.ply")),
+                                   self.point_num, mutation, rng)
 
 
 class Pascal3D(_PascalBase):
     """Pascal3D+ / ObjectNet3D samples (the reference's Pascal3D). Train:
     blur, jittered crop, flip and rotation with their label fixes,
     photometric augmentation; with `random`, the canonical frame's azimuth
-    turns by a random multiple of 5 degrees (the cloud with it). Eval: the
+    turns by a random multiple of 5 degrees (the shape with it). Eval: the
     bounding-box crop."""
 
     def __init__(self, root_dir, annotation_file, input_dim=224, shape=None,
                  shape_dir="pointcloud", random=False, novel=True, keypoint=True, train=True,
-                 cat_choice=None, random_range=0, point_num=2500):
+                 cat_choice=None, random_range=0, point_num=2500, view_num=12, tour=2):
         frame = anno.pascal3d_frame(root_dir, annotation_file, train=train, keypoint=keypoint,
                                     novel=novel, cat_choice=cat_choice)
         super().__init__(root_dir, frame, shape, shape_dir, point_num, input_dim,
-                         random_model=False)
+                         random_model=False, view_num=view_num, tour=tour)
         self.train = train
         self.random = random
         self.random_range = random_range
@@ -127,15 +178,10 @@ class Pascal3D(_PascalBase):
             return sample
         mutation = 0
         if self.random and cat not in anno.BAD_CATS:
-            if self.random_range == 0:
-                mutation = int(rng.integers(-8, 9)) % 72
-            elif self.random_range == 1:
-                mutation = int(rng.integers(-17, 18)) % 72
-            else:
-                mutation = int(rng.integers(0, 72))
+            mutation = _mutation(self.random_range, rng)
             sample["label"] = sample["label"].copy()
             sample["label"][0] = (sample["label"][0] - mutation * 5) % 360
-        sample["shape"] = self._cloud(cat, cad_index, mutation, rng)
+        sample["shape"] = self._shape(cat, cad_index, mutation, rng)
         return sample
 
 
@@ -144,19 +190,21 @@ class Pascal3DContrast(_PascalBase):
     Train: blur, jittered crop, then three views, each resize-padded and
     photometrically augmented: rotated by +-15 degrees, flipped, and the
     original. Eval: the bounding-box crop, resize-padded to `input_dim` and
-    ImageNet-normalized. With shape="PointCloud", a cloud of `point_num`
-    points sampled from `<root_dir>/<shape_dir>/<cat>/<cad_index:02d>/
-    compressed.ply`; `random_model` takes another CAD model of the same
-    category."""
+    ImageNet-normalized. With a shape, the object's cloud of `point_num`
+    points or its renders, unturned, in training and at validation (the
+    reference emits no renders at validation, which its MultiView
+    evaluation cannot unpack; JAX emits them, and so does the port);
+    `random_model` takes another CAD model of the same category."""
 
     def __init__(self, root_dir, annotation_file, input_dim=224, keypoint=True,
                  cat_choice=None, shape=None, shape_dir="pointcloud", point_num=2500,
-                 random_model=False, train=False, novel=False, shot=None, seed=None):
+                 random_model=False, train=False, novel=False, shot=None, seed=None,
+                 view_num=12, tour=2):
         frame = anno.pascal3d_frame(root_dir, annotation_file, train=train, keypoint=keypoint,
                                     novel=novel, cat_choice=cat_choice, shot=shot,
                                     contrast_val_keypoint=not train, seed=seed)
         super().__init__(root_dir, frame, shape, shape_dir, point_num, input_dim,
-                         random_model)
+                         random_model, view_num=view_num, tour=tour)
         self.train = train
 
     def get(self, idx: int, rng: np.random.Generator) -> dict[str, Any]:
@@ -171,26 +219,245 @@ class Pascal3DContrast(_PascalBase):
                 im = T.gaussian_blur(im, int(rng.integers(1, 5)))
             im = T.random_crop(im, left, upper, right - left, lower - upper, rng)
             r = float(rng.choice([-15, 15]))
-            views = {}
-            for key, view, view_label in (
-                    ("rot", im.rotate(r), T.rotate_label(label, r)),
-                    ("flip", im.transpose(Image.FLIP_LEFT_RIGHT), T.flip_label(label)),
-                    ("", im, label)):
-                arr = _finalize(T.resize_pad(view, self.input_dim), rng, train=True,
-                                contrast=True)
-                suffix = f"_{key}" if key else ""
-                views["im" + suffix] = arr
-                views["label" + suffix] = T.process_viewpoint_label(view_label).astype(np.int32)
-            sample = {"im": views["im"], "label": views["label"],
-                      "im_flip": views["im_flip"], "label_flip": views["label_flip"],
-                      "im_rot": views["im_rot"], "label_rot": views["label_rot"],
-                      "cat_id": cat_id}
+            sample = _three_views(im, label, r, self.input_dim, rng)
+            sample["cat_id"] = cat_id
         else:
             im = im.crop((left, upper, right, lower))
             arr = _finalize(T.resize_pad(im, self.input_dim), rng, train=False,
                             contrast=True)
             sample = {"im": arr, "label": T.process_viewpoint_label(label).astype(np.int32),
                       "cat_id": cat_id}
-        if self.shape == "PointCloud":
-            sample["shape"] = self._cloud(cat, cad_index, 0, rng)
+        if self.shape is not None:
+            sample["shape"] = self._shape(cat, cad_index, 0, rng)
         return sample
+
+
+def _three_views(im: Image.Image, label: np.ndarray, r: float, input_dim: int,
+                 rng: np.random.Generator, offset: float = 0.0) -> dict[str, np.ndarray]:
+    """The contrastive train views of a cropped image, augmented in JAX's
+    order: rotated by `r` degrees, flipped, and the original, with their
+    labels."""
+    views = {}
+    for key, view, view_label in (
+            ("_rot", im.rotate(r), T.rotate_label(label, r)),
+            ("_flip", im.transpose(Image.FLIP_LEFT_RIGHT), T.flip_label(label)),
+            ("", im, label)):
+        views["im" + key] = _finalize(T.resize_pad(view, input_dim), rng, train=True,
+                                      contrast=True)
+        views["label" + key] = T.process_viewpoint_label(view_label, offset).astype(np.int32)
+    return views
+
+
+def _center_or_random_crop(arr: np.ndarray, size: int, rng: np.random.Generator,
+                           random_crop: bool) -> np.ndarray:
+    """A size x size window of HWC `arr` (zero-padded to it first where it
+    is smaller): at a random place, or centred."""
+    h, w = arr.shape[:2]
+    if h < size or w < size:
+        pad_h, pad_w = max(0, size - h), max(0, size - w)
+        arr = np.pad(arr, ((pad_h // 2, pad_h - pad_h // 2),
+                           (pad_w // 2, pad_w - pad_w // 2), (0, 0)))
+        h, w = arr.shape[:2]
+    if random_crop:
+        top = int(rng.integers(0, h - size + 1))
+        left = int(rng.integers(0, w - size + 1))
+    else:
+        top, left = (h - size) // 2, (w - size) // 2
+    return arr[top:top + size, left:left + size]
+
+
+class ShapeNet(_PascalBase):
+    """ShapeNetCore renders composited over random SUN backgrounds (the
+    reference's ShapeNet). The render turns by a clipped normal in-plane
+    angle, is pasted through its alpha over a background of its size (a
+    white one where the drawn background is missing or another size), then
+    in training blurred (p 0.3), flipped (p 0.5), color-jittered and cropped
+    at random to 224 x 224 (centred at validation) whatever `input_dim`,
+    normalised, and PCA-lit in training. With a shape, the model's ring of
+    renders under `<shape_dir>/<cat:08d>/<example_id>/crop/` at the files'
+    own size, rolled with `random` as in `Pascal3D`."""
+
+    def __init__(self, root_dir, annotation_file, bg_dir, bg_list="SUN_database.txt",
+                 input_dim=224, model_number=200, novel=False, shape="MultiView",
+                 shape_dir="Renders_semi_sphere", view_num=12, tour=2, random_range=0,
+                 point_num=2500, cat_choice=None, train=True, random=False):
+        frame = anno.shapenet_frame(root_dir, annotation_file, train=train, novel=novel,
+                                    cat_choice=cat_choice, model_number=model_number)
+        super().__init__(root_dir, frame.rename(columns={"cat_id": "cat"}), shape,
+                         shape_dir, point_num, input_dim, random_model=False,
+                         view_num=view_num, tour=tour)
+        self.bg_dir = bg_dir
+        self.bg_list = pd.read_csv(os.path.join(bg_dir, bg_list))
+        self.train = train
+        self.random = random
+        self.random_range = random_range
+
+    def _background(self, size, rng: np.random.Generator) -> Image.Image:
+        path = os.path.join(self.bg_dir,
+                            self.bg_list.iloc[int(rng.integers(len(self.bg_list))), 1])
+        try:
+            bg = T.load_rgb(path)
+            if bg.size == size:
+                return bg
+        except OSError:
+            pass
+        return Image.new("RGB", size, (255, 255, 255))
+
+    def get(self, idx: int, rng: np.random.Generator) -> dict[str, Any]:
+        row = self.frame.iloc[idx]
+        cat, example_id = row["cat"], row["example_id"]
+        label = np.array([row["azimuth"], row["elevation"], 0.0], np.float64)
+
+        render = Image.open(os.path.join(self.root_dir, row["image_path"]))
+        r = max(-45, min(45, rng.standard_normal() * 15))
+        render = render.rotate(r)
+        label[2] += r
+        im = self._background(render.size, rng).copy()
+        im.paste(render, (0, 0), render if render.mode == "RGBA" else None)
+
+        if self.train:
+            if rng.random() < 0.3:
+                im = T.gaussian_blur(im, 3)
+            if rng.random() > 0.5:
+                im = im.transpose(Image.FLIP_LEFT_RIGHT)
+                label[0] = (360 - label[0]) % 360
+                label[2] = -label[2]
+            arr = T.color_jitter(T.to_float_array(im), rng)
+            arr = T.normalize_image(_center_or_random_crop(arr, 224, rng, random_crop=True))
+            arr = T.pca_lighting(arr, rng)
+        else:
+            arr = _center_or_random_crop(T.to_float_array(im), 224, rng, random_crop=False)
+            arr = T.normalize_image(arr)
+        label[1] += 90.0
+        label[2] += 180.0
+
+        sample = {"im": arr.astype(np.float32), "label": label.astype(np.int64).astype(np.int32),
+                  "cat_id": np.int32(self._cat_to_id.get(cat, -1))}
+        if self.shape is None:
+            return sample
+        mutation = 0
+        if self.random:
+            mutation = _mutation(self.random_range, rng)
+            sample["label"][0] = (sample["label"][0] - mutation * 5) % 360
+        render_dir = os.path.join(self.root_dir, self.shape_dir, "%08d" % int(cat),
+                                  str(example_id), "crop")
+        sample["shape"] = self.renders.load(render_dir, mutation, None)
+        return sample
+
+
+class Pix3D:
+    """Pix3D evaluation samples (the reference's Pix3D): the whole image,
+    resized (bilinear) to input_dim x input_dim unless it is 224 x 224
+    already, normalised; labels in Pix3D's units (`pix3d_frame`). No shape:
+    the reference's Pix3D carries none."""
+
+    def __init__(self, root_dir, annotation_file, input_dim=224, cat_choice=None):
+        self.root_dir = root_dir
+        self.input_dim = input_dim
+        self.frame = anno.pix3d_frame(root_dir, annotation_file, cat_choice)
+        self.category_names, self._cat_to_id = _category_ids(self.frame, "cat_id")
+
+    def __len__(self):
+        return len(self.frame)
+
+    def get(self, idx: int, rng: np.random.Generator) -> dict[str, Any]:
+        row = self.frame.iloc[idx]
+        label = row[anno.LABEL_COLS].to_numpy(dtype=np.float64).astype(np.int64)
+        im = T.load_rgb(os.path.join(self.root_dir, row["image_path"]))
+        if self.input_dim != 224 or im.size != (self.input_dim, self.input_dim):
+            im = im.resize((self.input_dim, self.input_dim), Image.BILINEAR)
+        arr = T.normalize_image(T.to_float_array(im))
+        return {"im": arr.astype(np.float32), "label": label.astype(np.int32),
+                "cat_id": np.int32(self._cat_to_id.get(row["cat_id"], -1))}
+
+
+class Linemod:
+    """LineMod evaluation samples (the reference's Linemod): the (x, y, w,
+    h) box, resize-padded and normalised; labels in LineMod's units
+    (elevation + 90, in-plane (180 - inp) mod 360). No shape."""
+
+    def __init__(self, root_dir, annotation_file, input_dim=224, cat_choice=None):
+        self.root_dir = root_dir
+        self.input_dim = input_dim
+        self.frame = anno.linemod_frame(root_dir, annotation_file, cat_choice)
+        self.category_names, self._cat_to_id = _category_ids(self.frame, "obj_id")
+
+    def __len__(self):
+        return len(self.frame)
+
+    def get(self, idx: int, rng: np.random.Generator) -> dict[str, Any]:
+        row = self.frame.iloc[idx]
+        x, y, w, h = row["x"], row["y"], row["w"], row["h"]
+        label = row[anno.LABEL_COLS].to_numpy(dtype=np.float64)
+        im = T.load_rgb(os.path.join(self.root_dir, row["image_path"]))
+        arr = T.normalize_image(T.to_float_array(
+            T.resize_pad(im.crop((x, y, x + w, y + h)), self.input_dim)))
+        label[1] = label[1] + 90.0
+        label[2] = (-label[2] + 180.0) % 360.0
+        return {"im": arr.astype(np.float32),
+                "label": label.astype(np.int64).astype(np.int32),
+                "cat_id": np.int32(self._cat_to_id.get(row["obj_id"], -1))}
+
+
+class Pix3DContrast:
+    """Pix3D samples in the contrastive layout (the reference's
+    Pix3DContrast). Train: blur, two jittered crops (the second the
+    positive view 'im_pos'), then the rotated (+-`rot` degrees), flipped
+    and original views as `Pascal3DContrast`'s, labels offset by `offset`;
+    with `pose_batch`, each batch of `bs` draws from one 30-degree azimuth
+    bucket (`_remap`). Eval: the box crop, resize-padded and normalised."""
+
+    def __init__(self, root_dir, annotation_file, train=True, input_dim=224, offset=0,
+                 shot=None, train_feat=False, cls_choice=None, idx_choice=None, rot=0,
+                 train_cls=None, pose_batch=False, bs=32, seed=None):
+        self.root_dir = root_dir
+        self.input_dim = input_dim
+        self.train = train
+        self.offset = offset
+        self.rot = rot
+        self.frame = anno.pix3d_contrast_frame(
+            root_dir, annotation_file, train=train, train_feat=train_feat,
+            cls_choice=cls_choice, train_cls=train_cls, shot=shot, idx_choice=idx_choice,
+            seed=seed)
+        self.category_names, self._cat_to_id = _category_ids(self.frame, "cls_name")
+        self.pose_batch = pose_batch
+        self.bs = bs
+        if pose_batch:
+            self.pose_index = {i: [] for i in range(12)}
+            for i, azimuth in enumerate(self.frame["azimuth"]):
+                self.pose_index[int(azimuth // 30)].append(i)
+
+    def __len__(self):
+        return len(self.frame)
+
+    def _remap(self, idx: int) -> int:
+        """The pose-balanced index: batch b draws from bucket b mod 12."""
+        bucket = self.pose_index[(idx // self.bs) % 12]
+        if not bucket:
+            return idx % len(self.frame)
+        return bucket[(self.bs * idx // (12 * self.bs) + idx % self.bs) % len(bucket)]
+
+    def get(self, idx: int, rng: np.random.Generator) -> dict[str, Any]:
+        if self.pose_batch:
+            idx = self._remap(idx)
+        row = self.frame.iloc[idx]
+        left, upper, right, lower = row["left"], row["upper"], row["right"], row["lower"]
+        label = row[anno.LABEL_COLS].to_numpy(dtype=np.float64)
+        im = T.load_rgb(os.path.join(self.root_dir, row["im_path"]))
+        cat_id = np.int32(self._cat_to_id.get(row["cls_name"], -1))
+        if self.train:
+            im_pos = im.copy()
+            if min(right - left, lower - upper) > 224 and rng.random() > 0.5:
+                im = T.gaussian_blur(im, int(rng.integers(1, 5)))
+            im = T.random_crop(im, left, upper, right - left, lower - upper, rng)
+            im_pos = T.random_crop(im_pos, left, upper, right - left, lower - upper, rng)
+            arr_pos = _finalize(T.resize_pad(im_pos, self.input_dim), rng, True, True)
+            r = float(rng.choice([-self.rot, self.rot]))
+            sample = _three_views(im, label, r, self.input_dim, rng, self.offset)
+            sample.update(cls_index=cat_id, im_pos=arr_pos, cat_id=cat_id)
+            return sample
+        im = im.crop((left, upper, right, lower))
+        arr = _finalize(T.resize_pad(im, self.input_dim), rng, False, True)
+        return {"im": arr,
+                "label": T.process_viewpoint_label(label, self.offset).astype(np.int32),
+                "cat_id": cat_id}

@@ -1,7 +1,7 @@
 """Host-side image transforms, point sampling and label algebra. Port of
 `pose3d_tpu/data/transforms.py` (`random_crop`, `resize_pad`,
 `gaussian_blur`, `color_jitter`, `random_grayscale`, `pca_lighting`,
-`normalize_image`, `to_float_array`, `sample_pointcloud`,
+`normalize_image`, `to_float_array`, `multiview_ids`, `sample_pointcloud`,
 `process_viewpoint_label`, `flip_label`, `rotate_label`), plus `load_rgb`;
 numpy and PIL only. Random draws come from the caller's numpy Generator in
 JAX's order, so one seed gives JAX's samples."""
@@ -103,6 +103,25 @@ def normalize_image(arr: np.ndarray) -> np.ndarray:
 
 def to_float_array(im: Image.Image) -> np.ndarray:
     return np.asarray(im, np.float32) / 255.0
+
+
+def multiview_ids(view_num: int, tour: int, mutation: int) -> np.ndarray:
+    """Indices into a model's sorted render files: `tour` elevation rings of
+    72 azimuth steps (tour 1 the middle ring only, 2 the lower two, 3 all
+    three), each rolled by `mutation`, then strided to view_num / tour
+    views."""
+    step = int(72 / (view_num / tour))
+    low = np.arange(72, dtype=int)
+    mid, up = low + 72, low + 144
+
+    def rolled(ring):
+        return np.concatenate((ring[mutation:], ring[:mutation]))[::step]
+
+    if tour == 1:
+        return rolled(mid)
+    if tour == 2:
+        return np.concatenate((rolled(low), rolled(mid)))
+    return np.concatenate((rolled(low), rolled(mid), rolled(up)))
 
 
 def sample_pointcloud(vertices: np.ndarray, point_num: int, rotation_deg: float,

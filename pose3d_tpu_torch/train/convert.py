@@ -1,9 +1,10 @@
 """Weights bridge from the JAX package, and the reader of reference `.pth` files.
 
 `baseline_state_dict`, `pose_state_dict` and `pose_vanilla_state_dict` turn
-the JAX `BaselineEstimator`'s, PointCloud `PoseEstimator`'s and PointCloud
-`PoseEstimatorVanilla`'s {"params", "batch_stats"} trees (numpy arrays)
-into the port's state_dicts, mirroring
+the JAX `BaselineEstimator`'s, `PoseEstimator`'s and `PoseEstimatorVanilla`'s
+{"params", "batch_stats"} trees (numpy arrays; the teachers with a
+PointCloud or a MultiView shape encoder) into the port's state_dicts,
+mirroring
 `pose3d_tpu/train/torch_export.py export_baseline_estimator`,
 `export_pose_estimator` and `export_pose_estimator_vanilla`:
   flax Dense kernel (in, out)        -> Linear weight (out, in), or Conv1d
@@ -122,7 +123,15 @@ def _resnet(params, stats, sd, prefix, stage_sizes, block, n_convs):
     _linear(params["Dense_0"], sd, f"{prefix}.fc")
 
 
-def _pointnet(params, stats, sd):
+def _shape_encoder(params, stats, sd, shape):
+    """ShapeEncoderPC_0 -> shape_encoder.conv/bn{1..3}, or
+    ShapeEncoderMV_0/ResNet_0 (a ResNet-18) -> shape_encoder.render_encoder."""
+    if shape == "MultiView":
+        _resnet(params["ShapeEncoderMV_0"]["ResNet_0"], stats["ShapeEncoderMV_0"]["ResNet_0"],
+                sd, "shape_encoder.render_encoder", (2, 2, 2, 2), "BasicBlock", 2)
+        return
+    if shape != "PointCloud":
+        raise ValueError(f"shape={shape!r}: PointCloud or MultiView")
     pc, pc_stats = params["ShapeEncoderPC_0"], stats["ShapeEncoderPC_0"]
     for i in range(3):
         _conv1d(pc[f"Dense_{i}"], sd, f"shape_encoder.conv{i + 1}")
@@ -130,14 +139,14 @@ def _pointnet(params, stats, sd):
             f"shape_encoder.bn{i + 1}")
 
 
-def pose_state_dict(variables) -> dict[str, torch.Tensor]:
-    """JAX PoseEstimator(shape="PointCloud") variables (numpy) -> the port's
+def pose_state_dict(variables, shape: str = "PointCloud") -> dict[str, torch.Tensor]:
+    """JAX PoseEstimator(shape=shape) variables (numpy) -> the port's
     state_dict."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: dict = {}
     _resnet(params["ResNet_0"], stats["ResNet_0"], sd, "img_encoder", (3, 4, 6, 3),
             "Bottleneck", 3)
-    _pointnet(params, stats, sd)
+    _shape_encoder(params, stats, sd, shape)
     deform, deform_stats = params["DeformNet_0"], stats["DeformNet_0"]
     for i in range(3):
         sub = f"DenseBNRelu_{i}"
@@ -152,15 +161,15 @@ def pose_state_dict(variables) -> dict[str, torch.Tensor]:
     return _to_tensors(sd)
 
 
-def pose_vanilla_state_dict(variables) -> dict[str, torch.Tensor]:
-    """JAX PoseEstimatorVanilla(shape="PointCloud") variables (numpy) -> the
-    port's state_dict: a ResNet-18 of basic blocks, the PointNet, the
+def pose_vanilla_state_dict(variables, shape: str = "PointCloud") -> dict[str, torch.Tensor]:
+    """JAX PoseEstimatorVanilla(shape=shape) variables (numpy) -> the port's
+    state_dict: a ResNet-18 of basic blocks, the shape encoder, the
     compress MLP (Linear 0/3/6, BatchNorm 1/4/7) and the six heads."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: dict = {}
     _resnet(params["ResNet_0"], stats["ResNet_0"], sd, "img_encoder", (2, 2, 2, 2),
             "BasicBlock", 2)
-    _pointnet(params, stats, sd)
+    _shape_encoder(params, stats, sd, shape)
     _mlp(params, stats, sd, "compress", 0, 3)
     for i, name in enumerate(HEADS):
         _linear(params["_SixHeads_0"][f"Dense_{i}"], sd, name)
@@ -169,7 +178,10 @@ def pose_vanilla_state_dict(variables) -> dict[str, torch.Tensor]:
 
 def read_state_dict(path: str, role: str | None = None) -> dict[str, torch.Tensor]:
     """A reference-layout `.pth` (as `torch_export.save_torch_checkpoint`
-    writes it) or the port's own `checkpoint.pth` -> state_dict. Unwraps
+    writes it, of a PointCloud or a MultiView teacher: the layouts differ in
+    `shape_encoder.conv1.weight` against `shape_encoder.render_encoder.*`,
+    and the model's strict load takes only its own) or the port's own
+    `checkpoint.pth` -> state_dict. Unwraps
     the reference's container keys in its order: model, state_dict, net_vp,
     student_model, teacher_model. `role` ("teacher" or "student") first
     takes that train state out of a checkpoint that holds both, as KD

@@ -7,7 +7,9 @@ NCE `"info"`, `"pose"` or `"multipose"`); `make_vanilla_train_step` (the
 `--stage 1`, the vanilla teacher and the student trained together, with
 the memory bank or a pose-weighted NCE as options); `make_stage2_step` (KD
 `--stage 2`, response KD from the frozen stage-1 teacher); and
-`make_eval_step` (student, teacher and vanilla kinds)."""
+`make_eval_step` (student, teacher and vanilla kinds). Where a batch's
+'shape' is described as (N, P, 3) clouds, a MultiView teacher takes (N, K,
+H, W, 3) renders in its place; no step depends on which."""
 
 from __future__ import annotations
 

@@ -122,10 +122,11 @@ class DeferredMeters:
 
 
 class TeacherTrainer:
-    """Contrastive PointCloud teacher training (the reference's training.py
-    recipe): per epoch a train sweep, the validation loss and contrastive
-    loss on `eval_loader`, the per-category Acc@pi/6 on `cat_eval_loader`
-    (the reference computes them on another set; `eval_loader` when None),
+    """Contrastive teacher training, PointCloud or MultiView (the
+    reference's training.py recipe): per epoch a train sweep, the
+    validation loss and contrastive loss on `eval_loader`, the
+    per-category Acc@pi/6 on `cat_eval_loader` (the reference computes
+    them on another set; `eval_loader` when None),
     the checkpoints (whole train state, and the image encoder alone), one
     log line, one metrics record and the curves. `nce_variant` and
     `nce_weighting` select the contrastive term (`make_teacher_train_step`)."""

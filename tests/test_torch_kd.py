@@ -407,6 +407,8 @@ KD_CLI_OUTCOMES = {
     ("--nce", "pose"): "--nce pose/multipose applies to --stage 1",  # JAX's
     ("--vid", "--contrast"): "--vid is a --crd loss variant",  # JAX's
     ("--stage", "1", "--use_memory_bank", "--nce", "pose"): "no memory-bank form",
+    ("--shape", "MultiView"): None,
+    ("--dataset", "Pix3D"): "unsupported KD training dataset Pix3D",  # JAX's
 }
 
 

@@ -73,10 +73,14 @@ def test_cli_default_device_refuses_without_cuda(cli, tmp_path):
     ["--shape", "None", "--int8"], ["--shape", "None", "--device_shapes"],
     ["--shape", "None", "--n_devices", "2"]])
 def test_testing_cli_refuses_unported_modes(argv):
-    """Refused, naming ROADMAP.md; --bf16 is ported: parsed."""
+    """Refused, naming ROADMAP.md; --bf16 and the MultiView teacher are
+    ported: parsed."""
     flags = ["--dataset", "ObjectNet3D", "--device", "cpu"]
     if "--bf16" in argv:
         assert testing.parse_args(flags + argv).bf16
+        return
+    if argv == ["--shape", "MultiView"]:
+        assert testing.parse_args(flags + argv).shape == "MultiView"
         return
     with pytest.raises(SystemExit, match="ROADMAP"):
         testing.main(flags + argv)
@@ -85,10 +89,14 @@ def test_testing_cli_refuses_unported_modes(argv):
 @pytest.mark.parametrize("argv", [["--bf16"], ["--int8"], ["--load_aot", "a"],
                                   ["--render_dir", "r"], ["--export_aot", "a"]])
 def test_inference_cli_refuses_unported_modes(argv):
-    """Refused, naming ROADMAP.md; --bf16 is ported: parsed."""
+    """Refused, naming ROADMAP.md; --bf16 and --render_dir (the MultiView
+    teacher) are ported: parsed."""
     flags = ["--ckpt", "s.pth", "--img_path", "x.jpg", "--device", "cpu"]
     if argv == ["--bf16"]:
         assert inference.parse_args(flags + argv).bf16
+        return
+    if argv == ["--render_dir", "r"]:
+        assert inference.parse_args(flags + argv).render_dir == "r"
         return
     with pytest.raises(SystemExit, match="ROADMAP"):
         inference.main(flags + argv)
@@ -123,7 +131,10 @@ def test_testing_cli_refuses_unported_teacher_modes(argv):
 @pytest.mark.parametrize("argv", [["--int8"], ["--render_dir", "r"],
                                   ["--export_aot", "a"]])
 def test_inference_cli_refuses_unported_teacher_modes(argv):
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    """Refused, naming ROADMAP.md; --render_dir beside --ply_path with
+    JAX's message (the two teachers exclude each other)."""
+    with pytest.raises(SystemExit, match="mutually exclusive" if "--render_dir" in argv
+                       else "ROADMAP"):
         inference.main(["--ckpt", "t.pth", "--img_path", "x.jpg", "--ply_path", "p.ply",
                         "--device", "cpu"] + argv)
 
@@ -157,10 +168,15 @@ def test_training_cli_default_device_refuses_without_cuda(tmp_path):
     ["--student_width_mult", "0.5"]])
 def test_training_cli_refuses_unported_flags(argv):
     """Each flag of a path not ported is refused, naming ROADMAP.md; --shape
-    None, --nce pose/multipose and --bf16 are ported (parsed), and where JAX
-    refuses a combination the port refuses it with JAX's message."""
+    None, --shape MultiView, --nce pose/multipose and --bf16 are ported
+    (parsed), and where JAX refuses a combination the port refuses it with
+    JAX's message, or, where JAX's run fails on it (a teacher on
+    ShapeNetCore, validated on Pix3D's shapeless samples), says why."""
     outcomes = {("--shape", "None"): None, ("--nce", "pose"): None,
                 ("--nce", "multipose"): None, ("--bf16",): None,
+                ("--shape", "MultiView"): None,
+                ("--dataset", "ShapeNetCore"): "Pix3D, whose samples carry no shape",
+                ("--dataset", "Pix3D"): "unsupported training dataset Pix3D",
                 ("--weighting", "sqrt"): "--weighting is consumed only by --nce pose",
                 ("--shape", "None", "--nce", "pose"): "applies to teacher training"}
     flags = ["--dataset", "ObjectNet3D", "--shape", "PointCloud", "--device", "cpu"]

@@ -324,11 +324,12 @@ def test_stage1_cli_two_epochs_then_resume(fixture_dir, monkeypatch):
     ["--n_devices", "2"], ["--shape", "MultiView"],
     ["--use_memory_bank", "--nce", "multipose"], ["--weighting", "sqrt"]])
 def test_stage1_cli_refuses_what_is_not_ported(argv):
-    """--use_memory_bank, --nce pose/multipose and --bf16 are ported: parsed
-    (and --weighting without --nce pose dropped with JAX's warning); a bank
-    with a pose variant is refused with JAX's reason; the rest name
-    ROADMAP.md."""
+    """--use_memory_bank, --nce pose/multipose, --bf16 and --shape MultiView
+    are ported: parsed (and --weighting without --nce pose dropped with
+    JAX's warning); a bank with a pose variant is refused with JAX's
+    reason; the rest name ROADMAP.md."""
     outcomes = {("--use_memory_bank",): None, ("--nce", "pose"): None, ("--bf16",): None,
+                ("--shape", "MultiView"): None,
                 ("--nce", "multipose"): None, ("--weighting", "sqrt"): None,
                 ("--use_memory_bank", "--nce", "multipose"): "no memory-bank form"}
     expected = outcomes.get(tuple(argv), "ROADMAP")

@@ -230,6 +230,7 @@ def test_kd_step_refuses_an_unknown_loss_variant():
 class _Flags:
     img_feature_dim = shape_feature_dim = TEACHER_DIM
     bin_size = 15
+    shape, view_num = "PointCloud", 12
 
 
 def test_build_vanilla_reads_a_stage1_checkpoint_and_a_reference_pth(tmp_path):

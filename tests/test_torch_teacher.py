@@ -181,6 +181,20 @@ def test_cpu_teacher_forward_takes_the_plain_pointnet(rng):
     assert pointnet.pointnet_eval.launches == before
 
 
-def test_multiview_teacher_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseEstimator(shape="MultiView")
+def test_multiview_teacher_runs_on_the_cpu(rng):
+    """The MultiView teacher (tests/test_torch_multiview.py holds it against
+    JAX): its bottleneck takes shape_feature_dim x view_num, and on the CPU
+    it launches no kernel."""
+    model = PoseEstimator(shape="MultiView", view_num=4, img_feature_dim=32,
+                          shape_feature_dim=16).eval()
+    assert model.deformNet.conv1.weight.shape[1] == 16 * 4 + 32
+    im = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32))
+    renders = torch.from_numpy(rng.uniform(0, 1, (2, 4, 24, 24, 3)).astype(np.float32))
+    before = pointnet.pointnet_eval.launches
+    with torch.no_grad():
+        heads, fused, proj = model(im, renders)
+    assert pointnet.pointnet_eval.launches == before
+    assert fused.shape == (2, 200) and proj.shape == (2, 200)
+    assert all(bool(torch.isfinite(h).all()) for h in heads)
+    with pytest.raises(ValueError, match="PointCloud"):
+        PoseEstimator(shape="Voxel")
