@@ -36,6 +36,10 @@ width with random weights from a seed:
     --vid, stage 1 with the memory bank and with --nce pose / multipose,
     the teacher step with --nce pose / multipose (batch 160), and the
     RGB-only baseline (training --shape None, batch 64);
+  * int8 post-training-quantized serving: the student, the PointCloud and
+    the MultiView teachers served with their convolutions in the int8
+    kernel, `testing --int8`, `inference --int8` with a saved and a loaded
+    quantized tree, and KD --crd / --stage 2 with --int8_teacher;
   * the MultiView teacher as the CLIs build it (ResNet-50, image feature
     1024; ResNet-18, feature 256 over 12 renders of 224x224, tour 2;
     DeformNet bottleneck 4096): serving and an evaluation with renders,
@@ -117,8 +121,29 @@ kernel in every student forward. Phases:
   44 the testing CLI on generated LineMod and Pix3D files with the
   student, and one ShapeNetCore epoch of the RGB-only baseline validated
   on Pix3D
+  int8 serving (`int8_phases`): 45 the int8 convolution kernel against its
+  plain version bit for bit, f32 and bf16, on every distinct int8 conv of
+  VGG-11, ResNet-50 and ResNet-18 at 224x224 (recorded from the models'
+  int8 forwards), the dense layers at batch 1 and 256, a narrower
+  student's widths and channel counts no vector load takes; IMMA in its
+  SASS; its times summed over one forward's calls (graph replay), beside
+  the plain version's, the bound and im2col + torch._int_mm's    46 the
+  int8 student (2048, 224x224, its tree calibrated on the requests) at
+  batch 1, 64 and 256    47 the int8 PointCloud teacher (ResNet-50,
+  1024/1024, 2,500 points) at 64    48 the int8 MultiView teacher (768
+  renders through the int8 ResNet-18) at 64; each f32 and bf16: the heads
+  bit-equal to the same forward through the plain int8 product on the
+  card, JAX's drift rule against the float model in the same dtype, the
+  time beside the f32 and bf16 forwards in turns, the busy share and the
+  peak memory    49 testing --int8 (the student) and inference --int8
+  --save_quantized then --load_quantized (the student, and the MultiView
+  teacher on a model's renders) on generated files    50 KD --crd from the
+  PointCloud and MultiView teachers and --stage 2 from the vanilla teacher
+  with --int8_teacher at 46 x 3, 3 steps each: the teacher's outputs on
+  the step's views bit-equal to the plain int8 product's and within the
+  drift rule of the float teacher's, the step beside the float teacher's
 Each path (7-8, 10-11, 16-17, 20-21, 24-25, 28-29, each variant of 31,
-35-38's, 40's and 41-44's) is driven with the kernels' launch counts set
+35-38's, 40's, 41-44's and 46-50's) is driven with the kernels' launch counts set
 to 0 just before it and read just after it; 16, 20, 24, 28 and 31's are
 the training paths' main paths, 35-38's and 40's the bf16 ones. The total
 seconds are printed before the card's line.
@@ -228,6 +253,15 @@ T16_LOSSES, S1_16_LOSSES = ("loss", "pose_loss", "nce_loss"), ("loss", "teacher_
 # input rounded to the next bf16 value from f32 sums in another order),
 # plus 2 a case
 PT16_MOVED, PT16_FLIPS = 1e-2, 1e-3
+# int8 serving (phases 45-50): the student served at these batches, the
+# teachers at 64, KD --int8_teacher steps a regime; JAX's drift rule
+# (tests/test_quant_student.py:52-54, tests/test_quant_teacher.py:79-82):
+# each head's cosine above, its max|d|/max|ref| below, and the argmax
+# agreeing on at least 3/4 of the rows in the heads named; the dense int8
+# rate of the tensor cores (published H100 SXM peak)
+INT8_SERVE_BATCHES, INT8_TEACHER_BATCH, INT8_KD_STEPS, INT8_IMAGE = (1, 64, 256), 64, 3, 224
+STUDENT_DRIFT, TEACHER_DRIFT = (0.995, 0.1, range(6)), (0.985, 0.25, range(3))
+INT8_OPS = 1979e12
 IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 EVAL_CATEGORIES = ["bed", "bookshelf", "calculator"]
 EVAL_COUNTS = [64] * 8 + [37]  # 8 full batches of 64 + a ragged 37 padded to 64
@@ -969,7 +1003,7 @@ def stem_near_shares(x_nhwc, w, b, chunk: int = 23) -> tuple[float, float]:
     return counts[0] / total, counts[1] / total
 
 
-LIBRARIES = ("geodesic", "pointnet_eval", "info_nce", "vgg_stem", "pointnet_train")
+LIBRARIES = ("geodesic", "pointnet_eval", "info_nce", "vgg_stem", "pointnet_train", "int8_conv")
 OTHER_SOURCES = ("info_nce", "vgg_stem", "pointnet_eval")
 
 
@@ -2165,6 +2199,494 @@ def multiview_phases(dev, card: str, t0: float, reset_counts, counts, bf16_count
             [sum(c[i] for c in mv16_counts) for i in range(3)], geo_err)
 
 
+def int8_record_shapes(i8, run) -> list:
+    """The int8 convolutions one run() makes, in call order: (N, H, W, C,
+    KH, KW, CO, stride, padding, relu) each, the arguments recorded by a
+    wrapper around `i8.int8_conv` (its kernel still launched)."""
+    calls, kernel = [], i8.int8_conv
+
+    def record(x, a, w, ws, shift, stride=1, padding=0, relu=False):
+        calls.append((*x.shape, *w.shape[:2], w.shape[3], stride, padding, bool(relu)))
+        return kernel(x, a, w, ws, shift, stride, padding, relu)
+
+    i8.int8_conv = record
+    try:
+        run()
+    finally:
+        i8.int8_conv = kernel
+    return calls
+
+
+@contextlib.contextmanager
+def plain_int8(i8):
+    """The int8 product's plain version in place of its kernel, on the card:
+    the same forward through `int8_conv_plain` (exact int32 sums from
+    float64 convolutions, the same dequantization as torch operations)."""
+    kernel = i8.int8_conv
+    i8.int8_conv = i8.int8_conv_plain
+    try:
+        yield
+    finally:
+        i8.int8_conv = kernel
+
+
+def int8_case(gen: torch.Generator, shape, dtype, dev):
+    """Seeded inputs of one int8 convolution (N, H, W, C, KH, KW, CO,
+    stride, padding, relu), made on the card from `gen`: x normal, w
+    uniform in [-127, 127], a = max|x| / 127, ws positive, shift normal."""
+    n, h, w, c, kh, kw, co, stride, padding, relu = shape
+    x = torch.randn((n, h, w, c), generator=gen, device=dev).to(dtype)
+    wq = torch.randint(-127, 128, (kh, kw, c, co), generator=gen, device=dev, dtype=torch.int8)
+    a = (x.float().abs().max() / 127.0).reshape(())
+    ws = torch.rand((co,), generator=gen, device=dev) * 1e-2 + 1e-4
+    shift = torch.randn((co,), generator=gen, device=dev)
+    return (x, a, wq, ws, shift, stride, padding, relu)
+
+
+def int8_im2col_mm(x, a, w, stride, padding):
+    """The yardstick (`library_ms`): the quantized input's patches copied
+    out (im2col, (M, K) s8) and torch._int_mm's s8 x s8 -> s32 product with
+    the (K, CO) weights; the port never calls it. Needs M > 16."""
+    from pose3d_tpu_torch.ops import int8_conv as i8
+
+    xq = i8.quantize_act(x, a)
+    kh, kw, c, co = w.shape
+    xp = torch.nn.functional.pad(xq, (0, 0, padding, padding, padding, padding))
+    patches = xp.unfold(1, kh, stride).unfold(2, kw, stride)  # (N, OH, OW, C, KH, KW)
+    cols = patches.permute(0, 1, 2, 4, 5, 3).reshape(-1, kh * kw * c)
+    return torch._int_mm(cols, w.reshape(-1, co))
+
+
+def int8_bound(shape, dtype) -> tuple[float, str]:
+    """The least time of one int8 convolution: x read once in its dtype, w
+    once, y written once (and ws, shift) at 3.35 TB/s, against its 2 M CO K
+    operations at the int8 tensor-core rate."""
+    n, h, w, c, kh, kw, co, stride, padding, _ = shape
+    oh, ow = (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
+    item = torch.tensor([], dtype=dtype).element_size()
+    m, k = n * oh * ow, kh * kw * c
+    return bound(n * h * w * c * item + k * co + m * co * item + 8 * co, 2.0 * m * co * k,
+                 INT8_OPS)
+
+
+def int8_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
+    """Phases 45-50: int8 post-training-quantized serving. The int8 kernel
+    against its plain version bit for bit on the main path's shapes, and
+    its times; the student, the PointCloud teacher and the MultiView
+    teacher served int8 (each forward: its heads bit-equal to the same
+    forward through the int8 product's plain version on the card, JAX's
+    drift rule against the float model in the same dtype, times beside the
+    f32 and bf16 forwards, busy share, peak memory); `testing --int8` and
+    `inference --int8 --save_quantized` / `--load_quantized` on generated
+    files; KD --crd (PointCloud and MultiView teachers) and --stage 2 with
+    --int8_teacher at 46 x 3. Each path is driven with the launch counts set
+    to 0 just before it and read just after it. Returns (the int8 kernel's
+    launches on these paths, the other kernels' launches on them as
+    `counts` orders them, and as `bf16_counts` does, its largest difference
+    from its plain version, its kernels-line times)."""
+    from pose3d_tpu_torch import serving
+    from pose3d_tpu_torch.cli import inference as inference_cli
+    from pose3d_tpu_torch.cli import testing as testing_cli
+    from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator,
+                                                    PoseEstimatorVanilla)
+    from pose3d_tpu_torch.ops import _build
+    from pose3d_tpu_torch.ops import int8_conv as i8
+    from pose3d_tpu_torch.serving import quant_teacher
+    from pose3d_tpu_torch.train import convert, steps
+    from pose3d_tpu_torch.models.vgg import scaled_width
+    from pose3d_tpu_torch.train.state import create_train_state
+
+    bf16 = torch.bfloat16
+    added, added16, launched = [0] * 8, [0] * 3, 0
+
+    def take(expect_int8):
+        """The paths' launches since reset_counts(), added up; the int8
+        kernel's held to expect_int8."""
+        nonlocal launched
+        torch.cuda.synchronize()
+        got = i8.int8_conv.launches
+        if got != expect_int8:
+            raise RuntimeError(f"int8 kernel launches {got}, expected {expect_int8}")
+        launched += got
+        for i, v in enumerate(counts()):
+            added[i] += v
+        for i, v in enumerate(bf16_counts()):
+            added16[i] += v
+        return got
+
+    def mean(v):
+        return sum(v) / len(v)
+
+    def heads_equal(got, want) -> bool:
+        return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+    def drift(got, want, rule) -> dict:
+        """JAX's drift rule (tests/test_quant_student.py:52-54,
+        test_quant_teacher.py:79-82): each head's cosine, max relative error
+        and (the rule's heads) argmax agreement; raises where one fails."""
+        cos_min, rel_max, argmax_heads = rule
+        worst = {"cos": 1.0, "rel": 0.0, "argmax": 1.0}
+        for i, (a, b) in enumerate(zip(got, want)):
+            a, b = a.double().cpu(), b.double().cpu()
+            cos = float((a * b).sum() / (a.norm() * b.norm() + 1e-9))
+            rel = float((a - b).abs().max() / (b.abs().max() + 1e-9))
+            agree = float((a.argmax(1) == b.argmax(1)).double().mean())
+            if cos <= cos_min or rel >= rel_max or (i in argmax_heads and agree < 0.75):
+                raise RuntimeError(f"int8 drift rule, head {i}: cosine {cos:.5f} (> {cos_min}), "
+                                   f"max rel {rel:.4f} (< {rel_max}), argmax {agree:.3f}")
+            worst = {"cos": min(worst["cos"], cos), "rel": max(worst["rel"], rel),
+                     "argmax": min(worst["argmax"], agree) if i in argmax_heads
+                     else worst["argmax"]}
+        return {k: round(v, 5) for k, v in worst.items()}
+
+    # 45. the int8 kernel vs its plain version on the card, bit for bit:
+    # every distinct int8 conv of VGG-11 (224x224), ResNet-50 and ResNet-18
+    # (224x224; the shapes recorded from the models' int8 forwards below),
+    # the dense layers at batch 1 and 256, a narrower student's widths
+    # (width_mult 0.3: 80 and 160 channels, no multiple of the 64-channel
+    # tile), channel counts that no vector load takes (C 3 / 20, CO 30),
+    # stride 2 with padding; f32 and bf16; IMMA (the int8 tensor-core
+    # instruction) in the main kernel's SASS only
+    lib = _build.build("int8_conv")
+    imma = sass_hmma(lib, "int8_conv", "IMMA")
+    want = {"int8_conv_kernel": True, "int8_conv_kernel<bf16>": True,
+            "int8_conv_epilogue_kernel": False, "int8_conv_epilogue_kernel<bf16>": False}
+    if imma != want:
+        raise RuntimeError(f"int8_conv SASS: IMMA in {imma}, expected {want}")
+    s_sd = convert.baseline_state_dict(student_variables(np.random.default_rng(45),
+                                                         input_dim=INT8_IMAGE))
+    t_sd = convert.pose_state_dict(teacher_variables(np.random.default_rng(46), 1024, 1024))
+    mv_sd = convert.pose_state_dict(teacher_variables(np.random.default_rng(47), 1024,
+                                                      MV_SHAPE_DIM, view_num=MV_VIEWS),
+                                    "MultiView")
+    v_sd = convert.pose_vanilla_state_dict(vanilla_variables(np.random.default_rng(48), 1024,
+                                                             STAGE1_SHAPE_DIM))
+
+    def built(cls, sd, **kw):
+        with torch.device("meta"):
+            m = cls(**kw)
+        m.load_state_dict({k: v.to(dev) for k, v in sd.items()}, strict=True, assign=True)
+        return m.eval().requires_grad_(False)
+
+    student = built(BaselineEstimator, s_sd, input_dim=INT8_IMAGE)
+    teacher = built(PoseEstimator, t_sd, img_feature_dim=1024, shape_feature_dim=1024)
+    mv = built(PoseEstimator, mv_sd, shape="MultiView", view_num=MV_VIEWS, img_feature_dim=1024,
+               shape_feature_dim=MV_SHAPE_DIM)
+    vanilla = built(PoseEstimatorVanilla, v_sd, img_feature_dim=1024,
+                    shape_feature_dim=STAGE1_SHAPE_DIM)
+    irng = np.random.default_rng(49)
+    x256 = torch.from_numpy(irng.standard_normal((max(INT8_SERVE_BATCHES), INT8_IMAGE,
+                                                  INT8_IMAGE, 3), dtype=np.float32)).to(dev)
+    xt = x256[:INT8_TEACHER_BATCH]
+    gen = torch.Generator(device=dev).manual_seed(49)
+    clouds = torch.rand((INT8_TEACHER_BATCH, POINT_NUM, 3), generator=gen, device=dev)
+    renders = torch.rand((INT8_TEACHER_BATCH, MV_VIEWS, INT8_IMAGE, INT8_IMAGE, 3),
+                         generator=gen, device=dev)
+    # calibration as the inference CLI does it: on the requests themselves
+    tq = time.perf_counter()
+    q_s = serving.quantize_student(student, [x256[:64].cpu().numpy()])
+    q_t = serving.quantize_teacher_resnet(teacher, [xt.cpu().numpy()])
+    q_mv = serving.quantize_teacher_mv(mv, [xt.cpu().numpy()], [renders[:16].cpu().numpy()])
+    q_v = serving.quantize_teacher_vanilla(vanilla, [xt[:32].cpu().numpy()])
+    quantize_s = time.perf_counter() - tq
+    shapes = {
+        "VGG-11": int8_record_shapes(i8, lambda: serving.student_int8_infer(q_s, x256[:1])),
+        "ResNet-50": int8_record_shapes(
+            i8, lambda: serving.resnet50_int8_forward(q_t, xt[:1], torch.float32)),
+        "ResNet-18": int8_record_shapes(i8, lambda: serving.resnet_int8_forward(
+            q_mv["shape"], renders[0, :1], "resnet18", torch.float32))}
+    if [len(v) for v in shapes.values()] != [10, 52, 19]:
+        raise RuntimeError(f"int8 calls a forward: {[len(v) for v in shapes.values()]}")
+    cases = sorted({(2 if s[1] > 1 else 1,) + s[1:] for v in shapes.values() for s in v})
+    cases += [(max(INT8_SERVE_BATCHES),) + s[1:] for s in shapes["VGG-11"]
+              if s[1] == 1]  # the dense layers at the largest serving batch
+    narrow = [scaled_width(v, 0.3) for v in VGG11_CONV_WIDTHS]
+    cases += [(2, 112, 112, narrow[0], 3, 3, narrow[1], 1, 1, True),
+              (2, 56, 56, narrow[1], 3, 3, narrow[2], 1, 1, True),
+              (2, 28, 28, narrow[3], 3, 3, narrow[4], 1, 1, True),
+              (2, 9, 11, 20, 3, 3, 30, 2, 1, True), (5, 8, 8, 3, 3, 3, 8, 1, 1, False),
+              (3, 13, 13, 48, 3, 3, 40, 2, 1, False), (1, 1, 1, 1000, 1, 1, 7, 1, 0, False)]
+    kgen = torch.Generator(device=dev).manual_seed(50)
+    max_d, n_checked = 0.0, 0
+    for shape in cases:
+        for dtype in (torch.float32, bf16):
+            args = int8_case(kgen, shape, dtype, dev)
+            before = i8.int8_conv.launches
+            y = i8.int8_conv(*args)
+            ref = i8.int8_conv_plain(*args)
+            torch.cuda.synchronize()
+            if i8.int8_conv.launches != before + 1:
+                raise RuntimeError("the int8 wrapper did not count its launch")
+            if y.shape != ref.shape or not torch.equal(y, ref):
+                d = (y.float() - ref.float()).abs()
+                raise RuntimeError(f"int8 kernel vs plain at {shape} {dtype}: "
+                                   f"{int((d > 0).sum())} of {d.numel()} differ, max {float(d.max())}")
+            max_d = max(max_d, float((y.float() - ref.float()).abs().max()))
+            n_checked += 1
+    phase("int8 kernel", t0, f"kernel vs plain in {n_checked} cases ({len(cases)} shapes x f32 / "
+          f"bf16: the {len(set(shapes['VGG-11']))} VGG-11, {len(set(shapes['ResNet-50']))} "
+          f"ResNet-50 and {len(set(shapes['ResNet-18']))} ResNet-18 distinct int8 convs at 224, "
+          f"the dense layers at batch 1 and 256, width_mult 0.3's {narrow[1]}/{narrow[2]}/"
+          f"{narrow[4]} channels, C 3 / 20 and CO 7 / 30, stride 2 with padding): bit-equal "
+          f"in all (max|d| {max_d}); cuobjdump -sass: IMMA in {imma}; calibration of the four "
+          f"trees {quantize_s:.1f} s")
+
+    # the kernel's times at the main path's shapes: each distinct call by
+    # CUDA graph replay, the plain version and im2col + torch._int_mm (the
+    # yardstick) by CUDA events; summed over one forward's calls
+    stream = torch.cuda.Stream()
+    tgen = torch.Generator(device=dev).manual_seed(51)
+    per_forward = {}
+    for name, batch, calls in (("VGG-11", max(INT8_SERVE_BATCHES), shapes["VGG-11"]),
+                               ("ResNet-50", INT8_TEACHER_BATCH, shapes["ResNet-50"]),
+                               ("ResNet-18", INT8_TEACHER_BATCH * MV_VIEWS, shapes["ResNet-18"])):
+        for dtype in (bf16, torch.float32):
+            tot = {"kernel": 0.0, "plain": 0.0, "bound": 0.0, "by ops": 0.0, "library": 0.0}
+            timed = {}
+            for s in calls:
+                shape = (batch,) + s[1:]
+                if shape not in timed:
+                    args = int8_case(tgen, shape, dtype, dev)
+                    x, a, w, ws, shift, stride, padding, relu = args
+                    bnd = int8_bound(shape, dtype)
+                    timed[shape] = {
+                        "kernel": graph_ms(lambda: i8.int8_conv(*args), stream, calls=5,
+                                           replays=3),
+                        "bound": bnd[0], "by ops": bnd[0] if bnd[1] == "operations" else 0.0}
+                    if dtype == bf16:  # the plain version and the yardstick once
+                        timed[shape]["plain"] = cuda_ms(lambda: i8.int8_conv_plain(*args),
+                                                        iters=2, warmup=1)
+                        timed[shape]["library"] = cuda_ms(
+                            lambda: int8_im2col_mm(x, a, w, stride, padding), iters=3,
+                            warmup=1)
+                    del args, x, w
+                for k in tot:
+                    tot[k] += timed[shape].get(k, 0.0)
+            per_forward[name, dtype] = {k: round(v, 4) for k, v in tot.items()}
+            torch.cuda.empty_cache()
+    dense_args = [int8_case(tgen, (1,) + s[1:], bf16, dev) for s in shapes["VGG-11"]
+                  if s[1] == 1]
+    dense1 = sum(graph_ms(lambda: i8.int8_conv(*args), stream, 5, 3) for args in dense_args)
+    dense1_bound = sum(int8_bound(tuple(args[0].shape[:1]) + (1, 1, args[2].shape[2], 1, 1,
+                                                               args[2].shape[3], 1, 0, False),
+                                  bf16)[0] for args in dense_args)
+    del dense_args
+    for (name, dtype), t in per_forward.items():
+        where = {"VGG-11": f"batch {max(INT8_SERVE_BATCHES)}", "ResNet-50": "batch 64",
+                 "ResNet-18": "768 renders"}[name]
+        extra = (f", plain {t['plain']} ms, im2col + torch._int_mm {t['library']} ms (no "
+                 "quantization or dequantization in it)" if dtype == bf16 else "")
+        phase("time", t0, f"int8 kernel, one {name} forward's int8 calls ({where}, "
+              f"{'bf16' if dtype == bf16 else 'f32'} activations): kernel {t['kernel']} ms "
+              f"(CUDA graph replay), bound {t['bound']} ms ({t['by ops']} of it by "
+              f"operations; {100 * t['bound'] / t['kernel']:.1f} % of the kernel's time)"
+              f"{extra} [{card}]")
+    phase("time", t0, f"int8 kernel, the student's three dense layers at batch 1 (bf16): "
+          f"{dense1:.4f} ms by graph replay, bound {dense1_bound:.4f} ms (bytes) [{card}]")
+
+    # 46-48. serving: the student at batch 1, 64 and 256, the PointCloud
+    # teacher (ResNet-50, 1024/1024, 2,500 points) and the MultiView
+    # teacher (768 renders through ResNet-18) at batch 64; f32 and bf16 on
+    # the same weights and trees
+    def serve(name, int8_fn, float_fn, batches, rule, int8_calls):
+        """int8_fn(dtype, b) and float_fn(dtype, b) -> the six heads (float
+        model's compute dtype switched by float_fn); for each batch and
+        dtype the int8 heads against the plain product's (bit-equal) and
+        the float model's (the drift rule), then times in turns, the busy
+        share and peak memory."""
+        lines = []
+        for b in batches:
+            for dtype in (torch.float32, bf16):
+                reset_counts()
+                with torch.no_grad():
+                    got = int8_fn(dtype, b)
+                take(int8_calls)
+                with torch.no_grad(), plain_int8(i8):
+                    plain = int8_fn(dtype, b)
+                    ref = float_fn(dtype, b)
+                torch.cuda.synchronize()
+                if not heads_equal(got, plain):
+                    raise RuntimeError(f"{name} int8 batch {b} {dtype}: heads unlike the plain "
+                                       "int8 product's")
+                if not all(bool(torch.isfinite(h).all()) for h in got):
+                    raise RuntimeError(f"{name} int8: non-finite heads")
+                if b == max(batches):  # the rule's argmax share wants rows
+                    lines.append(f"b {b} {'bf16' if dtype == bf16 else 'f32'}: "
+                                 f"{drift(got, ref, rule)}")
+            t = {"f32": [], "bf16": [], "int8 f32": [], "int8 bf16": []}
+            peak = {}
+            iters = 20 if b == 1 else 5
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            with torch.no_grad():
+                for who in ("f32", "bf16", "int8 f32", "int8 bf16", "int8 bf16", "int8 f32",
+                            "bf16", "f32"):
+                    dtype = bf16 if who.endswith("bf16") else torch.float32
+                    fn = int8_fn if who.startswith("int8") else float_fn
+                    torch.cuda.reset_peak_memory_stats()
+                    t[who].append(round(cuda_ms(lambda: fn(dtype, b), iters, warmup=1), 3))
+                    peak[who] = round((torch.cuda.max_memory_allocated() - base) / 2**30, 3)
+                busy = {}
+                for who in ("int8 bf16", "bf16"):
+                    dtype = bf16
+                    fn = int8_fn if who.startswith("int8") else float_fn
+                    rows, device_ms, wall_ms = profile_steps(lambda: fn(dtype, b), steps=3)
+                    busy[who] = (round(device_ms / wall_ms, 3),
+                                 rows[0].key[:48] if rows else "")
+            phase("time", t0, f"{name} serving batch {b}: " + "; ".join(
+                f"{who} {v} ms = {b * 1000.0 / mean(v):.1f} img/s, peak {peak[who]} GiB"
+                for who, v in t.items()) + f"; busy and leading kernel {busy} [{card}]")
+        phase(name, t0, f"int8 heads equal the plain int8 product's on the card in every "
+              f"batch and dtype; {int8_calls} int8 launches a forward; JAX's drift rule "
+              f"(cosine > {rule[0]}, max rel < {rule[1]}, argmax agreeing on >= 0.75 of the "
+              f"rows in heads {list(rule[2])}) against the float model in the same dtype at "
+              f"the largest batch, worst over the heads: " + "; ".join(lines))
+
+    def student_int8(dtype, b):
+        return serving.student_int8_infer(q_s, x256[:b], dtype)
+
+    def student_float(dtype, b):
+        set_compute_dtype(student, dtype if dtype == bf16 else None)
+        return [h.float() for h in student(x256[:b])[0]]
+
+    serve("int8 student", student_int8, student_float, INT8_SERVE_BATCHES, STUDENT_DRIFT, 10)
+
+    def teacher_pair(model, q):
+        def int8_fn(dtype, b):
+            set_compute_dtype(model, dtype if dtype == bf16 else None)
+            shape = clouds if q is q_t else renders
+            return [h.float() for h in
+                    serving.make_teacher_int8_infer(model)(q, xt[:b], shape[:b])]
+
+        def float_fn(dtype, b):
+            set_compute_dtype(model, dtype if dtype == bf16 else None)
+            shape = clouds if q is q_t else renders
+            return [h.float() for h in model(xt[:b], shape[:b])[0]]
+
+        return int8_fn, float_fn
+
+    serve("int8 PointCloud teacher", *teacher_pair(teacher, q_t), (INT8_TEACHER_BATCH,),
+          TEACHER_DRIFT, 52)
+    serve("int8 MultiView teacher", *teacher_pair(mv, q_mv), (INT8_TEACHER_BATCH,),
+          TEACHER_DRIFT, 52 + 19)
+    for m in (student, teacher, mv):
+        set_compute_dtype(m, None)
+    del x256, clouds, renders
+    torch.cuda.empty_cache()
+
+    # 49. the CLIs on generated files: testing --int8 (the student at full
+    # width, calibrated on its first batch), inference --int8
+    # --save_quantized then --load_quantized (the student, and the
+    # MultiView teacher on a model's renders): the same predictions
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = write_fixtures(tmp, np.random.default_rng(52))
+        os.chdir(tmp)
+        try:
+            torch.save({"state_dict": {k: v.cpu() for k, v in s_sd.items()}}, "student.pth")
+            torch.save({"state_dict": {k: v.cpu() for k, v in mv_sd.items()}}, "mv.pth")
+            reset_counts()
+            tested = quiet(testing_cli.main, [
+                "--dataset", "ObjectNet3D", "--shape", "None", "--data_root", roots["train"],
+                "--model", "student.pth", "--img_feature_dim", "2048", "--int8",
+                "--input_dim", str(INT8_IMAGE),
+                "--calib_batches", "1", "--batch_size", "32", "--workers", "8",
+                "--output_dir", "preds"])
+            n_eval = take(10 * math.ceil(len(tested.cat_ids) / 32))
+            img = os.path.join(roots["train"], "ObjectNet3D", "Images", "bed_val_0.jpg")
+            crop = os.path.join(roots["train"], "ObjectNet3D", "Renders_semi_sphere", "bed",
+                                "01", "crop")
+            reset_counts()
+            vps = {}
+            for who, flags in (("student", ["--ckpt", "student.pth"]),
+                               ("MultiView teacher", ["--ckpt", "mv.pth", "--render_dir", crop,
+                                                      "--shape_feature_dim", str(MV_SHAPE_DIM),
+                                                      "--view_num", str(MV_VIEWS)])):
+                npz = f"{who.split()[0]}_q.npz"
+                flags += ["--img_path", img, "--input_dim", str(INT8_IMAGE), "--int8"]
+                vps[who] = (quiet(inference_cli.main, flags + ["--save_quantized", npz]),
+                            quiet(inference_cli.main, flags + ["--load_quantized", npz]))
+            n_inf = take(2 * 10 + 2 * (52 + 19))
+        finally:
+            os.chdir(cwd)
+    if not (np.isfinite(tested.sample_med) and all(np.array_equal(a, b) and
+                                                     np.all(np.isfinite(a))
+                                                     for a, b in vps.values())):
+        raise RuntimeError(f"int8 CLIs: Med_Err {tested.sample_med}, predictions {vps}")
+    phase("int8 CLIs", t0, f"testing --int8 on {len(tested.cat_ids)} rows (the student, 2048, "
+          f"224): Med_Err {tested.sample_med:.2f}, Acc {tested.sample_acc:.2f}, int8 launches "
+          f"{n_eval}; inference --int8 --save_quantized then --load_quantized: student "
+          f"{np.round(vps['student'][0], 2).tolist()} both times, MultiView teacher "
+          f"(--render_dir) {np.round(vps['MultiView teacher'][0], 2).tolist()} both times; "
+          f"int8 launches {n_inf} [{card}]")
+
+    # 50. KD with --int8_teacher at 46 x 3 views: --crd from the PointCloud
+    # and the MultiView teachers, --stage 2 from the vanilla teacher; each
+    # INT8_KD_STEPS steps (the frozen teacher's conv trunks int8), its
+    # teacher forward on the step's views against the plain int8 product's
+    # (bit-equal) and against the float teacher (the drift rule), and the
+    # step's time beside the same step with the float teacher, in turns
+    krng = np.random.default_rng(53)
+    kb = {k: torch.from_numpy(v).to(dev) for k, v in
+          kd_batch(krng, KD_BATCH, INT8_IMAGE, POINT_NUM).items()}
+    mv_shape = torch.rand((KD_BATCH, MV_VIEWS, INT8_IMAGE, INT8_IMAGE, 3), generator=gen,
+                          device=dev)
+    views = torch.cat([kb["im"], kb["im_flip"], kb["im_rot"]])
+    kd_lines = []
+    for name, model, q, make, stage2, shape, calls in (
+            ("--crd, PointCloud teacher", teacher, q_t, quant_teacher.make_teacher_int8_kd_fwd,
+             False, kb["shape"], 52),
+            ("--crd, MultiView teacher", mv, q_mv, quant_teacher.make_teacher_int8_kd_fwd,
+             False, mv_shape, 52 + 19),
+            ("--stage 2, vanilla teacher", vanilla, q_v, quant_teacher.make_vanilla_int8_kd_fwd,
+             True, kb["shape"], 19)):
+        batch = dict(kb, shape=shape)
+        with torch.device("meta"):
+            s_model = BaselineEstimator(input_dim=INT8_IMAGE)
+        s_model.load_state_dict({k: v.to(dev) for k, v in s_sd.items()}, strict=True,
+                                assign=True)
+        state = create_train_state(s_model, LR, [10**9], seed=0)
+        step = (steps.make_stage2_step(int8_teacher=True) if stage2
+                else steps.make_kd_crd_step(int8_teacher=True))
+        float_step = steps.make_stage2_step() if stage2 else steps.make_kd_crd_step()
+        int8_teacher = {"model": model, "q8": q}
+        reset_counts()
+        losses = [float(step(state, int8_teacher, batch)["loss"]) for _ in range(INT8_KD_STEPS)]
+        take(INT8_KD_STEPS * calls)
+        with torch.no_grad():
+            fwd = make(model)
+            got = fwd(q, views, shape, 3)
+            with plain_int8(i8):
+                plain = fwd(q, views, shape, 3)
+            want = model(views, shape, view_tile=3)
+        got_heads = got if stage2 else got[0]
+        plain_heads = plain if stage2 else plain[0]
+        if not heads_equal([h for h in got_heads], [h for h in plain_heads]) or \
+                (not stage2 and not torch.equal(got[1], plain[1])) or \
+                not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"KD {name} --int8_teacher: losses {losses}, or the teacher's "
+                               "outputs unlike the plain int8 product's")
+        dr = drift([h.float() for h in got_heads], [h.float() for h in want[0]], TEACHER_DRIFT)
+        t = {"int8 teacher": [], "f32 teacher": []}
+        for who in ("int8 teacher", "f32 teacher", "f32 teacher", "int8 teacher"):
+            run = ((lambda: step(state, int8_teacher, batch)) if who == "int8 teacher"
+                   else (lambda: float_step(state, model, batch)))
+            t[who].append(round(steps_ms(run, 2), 3))
+        kd_lines.append(f"{name}: loss {[round(v, 4) for v in losses]}, teacher outputs equal "
+                        f"the plain int8 product's, drift {dr}, step ms {t}")
+        del state, s_model
+        torch.cuda.empty_cache()
+    phase("int8 KD", t0, f"--int8_teacher at {KD_BATCH} x 3 views, {INT8_KD_STEPS} steps each "
+          f"(the student f32, 2048): " + "; ".join(kd_lines) + f" [{card}]")
+    del student, teacher, mv, vanilla, kb, mv_shape, views
+    torch.cuda.empty_cache()
+    bf_vgg = per_forward["VGG-11", bf16]
+    by = "operations" if bf_vgg["by ops"] >= bf_vgg["bound"] / 2 else "bytes"
+    return launched, added, added16, max_d, {
+        "ms": bf_vgg["kernel"], "plain_ms": bf_vgg["plain"], "bound_ms": bf_vgg["bound"],
+        "bound_by": by, "library_ms": bf_vgg["library"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--source", action="append", default=[], type=parse_source,
@@ -2183,7 +2705,8 @@ def main() -> int:
     from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator,
                                                     PoseEstimatorVanilla)
     from pose3d_tpu_torch.data.loader import DataLoader
-    from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet, pointnet_train, vgg_stem
+    from pose3d_tpu_torch.ops import (_build, geodesic, int8_conv, nce, pointnet, pointnet_train,
+                                      vgg_stem)
     from pose3d_tpu_torch.train import convert, steps
     from pose3d_tpu_torch.train.evaluate import evaluate_categories
     from pose3d_tpu_torch.train.state import create_train_state
@@ -2199,6 +2722,7 @@ def main() -> int:
         pointnet.pointnet_eval_bf16.launches = 0
         pointnet_train.train_forward_bf16.launches = 0
         pointnet_train.train_backward_bf16.launches = 0
+        int8_conv.int8_conv.launches = 0
 
     def counts():
         """(geodesic, pointnet, NCE forward, NCE backward, stem forward,
@@ -4473,6 +4997,13 @@ def main() -> int:
     mv_added, mv16_added, mv_geo_err = multiview_phases(dev, card, t0, reset_counts, counts,
                                                         bf16_counts)
     geo_err = max(geo_err, mv_geo_err)
+    # 45-50. int8 serving
+    i8_launched, i8_added, i8_added16, i8_err, i8_times = int8_phases(
+        dev, card, t0, reset_counts, counts, bf16_counts)
+    # the int8 paths' launches of the other kernels join the MultiView
+    # paths' (the stem's, the PointNet's and the geodesic's)
+    mv_added = [a + b for a, b in zip(mv_added, i8_added)]
+    mv16_added = [a + b for a, b in zip(mv16_added, i8_added16)]
     pt16_paths = [a + b + c + d for a, b, c, d in zip(t16_counts, t16_fit, s116_counts,
                                                       s116_fit)]
 
@@ -4511,7 +5042,7 @@ def main() -> int:
               "pose3d_tpu/ops/geodesic.py:65", student_geo + teacher_geo + mv_added[0], geo_err,
               geo_times[1_000_000][0], geo_times[1_000_000][1], geo_bound),
         entry("pointnet_eval", "pose3d_tpu_torch/csrc/pointnet_eval.cu",
-              "pose3d_tpu/ops/pointnet_fused.py:78", teacher_pn + added[1], pn_err,
+              "pose3d_tpu/ops/pointnet_fused.py:78", teacher_pn + added[1] + mv_added[1], pn_err,
               *pn_times[TEACHER_BATCH, 1024], pn_bounds[TEACHER_BATCH, 1024]),
         *nce_entries,
         entry("vgg_stem_forward", "pose3d_tpu_torch/csrc/vgg_stem.cu",
@@ -4539,7 +5070,8 @@ def main() -> int:
               "pose3d_tpu/ops/vgg_stem.py:93", bf16_paths[1] + mv16_added[1], stem16_wgrad_err,
               stem16["kernel backward"], stem16["plain backward"], stem16_bounds[1]),
         entry("pointnet_eval_bf16", "pose3d_tpu_torch/csrc/pointnet_eval.cu",
-              "pose3d_tpu/ops/pointnet_fused.py:78", bf16_paths[2] + teacher16_serving,
+              "pose3d_tpu/ops/pointnet_fused.py:78",
+              bf16_paths[2] + teacher16_serving + mv16_added[2],
               pn16_err, *pn16_times[TEACHER_BATCH, 1024], pn16_bounds[TEACHER_BATCH, 1024]),
         # the train-mode PointNet's bf16 instance, its launches on the bf16
         # teacher's and stage 1's paths (phase 40)
@@ -4550,7 +5082,17 @@ def main() -> int:
         entry("pointnet_train_backward_bf16", "pose3d_tpu_torch/csrc/pointnet_train.cu",
               "pose3d_tpu/ops/pointnet_train_fused.py:545", pt16_paths[1],
               pt16_worst["grad_abs"], pt16_times[TRAIN_BATCH]["bf16 backward"],
-              pt16_times[TRAIN_BATCH]["plain backward"], pt16_bounds[TRAIN_BATCH][1])]}))
+              pt16_times[TRAIN_BATCH]["plain backward"], pt16_bounds[TRAIN_BATCH][1]),
+        # the int8 convolution replaces no TPU kernel (XLA's int8 conv); its
+        # launches on the int8 paths (phases 46-50), its times summed over
+        # one int8 student forward's ten calls at batch 256 (bf16), the
+        # yardstick im2col + torch._int_mm at the same shapes
+        dict(entry("int8_conv", "pose3d_tpu_torch/csrc/int8_conv.cu",
+                   "none: pose3d_tpu/serving/quant_student.py:47 is XLA's int8 convolution "
+                   "(lax.conv_general_dilated), no Pallas kernel",
+                   i8_launched, i8_err, i8_times["ms"], i8_times["plain_ms"],
+                   (i8_times["bound_ms"], i8_times["bound_by"])),
+             library_ms=i8_times["library_ms"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -213,12 +213,14 @@ def build_train_eval_datasets(opt):
     return train, val
 
 
-def build_kd_datasets(opt):
+def build_kd_datasets(opt, val_shapes: bool = False):
     """The KD regimes' train and validation sets, as the JAX CLI builds
     them. `--crd`, `--contrast`, `--vid` and `--stage 2`: Pascal3DContrast
     (three views a sample, with its cloud) on ObjectNet3D's test categories
     or on Pascal3D's; the validation set evaluates the RGB-only student, so
-    it loads no shapes (JAX loads and ignores them). `--stage 1`: plain
+    it loads no shapes (JAX loads and ignores them) unless `val_shapes`
+    asks for them (the MultiView `--int8_teacher` calibrates its render
+    encoder on the first validation batch's renders). `--stage 1`: plain
     Pascal3D samples with their clouds or renders,
     train (with `--random` / `--random_range`) and validation, since the
     vanilla teacher is what stage 1 evaluates."""
@@ -240,7 +242,7 @@ def build_kd_datasets(opt):
         root_dir, annotation_file, train=True, cat_choice=cats, novel=opt.novel,
         shot=opt.shot if opt.dataset == "ObjectNet3D" else None, seed=MANUAL_SEED,
         **_shape_kwargs(opt), **extra)
+    val_shape = _shape_kwargs(opt) if val_shapes else dict(shape=None, input_dim=opt.input_dim)
     val = datasets.Pascal3DContrast(root_dir, annotation_file, train=False, cat_choice=cats,
-                                    novel=opt.novel, shape=None, input_dim=opt.input_dim,
-                                    **extra)
+                                    novel=opt.novel, **val_shape, **extra)
     return train, val

@@ -12,8 +12,14 @@ MultiView teacher takes the `--view_num` renders of its sorted files that
 `--tour` rings rolled by `--mutation` steps select, each resized to
 --input_dim where it is another size, in [0, 1]. `--bf16` computes in
 bfloat16 (the stem and the eval PointNet in their bf16 kernels on the
-card). `--int8` and the AOT artifacts are refused with a message until
-they are ported (ROADMAP.md).
+card). `--int8` serves through the int8 post-training-quantized forward
+(`pose3d_tpu_torch.serving`; the int8 kernel on the card), calibrated on
+the input image itself as JAX does (its renders too, for the MultiView
+teacher), or read from a `--load_quantized` .npz of either package;
+`--save_quantized` writes the quantized tree in JAX's .npz schema. The
+student serves int8 in bfloat16, as JAX's does; a teacher in its dtype.
+The AOT artifacts (`--export_aot`, `--load_aot`) are refused with a message
+until they are ported (ROADMAP.md).
 
     python -m pose3d_tpu_torch.cli.inference --ckpt student.pth --img_path img.jpg
     python -m pose3d_tpu_torch.cli.inference --ckpt teacher.pth --img_path img.jpg \\
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from pose3d_tpu_torch import geometry, serving
 from pose3d_tpu_torch.cli import common
 from pose3d_tpu_torch.data import ply
 from pose3d_tpu_torch.data import transforms as T
@@ -52,13 +59,20 @@ def parse_args(argv=None):
     parser.add_argument("--shape_feature_dim", type=int, default=1024)
     parser.add_argument("--point_num", type=int, default=2500)
     parser.add_argument("--int8", action="store_true",
-                        help="not ported yet: refused (ROADMAP.md)")
-    for flag in ("export_aot", "load_aot", "save_quantized", "load_quantized"):
+                        help="serve through the int8 PTQ path")
+    parser.add_argument("--save_quantized", type=str, default=None,
+                        help="with --int8: write the quantized tree to this .npz (JAX's "
+                             "schema; int8 on disk) after calibration")
+    parser.add_argument("--load_quantized", type=str, default=None,
+                        help="with --int8: load a saved .npz instead of calibrating")
+    for flag in ("export_aot", "load_aot"):
         parser.add_argument(f"--{flag}", type=str, default=None,
                             help="not ported yet: refused (ROADMAP.md)")
     opt = parser.parse_args(argv)
-    common.refuse_unported(opt, ("int8", "export_aot", "load_aot", "save_quantized",
-                                 "load_quantized"))
+    common.refuse_unported(opt, ("export_aot", "load_aot"))
+    if (opt.save_quantized or opt.load_quantized) and not opt.int8:
+        raise SystemExit("--save_quantized / --load_quantized belong to the int8 path: "
+                         "pass --int8")
     if opt.ply_path and opt.render_dir:
         raise SystemExit("--ply_path (PointCloud teacher) and --render_dir "
                          "(MultiView teacher) are mutually exclusive")  # JAX's
@@ -98,10 +112,39 @@ def load_renders(render_dir: str, view_num: int, tour: int, mutation: int,
     return np.stack(renders)[None].astype(np.float32)
 
 
+def int8_outputs(opt, model, arr: np.ndarray, shape: np.ndarray | None, device):
+    """The six heads of the int8 serving forward for one request: the
+    quantized tree read from --load_quantized or calibrated on the request
+    itself (JAX's), written to --save_quantized if asked."""
+    im = torch.from_numpy(arr).to(device)
+    if shape is None:
+        q = (serving.load_quantized(opt.load_quantized, device) if opt.load_quantized
+             else serving.quantize_student(model, [arr]))
+    elif opt.load_quantized:
+        q = serving.load_quantized_teacher(opt.load_quantized, device)
+        if ("img" in q) != (opt.shape == "MultiView"):
+            raise SystemExit(f"{opt.load_quantized}: a quantized "
+                             f"{'MultiView' if 'img' in q else 'PointCloud'} teacher, not a "
+                             f"{opt.shape} one")
+    elif opt.shape == "MultiView":
+        q = serving.quantize_teacher_mv(model, [arr], [shape])
+    else:
+        q = serving.quantize_teacher_resnet(model, [arr])
+    if opt.save_quantized:
+        serving.save_quantized(q, opt.save_quantized)
+        print(f"quantized {'student' if shape is None else opt.shape + ' teacher'} saved to "
+              f"{opt.save_quantized}")
+    if shape is None:
+        return serving.student_int8_infer(q, im)  # bfloat16, JAX's default
+    return serving.make_teacher_int8_infer(model)(q, im, torch.from_numpy(shape).to(device))
+
+
 def main(argv=None):
     opt = parse_args(argv)
     device = common.setup_device(opt)
-    im = torch.from_numpy(prep_image(opt.img_path, opt.input_dim)).to(device)
+    arr = prep_image(opt.img_path, opt.input_dim)
+    im = torch.from_numpy(arr).to(device)
+    shape = None
     if opt.ply_path or opt.render_dir:
         # the teacher's image feature is 1024 unless set: the student's
         # default 2048 does not carry over (as in JAX)
@@ -113,10 +156,16 @@ def main(argv=None):
                                  opt.input_dim)
         else:
             shape = sample_cloud(opt.ply_path, opt.point_num)
-        vp = model.predict_viewpoint(im, torch.from_numpy(shape).to(device))[0].cpu().numpy()
     else:
         model = common.build_student(opt, opt.ckpt, device)
+    if opt.int8:
+        outputs = [o.float() for o in int8_outputs(opt, model, arr, shape, device)]
+        vp = geometry.decode_predictions_inference(outputs[:3], outputs[3:],
+                                                   opt.bin_size)[0].cpu().numpy()
+    elif shape is None:
         vp = model.predict_viewpoint(im)[0].cpu().numpy()
+    else:
+        vp = model.predict_viewpoint(im, torch.from_numpy(shape).to(device))[0].cpu().numpy()
     # back to annotation convention
     vp[1] -= 90.0
     vp[2] -= 180.0

@@ -6,9 +6,13 @@ One pass over the validation set, reduced per category: ObjectNet3D's or
 Pascal3D's test categories, or (the student) LineMod's objects or Pix3D's
 categories. Writes the same artifacts as the JAX CLI: testing_log.txt with
 the per-category lines and predictions_{cat}.npy dumps. `--bf16` computes
-in bfloat16 (float32 parameters). `--int8`, `--device_shapes` and
-`--n_devices` are refused with a message until they are ported
-(ROADMAP.md).
+in bfloat16 (float32 parameters). `--int8` evaluates through the int8
+post-training-quantized serving forward (`pose3d_tpu_torch.serving`: the
+student's VGG trunk, the teacher's ResNet-50 and, for MultiView, its
+per-view ResNet-18), calibrated on the first `--calib_batches` evaluation
+batches; its teacher evaluation computes no contrastive loss, as JAX's.
+`--device_shapes` and `--n_devices` are refused with a message until they
+are ported (ROADMAP.md).
 
     python -m pose3d_tpu_torch.cli.testing --dataset ObjectNet3D --shape None \\
         --img_feature_dim 2048 --model student.pth
@@ -26,10 +30,13 @@ import argparse
 import os
 
 import numpy as np
+import torch
 
+from pose3d_tpu_torch import geometry, serving
 from pose3d_tpu_torch.cli import common
 from pose3d_tpu_torch.data import datasets
 from pose3d_tpu_torch.data.loader import DataLoader
+from pose3d_tpu_torch.losses.binned import pose_loss_per_sample
 from pose3d_tpu_torch.train import steps
 from pose3d_tpu_torch.train.evaluate import evaluate_categories
 
@@ -58,13 +65,16 @@ def parse_args(argv=None):
                         help="pair each image with another CAD model of its category")
     parser.add_argument("--output_dir", type=str, default=None)
     common.add_student_flags(parser, img_feature_dim=1024)
-    for flag in ("int8", "device_shapes"):
-        parser.add_argument(f"--{flag}", action="store_true",
-                            help="not ported yet: refused (ROADMAP.md)")
+    parser.add_argument("--int8", action="store_true",
+                        help="evaluate through the int8 PTQ serving path")
+    parser.add_argument("--calib_batches", type=int, default=4,
+                        help="eval batches used to calibrate --int8 scales")
+    parser.add_argument("--device_shapes", action="store_true",
+                        help="not ported yet: refused (ROADMAP.md)")
     parser.add_argument("--n_devices", type=int, default=None,
                         help="not ported yet: refused (ROADMAP.md)")
     opt = parser.parse_args(argv)
-    common.refuse_unported(opt, ("int8", "device_shapes", "n_devices"))
+    common.refuse_unported(opt, ("device_shapes", "n_devices"))
     if opt.dataset in ("LineMod", "Pix3D") and opt.shape != "None":
         # JAX builds the teacher and fails on the samples' missing 'shape'
         raise SystemExit(f"--dataset {opt.dataset}: its samples carry no shape, so only the "
@@ -91,6 +101,44 @@ def build_eval_dataset(opt):
         view_num=opt.view_num, tour=opt.tour)
 
 
+def int8_eval_step(opt, model, kind: str, dataset):
+    """An evaluation step through the int8 serving forward (JAX's
+    `_int8_eval_step`): the quantized tree calibrated on the first
+    --calib_batches evaluation batches (their clouds or renders too, for a
+    teacher), then per batch the six heads in float32, the per-sample pose
+    loss and the train/val decoder, as `steps.make_eval_step` returns them
+    without the contrastive loss."""
+    ims, shapes = [], []
+    for i, b in enumerate(DataLoader(dataset, opt.batch_size, shuffle=False, num_workers=0)):
+        if i >= opt.calib_batches:
+            break
+        ims.append(np.asarray(b["im"]))
+        if kind == "teacher":
+            shapes.append(np.asarray(b["shape"]))
+    if kind == "student":
+        q = serving.quantize_student(model, ims)
+        dtype = torch.bfloat16 if opt.bf16 else torch.float32
+
+        def infer(batch):
+            return serving.student_int8_infer(q, batch["im"], dtype)
+    else:
+        q = (serving.quantize_teacher_mv(model, ims, shapes) if opt.shape == "MultiView"
+             else serving.quantize_teacher_resnet(model, ims))
+        teacher_infer = serving.make_teacher_int8_infer(model)
+
+        def infer(batch):
+            return teacher_infer(q, batch["im"], batch["shape"])
+
+    @torch.no_grad()
+    def step(batch: dict) -> dict:
+        outputs = [o.float() for o in infer(batch)]
+        per_sample = pose_loss_per_sample(outputs, batch["label"], opt.bin_size)
+        preds = geometry.decode_predictions(outputs[:3], outputs[3:], opt.bin_size)
+        return {"pred": preds, "loss": per_sample.mean(), "per_sample_loss": per_sample}
+
+    return step
+
+
 def main(argv=None):
     opt = parse_args(argv)
     print(opt)
@@ -108,8 +156,9 @@ def main(argv=None):
     os.makedirs(predictions_path, exist_ok=True)
     logname = os.path.join(predictions_path, "testing_log.txt")
 
-    result = evaluate_categories(steps.make_eval_step(model, kind, opt.bin_size),
-                                 loader, dataset.category_names, device)
+    eval_step = (int8_eval_step(opt, model, kind, dataset) if opt.int8
+                 else steps.make_eval_step(model, kind, opt.bin_size))
+    result = evaluate_categories(eval_step, loader, dataset.category_names, device)
 
     with open(logname, "w") as f:
         f.write("\n")

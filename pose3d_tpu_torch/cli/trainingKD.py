@@ -47,7 +47,11 @@ either kind. Writes, under <result_dir>/KD_<dataset>/, training_log.txt (a
 what the testing CLI's `--model` reads, --stage 1's holds both train states
 under "teacher" and "student", and the memory bank under "bank");
 `--resume` continues from the last saved epoch; `--export_torch` writes
-the final student as a reference-layout .pth.
+the final student as a reference-layout .pth. `--int8_teacher` (--crd,
+--contrast, --vid, --stage 2) runs the frozen teacher's ResNets int8
+(`pose3d_tpu_torch.serving`, the int8 kernel on the card), calibrated on
+the first evaluation batch; it is refused with --stage 1 and with a
+MultiView --stage 2 teacher, as JAX refuses them.
 The flags of paths not ported yet are refused with a message that names
 ROADMAP.md.
 """
@@ -59,8 +63,10 @@ import json
 import os
 import sys
 
+import numpy as np
 import torch
 
+from pose3d_tpu_torch import serving
 from pose3d_tpu_torch.cli import common
 from pose3d_tpu_torch.data.loader import DataLoader
 from pose3d_tpu_torch.train.state import create_train_state
@@ -144,8 +150,13 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda); cpu runs the plain "
                              "versions and must be asked for")
-    for flag, what in (("int8_teacher", "an int8 frozen teacher"),
-                       ("device_augment", "on-device photometric augmentation"),
+    parser.add_argument("--int8_teacher", action="store_true",
+                        help="--crd / --contrast / --vid / --stage 2: run the frozen teacher's "
+                             "conv trunks (the ResNet-50, and a MultiView teacher's per-view "
+                             "ResNet-18; --stage 2: the vanilla ResNet-18) through the int8 "
+                             "PTQ serving path inside the KD step, calibrated on the first "
+                             "eval batch (a deliberate approximation of the teacher)")
+    for flag, what in (("device_augment", "on-device photometric augmentation"),
                        ("device_views", "on-device view synthesis"),
                        ("device_shapes", "a device-resident cloud bank")):
         parser.add_argument(f"--{flag}", action="store_true",
@@ -221,7 +232,14 @@ def parse_args(argv=None):
     if opt.stage == 1 and opt.teacher_model is not None:
         raise SystemExit("--teacher_model: --stage 1 trains its vanilla teacher from "
                          "scratch (ROADMAP.md Queue 1 lists the ported regimes)")
-    unported = {"--int8_teacher": opt.int8_teacher, "--device_augment": opt.device_augment,
+    # JAX's refusals of --int8_teacher, with its messages
+    if opt.int8_teacher and opt.stage == 1:
+        raise SystemExit("--int8_teacher: not applicable to --stage 1 (the teacher trains "
+                         "jointly; nothing is frozen to quantize)")
+    if opt.int8_teacher and opt.stage == 2 and opt.shape != "PointCloud":
+        raise SystemExit("--int8_teacher --stage 2: PointCloud teachers only (the vanilla int8 "
+                         "fwd has no MV variant)")
+    unported = {"--device_augment": opt.device_augment,
                 "--device_views": opt.device_views, "--device_shapes": opt.device_shapes,
                 "--loader shm": opt.loader != "thread",
                 "--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
@@ -234,6 +252,24 @@ def parse_args(argv=None):
     if opt.tau is None:
         opt.tau = 0.5
     return opt
+
+
+def int8_teacher(opt, teacher) -> dict:
+    """The frozen teacher's quantized tree, calibrated as JAX's CLI does on
+    the first evaluation batch: its images' first 32 (always normalized
+    crops, as the step feeds the teacher) and, for a MultiView teacher, its
+    first 8 samples' renders."""
+    val = common.build_kd_datasets(opt, val_shapes=opt.shape == "MultiView")[1]
+    batch = next(iter(DataLoader(val, opt.batch_size, shuffle=False, num_workers=0)))
+    calib = [np.asarray(batch["im"][:32])]
+    if opt.stage == 2:
+        print("int8 teacher: vanilla resnet18 quantized")
+        return serving.quantize_teacher_vanilla(teacher, calib)
+    if opt.shape == "MultiView":
+        print("int8 teacher: MV resnet50 + per-view resnet18 quantized")
+        return serving.quantize_teacher_mv(teacher, calib, [np.asarray(batch["shape"][:8])])
+    print("int8 teacher: resnet50 quantized (52 convs)")
+    return serving.quantize_teacher_resnet(teacher, calib)
 
 
 def main(argv=None):
@@ -264,6 +300,8 @@ def main(argv=None):
             teacher = common.build_teacher(opt, opt.teacher_model, device)
         teacher.requires_grad_(False)
         teacher_state = None
+        if opt.int8_teacher:
+            teacher = {"model": teacher, "q8": int8_teacher(opt, teacher)}
 
     result_path = os.path.join(os.getcwd(), opt.result_dir, f"KD_{opt.dataset}")
     os.makedirs(result_path, exist_ok=True)
@@ -276,7 +314,7 @@ def main(argv=None):
                         dataset_eval.category_names, result_path, bin_size=opt.bin_size,
                         temperature=opt.temperature, teacher_state=teacher_state,
                         tau=opt.tau, use_fused_nce=opt.fused_nce, nce_variant=opt.nce,
-                        nce_weighting=opt.weighting or "linear")
+                        nce_weighting=opt.weighting or "linear", int8_teacher=opt.int8_teacher)
     start_epoch = 0
     latest = trainer.ckpt.latest_epoch() if opt.resume else None
     if latest is not None:

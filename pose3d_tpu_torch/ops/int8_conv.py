@@ -1,0 +1,174 @@
+"""The int8 convolution of post-training-quantized serving: the CUDA kernel
+`csrc/int8_conv.cu`, its wrapper, and the plain version.
+
+It replaces no TPU kernel: the JAX package computes its int8 products with
+XLA's convolution (`pose3d_tpu/serving/quant_student.py` `_conv(...,
+acc=jnp.int32)` and `quant_teacher.py` likewise), not with Pallas. PyTorch
+on CUDA has no int8 convolution, so the port writes its own: an implicit
+GEMM with s8 x s8 -> s32 products on the tensor cores (mma.sync m16n8k32)
+after a first pass that quantizes the input once, its epilogue the
+dequantization. A call is two CUDA launches, three where K is split (the
+dense layers, small batches); it adds one to the launch count. im2col +
+`torch._int_mm` would materialise the patches (1.85 GB of s8 and 1.6 GB of
+s32 for one VGG conv at batch 256) and refuses M <= 16 (batch-1 serving);
+chip_smoke.py times it as the yardstick, and the port never calls it.
+
+    int8_conv(x, a, w, ws, shift, stride, padding, relu)
+
+x: NHWC (N, H, W, C) float32 or bfloat16 (the model's dtype); a: the
+per-tensor activation scale, a 0-d float32 tensor; w: HWIO (KH, KW, C, CO)
+int8, JAX's layout; ws, shift: (CO,) float32. Returns (N, OH, OW, CO) in x's
+dtype:
+
+    q = clamp(round_half_even(float32(x) / a), -127, 127)        (JAX's _quantize_act)
+    z = conv(q, w) in int32                                      (exact)
+    y = float32(z) * (a * ws) + shift, then the ReLU if asked, cast to x's dtype
+
+with `a * ws` one float32 product and the dequantization two rounded
+operations (no fused multiply-add), as JAX's `(y.astype(f32) * (a * ws) +
+b).astype(dtype)`. A dense layer is a 1x1 conv on a 1x1 image
+(`int8_dense`). What bounds the kernel on the card: the operations at
+1,979 TOPS (dense int8, H100 SXM) or the bytes at 3.35 TB/s, whichever is
+larger (chip_smoke.py computes both at the main path's shapes).
+
+A CPU tensor takes `int8_conv_plain`. A CUDA tensor launches the kernel, on
+the current stream, or the call raises: there is no fallback. Each launching
+call adds one to `int8_conv.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from pose3d_tpu_torch.ops import _build
+
+_KIND = {torch.float32: 0, torch.bfloat16: 2}  # the C interface's numbers
+QMAX = 127.0
+
+
+def quantize_act(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """JAX's `_quantize_act`: clamp(round(float32(x) / a), -127, 127) as
+    int8, round half to even. `a` is a 0-d float32 tensor on x's device
+    (torch divides by a CPU scalar as a product with its reciprocal on the
+    card, which would round otherwise)."""
+    q = torch.round(x.to(torch.float32) / a.to(x.device))
+    return torch.clamp(q, -QMAX, QMAX).to(torch.int8)
+
+
+def int8_sums(xq: torch.Tensor, w: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
+    """The exact int32 sums of the convolution of NHWC int8 `xq` with HWIO
+    int8 `w`: float64 products and sums of the s8 values are exact below
+    2^53 (|sum| <= K * 127^2, 4.05e8 at K = 25,088)."""
+    z = F.conv2d(xq.permute(0, 3, 1, 2).to(torch.float64),
+                 w.permute(3, 2, 0, 1).to(torch.float64), stride=stride, padding=padding)
+    return z.permute(0, 2, 3, 1).to(torch.int32).contiguous()  # NHWC, as the kernel's
+
+
+def dequantize(z: torch.Tensor, a: torch.Tensor, ws: torch.Tensor, shift: torch.Tensor,
+               dtype: torch.dtype, relu: bool) -> torch.Tensor:
+    """float32(z) * (a * ws) + shift, each a rounded float32 operation,
+    cast to `dtype`, then the ReLU if asked."""
+    scale = a.to(z.device) * ws
+    y = (z.to(torch.float32) * scale + shift).to(dtype)
+    return torch.relu(y) if relu else y
+
+
+def int8_conv_plain(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
+                    shift: torch.Tensor, stride: int = 1, padding: int = 0,
+                    relu: bool = False) -> torch.Tensor:
+    """The plain version: `quantize_act`, the exact sums (`int8_sums`), then
+    `dequantize` as separate torch operations."""
+    z = int8_sums(quantize_act(x, a), w, stride, padding)
+    return dequantize(z, a, ws, shift, x.dtype, relu)
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("int8_conv")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    # pointers and the stream are 64-bit: ctypes' default int would cut them
+    lib.int8_conv.argtypes = ([p, ctypes.c_int] + [p] * 7 + [i64] * 11
+                              + [ctypes.c_int, p])
+    lib.int8_conv.restype = ctypes.c_int
+    lib.int8_conv_splits.argtypes = [i64] * 3
+    lib.int8_conv_splits.restype = ctypes.c_int
+    return lib
+
+
+def _check(x, a, w, ws, shift, stride, padding):
+    if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[2]:
+        raise ValueError(f"int8_conv takes NHWC x and HWIO w with matching channels; got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    co = w.shape[3]
+    if tuple(ws.shape) != (co,) or tuple(shift.shape) != (co,) or a.numel() != 1:
+        raise ValueError(f"int8_conv takes (CO,) ws and shift and a scalar a; got "
+                         f"{tuple(ws.shape)}, {tuple(shift.shape)}, {tuple(a.shape)}")
+    if w.dtype != torch.int8 or ws.dtype != torch.float32 or shift.dtype != torch.float32 \
+            or a.dtype != torch.float32:
+        raise TypeError(f"int8_conv takes an int8 w and float32 a, ws, shift; got {w.dtype}, "
+                        f"{a.dtype}, {ws.dtype}, {shift.dtype}")
+    if stride < 1 or padding < 0:
+        raise ValueError(f"int8_conv: stride {stride}, padding {padding}")
+    if x.shape[1] + 2 * padding < w.shape[0] or x.shape[2] + 2 * padding < w.shape[1]:
+        raise ValueError(f"int8_conv: a {w.shape[0]}x{w.shape[1]} window over "
+                         f"{x.shape[1]}x{x.shape[2]} with padding {padding} leaves no output")
+    if not (x.device == a.device == w.device == ws.device == shift.device):
+        raise ValueError("int8_conv: inputs on different devices "
+                         f"({x.device}, {a.device}, {w.device}, {ws.device}, {shift.device})")
+
+
+def int8_conv(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
+              shift: torch.Tensor, stride: int = 1, padding: int = 0,
+              relu: bool = False) -> torch.Tensor:
+    """The int8 convolution (module docstring): the kernel on a CUDA tensor,
+    `int8_conv_plain` on a CPU one."""
+    _check(x, a, w, ws, shift, stride, padding)
+    if x.device.type == "cpu":
+        return int8_conv_plain(x, a, w, ws, shift, stride, padding, relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_conv has no kernel for device {x.device}")
+    if x.dtype not in _KIND:
+        raise TypeError(f"int8_conv's kernel takes float32 or bfloat16 input; got {x.dtype}")
+    n, h, wd, c = x.shape
+    kh, kw, _, co = w.shape
+    oh = (h + 2 * padding - kh) // stride + 1
+    ow = (wd + 2 * padding - kw) // stride + 1
+    m, k = n * oh * ow, kh * kw * c
+    if k >= 2**31 or m * co >= 2**62 or max(h, wd, c, co) >= 2**31:
+        raise ValueError(f"int8_conv: sizes out of range (M {m}, K {k}, CO {co})")
+    x, w = x.contiguous(), w.contiguous()
+    ws, shift, a = ws.contiguous(), shift.contiguous(), a.reshape(())
+    if x.data_ptr() % 16 or w.data_ptr() % 4:
+        raise ValueError("int8_conv's kernel takes x aligned to 16 bytes and w to 4")
+    y = torch.empty((n, oh, ow, co), dtype=x.dtype, device=x.device)
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)  # the quantized input
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        acc = (torch.empty((m, co), dtype=torch.int32, device=x.device)
+               if lib.int8_conv_splits(m, co, k) > 1 else None)
+        err = lib.int8_conv(x.data_ptr(), _KIND[x.dtype], a.data_ptr(), w.data_ptr(),
+                            ws.data_ptr(), shift.data_ptr(), y.data_ptr(), xq.data_ptr(),
+                            None if acc is None else acc.data_ptr(), n, h, wd, c, kh, kw,
+                            stride, padding, oh, ow, co, int(relu),
+                            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8_conv kernel launch failed: cudaError_t {err}")
+    _counted.launches += 1
+    return y
+
+
+int8_conv.launches = 0
+_counted = int8_conv  # the count stays here while a caller swaps the module's name
+
+
+def int8_dense(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
+               shift: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    """A dense layer through the int8 convolution: (N, K) x (K, CO) int8 as
+    a 1x1 conv on a 1x1 image."""
+    y = int8_conv(x.reshape(x.shape[0], 1, 1, -1), a, w.reshape(1, 1, *w.shape), ws, shift,
+                  relu=relu)
+    return y.reshape(x.shape[0], -1)

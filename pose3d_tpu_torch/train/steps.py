@@ -26,6 +26,8 @@ from pose3d_tpu_torch.losses.nce import (info_nce_kd, info_nce_kd_per_sample,
                                          multi_pose_nce_kd, pose_nce_kd)
 from pose3d_tpu_torch.ops import nce
 from pose3d_tpu_torch.ops.augment import dewire
+from pose3d_tpu_torch.serving.quant_teacher import (make_teacher_int8_kd_fwd,
+                                                    make_vanilla_int8_kd_fwd)
 from pose3d_tpu_torch.train.state import TrainState
 
 NCE_TAU, NCE_DROPOUT, NCE_WEIGHT = 0.1, 0.3, 0.5
@@ -180,30 +182,56 @@ def make_vanilla_train_step(has_shape: bool, bin_size: int = 15) -> Callable:
     return step
 
 
-def _views_step(bin_size: int, temperature: float, loss_kind: str) -> Callable:
+def _int8_teacher_forward(loss_kind: str) -> Callable:
+    """The frozen teacher's forward with its conv trunks int8:
+    fn({"model": teacher, "q8": quantized tree}, im, shape) -> (six heads,
+    feature), the PointCloud or MultiView teacher's heads and projector
+    feature (`make_teacher_int8_kd_fwd`) or, for "stage2", the vanilla
+    teacher's heads and None (`make_vanilla_int8_kd_fwd`); view_tile 3."""
+    def fwd(teacher: dict, im: torch.Tensor, shape: torch.Tensor):
+        model, dtype = teacher["model"], input_dtype(teacher["model"])
+        im, shape = im.to(dtype), shape.to(dtype)
+        if loss_kind == "stage2":
+            return make_vanilla_int8_kd_fwd(model)(teacher["q8"], im, shape, view_tile=3), None
+        return make_teacher_int8_kd_fwd(model)(teacher["q8"], im, shape, view_tile=3)
+
+    return fwd
+
+
+def _views_step(bin_size: int, temperature: float, loss_kind: str,
+                int8_teacher: bool = False) -> Callable:
     """The student step over three views against a frozen teacher, shared
     by `make_kd_crd_step` and `make_stage2_step`; `loss_kind` "crd",
     "contrast", "vid" or "stage2" (the response KD: `kd_loss`, as
-    "contrast")."""
+    "contrast"). With `int8_teacher` the step's `teacher` is {"model":
+    the teacher, "q8": its quantized tree} and the teacher's forward runs
+    its conv trunks int8 (`_int8_teacher_forward`)."""
+    int8_fwd = _int8_teacher_forward(loss_kind) if int8_teacher else None
+
     def step(state: TrainState, teacher, batch: dict, keep=None) -> dict:
         model = state.model
         model.train()
-        teacher.eval()
         valid = batch.get("valid")
         valid3 = None if valid is None else torch.cat([valid] * 3)
         im = dewire(torch.cat([batch["im"], batch["im_flip"], batch["im_rot"]]))
         label = torch.cat([batch["label"], batch["label_flip"], batch["label_rot"]])
         s_out, s_feat = model(im.to(input_dtype(model)), mask=valid3,
                               generator=state.generator, keep=keep)
-        t_dtype = input_dtype(teacher)
         with torch.no_grad():
             # ([6 heads], ..., feature): the teacher's projector feature,
             # or the vanilla teacher's compressed one (unused by its loss);
             # each cloud encoded once, its feature tiled over the views
-            t = teacher(im.to(t_dtype), batch["shape"].to(t_dtype), view_tile=3)
+            if int8_fwd is not None:
+                t_out, t_feat = int8_fwd(teacher, im, batch["shape"])
+            else:
+                teacher.eval()
+                t_dtype = input_dtype(teacher)
+                t = teacher(im.to(t_dtype), batch["shape"].to(t_dtype), view_tile=3)
+                t_out, t_feat = t[0], t[-1]
         # the losses in float32 whatever the models' dtypes, as JAX's step
-        s_out, t_out = [o.float() for o in s_out], [o.float() for o in t[0]]
-        s_feat, t_feat = s_feat.float(), t[-1].float()
+        s_out, t_out = [o.float() for o in s_out], [o.float() for o in t_out]
+        s_feat = s_feat.float()
+        t_feat = None if t_feat is None else t_feat.float()
         gt = pose_loss(s_out, label, bin_size, valid=valid3)
         if loss_kind == "crd":
             loss = kd_loss_with_features(s_out, t_out, s_feat, t_feat, gt,
@@ -223,7 +251,7 @@ def _views_step(bin_size: int, temperature: float, loss_kind: str) -> Callable:
 
 
 def make_kd_crd_step(bin_size: int = 15, temperature: float = 1.0,
-                     loss_variant: str = "crd") -> Callable:
+                     loss_variant: str = "crd", int8_teacher: bool = False) -> Callable:
     """The KD student step (JAX's `make_kd_crd_step`): the three views of
     each sample through the student in train mode, the frozen teacher's
     responses and projector features on them, then by `loss_variant`:
@@ -233,9 +261,13 @@ def make_kd_crd_step(bin_size: int = 15, temperature: float = 1.0,
         (`kd_loss`);
       * "vid" (`--vid`): 0.6 * the pose loss + 0.2 * the heads' mean KL +
         0.2 * the VID term on the 200-d features (`vid_loss`);
-    at `temperature`; one Adam update and one schedule step. JAX's
-    `device_augment`, `device_views`, `int8_teacher` and `with_shape_bank`
-    are not taken (the CLI refuses them; ROADMAP.md).
+    at `temperature`; one Adam update and one schedule step. With
+    `int8_teacher` the frozen teacher's conv trunks run int8
+    (`serving.quant_teacher.make_teacher_int8_kd_fwd`: the ResNet-50, and a
+    MultiView teacher's per-view ResNet-18), and the step's `teacher` is
+    {"model": the teacher, "q8": its quantized tree}, as JAX's
+    {"variables", "q8"}. JAX's `device_augment`, `device_views` and
+    `with_shape_bank` are not taken (the CLI refuses them; ROADMAP.md).
 
     Returns step(state, teacher, batch, keep=None) -> {'loss', 'gt_loss',
     'acc_rot'} (0-d tensors on the student's device, no host sync).
@@ -251,10 +283,11 @@ def make_kd_crd_step(bin_size: int = 15, temperature: float = 1.0,
     """
     if loss_variant not in KD_LOSS_VARIANTS:
         raise ValueError(f"unknown loss_variant: {loss_variant!r}")
-    return _views_step(bin_size, temperature, loss_variant)
+    return _views_step(bin_size, temperature, loss_variant, int8_teacher)
 
 
-def make_stage2_step(bin_size: int = 15, temperature: float = 1.0) -> Callable:
+def make_stage2_step(bin_size: int = 15, temperature: float = 1.0,
+                     int8_teacher: bool = False) -> Callable:
     """KD `--stage 2` (JAX's `make_stage2_step`): response KD from the
     frozen stage-1 teacher, a `PoseEstimatorVanilla` in eval mode without a
     gradient, in its own dtype, with `view_tile=3` (each cloud once through
@@ -263,9 +296,13 @@ def make_stage2_step(bin_size: int = 15, temperature: float = 1.0) -> Callable:
     `temperature` (`kd_loss`), the losses in f32; one Adam update and one
     schedule step. The batch, `keep` and the returned metrics are
     `make_kd_crd_step`'s: step(state, teacher, batch, keep=None) ->
-    {'loss', 'gt_loss', 'acc_rot'}, no host sync. JAX's `device_views`
-    and `int8_teacher` are not taken (the CLI refuses them; ROADMAP.md)."""
-    return _views_step(bin_size, temperature, "stage2")
+    {'loss', 'gt_loss', 'acc_rot'}, no host sync. With `int8_teacher` the
+    teacher's ResNet-18 runs int8
+    (`serving.quant_teacher.make_vanilla_int8_kd_fwd`, PointCloud only) and
+    the step's `teacher` is {"model": the teacher, "q8": its quantized
+    tree}. JAX's `device_views` is not taken (the CLI refuses it;
+    ROADMAP.md)."""
+    return _views_step(bin_size, temperature, "stage2", int8_teacher)
 
 
 def make_stage1_step(bin_size: int = 15, tau: float = 0.5, nce_weight: float = 0.75,

@@ -309,16 +309,20 @@ class KDTrainer:
         the student trained together by `make_stage1_step`, optionally
         with the memory bank; per epoch the teacher's per-category
         evaluation, a checkpoint of both train states (and of the bank),
-        the log line and the metrics record."""
+        the log line and the metrics record.
+    With `int8_teacher` (--int8_teacher, --crd's regimes and --stage 2) the
+    steps run the frozen teacher's conv trunks int8, and `teacher` is
+    {"model": the teacher, "q8": its quantized tree}."""
 
     def __init__(self, state: TrainState, teacher, train_loader, eval_loader,
                  category_names: list[str], result_path: str, bin_size: int = 15,
                  temperature: float = 1.0, teacher_state: TrainState | None = None,
                  tau: float = 0.5, use_fused_nce: bool = False, nce_variant: str = "info",
-                 nce_weighting: str = "linear"):
+                 nce_weighting: str = "linear", int8_teacher: bool = False):
         self.state = state
         self.teacher = teacher
         self.teacher_state = teacher_state
+        self.int8_teacher = int8_teacher
         self.bin_size, self.temperature, self.tau = bin_size, temperature, tau
         self.use_fused_nce = use_fused_nce
         self.nce_variant, self.nce_weighting = nce_variant, nce_weighting
@@ -336,14 +340,15 @@ class KDTrainer:
     def fit_crd(self, epochs: int, start_epoch: int = 0, loss_variant: str = "crd") -> float:
         """JAX's fit_crd with its `_student_loop`; `loss_variant` "crd",
         "contrast" or "vid" (`make_kd_crd_step`), also the metrics' kind."""
-        step = steps_lib.make_kd_crd_step(self.bin_size, self.temperature, loss_variant)
+        step = steps_lib.make_kd_crd_step(self.bin_size, self.temperature, loss_variant,
+                                          self.int8_teacher)
         return self._fit(loss_variant, epochs, start_epoch, KD_VIEW_KEYS,
                          lambda db: step(self.state, self.teacher, db), self.eval_step,
                          self.state.state_dict)
 
     def fit_stage2(self, epochs: int, start_epoch: int = 0) -> float:
         """JAX's fit_stage2: `fit_crd`'s loop through `make_stage2_step`."""
-        step = steps_lib.make_stage2_step(self.bin_size, self.temperature)
+        step = steps_lib.make_stage2_step(self.bin_size, self.temperature, self.int8_teacher)
         return self._fit("stage2", epochs, start_epoch, KD_VIEW_KEYS,
                          lambda db: step(self.state, self.teacher, db), self.eval_step,
                          self.state.state_dict)

@@ -72,6 +72,7 @@ from pose3d_tpu_torch.ops.vgg_stem import vgg_stem_plain
 from pose3d_tpu_torch.train import convert, steps
 from pose3d_tpu_torch.train.state import create_train_state
 import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
+from torch_xdist_threads import release_module_memory  # noqa: F401
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

@@ -41,6 +41,7 @@ from pose3d_tpu_torch.data import datasets
 from pose3d_tpu_torch.data import transforms as T
 from pose3d_tpu_torch.models.estimators import PoseEstimator, PoseEstimatorVanilla
 import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
+from torch_xdist_threads import release_module_memory  # noqa: F401
 
 CATS = ("bed", "bookshelf", "calculator")
 VIEW_NUM, RENDER, INPUT_DIM = 4, 24, 32

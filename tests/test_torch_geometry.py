@@ -20,6 +20,7 @@ from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.losses.binned import pose_loss_per_sample
 from pose3d_tpu_torch.ops import geodesic
 import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
+from torch_xdist_threads import release_module_memory  # noqa: F401
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

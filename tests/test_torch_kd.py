@@ -48,6 +48,7 @@ from pose3d_tpu_torch.train import convert, steps
 from pose3d_tpu_torch.train.state import create_train_state
 from pose3d_tpu_torch.train.trainer import KDTrainer
 import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
+from torch_xdist_threads import release_module_memory  # noqa: F401
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -409,6 +410,7 @@ KD_CLI_OUTCOMES = {
     ("--stage", "1", "--use_memory_bank", "--nce", "pose"): "no memory-bank form",
     ("--shape", "MultiView"): None,
     ("--dataset", "Pix3D"): "unsupported KD training dataset Pix3D",  # JAX's
+    ("--int8_teacher",): None, ("--stage", "2", "--int8_teacher"): None,
 }
 
 

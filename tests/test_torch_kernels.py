@@ -17,8 +17,10 @@ from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator,
                                                 PoseEstimatorVanilla)
 from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
-from pose3d_tpu_torch.ops import _build, geodesic, nce, pointnet, pointnet_train, vgg_stem
+from pose3d_tpu_torch.ops import (_build, geodesic, int8_conv, nce, pointnet, pointnet_train,
+                                  vgg_stem)
 import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
+from torch_xdist_threads import release_module_memory  # noqa: F401
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -674,3 +676,72 @@ def test_cpu_vanilla_teacher_train_forward_makes_no_kernel_launch():
     assert before == (pointnet_train.train_forward.launches,
                       pointnet_train.train_backward.launches, pointnet.pointnet_eval.launches)
     assert model.shape_encoder.conv3.weight.grad is not None and x.shape == (3, 200)
+
+
+# --- the int8 convolution (int8 serving) -------------------------------------
+
+def _int8_args(dev, n=2, h=9, w=9, c=32, k=3, co=48, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, h, w, c), generator=g, device=dev).to(dtype)
+    wq = torch.randint(-127, 128, (k, k, c, co), generator=g, device=dev, dtype=torch.int8)
+    a = (x.float().abs().max() / 127.0).reshape(())
+    ws = torch.rand((co,), generator=g, device=dev) * 1e-2 + 1e-4
+    return x, a, wq, ws, torch.randn((co,), generator=g, device=dev)
+
+
+@pytest.mark.parametrize("change,exc", [
+    ("w_float", TypeError), ("ws_shape", ValueError), ("channels", ValueError),
+    ("a_f64", TypeError), ("stride", ValueError), ("window", ValueError)])
+def test_int8_conv_rejects_bad_inputs(change, exc):
+    x, a, w, ws, shift = _int8_args("cpu")
+    stride, padding = 1, 1
+    if change == "w_float":
+        w = w.float()
+    elif change == "ws_shape":
+        ws = ws[:-1]
+    elif change == "channels":
+        x = x[..., :-1]
+    elif change == "a_f64":
+        a = a.double()
+    elif change == "stride":
+        stride = 0
+    else:
+        x, padding = x[:, :2, :2], 0
+    with pytest.raises(exc):
+        int8_conv.int8_conv(x, a, w, ws, shift, stride, padding)
+
+
+def test_int8_conv_rejects_devices_without_a_kernel():
+    x, a, w, ws, shift = (t.to("meta") for t in _int8_args("cpu"))
+    with pytest.raises(ValueError, match="no kernel"):
+        int8_conv.int8_conv(x, a, w, ws, shift)
+    with pytest.raises(ValueError, match="different devices"):
+        int8_conv.int8_conv(x, torch.zeros(()), w, ws, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,k,co,stride,padding", [
+    (2, 56, 56, 64, 3, 128, 1, 1), (2, 28, 28, 256, 1, 64, 2, 0), (3, 13, 13, 48, 3, 40, 2, 1),
+    (2, 9, 11, 20, 3, 30, 1, 1), (1, 1, 1, 25088, 1, 4096, 1, 0), (256, 1, 1, 4096, 1, 64, 1, 0)])
+def test_int8_conv_matches_plain_on_cuda(cuda, n, h, w, c, k, co, stride, padding, dtype):
+    """Bit for bit: the same s32 sums, the same two roundings."""
+    args = _int8_args(cuda, n, h, w, c, k, co, dtype)
+    before = int8_conv.int8_conv.launches
+    for relu in (False, True):
+        got = int8_conv.int8_conv(*args, stride, padding, relu)
+        want = int8_conv.int8_conv_plain(*args, stride, padding, relu)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and torch.equal(got, want)
+    assert int8_conv.int8_conv.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,launches", [
+    ((64, 56, 56, 64, 3, 64), 2),        # the quantization, the product
+    ((1, 1, 1, 25088, 1, 4096), 3)])     # and the split-K epilogue
+def test_int8_conv_launches_per_call(cuda, shape, launches):
+    n, h, w, c, k, co = shape
+    args = _int8_args(cuda, n, h, w, c, k, co, torch.bfloat16)
+    assert chip_smoke.graph_kernel_launches(
+        lambda: int8_conv.int8_conv(*args, 1, (k - 1) // 2)) == launches

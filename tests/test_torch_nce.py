@@ -21,6 +21,7 @@ from pose3d_tpu_torch.ops import nce
 from pose3d_tpu_torch.train import steps
 from tests.test_torch_vgg_stem import _split
 import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
+from torch_xdist_threads import release_module_memory  # noqa: F401
 
 LOSS_RTOL, GRAD_TOL = 1e-5, 1e-4
 TAU = 0.1

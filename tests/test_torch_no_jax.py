@@ -12,8 +12,9 @@ import torch
 
 from pose3d_tpu_torch import geometry
 from pose3d_tpu_torch.cli import inference, testing, training, trainingKD
-from pose3d_tpu_torch.ops import geodesic, pointnet, vgg_stem
+from pose3d_tpu_torch.ops import geodesic, int8_conv, pointnet, vgg_stem
 import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
+from torch_xdist_threads import release_module_memory  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -25,6 +26,9 @@ for m in pkgutil.walk_packages(pose3d_tpu_torch.__path__, "pose3d_tpu_torch."):
 banned = {"jax", "jaxlib", "flax", "optax", "orbax", "pose3d_tpu"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 assert not loaded, loaded
+serving = {"pose3d_tpu_torch.serving", "pose3d_tpu_torch.serving.quant_student",
+           "pose3d_tpu_torch.serving.quant_teacher", "pose3d_tpu_torch.ops.int8_conv"}
+assert serving <= set(sys.modules), serving - set(sys.modules)
 print(len([m for m in sys.modules if m.startswith("pose3d_tpu_torch")]))
 """
 
@@ -39,9 +43,10 @@ def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
     # every module: data (PLY reader included), models (ResNet, PointNet,
-    # DeformNet), the kernels' wrappers (the VGG stem's included), losses
-    # (KD's included) and CLIs (KD training's included)
-    assert int(proc.stdout) >= 33
+    # DeformNet), the kernels' wrappers (the VGG stem's and the int8
+    # convolution's included), losses (KD's included), CLIs (KD training's
+    # included) and serving (the int8 student and teachers)
+    assert int(proc.stdout) >= 37
 
 
 def test_geodesic_on_cpu_takes_the_plain_version(rng):
@@ -73,11 +78,14 @@ def test_cli_default_device_refuses_without_cuda(cli, tmp_path):
     ["--shape", "None", "--int8"], ["--shape", "None", "--device_shapes"],
     ["--shape", "None", "--n_devices", "2"]])
 def test_testing_cli_refuses_unported_modes(argv):
-    """Refused, naming ROADMAP.md; --bf16 and the MultiView teacher are
-    ported: parsed."""
+    """Refused, naming ROADMAP.md; --bf16, --int8 and the MultiView teacher
+    are ported: parsed."""
     flags = ["--dataset", "ObjectNet3D", "--device", "cpu"]
     if "--bf16" in argv:
         assert testing.parse_args(flags + argv).bf16
+        return
+    if "--int8" in argv:
+        assert testing.parse_args(flags + argv).int8
         return
     if argv == ["--shape", "MultiView"]:
         assert testing.parse_args(flags + argv).shape == "MultiView"
@@ -89,11 +97,14 @@ def test_testing_cli_refuses_unported_modes(argv):
 @pytest.mark.parametrize("argv", [["--bf16"], ["--int8"], ["--load_aot", "a"],
                                   ["--render_dir", "r"], ["--export_aot", "a"]])
 def test_inference_cli_refuses_unported_modes(argv):
-    """Refused, naming ROADMAP.md; --bf16 and --render_dir (the MultiView
-    teacher) are ported: parsed."""
+    """Refused, naming ROADMAP.md; --bf16, --int8 and --render_dir (the
+    MultiView teacher) are ported: parsed."""
     flags = ["--ckpt", "s.pth", "--img_path", "x.jpg", "--device", "cpu"]
     if argv == ["--bf16"]:
         assert inference.parse_args(flags + argv).bf16
+        return
+    if argv == ["--int8"]:
+        assert inference.parse_args(flags + argv).int8
         return
     if argv == ["--render_dir", "r"]:
         assert inference.parse_args(flags + argv).render_dir == "r"
@@ -119,10 +130,13 @@ def test_chip_smoke_fails_without_a_card_or_the_package(where, tmp_path):
                                   ["--shape", "PointCloud", "--int8"],
                                   ["--shape", "PointCloud", "--n_devices", "2"]])
 def test_testing_cli_refuses_unported_teacher_modes(argv):
-    """Refused, naming ROADMAP.md; --bf16 is ported: parsed."""
+    """Refused, naming ROADMAP.md; --bf16 and --int8 are ported: parsed."""
     flags = ["--dataset", "ObjectNet3D", "--device", "cpu"]
     if "--bf16" in argv:
         assert testing.parse_args(flags + argv).bf16
+        return
+    if "--int8" in argv:
+        assert testing.parse_args(flags + argv).int8
         return
     with pytest.raises(SystemExit, match="ROADMAP"):
         testing.main(flags + argv)
@@ -132,11 +146,15 @@ def test_testing_cli_refuses_unported_teacher_modes(argv):
                                   ["--export_aot", "a"]])
 def test_inference_cli_refuses_unported_teacher_modes(argv):
     """Refused, naming ROADMAP.md; --render_dir beside --ply_path with
-    JAX's message (the two teachers exclude each other)."""
+    JAX's message (the two teachers exclude each other); --int8 is ported:
+    parsed."""
+    flags = ["--ckpt", "t.pth", "--img_path", "x.jpg", "--ply_path", "p.ply", "--device", "cpu"]
+    if argv == ["--int8"]:
+        assert inference.parse_args(flags + argv).int8
+        return
     with pytest.raises(SystemExit, match="mutually exclusive" if "--render_dir" in argv
                        else "ROADMAP"):
-        inference.main(["--ckpt", "t.pth", "--img_path", "x.jpg", "--ply_path", "p.ply",
-                        "--device", "cpu"] + argv)
+        inference.main(flags + argv)
 
 
 def test_pointnet_on_cpu_takes_the_plain_version(rng):
@@ -204,3 +222,15 @@ def test_kd_cli_default_device_refuses_without_cuda(tmp_path):
     with pytest.raises(SystemExit, match="no CUDA device"):
         trainingKD.main(["--crd", "--dataset", "ObjectNet3D", "--shape", "PointCloud",
                          "--data_root", str(tmp_path)])
+
+
+def test_int8_conv_on_cpu_takes_the_plain_version(rng):
+    """The int8 serving path's wrapper: the plain version for a CPU tensor,
+    no launch counted."""
+    x = torch.from_numpy(rng.standard_normal((2, 6, 6, 16)).astype("float32"))
+    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, 16, 8)).astype("int8"))
+    a, ws, shift = torch.tensor(0.02), torch.full((8,), 1e-3), torch.zeros(8)
+    before = int8_conv.int8_conv.launches
+    out = int8_conv.int8_conv(x, a, w, ws, shift, 2, 1, relu=True)
+    assert int8_conv.int8_conv.launches == before
+    assert torch.equal(out, int8_conv.int8_conv_plain(x, a, w, ws, shift, 2, 1, relu=True))

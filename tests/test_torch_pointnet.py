@@ -31,6 +31,7 @@ from pose3d_tpu.train.torch_export import export_pointnet
 from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
 from pose3d_tpu_torch.ops import pointnet
 import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
+from torch_xdist_threads import release_module_memory  # noqa: F401
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")

@@ -26,6 +26,7 @@ from pose3d_tpu_torch.models.pointnet import ShapeEncoderPC
 from pose3d_tpu_torch.ops import pointnet, pointnet_train
 from pose3d_tpu_torch.train import convert
 import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
+from torch_xdist_threads import release_module_memory  # noqa: F401
 
 D = 256
 

@@ -46,6 +46,7 @@ from pose3d_tpu_torch.ops import pointnet_train
 from pose3d_tpu_torch.train import convert, steps
 from pose3d_tpu_torch.train.state import create_train_state
 import torch_xdist_threads  # noqa: F401  (torch's threads under pytest-xdist)
+from torch_xdist_threads import release_module_memory  # noqa: F401
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -326,12 +327,14 @@ def test_stage1_cli_two_epochs_then_resume(fixture_dir, monkeypatch):
 def test_stage1_cli_refuses_what_is_not_ported(argv):
     """--use_memory_bank, --nce pose/multipose, --bf16 and --shape MultiView
     are ported: parsed (and --weighting without --nce pose dropped with
-    JAX's warning); a bank with a pose variant is refused with JAX's
-    reason; the rest name ROADMAP.md."""
+    JAX's warning); a bank with a pose variant and --int8_teacher (nothing
+    is frozen in stage 1) are refused with JAX's reasons; the rest name
+    ROADMAP.md."""
     outcomes = {("--use_memory_bank",): None, ("--nce", "pose"): None, ("--bf16",): None,
                 ("--shape", "MultiView"): None,
                 ("--nce", "multipose"): None, ("--weighting", "sqrt"): None,
-                ("--use_memory_bank", "--nce", "multipose"): "no memory-bank form"}
+                ("--use_memory_bank", "--nce", "multipose"): "no memory-bank form",
+                ("--int8_teacher",): "not applicable to --stage 1"}  # JAX's
     expected = outcomes.get(tuple(argv), "ROADMAP")
     if expected is None:
         opt = trainingKD.parse_args(FLAGS + argv)
