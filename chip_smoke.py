@@ -47,7 +47,11 @@ width with random weights from a seed:
     testing and inference CLIs on generated files, KD --crd from it,
     --stage 1 with the MultiView vanilla teacher and --stage 2 from that
     stage's checkpoint; the testing CLI on LineMod and Pix3D and one
-    ShapeNetCore epoch of the RGB-only baseline.
+    ShapeNetCore epoch of the RGB-only baseline;
+  * the on-device data path: the cloud and render banks, the device
+    augmentation and view synthesis card vs CPU, a 2.17 GB render bank
+    gathered on the card, and the CLIs at full width with --device_shapes,
+    --device_augment and --device_views on generated files.
 The student's stem (conv3x3 + ReLU + 2x2 pool) runs in the VGG stem
 kernel in every student forward. Phases:
 
@@ -142,8 +146,27 @@ kernel in every student forward. Phases:
   with --int8_teacher at 46 x 3, 3 steps each: the teacher's outputs on
   the step's views bit-equal to the plain int8 product's and within the
   drift rule of the float teacher's, the step beside the float teacher's
+  the on-device data path (`device_data_phases`): 51 sample_from_bank
+  card vs CPU (the same indices, clouds within 1e-6; counts above and
+  below 2,500, rot 0 and +-15), gather_renders and synthesize_views
+  bit-equal, device_augment with given draws within 1e-6 of max|ref|; a
+  render bank of 100 x 144 renders of 224x224 u8 (2.17 GB, made on the
+  card) gathered at 64 x 12, sample_from_bank at 160 x 2,500 of 10,000
+  vertices, device_augment over 138 views, timed    52 the PointCloud
+  teacher step with a ShapeBank at the full subset, the MultiView teacher
+  step with a RenderBank, KD --crd with --device_views and given draws,
+  --stage 1 with a ShapeBank, each card vs CPU (f64 models, f32 losses),
+  and the two bank steps against the host-shape steps on the card
+  53 on generated files at full width: training --shape MultiView
+  --device_shapes --device_augment one epoch, --resume, and --bf16;
+  trainingKD --crd --device_views --device_shapes from a PointCloud
+  teacher's .pth one epoch, --resume, and --bf16; --stage 1
+  --device_shapes; testing --device_shapes and on host shapes with both
+  teachers; then the train loaders alone and the steps with their batch's
+  copy from pinned memory, host path and options in turns, f32 and bf16,
+  with the busy share, the bank's and the batch's bytes and peak memory
 Each path (7-8, 10-11, 16-17, 20-21, 24-25, 28-29, each variant of 31,
-35-38's, 40's, 41-44's and 46-50's) is driven with the kernels' launch counts set
+35-38's, 40's, 41-44's, 46-50's and each CLI run of 53) is driven with the kernels' launch counts set
 to 0 just before it and read just after it; 16, 20, 24, 28 and 31's are
 the training paths' main paths, 35-38's and 40's the bf16 ones. The total
 seconds are printed before the card's line.
@@ -263,6 +286,10 @@ INT8_SERVE_BATCHES, INT8_TEACHER_BATCH, INT8_KD_STEPS, INT8_IMAGE = (1, 64, 256)
 STUDENT_DRIFT, TEACHER_DRIFT = (0.995, 0.1, range(6)), (0.985, 0.25, range(3))
 INT8_OPS = 1979e12
 IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+# the on-device data path (phases 51-53): the vertices of each generated
+# cloud; the realistic render bank (models, renders, H, W, 3: 2.17 GB u8)
+# and its gather (samples, views)
+DD_CLOUD_VERTICES, DD_BANK_SHAPE, DD_GATHER = 10_000, (100, 144, 224, 224, 3), (64, 12)
 EVAL_CATEGORIES = ["bed", "bookshelf", "calculator"]
 EVAL_COUNTS = [64] * 8 + [37]  # 8 full batches of 64 + a ragged 37 padded to 64
 EDGE_ROWS = (  # (pred, label): identical triples (0 deg) and 180 deg apart,
@@ -2687,6 +2714,515 @@ def int8_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
         "bound_by": by, "library_ms": bf_vgg["library"]}
 
 
+def write_clouds(root: str, rng: np.random.Generator, n_vertices: int = DD_CLOUD_VERTICES) -> None:
+    """A binary PLY cloud of `n_vertices` points for each CAD model of
+    `write_fixtures`' ObjectNet3D set (<root>/pointcloud/<cat>/<XX>/
+    compressed.ply), for its PointCloud teachers."""
+    for cat in ("bed", "bookshelf"):
+        for cad in (1, 2):
+            path = os.path.join(root, "ObjectNet3D", "pointcloud", cat, f"{cad:02d}")
+            os.makedirs(path, exist_ok=True)
+            verts = rng.standard_normal((n_vertices, 3)).astype("<f4")
+            with open(os.path.join(path, "compressed.ply"), "wb") as f:
+                f.write(b"ply\nformat binary_little_endian 1.0\nelement vertex %d\n"
+                        b"property float x\nproperty float y\nproperty float z\nend_header\n"
+                        % n_vertices + verts.tobytes())
+
+
+def loader_rate(loader) -> float:
+    """Samples a second of one pass of the train loader alone (no step)."""
+    tt = time.perf_counter()
+    n = sum(int(b["valid"].sum()) for b in loader)
+    return n / (time.perf_counter() - tt)
+
+
+def device_data_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts,
+                       pt16_counts):
+    """Phases 51-53: the on-device data path (`--device_shapes` with the
+    cloud and render banks, `--device_augment`, `--device_views`, the u8
+    wire). 51: the banks' and the augmentation's ops card vs CPU, and a
+    render bank of DD_BANK_SHAPE gathered at DD_GATHER; 52: the steps with
+    the options card vs CPU at small width (f64 models, f32 losses); 53: the
+    CLIs on generated files at full width with the options, each driven
+    with the launch counts set to 0 just before it and read just after it,
+    and the train loaders and steps with and without the options, in
+    turns, f32 and bf16. Returns the paths' launches summed, as `counts`,
+    `bf16_counts` and `pt16_counts` order them."""
+    from pose3d_tpu_torch.cli import common as cli_common
+    from pose3d_tpu_torch.cli import testing as testing_cli
+    from pose3d_tpu_torch.cli import training as training_cli
+    from pose3d_tpu_torch.cli import trainingKD as kd_cli
+    from pose3d_tpu_torch.data import transforms as T
+    from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator,
+                                                    PoseEstimatorVanilla)
+    from pose3d_tpu_torch.ops import augment, shape_bank
+    from pose3d_tpu_torch.train import convert, steps
+    from pose3d_tpu_torch.train.evaluate import host_array
+    from pose3d_tpu_torch.train.state import create_train_state
+
+    cpu = torch.device("cpu")
+    added, added16, added_pt16 = [0] * 8, [0] * 3, [0] * 2
+
+    def drive(run):
+        """run() with the launch counts set to 0 before it and read after
+        it; the launches join the phases' sums. Returns (run's result, the
+        f32 counts, the bf16 counts, the bf16 train-mode PointNet's)."""
+        reset_counts()
+        out = run()
+        torch.cuda.synchronize()
+        c, c16, p16 = counts(), bf16_counts(), pt16_counts()
+        for acc, got in ((added, c), (added16, c16), (added_pt16, p16)):
+            for i, v in enumerate(got):
+                acc[i] += v
+        return out, c, c16, p16
+
+    # 51. the ops card vs CPU: sample_from_bank (counts above and below
+    # POINT_NUM, rot 0 and +-15) the same indices and clouds within 1e-6
+    # abs; gather_renders and synthesize_views bit-equal; device_augment
+    # with given draws within 1e-6 of max|ref|
+    g = np.random.default_rng(51)
+    n_counts = np.array([6000, POINT_NUM, 3100, 1200, 800, 4000], np.int32)
+    verts = np.zeros((len(n_counts), int(n_counts.max()), 3), np.float32)
+    for s, c in enumerate(n_counts):
+        verts[s, :c] = g.standard_normal((c, 3))
+    ids = torch.from_numpy(g.integers(0, len(n_counts), 64))
+    rot = torch.from_numpy(g.choice([0.0, 15.0, -15.0], 64).astype(np.float32))
+    seeds = torch.from_numpy(g.integers(0, 2**32, 64, dtype=np.uint32).astype(np.int64))
+    out = []  # the CPU's, then the card's
+    for where in (cpu, dev):
+        bank = shape_bank.ShapeBank.from_arrays(verts, n_counts, POINT_NUM, where)
+        a = [t.to(where) for t in (ids, rot, seeds)]
+        out.append((shape_bank.sample_indices(bank.counts[a[0]], a[2], verts.shape[1],
+                                              POINT_NUM).cpu(),
+                    shape_bank.sample_from_bank(bank, *a).cpu()))
+    idx_same = torch.equal(out[0][0], out[1][0])
+    cloud_err = float((out[0][1] - out[1][1]).abs().max())
+    wor = [len(set(r.tolist())) == POINT_NUM and int(r.max()) < n_counts[i]
+           for r, i in zip(out[1][0], ids.tolist()) if n_counts[i] >= POINT_NUM]
+    if not idx_same or cloud_err > 1e-6 or not all(wor) or len(wor) in (0, len(ids)):
+        raise RuntimeError(f"sample_from_bank card vs CPU: indices equal {idx_same}, clouds "
+                           f"max|d| {cloud_err:.3g}, distinct subsets {sum(wor)}/{len(wor)}")
+    renders = torch.from_numpy(g.integers(0, 256, (5, 144, 64, 64, 3), dtype=np.uint8))
+    table = np.stack([T.multiview_ids(MV_VIEWS, 2, m) for m in range(72)])
+    rids = torch.from_numpy(g.integers(0, 5, 16))
+    muts = torch.from_numpy(g.integers(0, 72, 16))
+    signs = torch.from_numpy(g.choice([-1.0, 1.0], 16).astype(np.float32))
+    raw = torch.from_numpy(g.random((16, 224, 224, 3), dtype=np.float32))
+    draws = augment.augment_draws(48, torch.Generator().manual_seed(51), cpu)
+    ops = []  # the CPU's, then the card's
+    for where in (cpu, dev):
+        rb = shape_bank.RenderBank.from_arrays(renders.numpy(), table, where)
+        views = augment.synthesize_views(raw.to(where), signs.to(where))
+        ops.append((shape_bank.gather_renders(rb, rids.to(where), muts.to(where)).cpu(),
+                    views.cpu(),
+                    augment.device_augment(views, draws={
+                        k: v.to(where) for k, v in draws.items()}).cpu()))
+    if not torch.equal(ops[0][0], ops[1][0]) or not torch.equal(ops[0][1], ops[1][1]):
+        raise RuntimeError("gather_renders / synthesize_views: card and CPU differ")
+    aug_err = rel_err(ops[1][2], ops[0][2])
+    if aug_err > 1e-6:
+        raise RuntimeError(f"device_augment card vs CPU: max|d|/max|ref| {aug_err:.3g}")
+    del out, ops
+    phase("device data ops", t0, f"sample_from_bank card vs CPU, 64 samples of {POINT_NUM} "
+          f"points from clouds of {n_counts.tolist()} vertices at rot 0 / +-15: the same "
+          f"indices, clouds max|d| {cloud_err:.3g} (tol 1e-6), {len(wor)} subsets without "
+          f"replacement distinct; gather_renders (16 x {MV_VIEWS} of 64x64) and "
+          f"synthesize_views (16 x 224x224) bit-equal; device_augment of those 48 views with "
+          f"given draws max|d|/max|ref| {aug_err:.3g} (tol 1e-6)")
+
+    # the realistic sizes: a render bank of DD_BANK_SHAPE u8 made on the
+    # card (no files) gathered at DD_GATHER; a cloud bank of 100 models x
+    # 10,000 vertices sampled at TRAIN_BATCH x POINT_NUM; the augmentation
+    # over the KD step's 3 x KD_BATCH views and the view synthesis of
+    # KD_BATCH views
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    big = shape_bank.RenderBank(
+        torch.randint(0, 256, DD_BANK_SHAPE, dtype=torch.uint8, device=dev),
+        torch.from_numpy(table).to(dev))
+    bank_gb = big.nbytes / 1e9
+    b_n, b_k = DD_GATHER
+    gid = torch.randint(0, DD_BANK_SHAPE[0], (b_n,), device=dev)
+    gmut = torch.randint(0, 72, (b_n,), device=dev)
+    got = shape_bank.gather_renders(big, gid, gmut)
+    want = augment.dewire(big.renders[gid[:, None], big.id_table[gmut]])
+    if not torch.equal(got, want):
+        raise RuntimeError("gather_renders at the realistic size differs from plain indexing")
+    del want
+    gather_ms = cuda_ms(lambda: shape_bank.gather_renders(big, gid, gmut), iters=10)
+    view_bytes = math.prod(DD_BANK_SHAPE[2:])
+    gather_bytes = b_n * b_k * view_bytes * 5  # u8 read, f32 written
+    gather_bound = bound(gather_bytes, 0)[0]
+    del big, got
+    torch.cuda.empty_cache()
+    cb = shape_bank.ShapeBank(torch.randn((100, 10_000, 3), device=dev),
+                              torch.full((100,), 10_000, dtype=torch.int64, device=dev),
+                              POINT_NUM)
+    cids = torch.randint(0, 100, (TRAIN_BATCH,), device=dev)
+    crot = torch.zeros(TRAIN_BATCH, device=dev)
+    cseed = torch.randint(0, 2**32, (TRAIN_BATCH,), dtype=torch.int64, device=dev)
+    sample_ms = cuda_ms(lambda: shape_bank.sample_from_bank(cb, cids, crot, cseed), iters=10)
+    views = torch.rand((3 * KD_BATCH, 224, 224, 3), device=dev)
+    vdraws = augment.augment_draws(3 * KD_BATCH, None, dev)
+    aug_ms = cuda_ms(lambda: augment.device_augment(views, draws=vdraws), iters=10)
+    one = views[:KD_BATCH].contiguous()
+    vsign = torch.ones(KD_BATCH, device=dev)
+    synth_ms = cuda_ms(lambda: augment.synthesize_views(one, vsign), iters=10)
+    aug_bound = bound(views.nbytes * 2, 0)[0]
+    del cb, views, one
+    torch.cuda.empty_cache()
+    phase("time", t0, f"render bank {DD_BANK_SHAPE} u8 on the card, {bank_gb:.2f} GB "
+          f"({(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB peak over the "
+          f"resident): gather_renders of {b_n} x {b_k} views {gather_ms:.3f} ms "
+          f"({gather_bytes / 1e6:.1f} MB moved, bound {gather_bound:.3f} ms by bytes, "
+          f"{gather_bytes / gather_ms / 1e6:.1f} GB/s); sample_from_bank {TRAIN_BATCH} x "
+          f"{POINT_NUM} of 100 x 10,000 vertices {sample_ms:.3f} ms; device_augment "
+          f"({3 * KD_BATCH}, 224, 224, 3) {aug_ms:.3f} ms (one read and one write: bound "
+          f"{aug_bound:.3f} ms); synthesize_views of {KD_BATCH} {synth_ms:.3f} ms [{card}]")
+
+    # 52. the steps with the options, card vs CPU at small width (f64
+    # models, f32 losses): the PointCloud teacher step with a ShapeBank at
+    # the full subset, also against the host-cloud step on the card; the
+    # MultiView teacher step with a RenderBank, also against host renders;
+    # KD --crd with --device_views and given augment draws; --stage 1 with
+    # a ShapeBank
+    sg = np.random.default_rng(52)
+    pc_verts = sg.standard_normal((4, 100, 3)).astype(np.float32)
+    pc_counts = np.full(4, 100, np.int32)
+    ref = {"shape_id": sg.integers(0, 4, 8), "shape_rot": np.zeros(8, np.float32),
+           "shape_seed": sg.integers(0, 2**32, 8, dtype=np.uint32).astype(np.int64)}
+    host_clouds = np.stack([T.sample_pointcloud(pc_verts[i], 100, 0.0, sg)
+                            for i in ref["shape_id"]])
+    small_t = convert.pose_state_dict(teacher_variables(np.random.default_rng(52), 64, 64))
+    small_im = sg.standard_normal((8, 64, 64, 3))
+    labels = random_labels(sg, 8)
+
+    def pc_teacher_step(with_bank):
+        def run(where):
+            model = PoseEstimator(img_feature_dim=64, shape_feature_dim=64)
+            model.load_state_dict(small_t, strict=True)
+            state = create_train_state(model.double().to(where), LR, [100], seed=0)
+            batch = {"im": torch.from_numpy(small_im).to(where),
+                     "label": torch.from_numpy(labels).to(where)}
+            bank = None
+            if with_bank:
+                bank = shape_bank.ShapeBank.from_arrays(pc_verts, pc_counts, 100, where)
+                batch.update({k: torch.from_numpy(v).to(where) for k, v in ref.items()})
+            else:
+                batch["shape"] = torch.from_numpy(host_clouds).double().to(where)
+            step = steps.make_teacher_train_step(nce_dropout=0.0, use_fused_nce=True,
+                                                 shape_bank=bank)
+            return step(state, batch), [state.model]
+        return run
+
+    pc_err = card_vs_cpu(pc_teacher_step(True), ("loss", "pose_loss", "nce_loss"))
+    pc_host = (pc_teacher_step(True)(dev)[0], pc_teacher_step(False)(dev)[0])
+    pc_vs_host = max(abs(float(pc_host[0][k]) / float(pc_host[1][k]) - 1)
+                     for k in ("loss", "pose_loss", "nce_loss"))
+
+    mv_renders = sg.integers(0, 256, (3, 144, 32, 32, 3), dtype=np.uint8)
+    mv_table = np.stack([T.multiview_ids(4, 2, m) for m in range(72)])
+    mv_ref = {"shape_id": sg.integers(0, 3, 8), "shape_mut": sg.integers(0, 72, 8)}
+    small_mv = convert.pose_state_dict(teacher_variables(np.random.default_rng(53), 64, 16,
+                                                         view_num=4), "MultiView")
+
+    def mv_teacher_step(with_bank):
+        def run(where):
+            model = PoseEstimator(shape="MultiView", view_num=4, img_feature_dim=64,
+                                  shape_feature_dim=16)
+            model.load_state_dict(small_mv, strict=True)
+            state = create_train_state(model.double().to(where), LR, [100], seed=0)
+            bank = shape_bank.RenderBank.from_arrays(mv_renders, mv_table, where)
+            batch = {"im": torch.from_numpy(small_im).to(where),
+                     "label": torch.from_numpy(labels).to(where)}
+            ref_t = {k: torch.from_numpy(v).to(where) for k, v in mv_ref.items()}
+            if with_bank:
+                batch.update(ref_t)
+            else:
+                batch["shape"] = shape_bank.gather_renders(bank, ref_t["shape_id"],
+                                                           ref_t["shape_mut"]).double()
+            step = steps.make_teacher_train_step(nce_dropout=0.0, use_fused_nce=True,
+                                                 shape_bank=bank if with_bank else None)
+            return step(state, batch), [state.model]
+        return run
+
+    mv_err = card_vs_cpu(mv_teacher_step(True), ("loss", "pose_loss", "nce_loss"))
+    mv_host = (mv_teacher_step(True)(dev)[0], mv_teacher_step(False)(dev)[0])
+    mv_vs_host = max(abs(float(mv_host[0][k]) / float(mv_host[1][k]) - 1)
+                     for k in ("loss", "pose_loss", "nce_loss"))
+
+    s_small = convert.baseline_state_dict(student_variables(np.random.default_rng(54), 64,
+                                                            0.25, 32))
+    kd_small = kd_batch(np.random.default_rng(55), 4, 32, 100)
+    kd_raw = {"im": sg.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8),
+              "rot_sign": np.array([1.0, -1.0, -1.0, 1.0], np.float32),
+              "valid": np.arange(4) < 3,
+              **{k: kd_small[k] for k in ("label", "label_flip", "label_rot", "shape")}}
+    kd_draws = augment.augment_draws(12, torch.Generator().manual_seed(55), cpu)
+
+    def kd_views_step(where):
+        model = BaselineEstimator(img_feature_dim=64, width_mult=0.25, input_dim=32,
+                                  dropout_rate=0.0)
+        model.load_state_dict(s_small, strict=True)
+        state = create_train_state(model.double().to(where), LR, [100], seed=0)
+        teacher = PoseEstimator(img_feature_dim=64, shape_feature_dim=64)
+        teacher.load_state_dict(small_t, strict=True)
+        teacher = teacher.to(where).eval().requires_grad_(False)
+        batch = {k: torch.from_numpy(v).to(where) for k, v in kd_raw.items()}
+        step = steps.make_kd_crd_step(device_views=True)
+        return step(state, teacher, batch, aug={k: v.to(where) for k, v in kd_draws.items()}), \
+            [state.model]
+
+    kd_err = card_vs_cpu(kd_views_step, ("loss", "gt_loss"))
+
+    small_v = convert.pose_vanilla_state_dict(vanilla_variables(np.random.default_rng(56), 64,
+                                                                64))
+
+    def stage1_bank_step(where):
+        teacher = PoseEstimatorVanilla(img_feature_dim=64, shape_feature_dim=64)
+        teacher.load_state_dict(small_v, strict=True)
+        student = BaselineEstimator(img_feature_dim=64, width_mult=0.25, input_dim=32,
+                                    dropout_rate=0.0)
+        student.load_state_dict(s_small, strict=True)
+        t_state = create_train_state(teacher.double().to(where), LR, [100], seed=1)
+        s_state = create_train_state(student.double().to(where), LR, [100], seed=2)
+        bank = shape_bank.ShapeBank.from_arrays(pc_verts, pc_counts, 100, where)
+        batch = {"im": torch.from_numpy(kd_small["im"]).double().to(where),
+                 "label": torch.from_numpy(kd_small["label"]).to(where),
+                 **{k: torch.from_numpy(v[:4]).to(where) for k, v in ref.items()}}
+        step = steps.make_stage1_step(use_fused_nce=True, shape_bank=bank)
+        keep = [torch.ones((4, 200), dtype=torch.bool, device=where)] * 2
+        return step(t_state, s_state, batch, keep=keep), [t_state.model, s_state.model]
+
+    s1_err = card_vs_cpu(stage1_bank_step, ("loss", "teacher_loss"))
+    if pc_vs_host > 2e-5 or mv_vs_host > 1e-6:
+        raise RuntimeError(f"bank steps vs host steps on the card: PointCloud {pc_vs_host:.3g} "
+                           f"(tol 2e-5), MultiView {mv_vs_host:.3g} (tol 1e-6)")
+    phase("device data steps", t0, "card vs CPU (losses rel, gradients max|d|/max|ref|, "
+          "running statistics max|d|; tol " f"{STEP_LOSS_RTOL}, {STEP_GRAD_TOL}, 1e-5): "
+          + "; ".join(f"{name} {e[0]:.3g} / {e[1]:.3g} / {e[2]:.3g}" for name, e in (
+              ("PointCloud teacher step with a ShapeBank (100 of 100 vertices)", pc_err),
+              ("MultiView teacher step with a RenderBank", mv_err),
+              ("KD --crd --device_views with given draws", kd_err),
+              ("--stage 1 with a ShapeBank", s1_err)))
+          + f"; on the card the bank steps' losses against the host-shape steps': PointCloud "
+          f"{pc_vs_host:.3g} rel (tol 2e-5: the subset in another order, normalised in f32), "
+          f"MultiView {mv_vs_host:.3g} (tol 1e-6: the same renders)")
+
+    # 53. the CLIs on generated files at full width with the options, then
+    # the train loaders and the steps with and without them, in turns
+    fixture = tempfile.TemporaryDirectory()
+    roots = write_fixtures(fixture.name, np.random.default_rng(57))
+    write_clouds(roots["train"], np.random.default_rng(58))
+    pc_ckpt = os.path.join(fixture.name, "pc_teacher.pth")
+    pc_sd = convert.pose_state_dict(teacher_variables(np.random.default_rng(59), 1024, 1024))
+    torch.save({"state_dict": pc_sd}, pc_ckpt)
+    cwd = os.getcwd()
+    os.chdir(fixture.name)
+    peaks, cli = {}, {}
+    try:
+        data = ["--dataset", "ObjectNet3D", "--data_root", roots["train"], "--workers", "8",
+                "--decrease", "100"]
+        mv_flags = data + ["--shape", "MultiView", "--batch_size", "32", "--fused_nce",
+                           "--print_freq", "100"]
+        pc_flags = data + ["--shape", "PointCloud", "--shape_dir", "pointcloud",
+                           "--batch_size", str(KD_BATCH)]
+
+        def metrics_of(path):
+            with open(os.path.join(path, "metrics.jsonl")) as f:
+                return [json.loads(line) for line in f]
+
+        def cli_run(main, argv, name):
+            torch.cuda.reset_peak_memory_stats()
+            _, c, c16, p16 = drive(lambda: quiet(main, argv))
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+            return c, c16, p16
+
+        opts = ["--device_shapes", "--device_augment"]
+        cli["mv"] = cli_run(training_cli.main, mv_flags + opts + ["--n_epoch", "1"], "mv")
+        cli["mv resume"] = cli_run(training_cli.main, mv_flags + opts + ["--n_epoch", "2",
+                                                                          "--resume"], "mv")
+        cli["mv bf16"] = cli_run(training_cli.main, mv_flags + opts + [
+            "--n_epoch", "1", "--bf16", "--result_dir", "result_bf16"], "mv bf16")
+        mv_records = metrics_of(os.path.join("result", "MultiView_ObjectNet3D"))
+        mv16_records = metrics_of(os.path.join("result_bf16", "MultiView_ObjectNet3D"))
+        kd_opts = ["--crd", "--device_views", "--device_shapes", "--teacher_model", pc_ckpt]
+        cli["kd"] = cli_run(kd_cli.main, pc_flags + kd_opts + ["--n_epoch", "1"], "kd")
+        cli["kd resume"] = cli_run(kd_cli.main, pc_flags + kd_opts + ["--n_epoch", "2",
+                                                                       "--resume"], "kd")
+        cli["kd bf16"] = cli_run(kd_cli.main, pc_flags + kd_opts + [
+            "--n_epoch", "1", "--bf16", "--result_dir", "result_bf16"], "kd bf16")
+        kd_records = metrics_of(os.path.join("result", "KD_ObjectNet3D"))
+        kd16_records = metrics_of(os.path.join("result_bf16", "KD_ObjectNet3D"))
+        s1_flags = pc_flags + ["--stage", "1", "--device_shapes", "--fused_nce",
+                               "--shape_feature_dim", str(STAGE1_SHAPE_DIM), "--n_epoch", "1",
+                               "--result_dir", "result_s1"]
+        cli["stage1"] = cli_run(kd_cli.main, s1_flags, "stage1")
+        s1_records = metrics_of(os.path.join("result_s1", "KD_ObjectNet3D"))
+        tested = {}
+
+        def test_both():
+            for name, flags, model in (
+                    ("PointCloud", ["--shape", "PointCloud", "--shape_dir", "pointcloud",
+                                    "--shape_feature_dim", "1024"], pc_ckpt),
+                    ("MultiView", ["--shape", "MultiView"],
+                     os.path.join("result", "MultiView_ObjectNet3D", "ckpt", "checkpoint.pth"))):
+                for banked in (False, True):
+                    tested[name, banked] = quiet(testing_cli.main, (
+                        data[:4] + flags + ["--model", model, "--batch_size", "32",
+                                            "--workers", "8", "--output_dir",
+                                            os.path.join(fixture.name, f"preds_{name}")]
+                        + (["--device_shapes"] if banked else [])))
+
+        _, test_c, _, _ = drive(test_both)
+        cli["testing"] = (test_c,)
+    finally:
+        os.chdir(cwd)
+    expected = {"mv": (2, 0, 3, 3, 0, 0, 0, 0), "mv resume": (2, 0, 3, 3, 0, 0, 0, 0),
+                "mv bf16": (2, 0, 3, 3, 0, 0, 0, 0), "kd": (1, 2, 0, 0, 3, 2, 0, 0),
+                "kd resume": (1, 2, 0, 0, 3, 2, 0, 0), "kd bf16": (1, 0, 0, 0, 0, 0, 0, 0),
+                "stage1": (1, 1, 4, 4, 2, 2, 2, 2), "testing": (4, 2, 0, 0, 0, 0, 0, 0)}
+    got = {k: v[0] for k, v in cli.items()}
+    if got != expected or cli["kd bf16"][1] != (3, 2, 2):
+        raise RuntimeError(f"device data CLIs: launches {got} (bf16 KD {cli['kd bf16'][1]}), "
+                           f"expected {expected} (bf16 KD (3, 2, 2))")
+    records = {"mv": mv_records, "mv bf16": mv16_records, "kd": kd_records,
+               "kd bf16": kd16_records, "stage1": s1_records}
+    if [r["epoch"] for r in mv_records] != [0, 1] or [r["epoch"] for r in kd_records] != [0, 1] \
+            or not all(math.isfinite(r["train_loss"]) for rs in records.values() for r in rs):
+        raise RuntimeError(f"device data CLIs: records {records}")
+    # the MultiView bank's renders are the files' bit for bit; a PointCloud
+    # bank samples other subsets than the host, so only its rows are held
+    for name in ("PointCloud", "MultiView"):
+        host, banked = tested[name, False], tested[name, True]
+        diff = float(np.abs(host.errors - banked.errors).max())
+        if len(banked.cat_ids) != len(host.cat_ids) or not np.all(np.isfinite(banked.errors)) \
+                or (name == "MultiView" and diff > 1e-3):
+            raise RuntimeError(f"testing --device_shapes ({name}) vs host shapes: rows "
+                               f"{len(banked.cat_ids)} / {len(host.cat_ids)}, errors max|d| "
+                               f"{diff}")
+    mv_test_diff = float(np.abs(tested["MultiView", False].errors
+                                - tested["MultiView", True].errors).max())
+    phase("device data CLIs", t0, "launches (geodesic, pointnet, NCE fwd, bwd, stem fwd, bwd, "
+          "train-mode pointnet fwd, bwd): " + "; ".join(f"{k} {v}" for k, v in got.items())
+          + f"; bf16 KD (stem fwd, bwd, pointnet) {cli['kd bf16'][1]}; train samples/s: "
+          + "; ".join(f"{k} {[round(r['train_samples'] / r['train_seconds'], 1) for r in rs]}"
+                      for k, rs in records.items())
+          + "; peak GiB allocated: " + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+          + f"; testing --device_shapes vs host shapes: PointCloud Med_Err "
+          f"{tested['PointCloud', True].sample_med:.3f} / "
+          f"{tested['PointCloud', False].sample_med:.3f} (other {POINT_NUM}-point subsets of "
+          f"{DD_CLOUD_VERTICES}), MultiView errors max|d| {mv_test_diff:.3g} deg (tol 1e-3) "
+          f"[{card}]")
+
+    # the train loaders alone, with and without the options, in turns (host,
+    # options, options, host): the MultiView teacher's (host: 12 PNG renders
+    # and three JPEG views decoded and augmented a sample) and KD --crd's
+    # (host: three views and a 2,500-point subset a sample)
+    def train_sets(options):
+        mv_opt = training_cli.parse_args(mv_flags)
+        mv_ds = cli_common.build_train_eval_datasets(mv_opt)[0]
+        kd_opt = kd_cli.parse_args(pc_flags + ["--crd"])
+        kd_ds = cli_common.build_kd_datasets(kd_opt)[0]
+        if options:
+            mv_ds.host_augment, mv_ds.device_shapes = False, True
+            kd_ds.device_views, kd_ds.device_shapes = True, True
+        return {"mv": (mv_ds, mv_opt), "kd": (kd_ds, kd_opt)}
+
+    os.chdir(fixture.name)
+    try:
+        sets = {False: train_sets(False), True: train_sets(True)}
+        rates = {(k, o): [] for k in ("mv", "kd") for o in (False, True)}
+        for options in (False, True, True, False):
+            for k, (ds, opt) in sets[options].items():
+                rates[k, options].append(loader_rate(cli_common.make_train_loader(ds, opt)))
+        first = {(k, o): next(iter(cli_common.make_train_loader(ds, opt)))
+                 for o in (False, True) for k, (ds, opt) in sets[o].items()}
+        banks = {"mv": shape_bank.RenderBank.from_arrays(
+                     *sets[True]["mv"][0].build_render_bank(), dev),
+                 "kd": shape_bank.ShapeBank.from_arrays(
+                     *sets[True]["kd"][0].build_shape_bank(), POINT_NUM, dev)}
+    finally:
+        os.chdir(cwd)
+        fixture.cleanup()
+    bank_mb = {k: b.nbytes / 2**20 for k, b in banks.items()}
+
+    def pinned(batch, keys):
+        return {k: torch.from_numpy(np.ascontiguousarray(host_array(batch[k]))).pin_memory()
+                for k in keys if k in batch}
+
+    mv_keys = ("im", "label", "shape", "shape_id", "shape_mut")
+    kd_keys = ("im", "im_flip", "im_rot", "label", "label_flip", "label_rot", "rot_sign",
+               "shape", "shape_id", "shape_rot", "shape_seed")
+    wire = {(k, o): pinned(first[k, o], mv_keys if k == "mv" else kd_keys)
+            for k in ("mv", "kd") for o in (False, True)}
+    wire_mb = {key: sum(v.nbytes for v in b.values()) / 2**20 for key, b in wire.items()}
+    mv_model = PoseEstimator(shape="MultiView", view_num=MV_VIEWS, img_feature_dim=1024,
+                             shape_feature_dim=MV_SHAPE_DIM,
+                             generator=torch.Generator().manual_seed(60)).to(dev)
+    mv_state = create_train_state(mv_model, LR, [10**9], seed=60)
+    student = BaselineEstimator(generator=torch.Generator().manual_seed(61)).to(dev)
+    kd_state = create_train_state(student, LR, [10**9], seed=61)
+    pc_teacher = PoseEstimator(img_feature_dim=1024, shape_feature_dim=1024)
+    pc_teacher.load_state_dict(pc_sd, strict=True)
+    pc_teacher = pc_teacher.to(dev).eval().requires_grad_(False)
+    runs = {
+        ("mv", False): (lambda b: steps.make_teacher_train_step(use_fused_nce=True)(
+            mv_state, b), [mv_state.model]),
+        ("mv", True): (lambda b: steps.make_teacher_train_step(
+            use_fused_nce=True, device_augment=True, shape_bank=banks["mv"])(mv_state, b),
+            [mv_state.model]),
+        ("kd", False): (lambda b: steps.make_kd_crd_step()(kd_state, pc_teacher, b),
+                        [kd_state.model, pc_teacher]),
+        ("kd", True): (lambda b: steps.make_kd_crd_step(
+            device_views=True, shape_bank=banks["kd"])(kd_state, pc_teacher, b),
+            [kd_state.model, pc_teacher]),
+    }
+
+    def on_card(key):
+        step, _ = runs[key]
+        return lambda: step({k: v.to(dev, non_blocking=True) for k, v in wire[key].items()})
+
+    step_t, busy, step_peak = {}, {}, {}
+    for dtype in ("f32", "bf16"):
+        for key, (_, models) in runs.items():
+            for m in models:
+                set_compute_dtype(m, torch.bfloat16 if dtype == "bf16" else None)
+        for options in (False, True, True, False):
+            for k in ("mv", "kd"):
+                steps_ms(on_card((k, options)), steps=1)  # its allocations, untimed
+                torch.cuda.reset_peak_memory_stats()
+                step_t.setdefault((k, options, dtype), []).append(
+                    steps_ms(on_card((k, options)), steps=4))
+                step_peak[k, options, dtype] = torch.cuda.max_memory_allocated() / 2**30
+        for key in runs:
+            _, device_ms, wall_ms = profile_steps(on_card(key))
+            busy[(*key, dtype)] = device_ms / wall_ms
+    for _, models in runs.values():
+        for m in models:
+            set_compute_dtype(m, None)
+    del mv_state, kd_state, pc_teacher, runs, banks, wire
+    torch.cuda.empty_cache()
+    names = {"mv": f"MultiView teacher step (batch 32, --fused_nce; options --device_shapes "
+                   f"--device_augment, render bank {bank_mb['mv']:.1f} MiB)",
+             "kd": f"KD --crd step from the PointCloud teacher (batch {KD_BATCH} x 3 views; "
+                   f"options --device_views --device_shapes, cloud bank "
+                   f"{bank_mb['kd']:.2f} MiB)"}
+    for k, what in names.items():
+        phase("time", t0, f"{what}: the train loader alone (8 threads) host "
+              f"{[round(v, 1) for v in rates[k, False]]}, options "
+              f"{[round(v, 1) for v in rates[k, True]]} samples/s; the batch on the wire host "
+              f"{wire_mb[k, False]:.2f} MiB, options {wire_mb[k, True]:.2f} MiB; the step with "
+              f"its batch's copy from pinned memory, ms: " + "; ".join(
+                  f"{dtype} host {[round(v, 3) for v in step_t[k, False, dtype]]} (busy "
+                  f"{busy[k, False, dtype]:.3f}, peak {step_peak[k, False, dtype]:.2f} GiB), "
+                  f"options {[round(v, 3) for v in step_t[k, True, dtype]]} (busy "
+                  f"{busy[k, True, dtype]:.3f}, peak {step_peak[k, True, dtype]:.2f} GiB)"
+                  for dtype in ("f32", "bf16")) + f" [{card}]")
+    return added, added16, added_pt16
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--source", action="append", default=[], type=parse_source,
@@ -5000,12 +5536,16 @@ def main() -> int:
     # 45-50. int8 serving
     i8_launched, i8_added, i8_added16, i8_err, i8_times = int8_phases(
         dev, card, t0, reset_counts, counts, bf16_counts)
-    # the int8 paths' launches of the other kernels join the MultiView
-    # paths' (the stem's, the PointNet's and the geodesic's)
-    mv_added = [a + b for a, b in zip(mv_added, i8_added)]
-    mv16_added = [a + b for a, b in zip(mv16_added, i8_added16)]
-    pt16_paths = [a + b + c + d for a, b, c, d in zip(t16_counts, t16_fit, s116_counts,
-                                                      s116_fit)]
+    # 51-53. the on-device data path
+    dd_added, dd_added16, dd_pt16 = device_data_phases(dev, card, t0, reset_counts, counts,
+                                                       bf16_counts, pt16_counts)
+    # the int8 and the on-device data paths' launches of the other kernels
+    # join the MultiView paths' (the stem's, the PointNet's, the NCE's and
+    # the geodesic's; the train-mode PointNet's join its own)
+    mv_added = [a + b + c for a, b, c in zip(mv_added, i8_added, dd_added)]
+    mv16_added = [a + b + c for a, b, c in zip(mv16_added, i8_added16, dd_added16)]
+    pt16_paths = [a + b + c + d + e for a, b, c, d, e in zip(t16_counts, t16_fit, s116_counts,
+                                                             s116_fit, dd_pt16)]
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5054,11 +5594,13 @@ def main() -> int:
               stem_times[3 * KD_BATCH]["kernel backward"],
               stem_times[3 * KD_BATCH]["plain backward"], stem_bounds[3 * KD_BATCH][1]),
         entry("pointnet_train_forward", "pose3d_tpu_torch/csrc/pointnet_train.cu",
-              "pose3d_tpu/ops/pointnet_train_fused.py:372", train_counts[6] + added[6], pt_err,
+              "pose3d_tpu/ops/pointnet_train_fused.py:372", train_counts[6] + added[6] + mv_added[6],
+              pt_err,
               pt_times[TRAIN_BATCH]["kernel forward"], pt_times[TRAIN_BATCH]["plain forward"],
               pt_bounds[TRAIN_BATCH][0]),
         entry("pointnet_train_backward", "pose3d_tpu_torch/csrc/pointnet_train.cu",
-              "pose3d_tpu/ops/pointnet_train_fused.py:372", train_counts[7] + added[7], pt_err,
+              "pose3d_tpu/ops/pointnet_train_fused.py:372", train_counts[7] + added[7] + mv_added[7],
+              pt_err,
               pt_times[TRAIN_BATCH]["kernel backward"], pt_times[TRAIN_BATCH]["plain backward"],
               pt_bounds[TRAIN_BATCH][1]),
         # the bf16 instances, their launches on the bf16 paths (phases 35-38)

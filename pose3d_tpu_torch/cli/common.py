@@ -20,6 +20,7 @@ from pose3d_tpu_torch.data import annotations, datasets
 from pose3d_tpu_torch.data.loader import DataLoader
 from pose3d_tpu_torch.models.estimators import (BaselineEstimator, PoseEstimator,
                                                 PoseEstimatorVanilla)
+from pose3d_tpu_torch.ops.shape_bank import RenderBank, ShapeBank
 from pose3d_tpu_torch.train.convert import read_state_dict
 
 MANUAL_SEED = 46  # the reference's fixed seed
@@ -36,6 +37,14 @@ DEVICE_HELP = ("torch device (default cuda). On a CUDA device the geodesic error
                "for convolutions and matmuls, and cuBLAS's reduced-precision bf16 "
                "reductions too, matching the JAX package's float32 and bfloat16 "
                "semantics.")
+DEVICE_SHAPES_HELP = ("keep every CAD model's shape on the device (ops/shape_bank.py): "
+                      "PointCloud clouds in a ShapeBank, sampled in the step from a "
+                      "per-sample seed; MultiView renders in a u8 RenderBank, whose "
+                      "views the step gathers. The loader then sends a few scalars a "
+                      "sample in place of the cloud or the renders")
+DEVICE_AUGMENT_HELP = ("run the photometric augmentation and the normalisation in the "
+                       "step (ops/augment.py): the loader sends the views' raw pixels as "
+                       "uint8")
 TEST_CATS = {"ObjectNet3D": annotations.OBJECTNET3D_TEST_CATS,
              "Pascal3D": annotations.PASCAL3D_TEST_CATS,
              "Pix3D": annotations.PIX3D_TEST_CATS,
@@ -162,6 +171,30 @@ def _loaded(model, checkpoint: str | None, device: torch.device, role: str | Non
     else:
         print("WARNING: no checkpoint given; the model keeps its seeded random init")
     return model.to(device).eval()
+
+
+def maybe_shape_bank(opt, dataset, device: torch.device) -> ShapeBank | RenderBank | None:
+    """--device_shapes (JAX's `maybe_shape_bank`): the device-resident bank
+    of `dataset`'s CAD models on `device` (a ShapeBank of clouds, or a
+    RenderBank of renders for MultiView), with `dataset` switched to emit
+    the bank's scalar references; None without the flag. JAX's refusals,
+    with its messages."""
+    if not getattr(opt, "device_shapes", False):
+        return None
+    if opt.shape not in ("PointCloud", "MultiView"):
+        raise SystemExit("--device_shapes requires --shape PointCloud or MultiView")
+    if not hasattr(dataset, "device_shapes"):
+        raise SystemExit("--device_shapes: this dataset has no shape-bank support")
+    dataset.device_shapes = True
+    if opt.shape == "MultiView":
+        renders, id_table = dataset.build_render_bank()
+        print(f"render bank: {renders.shape[0]} models x {renders.shape[1]} renders @ "
+              f"{renders.shape[2]}px ({renders.nbytes / (1 << 20):.1f} MB u8 device-resident)")
+        return RenderBank.from_arrays(renders, id_table, device)
+    verts, counts = dataset.build_shape_bank()
+    print(f"shape bank: {verts.shape[0]} clouds x {verts.shape[1]} verts "
+          f"({verts.nbytes / (1 << 20):.1f} MB device-resident)")
+    return ShapeBank.from_arrays(verts, counts, opt.point_num, device)
 
 
 def make_train_loader(dataset, opt, seed: int = MANUAL_SEED) -> DataLoader:

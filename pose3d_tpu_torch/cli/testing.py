@@ -11,8 +11,11 @@ post-training-quantized serving forward (`pose3d_tpu_torch.serving`: the
 student's VGG trunk, the teacher's ResNet-50 and, for MultiView, its
 per-view ResNet-18), calibrated on the first `--calib_batches` evaluation
 batches; its teacher evaluation computes no contrastive loss, as JAX's.
-`--device_shapes` and `--n_devices` are refused with a message until they
-are ported (ROADMAP.md).
+`--device_shapes` evaluates the teacher with its clouds or renders in a
+device-resident bank (ops/shape_bank.py), resolved in the step from a few
+scalars a sample; it is refused for the student and with `--int8`, as
+JAX refuses them. `--n_devices` is refused with a message until it is
+ported (ROADMAP.md).
 
     python -m pose3d_tpu_torch.cli.testing --dataset ObjectNet3D --shape None \\
         --img_feature_dim 2048 --model student.pth
@@ -70,11 +73,19 @@ def parse_args(argv=None):
     parser.add_argument("--calib_batches", type=int, default=4,
                         help="eval batches used to calibrate --int8 scales")
     parser.add_argument("--device_shapes", action="store_true",
-                        help="not ported yet: refused (ROADMAP.md)")
+                        help="teacher eval only: resolve shapes from a device-resident bank "
+                             "(ops/shape_bank.py) instead of per-sample host loads and copies")
     parser.add_argument("--n_devices", type=int, default=None,
                         help="not ported yet: refused (ROADMAP.md)")
     opt = parser.parse_args(argv)
-    common.refuse_unported(opt, ("device_shapes", "n_devices"))
+    common.refuse_unported(opt, ("n_devices",))
+    # JAX's refusals of --device_shapes, with its messages
+    if opt.device_shapes and opt.shape == "None":
+        raise SystemExit("--device_shapes applies to teacher eval (student eval carries no "
+                         "shapes)")
+    if opt.device_shapes and opt.int8:
+        raise SystemExit("--device_shapes is not combinable with --int8 (the int8 "
+                         "calibration consumes host shapes)")
     if opt.dataset in ("LineMod", "Pix3D") and opt.shape != "None":
         # JAX builds the teacher and fails on the samples' missing 'shape'
         raise SystemExit(f"--dataset {opt.dataset}: its samples carry no shape, so only the "
@@ -157,7 +168,9 @@ def main(argv=None):
     logname = os.path.join(predictions_path, "testing_log.txt")
 
     eval_step = (int8_eval_step(opt, model, kind, dataset) if opt.int8
-                 else steps.make_eval_step(model, kind, opt.bin_size))
+                 else steps.make_eval_step(model, kind, opt.bin_size,
+                                           shape_bank=common.maybe_shape_bank(opt, dataset,
+                                                                              device)))
     result = evaluate_categories(eval_step, loader, dataset.category_names, device)
 
     with open(logname, "w") as f:

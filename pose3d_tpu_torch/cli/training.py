@@ -14,7 +14,12 @@ on ObjectNet3D and Pascal3D, and (the baseline) ShapeNetCore:
     samples carry no shape to evaluate it with.
 `--bf16` computes both in bfloat16 (float32 parameters and checkpoints);
 the teacher's PointNet then trains in the train-mode PointNet kernel's
-bf16 instance on the card.
+bf16 instance on the card. The teacher takes the on-device data options:
+`--device_shapes` (its clouds or renders in a device-resident bank,
+resolved in the step from a few scalars a sample) and `--device_augment`
+(the loader sends raw uint8 pixels; the photometric augmentation and the
+normalisation run in the step; ObjectNet3D, whose contrastive train set
+has the raw emission).
 
     python -m pose3d_tpu_torch.cli.training --dataset ObjectNet3D \\
         --shape PointCloud --shape_dir pointcloud --batch_size 160 \\
@@ -108,10 +113,10 @@ def parse_args(argv=None):
                              "versions and must be asked for")
     parser.add_argument("--bf16", action="store_true",
                         help=common.BF16_HELP + "; here: the teacher and the baseline")
-    for flag, what in (("device_shapes", "a device-resident cloud bank"),
-                       ("device_augment", "on-device photometric augmentation")):
-        parser.add_argument(f"--{flag}", action="store_true",
-                            help=f"{what}: not ported yet, refused (ROADMAP.md)")
+    parser.add_argument("--device_shapes", action="store_true",
+                        help=common.DEVICE_SHAPES_HELP + "; the teacher only")
+    parser.add_argument("--device_augment", action="store_true",
+                        help=common.DEVICE_AUGMENT_HELP + "; the teacher on ObjectNet3D")
     parser.add_argument("--n_devices", type=int, default=None,
                         help="more than 1: not ported yet, refused (ROADMAP.md)")
     parser.add_argument("--cache_decoded_mb", type=float, default=0.0,
@@ -146,6 +151,17 @@ def parse_args(argv=None):
     if opt.shape == "None" and opt.fused_nce:
         raise SystemExit("--fused_nce: the RGB baseline has no contrastive term "
                          "(ROADMAP.md Queue 1 lists the ported regimes)")
+    if opt.device_shapes and opt.shape == "None":  # JAX's message (JAX ignores the flag)
+        raise SystemExit("--device_shapes requires --shape PointCloud or MultiView")
+    if opt.device_augment and opt.shape == "None":
+        raise SystemExit("--device_augment: the RGB baseline's step takes no device "
+                         "augmentation (JAX's run would train it on raw, unnormalised "
+                         "pixels; ROADMAP.md Queue 3)")
+    if opt.device_augment and opt.dataset != "ObjectNet3D":
+        raise SystemExit(f"--device_augment: --dataset {opt.dataset}'s train samples have no "
+                         "raw-pixel emission (JAX's run augments their host-augmented, "
+                         "normalised pixels a second time; ROADMAP.md Queue 3); it applies "
+                         "to --dataset ObjectNet3D")
     if opt.shape != "None" and opt.student_width_mult != 1.0:
         raise SystemExit("--student_width_mult applies to --shape None, the RGB baseline "
                          "(ROADMAP.md Queue 1 lists the ported regimes)")
@@ -153,8 +169,7 @@ def parse_args(argv=None):
                 "--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
                 "--cache_decoded_mb > 0": opt.cache_decoded_mb > 0,
                 "--profile_dir": opt.profile_dir is not None,
-                "--model": opt.model is not None, "--device_shapes": opt.device_shapes,
-                "--device_augment": opt.device_augment}
+                "--model": opt.model is not None}
     for flag, set_ in unported.items():
         if set_:
             raise SystemExit(f"{flag} is not ported to pose3d_tpu_torch's training yet; "
@@ -212,11 +227,15 @@ def main(argv=None):
             view_num=opt.view_num, tour=opt.tour)
         cat_eval_loader = DataLoader(cat_ds, opt.batch_size, shuffle=False,
                                      num_workers=opt.workers, seed=common.MANUAL_SEED)
+        if opt.device_augment:  # the train views' raw pixels, augmented in the step
+            dataset_train.host_augment = False
         trainer = TeacherTrainer(state, train_loader, eval_loader, cat_ds.category_names,
                                  result_path, bin_size=opt.bin_size, print_freq=opt.print_freq,
                                  cat_eval_loader=cat_eval_loader,
                                  use_fused_nce=opt.fused_nce, nce_variant=opt.nce,
-                                 nce_weighting=opt.weighting or "linear")
+                                 nce_weighting=opt.weighting or "linear",
+                                 device_augment=opt.device_augment,
+                                 shape_bank=common.maybe_shape_bank(opt, dataset_train, device))
     start_epoch = 0
     if opt.resume:
         latest = trainer.ckpt.latest_epoch()

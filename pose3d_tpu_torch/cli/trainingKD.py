@@ -51,7 +51,14 @@ the final student as a reference-layout .pth. `--int8_teacher` (--crd,
 --contrast, --vid, --stage 2) runs the frozen teacher's ResNets int8
 (`pose3d_tpu_torch.serving`, the int8 kernel on the card), calibrated on
 the first evaluation batch; it is refused with --stage 1 and with a
-MultiView --stage 2 teacher, as JAX refuses them.
+MultiView --stage 2 teacher, as JAX refuses them. The on-device data
+options: `--device_shapes` (every regime: the teacher's clouds or renders
+in a device-resident bank, resolved in the step from a few scalars a
+sample), `--device_augment` (--crd, --contrast, --vid: the loader sends
+raw uint8 views, augmented and normalised in the step) and
+`--device_views` (--crd's regimes and --stage 2: the loader sends one raw
+view a sample, and the step builds the flipped and rotated views and
+augments all three).
 The flags of paths not ported yet are refused with a message that names
 ROADMAP.md.
 """
@@ -156,11 +163,14 @@ def parse_args(argv=None):
                              "ResNet-18; --stage 2: the vanilla ResNet-18) through the int8 "
                              "PTQ serving path inside the KD step, calibrated on the first "
                              "eval batch (a deliberate approximation of the teacher)")
-    for flag, what in (("device_augment", "on-device photometric augmentation"),
-                       ("device_views", "on-device view synthesis"),
-                       ("device_shapes", "a device-resident cloud bank")):
-        parser.add_argument(f"--{flag}", action="store_true",
-                            help=f"{what}: not ported yet, refused (ROADMAP.md)")
+    parser.add_argument("--device_augment", action="store_true",
+                        help=common.DEVICE_AUGMENT_HELP + "; --crd, --contrast, --vid")
+    parser.add_argument("--device_views", action="store_true",
+                        help="synthesize the flip/rot contrast views on the device from ONE "
+                             "host-decoded crop (about 3x less host work a sample; implies "
+                             "--device_augment; --crd and --stage 2 only)")
+    parser.add_argument("--device_shapes", action="store_true",
+                        help=common.DEVICE_SHAPES_HELP)
     parser.add_argument("--bf16", action="store_true",
                         help=common.BF16_HELP + "; here: the student and its teacher, "
                              "frozen or (--stage 1) trained, in every regime")
@@ -239,9 +249,19 @@ def parse_args(argv=None):
     if opt.int8_teacher and opt.stage == 2 and opt.shape != "PointCloud":
         raise SystemExit("--int8_teacher --stage 2: PointCloud teachers only (the vanilla int8 "
                          "fwd has no MV variant)")
-    unported = {"--device_augment": opt.device_augment,
-                "--device_views": opt.device_views, "--device_shapes": opt.device_shapes,
-                "--loader shm": opt.loader != "thread",
+    # JAX's refusal of --device_views, with its message
+    if opt.device_views and opt.stage == 1:
+        raise SystemExit("--device_views applies to the 3-view regimes (--crd / --stage 2), "
+                         "not --stage 1")
+    # where JAX's run ignores --device_augment (stage 1) or trains on raw,
+    # unnormalised pixels (stage 2 without --device_views)
+    if opt.device_augment and opt.stage != 0 and not (opt.stage == 2 and opt.device_views):
+        raise SystemExit(f"--device_augment: --stage {opt.stage}'s step takes no device "
+                         "augmentation (JAX's run " + ("ignores the flag" if opt.stage == 1 else
+                                                        "trains on raw, unnormalised pixels")
+                         + "; ROADMAP.md Queue 3); it applies to --crd / --contrast / --vid, "
+                         "and --device_views brings it to --stage 2")
+    unported = {"--loader shm": opt.loader != "thread",
                 "--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
                 "--cache_decoded_mb > 0": opt.cache_decoded_mb > 0,
                 "--profile_dir": opt.profile_dir is not None, "--model": opt.model is not None}
@@ -278,6 +298,11 @@ def main(argv=None):
     device = common.setup_device(opt)
 
     dataset_train, dataset_eval = common.build_kd_datasets(opt)
+    if opt.device_augment:  # the train views' raw pixels, augmented in the step
+        dataset_train.host_augment = False
+    if opt.device_views:  # one raw view a sample, the others built in the step
+        dataset_train.device_views = True
+    shape_bank = common.maybe_shape_bank(opt, dataset_train, device)
     train_loader = common.make_train_loader(dataset_train, opt)
     eval_loader = DataLoader(dataset_eval, opt.batch_size, shuffle=False,
                              num_workers=opt.workers, seed=common.MANUAL_SEED)
@@ -314,7 +339,9 @@ def main(argv=None):
                         dataset_eval.category_names, result_path, bin_size=opt.bin_size,
                         temperature=opt.temperature, teacher_state=teacher_state,
                         tau=opt.tau, use_fused_nce=opt.fused_nce, nce_variant=opt.nce,
-                        nce_weighting=opt.weighting or "linear", int8_teacher=opt.int8_teacher)
+                        nce_weighting=opt.weighting or "linear", int8_teacher=opt.int8_teacher,
+                        device_augment=opt.device_augment, device_views=opt.device_views,
+                        shape_bank=shape_bank)
     start_epoch = 0
     latest = trainer.ckpt.latest_epoch() if opt.resume else None
     if latest is not None:

@@ -2,19 +2,26 @@
 `pose3d_tpu/data/datasets.py` `_finalize`, `Pascal3D`, `Pascal3DContrast`,
 `ShapeNet`, `Pix3D`, `Linemod` and `Pix3DContrast`, train and evaluation
 branches, with images only (`shape=None`), with the object's point cloud
-(`shape="PointCloud"`) or with its ring of renders (`shape="MultiView"`).
-JAX's decode cache (`--cache_decoded_mb`) and device-resident banks
-(`--device_shapes`) are not ported: every image is decoded where it is
-used.
+(`shape="PointCloud"`) or with its ring of renders (`shape="MultiView"`),
+and the on-device data options of `Pascal3D` and `Pascal3DContrast`:
+  * `device_shapes`: a few scalars a sample (`_shape_ref`) in place of its
+    cloud or renders, which the step resolves against the bank that
+    `build_shape_bank` / `build_render_bank` load once;
+  * `host_augment=False` (`Pascal3DContrast`): the views' raw pixels as
+    uint8, augmented and normalised in the step (`--device_augment`);
+  * `device_views` (`Pascal3DContrast`): one raw uint8 view a train sample
+    and its `rot_sign`, the flipped and rotated views built in the step.
+JAX's decode cache (`--cache_decoded_mb`) is not ported: every image is
+decoded where it is used.
 
-Samples are dicts of numpy arrays: 'im' NHWC float32, 'label' the canonical
-int triple, 'cat_id' the index of the sample's category in
-`category_names`, so evaluation is one pass reduced per category, and
-'shape' the (point_num, 3) float32 cloud or the (view_num, H, W, 3)
-float32 renders. Contrastive train samples also carry the flipped and the
-rotated view ('im_flip', 'label_flip', 'im_rot', 'label_rot'). Random
-draws come from the `rng` the loader passes, in JAX's order, so the same
-seed gives the JAX loader's samples.
+Samples are dicts of numpy arrays: 'im' NHWC float32 (uint8 on the raw
+wire), 'label' the canonical int triple, 'cat_id' the index of the
+sample's category in `category_names`, so evaluation is one pass reduced
+per category, and 'shape' the (point_num, 3) float32 cloud or the
+(view_num, H, W, 3) float32 renders. Contrastive train samples also carry
+the flipped and the rotated view ('im_flip', 'label_flip', 'im_rot',
+'label_rot'). Random draws come from the `rng` the loader passes, in JAX's
+order, so the same seed gives the JAX loader's samples.
 """
 
 from __future__ import annotations
@@ -32,10 +39,14 @@ from pose3d_tpu_torch.data import transforms as T
 
 
 def _finalize(im: Image.Image, rng: np.random.Generator, train: bool,
-              contrast: bool) -> np.ndarray:
+              contrast: bool, host_augment: bool = True) -> np.ndarray:
     """To float, the train-time photometric augmentation (contrastive:
     color jitter with p 0.8 then grayscale with p 0.2; plain: color
-    jitter), ImageNet normalisation, then PCA lighting in training."""
+    jitter), ImageNet normalisation, then PCA lighting in training. With
+    `host_augment` False: the raw pixels as uint8, and no draw from `rng`
+    (the step augments and normalises them, `ops/augment.py`)."""
+    if not host_augment:
+        return np.asarray(im, np.uint8)
     arr = T.to_float_array(im)
     if train:
         if contrast:
@@ -78,16 +89,29 @@ class _Renders:
     def load(self, render_dir: str, mutation: int, size: int | None) -> np.ndarray:
         """(view_num, H, W, 3) float32; each render resized (bilinear) to
         size x size unless `size` is None."""
+        names = self._sorted(render_dir)
+        return np.stack([T.to_float_array(self._decode(render_dir, names[i], size))
+                         for i in T.multiview_ids(self.view_num, self.tour, mutation)]
+                        ).astype(np.float32)
+
+    def load_all(self, render_dir: str, size: int | None) -> np.ndarray:
+        """(R, H, W, 3) uint8: every render of the directory, sorted,
+        resized as `load` resizes them."""
+        return np.stack([np.asarray(self._decode(render_dir, name, size), np.uint8)
+                         for name in self._sorted(render_dir)])
+
+    def _sorted(self, render_dir: str) -> list[str]:
         names = self._names.get(render_dir)
         if names is None:
             names = self._names[render_dir] = sorted(os.listdir(render_dir))
-        renders = []
-        for i in T.multiview_ids(self.view_num, self.tour, mutation):
-            im = T.load_rgb(os.path.join(render_dir, names[i]))
-            if size is not None:
-                im = im.resize((size, size), Image.BILINEAR)
-            renders.append(T.to_float_array(im))
-        return np.stack(renders).astype(np.float32)
+        return names
+
+    @staticmethod
+    def _decode(render_dir: str, name: str, size: int | None) -> Image.Image:
+        im = T.load_rgb(os.path.join(render_dir, name))
+        if size is not None:
+            im = im.resize((size, size), Image.BILINEAR)
+        return im
 
 
 class _PascalBase:
@@ -121,13 +145,85 @@ class _PascalBase:
                 cad_index = others.iloc[rng.integers(len(others))]["cad_index"]
         return row, cat, cad_index, row[anno.LABEL_COLS].to_numpy(dtype=np.float64)
 
+    def _shape_index(self) -> dict:
+        """(cat, cad_index) -> bank row over the frame's distinct CAD
+        models, sorted, so that the train and evaluation sets agree."""
+        if getattr(self, "_bank_rows", None) is None:
+            pairs = sorted({(str(c), int(i)) for c, i in zip(self.frame.cat, self.frame.cad_index)})
+            self._bank_rows = {p: k for k, p in enumerate(pairs)}
+        return self._bank_rows
+
+    def _model_dir(self, cat, cad_index) -> str:
+        return os.path.join(self.root_dir, self.shape_dir, str(cat), "%02d" % int(cad_index))
+
+    def build_shape_bank(self) -> tuple[np.ndarray, np.ndarray]:
+        """Every distinct cloud, read once -> ((S, V, 3) f32 zero-padded,
+        (S,) int32 counts) for `ops.shape_bank.ShapeBank.from_arrays`."""
+        if self.shape != "PointCloud":
+            raise ValueError("shape bank requires shape='PointCloud'")
+        clouds = [np.asarray(ply.load_vertices(os.path.join(self._model_dir(cat, cad),
+                                                            "compressed.ply")), np.float32)
+                  for cat, cad in self._shape_index()]
+        verts = np.zeros((len(clouds), max(c.shape[0] for c in clouds), 3), np.float32)
+        counts = np.zeros((len(clouds),), np.int32)
+        for k, c in enumerate(clouds):
+            verts[k, :c.shape[0]] = c
+            counts[k] = c.shape[0]
+        return verts, counts
+
+    def build_render_bank(self) -> tuple[np.ndarray, np.ndarray]:
+        """Every distinct model's whole render set, decoded once ->
+        ((S, R, H, W, 3) u8, (72, K) int32 id table) for
+        `ops.shape_bank.RenderBank.from_arrays`. Renders resized to
+        input_dim as `_shape` resizes them (at 224 the files' own size).
+        Refuses a bank above 8 GiB, with JAX's message."""
+        if self.shape != "MultiView":
+            raise ValueError("render bank requires shape='MultiView'")
+        size = None if self.input_dim == 224 else self.input_dim
+        stacks = [self.renders.load_all(os.path.join(self._model_dir(cat, cad), "crop"), size)
+                  for cat, cad in self._shape_index()]
+        r = {s.shape[0] for s in stacks}
+        if len(r) != 1:
+            raise ValueError(f"render sets differ in size across models: {r}")
+        nbytes = sum(s.nbytes for s in stacks)
+        if nbytes > 8 << 30:
+            raise SystemExit(
+                f"render bank would need {nbytes / (1 << 30):.1f} GiB "
+                "HBM — too large for --device_shapes; drop the flag (host "
+                "render path) or reduce the model set")
+        renders = np.stack(stacks)
+        id_table = np.stack([T.multiview_ids(self.renders.view_num, self.renders.tour, m)
+                             for m in range(72)]).astype(np.int32)
+        return renders, id_table
+
+    def _emit_shape(self, sample: dict, cat, cad_index, mutation, rng) -> None:
+        """The sample's shape: the cloud or renders themselves, or with
+        `device_shapes` their bank reference (`_shape_ref`)."""
+        if getattr(self, "device_shapes", False):
+            sample.update(self._shape_ref(cat, cad_index, mutation, rng))
+        else:
+            sample["shape"] = self._shape(cat, cad_index, mutation, rng)
+
+    def _shape_ref(self, cat, cad_index, mutation, rng) -> dict[str, Any]:
+        """The scalars that stand for the shape with `device_shapes`: the
+        bank row and the mutation (MultiView; the views are the id table's
+        row), or the bank row, the z-rotation in degrees and the subset's
+        seed, one u32 drawn from `rng` where the host path draws its subset
+        (PointCloud)."""
+        row = self._shape_index()[(str(cat), int(cad_index))]
+        if self.shape == "MultiView":
+            return {"shape_id": np.int32(row), "shape_mut": np.int32(mutation)}
+        if self.shape != "PointCloud":
+            raise ValueError("device_shapes requires PointCloud or MultiView")
+        return {"shape_id": np.int32(row), "shape_rot": np.float32(mutation),
+                "shape_seed": rng.integers(0, 2**32, dtype=np.uint32)}
+
     def _shape(self, cat, cad_index, mutation, rng) -> np.ndarray:
         """The cloud under `<shape_dir>/<cat>/<XX>/compressed.ply`, turned by
         `mutation` 5-degree steps, or the renders under `.../<XX>/crop/`
         rolled by `mutation` ring steps (resized to input_dim when it is not
         224: at 224 the files' own size is kept, as in JAX)."""
-        model_dir = os.path.join(self.root_dir, self.shape_dir, str(cat),
-                                 "%02d" % int(cad_index))
+        model_dir = self._model_dir(cat, cad_index)
         if self.shape == "MultiView":
             return self.renders.load(os.path.join(model_dir, "crop"), mutation,
                                      None if self.input_dim == 224 else self.input_dim)
@@ -140,11 +236,13 @@ class Pascal3D(_PascalBase):
     blur, jittered crop, flip and rotation with their label fixes,
     photometric augmentation; with `random`, the canonical frame's azimuth
     turns by a random multiple of 5 degrees (the shape with it). Eval: the
-    bounding-box crop."""
+    bounding-box crop. With `device_shapes` the shape's bank reference
+    (`_shape_ref`) stands in for it."""
 
     def __init__(self, root_dir, annotation_file, input_dim=224, shape=None,
                  shape_dir="pointcloud", random=False, novel=True, keypoint=True, train=True,
-                 cat_choice=None, random_range=0, point_num=2500, view_num=12, tour=2):
+                 cat_choice=None, random_range=0, point_num=2500, view_num=12, tour=2,
+                 device_shapes=False):
         frame = anno.pascal3d_frame(root_dir, annotation_file, train=train, keypoint=keypoint,
                                     novel=novel, cat_choice=cat_choice)
         super().__init__(root_dir, frame, shape, shape_dir, point_num, input_dim,
@@ -152,6 +250,7 @@ class Pascal3D(_PascalBase):
         self.train = train
         self.random = random
         self.random_range = random_range
+        self.device_shapes = device_shapes
 
     def get(self, idx: int, rng: np.random.Generator) -> dict[str, Any]:
         row, cat, cad_index, label = self._row(idx, rng)
@@ -181,7 +280,7 @@ class Pascal3D(_PascalBase):
             mutation = _mutation(self.random_range, rng)
             sample["label"] = sample["label"].copy()
             sample["label"][0] = (sample["label"][0] - mutation * 5) % 360
-        sample["shape"] = self._shape(cat, cad_index, mutation, rng)
+        self._emit_shape(sample, cat, cad_index, mutation, rng)
         return sample
 
 
@@ -194,22 +293,30 @@ class Pascal3DContrast(_PascalBase):
     points or its renders, unturned, in training and at validation (the
     reference emits no renders at validation, which its MultiView
     evaluation cannot unpack; JAX emits them, and so does the port);
-    `random_model` takes another CAD model of the same category."""
+    `random_model` takes another CAD model of the same category.
+    `host_augment` False emits the train views' raw pixels as uint8;
+    `device_views` emits one raw uint8 train view, its three labels and
+    `rot_sign` (+-1, the rotated view's sign), the other views built in the
+    step; `device_shapes` emits the shape's bank reference."""
 
     def __init__(self, root_dir, annotation_file, input_dim=224, keypoint=True,
                  cat_choice=None, shape=None, shape_dir="pointcloud", point_num=2500,
                  random_model=False, train=False, novel=False, shot=None, seed=None,
-                 view_num=12, tour=2):
+                 view_num=12, tour=2, host_augment=True, device_views=False,
+                 device_shapes=False):
         frame = anno.pascal3d_frame(root_dir, annotation_file, train=train, keypoint=keypoint,
                                     novel=novel, cat_choice=cat_choice, shot=shot,
                                     contrast_val_keypoint=not train, seed=seed)
         super().__init__(root_dir, frame, shape, shape_dir, point_num, input_dim,
                          random_model, view_num=view_num, tour=tour)
         self.train = train
+        self.host_augment = host_augment
+        self.device_views = device_views
+        self.device_shapes = device_shapes
 
     def get(self, idx: int, rng: np.random.Generator) -> dict[str, Any]:
         """Sample `idx`; `rng` draws the other CAD model, the augmentation
-        and the cloud's subset, in JAX's order."""
+        and the cloud's subset (or its seed), in JAX's order."""
         row, cat, cad_index, label = self._row(idx, rng)
         left, upper, right, lower = row["left"], row["upper"], row["right"], row["lower"]
         im = T.load_rgb(os.path.join(self.root_dir, row["im_path"]))
@@ -219,7 +326,18 @@ class Pascal3DContrast(_PascalBase):
                 im = T.gaussian_blur(im, int(rng.integers(1, 5)))
             im = T.random_crop(im, left, upper, right - left, lower - upper, rng)
             r = float(rng.choice([-15, 15]))
-            sample = _three_views(im, label, r, self.input_dim, rng)
+            if self.device_views:
+                sample = {"im": _finalize(T.resize_pad(im, self.input_dim), rng, True, True,
+                                          host_augment=False),
+                          "label": T.process_viewpoint_label(label).astype(np.int32),
+                          "label_flip": T.process_viewpoint_label(
+                              T.flip_label(label)).astype(np.int32),
+                          "label_rot": T.process_viewpoint_label(
+                              T.rotate_label(label, r)).astype(np.int32),
+                          "rot_sign": np.float32(np.sign(r))}
+            else:
+                sample = _three_views(im, label, r, self.input_dim, rng,
+                                      host_augment=self.host_augment)
             sample["cat_id"] = cat_id
         else:
             im = im.crop((left, upper, right, lower))
@@ -228,22 +346,23 @@ class Pascal3DContrast(_PascalBase):
             sample = {"im": arr, "label": T.process_viewpoint_label(label).astype(np.int32),
                       "cat_id": cat_id}
         if self.shape is not None:
-            sample["shape"] = self._shape(cat, cad_index, 0, rng)
+            self._emit_shape(sample, cat, cad_index, 0, rng)
         return sample
 
 
 def _three_views(im: Image.Image, label: np.ndarray, r: float, input_dim: int,
-                 rng: np.random.Generator, offset: float = 0.0) -> dict[str, np.ndarray]:
+                 rng: np.random.Generator, offset: float = 0.0,
+                 host_augment: bool = True) -> dict[str, np.ndarray]:
     """The contrastive train views of a cropped image, augmented in JAX's
-    order: rotated by `r` degrees, flipped, and the original, with their
-    labels."""
+    order (raw uint8 pixels without `host_augment`): rotated by `r`
+    degrees, flipped, and the original, with their labels."""
     views = {}
     for key, view, view_label in (
             ("_rot", im.rotate(r), T.rotate_label(label, r)),
             ("_flip", im.transpose(Image.FLIP_LEFT_RIGHT), T.flip_label(label)),
             ("", im, label)):
         views["im" + key] = _finalize(T.resize_pad(view, input_dim), rng, train=True,
-                                      contrast=True)
+                                      contrast=True, host_augment=host_augment)
         views["label" + key] = T.process_viewpoint_label(view_label, offset).astype(np.int32)
     return views
 

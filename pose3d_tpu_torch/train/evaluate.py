@@ -26,6 +26,17 @@ import torch
 
 from pose3d_tpu_torch.ops import geodesic
 
+# what a step takes of a loader's batch: the images, labels and shapes, or
+# in their place the shape bank's reference keys (`ops/shape_bank.py`)
+STEP_KEYS = ("im", "label", "shape", "shape_id", "shape_rot", "shape_seed", "shape_mut")
+
+
+def host_array(value) -> np.ndarray:
+    """A batch's host array as it crosses to the device: as it is, but u32
+    (a shape bank's seeds) widened to int64, which every torch op takes."""
+    value = np.asarray(value)
+    return value.astype(np.int64) if value.dtype == np.uint32 else value
+
 
 @dataclass
 class CategoryEvalResult:
@@ -53,9 +64,10 @@ def evaluate_categories(
     """Run `eval_step(batch)` over all batches and reduce.
 
     Each batch is a dict of host arrays as the loader emits them: 'im',
-    'label', 'shape' for a teacher, 'cat_id' (int per sample, indexing
-    category_names) and 'valid' (bool mask of the padded tail batch; padded
-    rows are dropped from every statistic). 'im', 'label', 'shape' and
+    'label', 'shape' for a teacher (or a shape bank's reference keys, which
+    a step built with the bank resolves), 'cat_id' (int per sample,
+    indexing category_names) and 'valid' (bool mask of the padded tail
+    batch; padded rows are dropped from every statistic). `STEP_KEYS` and
     'valid' move to `device` for the step.
     """
     preds, labels, cats = [], [], []
@@ -63,8 +75,8 @@ def evaluate_categories(
     nce_sum = torch.zeros((), dtype=torch.float64, device=device)
     for batch in batches:
         valid_np = np.asarray(batch.get("valid", np.ones(len(batch["label"]), bool)))
-        step_batch = {k: torch.as_tensor(np.asarray(batch[k]), device=device)
-                      for k in ("im", "label", "shape") if k in batch}
+        step_batch = {k: torch.as_tensor(host_array(batch[k]), device=device)
+                      for k in STEP_KEYS if k in batch}
         valid = step_batch["valid"] = torch.as_tensor(valid_np, device=device)
         metrics = eval_step(step_batch)
         preds.append(metrics["pred"][valid].float())  # the geodesic kernel takes f32

@@ -9,7 +9,21 @@ the memory bank or a pose-weighted NCE as options); `make_stage2_step` (KD
 `--stage 2`, response KD from the frozen stage-1 teacher); and
 `make_eval_step` (student, teacher and vanilla kinds). Where a batch's
 'shape' is described as (N, P, 3) clouds, a MultiView teacher takes (N, K,
-H, W, 3) renders in its place; no step depends on which."""
+H, W, 3) renders in its place; no step depends on which.
+
+The on-device data options, as JAX's factories take them:
+  * `shape_bank` (`--device_shapes`): a `ShapeBank` or `RenderBank` on the
+    step's device, bound when the step is built; the batch then carries
+    the bank's reference keys in place of 'shape', and `shape_of` resolves
+    them in the step. Every factory that takes a shape takes it.
+  * `device_augment` (the teacher step, KD `--crd`): the batch's images
+    are raw pixels (u8), augmented and normalised in the step
+    (`ops.augment.device_augment`), its draws from the state's generator
+    or given (`aug`).
+  * `device_views` (KD `--crd` and `--stage 2`): the batch carries one raw
+    view a sample and 'rot_sign'; the flipped and rotated views are built
+    in the step (`ops.augment.synthesize_views`), then augmented as above
+    (the option implies the device photometrics, as in JAX)."""
 
 from __future__ import annotations
 
@@ -25,7 +39,8 @@ from pose3d_tpu_torch.losses.memory_bank import enqueue, info_nce_memory
 from pose3d_tpu_torch.losses.nce import (info_nce_kd, info_nce_kd_per_sample,
                                          multi_pose_nce_kd, pose_nce_kd)
 from pose3d_tpu_torch.ops import nce
-from pose3d_tpu_torch.ops.augment import dewire
+from pose3d_tpu_torch.ops import shape_bank as _shape_bank
+from pose3d_tpu_torch.ops.augment import augment_draws, dewire, device_augment, synthesize_views
 from pose3d_tpu_torch.serving.quant_teacher import (make_teacher_int8_kd_fwd,
                                                     make_vanilla_int8_kd_fwd)
 from pose3d_tpu_torch.train.state import TrainState
@@ -54,6 +69,24 @@ def input_dtype(model: torch.nn.Module) -> torch.dtype:
     (bfloat16 under `--bf16`), else its parameters' (float32, or float64 in
     the parity tests)."""
     return getattr(model, "compute_dtype", None) or next(model.parameters()).dtype
+
+
+def shape_of(batch: dict, bank, dtype: torch.dtype | None = None) -> torch.Tensor | None:
+    """batch['shape'], or the shapes resolved on the device from the
+    batch's bank reference keys when a bank is given and the batch carries
+    them (`ops.shape_bank.resolve`: f32, cast to `dtype` if given)."""
+    if bank is not None and "shape_id" in batch:
+        shape = _shape_bank.resolve(bank, batch)
+        return shape if dtype is None else shape.to(dtype)
+    return batch.get("shape")
+
+
+def _augmented(im: torch.Tensor, generator: torch.Generator | None, aug) -> torch.Tensor:
+    """`device_augment` of f32 [0, 1] images, its draws `aug` (a dict of
+    `ops.augment.AUG_DRAW_KEYS`) or, if None, drawn from `generator`."""
+    if aug is None:
+        aug = augment_draws(im.shape[0], generator, im.device)
+    return device_augment(im, draws=aug)
 
 
 def _update(state: TrainState) -> None:
@@ -102,7 +135,8 @@ def route_info_nce(feat_q: torch.Tensor, feat_k: torch.Tensor, tau: float,
 
 def make_teacher_train_step(bin_size: int = 15, nce_dropout: float = NCE_DROPOUT,
                             use_fused_nce: bool = False, nce_variant: str = "info",
-                            nce_weighting: str = "linear") -> Callable:
+                            nce_weighting: str = "linear", device_augment: bool = False,
+                            shape_bank=None) -> Callable:
     """The contrastive teacher's step: the 4-term pose loss plus 0.5 times
     the NCE (tau 0.1) between the image projection and the fused feature.
     `nce_variant` "info" takes the infoNCE-KD through `route_info_nce`;
@@ -110,23 +144,32 @@ def make_teacher_train_step(bin_size: int = 15, nce_dropout: float = NCE_DROPOUT
     (`multi_pose_nce_kd`) take the batch's labels, no dropout and no
     kernel, as JAX's. One Adam update and one schedule step. JAX's
     `nce_mesh` has no single-GPU meaning and is not taken.
+    `device_augment`: the images are raw pixels, augmented and normalised
+    in the step. `shape_bank`: the device-resident bank, bound here; the
+    batch then carries its reference keys in place of 'shape'.
 
-    Returns step(state, batch, keep=None) -> {'loss', 'pose_loss',
-    'nce_loss', 'acc_rot'} (0-d tensors on the model's device, no host
-    sync). `batch` holds 'im' (N, H, W, 3) float32 or uint8 (the u8
-    wire), 'shape' (N, P, 3), 'label' (N, 3) and, for a padded batch,
-    'valid' (N,) bool, all on the model's device. The "info" NCE's
-    dropout keep-mask on the keys is drawn from `state.generator` unless
-    `keep` ((N, 200) bool) is given, as a test does to hand JAX's mask in.
+    Returns step(state, batch, keep=None, aug=None) -> {'loss',
+    'pose_loss', 'nce_loss', 'acc_rot'} (0-d tensors on the model's
+    device, no host sync). `batch` holds 'im' (N, H, W, 3) float32 or
+    uint8 (the u8 wire), 'shape' (N, P, 3) or the bank's keys, 'label' (N,
+    3) and, for a padded batch, 'valid' (N,) bool, all on the model's
+    device. The augmentation's draws (`aug`), then the "info" NCE's
+    dropout keep-mask on the keys, are drawn from `state.generator` unless
+    given (`keep`: (N, 200) bool), as a test does to hand JAX's in.
     """
     if nce_variant not in NCE_VARIANTS:
         raise ValueError(f"unknown nce_variant: {nce_variant!r}")
 
-    def step(state: TrainState, batch: dict, keep: torch.Tensor | None = None) -> dict:
+    def step(state: TrainState, batch: dict, keep: torch.Tensor | None = None,
+             aug: dict | None = None) -> dict:
         model = state.model
         model.train()
         valid = batch.get("valid")
-        outputs, fused, img_proj = model(dewire(batch["im"]), batch["shape"], mask=valid)
+        im = dewire(batch["im"])
+        if device_augment:
+            im = _augmented(im, state.generator, aug)
+        shape = shape_of(batch, shape_bank, input_dtype(model))
+        outputs, fused, img_proj = model(im, shape, mask=valid)
         # the losses in float32 whatever the model's dtype, as JAX's step
         outputs = [o.float() for o in outputs]
         fused, img_proj = fused.float(), img_proj.float()
@@ -151,12 +194,13 @@ def make_teacher_train_step(bin_size: int = 15, nce_dropout: float = NCE_DROPOUT
     return step
 
 
-def make_vanilla_train_step(has_shape: bool, bin_size: int = 15) -> Callable:
+def make_vanilla_train_step(has_shape: bool, bin_size: int = 15, shape_bank=None) -> Callable:
     """Plain supervised training (JAX's `make_vanilla_train_step`): the
     4-term pose loss alone, one Adam update and one schedule step. Without
     a shape the model is the RGB-only `BaselineEstimator` (the `--shape
     None` baseline; its classifier dropout from `state.generator` unless
-    `keep` is given); with one, a `PoseEstimatorVanilla` on 'shape'.
+    `keep` is given); with one, a `PoseEstimatorVanilla` on 'shape', or on
+    the shapes resolved from `shape_bank` (bound here).
 
     Returns step(state, batch, keep=None) -> {'loss', 'acc_rot'} (0-d
     tensors on the model's device, no host sync). `batch` holds 'im' (N,
@@ -169,7 +213,7 @@ def make_vanilla_train_step(has_shape: bool, bin_size: int = 15) -> Callable:
         valid = batch.get("valid")
         im = dewire(batch["im"]).to(input_dtype(model))
         if has_shape:
-            out = model(im, batch["shape"].to(input_dtype(model)), mask=valid)
+            out = model(im, shape_of(batch, shape_bank).to(input_dtype(model)), mask=valid)
         else:
             out = model(im, mask=valid, generator=state.generator, keep=keep)
         outputs = [o.float() for o in out[0]]
@@ -199,22 +243,32 @@ def _int8_teacher_forward(loss_kind: str) -> Callable:
 
 
 def _views_step(bin_size: int, temperature: float, loss_kind: str,
-                int8_teacher: bool = False) -> Callable:
+                int8_teacher: bool = False, augment: bool = False,
+                device_views: bool = False, shape_bank=None) -> Callable:
     """The student step over three views against a frozen teacher, shared
     by `make_kd_crd_step` and `make_stage2_step`; `loss_kind` "crd",
     "contrast", "vid" or "stage2" (the response KD: `kd_loss`, as
     "contrast"). With `int8_teacher` the step's `teacher` is {"model":
     the teacher, "q8": its quantized tree} and the teacher's forward runs
-    its conv trunks int8 (`_int8_teacher_forward`)."""
+    its conv trunks int8 (`_int8_teacher_forward`). `device_views`: the
+    views are built from the batch's one raw view (`synthesize_views`);
+    `augment`: the views are augmented and normalised in the step;
+    `shape_bank`: the shapes are resolved from it (bound here)."""
     int8_fwd = _int8_teacher_forward(loss_kind) if int8_teacher else None
 
-    def step(state: TrainState, teacher, batch: dict, keep=None) -> dict:
+    def step(state: TrainState, teacher, batch: dict, keep=None, aug=None) -> dict:
         model = state.model
         model.train()
         valid = batch.get("valid")
         valid3 = None if valid is None else torch.cat([valid] * 3)
-        im = dewire(torch.cat([batch["im"], batch["im_flip"], batch["im_rot"]]))
+        if device_views:
+            im = synthesize_views(dewire(batch["im"]), batch["rot_sign"])
+        else:
+            im = dewire(torch.cat([batch["im"], batch["im_flip"], batch["im_rot"]]))
+        if augment:
+            im = _augmented(im, state.generator, aug)
         label = torch.cat([batch["label"], batch["label_flip"], batch["label_rot"]])
+        shape = shape_of(batch, shape_bank)
         s_out, s_feat = model(im.to(input_dtype(model)), mask=valid3,
                               generator=state.generator, keep=keep)
         with torch.no_grad():
@@ -222,11 +276,11 @@ def _views_step(bin_size: int, temperature: float, loss_kind: str,
             # or the vanilla teacher's compressed one (unused by its loss);
             # each cloud encoded once, its feature tiled over the views
             if int8_fwd is not None:
-                t_out, t_feat = int8_fwd(teacher, im, batch["shape"])
+                t_out, t_feat = int8_fwd(teacher, im, shape)
             else:
                 teacher.eval()
                 t_dtype = input_dtype(teacher)
-                t = teacher(im.to(t_dtype), batch["shape"].to(t_dtype), view_tile=3)
+                t = teacher(im.to(t_dtype), shape.to(t_dtype), view_tile=3)
                 t_out, t_feat = t[0], t[-1]
         # the losses in float32 whatever the models' dtypes, as JAX's step
         s_out, t_out = [o.float() for o in s_out], [o.float() for o in t_out]
@@ -251,7 +305,9 @@ def _views_step(bin_size: int, temperature: float, loss_kind: str,
 
 
 def make_kd_crd_step(bin_size: int = 15, temperature: float = 1.0,
-                     loss_variant: str = "crd", int8_teacher: bool = False) -> Callable:
+                     loss_variant: str = "crd", int8_teacher: bool = False,
+                     device_augment: bool = False, device_views: bool = False,
+                     shape_bank=None) -> Callable:
     """The KD student step (JAX's `make_kd_crd_step`): the three views of
     each sample through the student in train mode, the frozen teacher's
     responses and projector features on them, then by `loss_variant`:
@@ -266,28 +322,37 @@ def make_kd_crd_step(bin_size: int = 15, temperature: float = 1.0,
     (`serving.quant_teacher.make_teacher_int8_kd_fwd`: the ResNet-50, and a
     MultiView teacher's per-view ResNet-18), and the step's `teacher` is
     {"model": the teacher, "q8": its quantized tree}, as JAX's
-    {"variables", "q8"}. JAX's `device_augment`, `device_views` and
-    `with_shape_bank` are not taken (the CLI refuses them; ROADMAP.md).
+    {"variables", "q8"}. `device_augment`: the views' raw pixels are
+    augmented and normalised in the step. `device_views`: the batch
+    carries one raw view a sample and 'rot_sign' in place of 'im_flip' and
+    'im_rot'; the views are built in the step and augmented, whatever
+    `device_augment` says, as in JAX. `shape_bank`: the device-resident
+    bank, bound here; the batch carries its reference keys in place of
+    'shape'.
 
-    Returns step(state, teacher, batch, keep=None) -> {'loss', 'gt_loss',
-    'acc_rot'} (0-d tensors on the student's device, no host sync).
-    `batch` holds 'im', 'im_flip', 'im_rot' (N, H, W, 3) float32 or uint8
-    (the u8 wire), 'label', 'label_flip', 'label_rot' (N, 3), 'shape'
+    Returns step(state, teacher, batch, keep=None, aug=None) -> {'loss',
+    'gt_loss', 'acc_rot'} (0-d tensors on the student's device, no host
+    sync). `batch` holds 'im', 'im_flip', 'im_rot' (N, H, W, 3) float32 or
+    uint8 (the u8 wire), 'label', 'label_flip', 'label_rot' (N, 3), 'shape'
     (N, P, 3) the samples' clouds and, for a padded batch, 'valid' (N,)
     bool, all on the student's device. The views are stacked [im, im_flip,
     im_rot] and their rows masked by `valid` three times over. The teacher
     (a `PoseEstimator`, frozen) runs in eval mode without a gradient, in
-    its own dtype, with `view_tile=3`: each cloud is encoded once for its
-    three views. The classifier dropout's keep-masks come from
-    `state.generator` unless `keep` (two (3N, 4096) bool masks) is given.
+    its own dtype, with `view_tile=3`: each of the N shapes is encoded
+    once for its three views. The augmentation's draws for the 3N views
+    (`aug`), then the classifier dropout's keep-masks (`keep`, two (3N,
+    4096) bool masks), come from `state.generator` unless given.
     """
     if loss_variant not in KD_LOSS_VARIANTS:
         raise ValueError(f"unknown loss_variant: {loss_variant!r}")
-    return _views_step(bin_size, temperature, loss_variant, int8_teacher)
+    return _views_step(bin_size, temperature, loss_variant, int8_teacher,
+                       augment=device_augment or device_views, device_views=device_views,
+                       shape_bank=shape_bank)
 
 
 def make_stage2_step(bin_size: int = 15, temperature: float = 1.0,
-                     int8_teacher: bool = False) -> Callable:
+                     int8_teacher: bool = False, device_views: bool = False,
+                     shape_bank=None) -> Callable:
     """KD `--stage 2` (JAX's `make_stage2_step`): response KD from the
     frozen stage-1 teacher, a `PoseEstimatorVanilla` in eval mode without a
     gradient, in its own dtype, with `view_tile=3` (each cloud once through
@@ -300,14 +365,17 @@ def make_stage2_step(bin_size: int = 15, temperature: float = 1.0,
     teacher's ResNet-18 runs int8
     (`serving.quant_teacher.make_vanilla_int8_kd_fwd`, PointCloud only) and
     the step's `teacher` is {"model": the teacher, "q8": its quantized
-    tree}. JAX's `device_views` is not taken (the CLI refuses it;
-    ROADMAP.md)."""
-    return _views_step(bin_size, temperature, "stage2", int8_teacher)
+    tree}. `device_views` and `shape_bank` as `make_kd_crd_step`'s; the
+    device photometrics run with `device_views` only (JAX's stage-2 step
+    takes no `device_augment`)."""
+    return _views_step(bin_size, temperature, "stage2", int8_teacher, augment=device_views,
+                       device_views=device_views, shape_bank=shape_bank)
 
 
 def make_stage1_step(bin_size: int = 15, tau: float = 0.5, nce_weight: float = 0.75,
                      use_fused_nce: bool = False, use_memory_bank: bool = False,
-                     nce_variant: str = "info", nce_weighting: str = "linear") -> Callable:
+                     nce_variant: str = "info", nce_weighting: str = "linear",
+                     shape_bank=None) -> Callable:
     """KD `--stage 1` (JAX's `make_stage1_step`): the vanilla teacher
     (`PoseEstimatorVanilla`) and the student both in train mode with
     `mask=valid`; the teacher's 4-term pose loss plus nce_weight * (0.5
@@ -321,6 +389,8 @@ def make_stage1_step(bin_size: int = 15, tau: float = 0.5, nce_weight: float = 0
         the valid rows, after the step;
       * "pose" / "multipose": `pose_nce_kd` under `nce_weighting` /
         `multi_pose_nce_kd` on the batch's labels, without dropout.
+    `shape_bank`: the device-resident bank, bound here; the batch carries
+    its reference keys in place of 'shape'.
 
     Returns step(teacher_state, student_state, batch, keep=None,
     student_keep=None[, bank]) -> {'loss', 'teacher_loss', 'acc_rot'}
@@ -350,7 +420,8 @@ def make_stage1_step(bin_size: int = 15, tau: float = 0.5, nce_weight: float = 0
         s_dtype, t_dtype = input_dtype(student), input_dtype(teacher)
         s_out, s_feat = student(im.to(s_dtype), mask=valid, generator=student_state.generator,
                                 keep=student_keep)
-        t_out, t_feat = teacher(im.to(t_dtype), batch["shape"].to(t_dtype), mask=valid)
+        t_out, t_feat = teacher(im.to(t_dtype), shape_of(batch, shape_bank).to(t_dtype),
+                                mask=valid)
         # the losses in float32 whatever the models' dtypes, as JAX's step
         t_out = [o.float() for o in t_out]
         s_feat, t_feat = s_feat.float(), t_feat.float()
@@ -402,7 +473,7 @@ def fixed_keep_mask(n: int, width: int, device) -> torch.Tensor:
     return (mask < 1.0 - NCE_DROPOUT).to(device)
 
 
-def make_eval_step(model, kind: str, bin_size: int = 15) -> Callable:
+def make_eval_step(model, kind: str, bin_size: int = 15, shape_bank=None) -> Callable:
     """Returns step(batch) -> {'pred': (N, 3), 'loss': scalar,
     'per_sample_loss': (N,)} and, for the teacher, 'per_sample_nce': (N,);
     tensors on the model's device.
@@ -416,7 +487,9 @@ def make_eval_step(model, kind: str, bin_size: int = 15) -> Callable:
     decoder. The model runs in eval mode (BatchNorm running
     statistics, no dropout) and the train/val decoder
     (bin + tanh(d)/2 + 0.5) * bin_size decodes the predictions. The
-    teacher's NCE drops out its keys with `fixed_keep_mask`.
+    teacher's NCE drops out its keys with `fixed_keep_mask`. With
+    `shape_bank` (bound here; `testing --device_shapes`) the batch carries
+    the bank's reference keys in place of 'shape'.
     """
     if kind not in ("student", "teacher", "vanilla"):
         raise NotImplementedError(f"eval step kind {kind!r} is not ported yet; "
@@ -430,9 +503,9 @@ def make_eval_step(model, kind: str, bin_size: int = 15) -> Callable:
         if kind == "student":
             outputs, _ = model(im)
         elif kind == "vanilla":
-            outputs, _ = model(im, batch["shape"].to(dtype))
+            outputs, _ = model(im, shape_of(batch, shape_bank).to(dtype))
         else:
-            outputs, fused, img_proj = model(im, batch["shape"].to(dtype))
+            outputs, fused, img_proj = model(im, shape_of(batch, shape_bank).to(dtype))
             fused, img_proj = fused.float(), img_proj.float()
         # the decoders and the losses in float32 whatever the model's dtype
         outputs = [o.float() for o in outputs]

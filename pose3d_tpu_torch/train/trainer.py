@@ -10,6 +10,14 @@ stream, two batches ahead; the train loop's stream waits on the copy's
 event only when it takes the batch. Per-step metrics stay on the device
 until a flush (at the print cadence and at the end of an epoch), so the
 loop does not wait for the card after every step.
+
+The on-device data options (JAX's `_jit_step` binding, `_shape_batch_keys`
+and `_view_keys`): a trainer given `shape_bank` (a `ShapeBank` or
+`RenderBank` on its device) binds it into its train step, and its loader's
+batches carry the bank's scalar keys in place of 'shape'; with
+`device_augment` the views arrive as raw uint8 pixels, and with
+`device_views` (KD) one raw view a sample and 'rot_sign'. Evaluation runs
+on host shapes, as JAX's trainers evaluate.
 """
 
 from __future__ import annotations
@@ -24,9 +32,10 @@ import numpy as np
 import torch
 
 from pose3d_tpu_torch.losses.memory_bank import MemoryBank, init_memory_bank
+from pose3d_tpu_torch.ops.shape_bank import RenderBank, ShapeBank
 from pose3d_tpu_torch.train import steps as steps_lib
 from pose3d_tpu_torch.train.ckpt import Checkpointer
-from pose3d_tpu_torch.train.evaluate import CategoryEvalResult, evaluate_categories
+from pose3d_tpu_torch.train.evaluate import CategoryEvalResult, evaluate_categories, host_array
 from pose3d_tpu_torch.train.state import TrainState
 from pose3d_tpu_torch.utils.logging import MetricsWriter, TxtLogger, plot_curves
 from pose3d_tpu_torch.utils.meters import AverageValueMeter
@@ -36,7 +45,9 @@ class Prefetcher:
     """Iterates (device batch, host valid mask) over a loader's host
     batches. The device batch holds `keys` and, only when some row is
     padded, 'valid' (JAX attaches it the same way, so full batches keep the
-    mask-free path). Exceptions of the loader re-raise in the consumer."""
+    mask-free path); uint8 images stay uint8 on the wire, and u32 seeds
+    travel as int64 (`evaluate.host_array`). Exceptions of the loader
+    re-raise in the consumer."""
 
     _DONE = object()
 
@@ -64,11 +75,11 @@ class Prefetcher:
 
     def _place(self, batch: dict):
         valid = np.asarray(batch["valid"], bool)
-        host = {k: batch[k] for k in self.keys if k in batch}
+        host = {k: host_array(batch[k]) for k in self.keys if k in batch}
         if not valid.all():
             host["valid"] = valid
         if self._stream is None:
-            return {k: torch.as_tensor(np.asarray(v), device=self.device)
+            return {k: torch.as_tensor(v, device=self.device)
                     for k, v in host.items()}, valid, None
         with torch.cuda.stream(self._stream):
             out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
@@ -94,6 +105,12 @@ class Prefetcher:
             for t in out.values():  # the allocator must not reuse them early
                 t.record_stream(stream)
         return out, valid
+
+
+def shape_batch_keys(shape_bank: ShapeBank | RenderBank | None) -> tuple[str, ...]:
+    """The loader keys that carry a sample's shape: 'shape', or the bank's
+    scalar reference keys (they differ between the two banks)."""
+    return ("shape",) if shape_bank is None else shape_bank.batch_keys
 
 
 class DeferredMeters:
@@ -129,12 +146,14 @@ class TeacherTrainer:
     them on another set; `eval_loader` when None),
     the checkpoints (whole train state, and the image encoder alone), one
     log line, one metrics record and the curves. `nce_variant` and
-    `nce_weighting` select the contrastive term (`make_teacher_train_step`)."""
+    `nce_weighting` select the contrastive term (`make_teacher_train_step`);
+    `device_augment` and `shape_bank` are the step's."""
 
     def __init__(self, state: TrainState, train_loader, eval_loader,
                  category_names: list[str], result_path: str, bin_size: int = 15,
                  print_freq: int = 50, cat_eval_loader=None, use_fused_nce: bool = False,
-                 nce_variant: str = "info", nce_weighting: str = "linear"):
+                 nce_variant: str = "info", nce_weighting: str = "linear",
+                 device_augment: bool = False, shape_bank=None):
         self.state = state
         self.device = next(state.model.parameters()).device
         self.train_loader = train_loader
@@ -147,9 +166,10 @@ class TeacherTrainer:
         self.log = TxtLogger(os.path.join(result_path, "training_log.txt"))
         self.metrics = MetricsWriter(os.path.join(result_path, "metrics.jsonl"))
         self.ckpt = Checkpointer(os.path.join(result_path, "ckpt"))
+        self.keys = ("im", *shape_batch_keys(shape_bank), "label")
         self.train_step = steps_lib.make_teacher_train_step(
             bin_size, use_fused_nce=use_fused_nce, nce_variant=nce_variant,
-            nce_weighting=nce_weighting)
+            nce_weighting=nce_weighting, device_augment=device_augment, shape_bank=shape_bank)
         self.eval_step = steps_lib.make_eval_step(state.model, "teacher", bin_size)
 
     def _eval(self, loader) -> CategoryEvalResult:
@@ -168,7 +188,7 @@ class TeacherTrainer:
             meters = DeferredMeters(train_loss, train_acc)
             data_time, batch_time = AverageValueMeter(), AverageValueMeter()
             t0 = end = time.time()
-            batches = Prefetcher(self.train_loader, ("im", "shape", "label"), self.device)
+            batches = Prefetcher(self.train_loader, self.keys, self.device)
             for i, (db, valid) in enumerate(batches):
                 data_time.update(time.time() - end)
                 meters.push(self.train_step(self.state, db), int(valid.sum()))
@@ -226,11 +246,12 @@ class SupervisedTrainer:
     by `make_vanilla_train_step`. Per epoch a train sweep, the per-category
     evaluation on `eval_loader`, the whole train state as the checkpoint
     (its "model" entry is what the testing CLI's `--model` reads), one log
-    line, one metrics record and the curves."""
+    line, one metrics record and the curves. `shape_bank`: the vanilla
+    teacher's shapes from a device-resident bank."""
 
     def __init__(self, state: TrainState, train_loader, eval_loader,
                  category_names: list[str], result_path: str, kind: str = "student",
-                 bin_size: int = 15, print_freq: int = 50):
+                 bin_size: int = 15, print_freq: int = 50, shape_bank=None):
         self.state = state
         self.device = next(state.model.parameters()).device
         self.train_loader = train_loader
@@ -243,8 +264,10 @@ class SupervisedTrainer:
         self.metrics = MetricsWriter(os.path.join(result_path, "metrics.jsonl"))
         self.ckpt = Checkpointer(os.path.join(result_path, "ckpt"))
         has_shape = kind != "student"
-        self.keys = ("im", "shape", "label") if has_shape else ("im", "label")
-        self.train_step = steps_lib.make_vanilla_train_step(has_shape, bin_size)
+        self.keys = (("im", *shape_batch_keys(shape_bank), "label") if has_shape
+                     else ("im", "label"))
+        self.train_step = steps_lib.make_vanilla_train_step(has_shape, bin_size,
+                                                            shape_bank=shape_bank)
         self.eval_step = steps_lib.make_eval_step(state.model, kind, bin_size)
 
     def fit(self, epochs: int, start_epoch: int = 0) -> float:
@@ -290,10 +313,6 @@ class SupervisedTrainer:
         return best_acc
 
 
-# a KD batch: the three views of each sample, their labels and the cloud
-KD_VIEW_KEYS = ("im", "shape", "label", "im_flip", "label_flip", "im_rot", "label_rot")
-
-
 class KDTrainer:
     """The KD regimes of the reference's trainingKD.py:
       * `fit_crd` (--crd, and its loss variants --contrast and --vid):
@@ -312,14 +331,19 @@ class KDTrainer:
         the log line and the metrics record.
     With `int8_teacher` (--int8_teacher, --crd's regimes and --stage 2) the
     steps run the frozen teacher's conv trunks int8, and `teacher` is
-    {"model": the teacher, "q8": its quantized tree}."""
+    {"model": the teacher, "q8": its quantized tree}. `shape_bank` (every
+    regime), `device_augment` (--crd's) and `device_views` (--crd's and
+    --stage 2) are the steps' options."""
 
     def __init__(self, state: TrainState, teacher, train_loader, eval_loader,
                  category_names: list[str], result_path: str, bin_size: int = 15,
                  temperature: float = 1.0, teacher_state: TrainState | None = None,
                  tau: float = 0.5, use_fused_nce: bool = False, nce_variant: str = "info",
-                 nce_weighting: str = "linear", int8_teacher: bool = False):
+                 nce_weighting: str = "linear", int8_teacher: bool = False,
+                 device_augment: bool = False, device_views: bool = False, shape_bank=None):
         self.state = state
+        self.device_augment, self.device_views = device_augment, device_views
+        self.shape_bank = shape_bank
         self.teacher = teacher
         self.teacher_state = teacher_state
         self.int8_teacher = int8_teacher
@@ -337,19 +361,31 @@ class KDTrainer:
         self.ckpt = Checkpointer(os.path.join(result_path, "ckpt"))
         self.eval_step = steps_lib.make_eval_step(state.model, "student", bin_size)
 
+    def _view_keys(self) -> tuple[str, ...]:
+        """A three-view batch's keys: the views (or the one raw view and its
+        'rot_sign' with `device_views`), their labels and the shape keys."""
+        shape_keys = shape_batch_keys(self.shape_bank)
+        if self.device_views:
+            return ("im", *shape_keys, "label", "label_flip", "label_rot", "rot_sign")
+        return ("im", *shape_keys, "label", "im_flip", "label_flip", "im_rot", "label_rot")
+
     def fit_crd(self, epochs: int, start_epoch: int = 0, loss_variant: str = "crd") -> float:
         """JAX's fit_crd with its `_student_loop`; `loss_variant` "crd",
         "contrast" or "vid" (`make_kd_crd_step`), also the metrics' kind."""
         step = steps_lib.make_kd_crd_step(self.bin_size, self.temperature, loss_variant,
-                                          self.int8_teacher)
-        return self._fit(loss_variant, epochs, start_epoch, KD_VIEW_KEYS,
+                                          self.int8_teacher, device_augment=self.device_augment,
+                                          device_views=self.device_views,
+                                          shape_bank=self.shape_bank)
+        return self._fit(loss_variant, epochs, start_epoch, self._view_keys(),
                          lambda db: step(self.state, self.teacher, db), self.eval_step,
                          self.state.state_dict)
 
     def fit_stage2(self, epochs: int, start_epoch: int = 0) -> float:
         """JAX's fit_stage2: `fit_crd`'s loop through `make_stage2_step`."""
-        step = steps_lib.make_stage2_step(self.bin_size, self.temperature, self.int8_teacher)
-        return self._fit("stage2", epochs, start_epoch, KD_VIEW_KEYS,
+        step = steps_lib.make_stage2_step(self.bin_size, self.temperature, self.int8_teacher,
+                                          device_views=self.device_views,
+                                          shape_bank=self.shape_bank)
+        return self._fit("stage2", epochs, start_epoch, self._view_keys(),
                          lambda db: step(self.state, self.teacher, db), self.eval_step,
                          self.state.state_dict)
 
@@ -378,7 +414,8 @@ class KDTrainer:
                                           use_fused_nce=self.use_fused_nce,
                                           use_memory_bank=use_memory_bank,
                                           nce_variant=self.nce_variant,
-                                          nce_weighting=self.nce_weighting)
+                                          nce_weighting=self.nce_weighting,
+                                          shape_bank=self.shape_bank)
 
         def run_step(db):
             nonlocal bank
@@ -396,7 +433,8 @@ class KDTrainer:
 
         eval_step = steps_lib.make_eval_step(self.teacher_state.model, "vanilla",
                                              self.bin_size)
-        return self._fit("stage1", epochs, start_epoch, ("im", "shape", "label"), run_step,
+        return self._fit("stage1", epochs, start_epoch,
+                         ("im", *shape_batch_keys(self.shape_bank), "label"), run_step,
                          eval_step, checkpoint)
 
     def _fit(self, kind: str, epochs: int, start_epoch: int, keys, run_step, eval_step,

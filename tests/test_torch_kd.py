@@ -411,6 +411,12 @@ KD_CLI_OUTCOMES = {
     ("--shape", "MultiView"): None,
     ("--dataset", "Pix3D"): "unsupported KD training dataset Pix3D",  # JAX's
     ("--int8_teacher",): None, ("--stage", "2", "--int8_teacher"): None,
+    ("--device_augment",): None, ("--device_views",): None, ("--device_shapes",): None,
+    ("--stage", "2", "--device_views"): None,
+    ("--stage", "2", "--device_views", "--device_augment"): None,
+    ("--stage", "1", "--device_views"): "applies to the 3-view regimes",  # JAX's
+    ("--stage", "1", "--device_augment"): "ignores the flag",
+    ("--stage", "2", "--device_augment"): "trains on raw, unnormalised pixels",
 }
 
 
@@ -424,7 +430,9 @@ KD_CLI_OUTCOMES = {
     ["--shape", "MultiView"], ["--dataset", "Pix3D"],
     ["--stage", "2", "--int8_teacher"], ["--stage", "2", "--device_views"],
     ["--stage", "2", "--fused_nce"], ["--stage", "1", "--use_memory_bank", "--nce", "pose"],
-    ["--vid", "--contrast"], ["--contrast", "--crd"], ["--stage", "2", "--contrast"]])
+    ["--vid", "--contrast"], ["--contrast", "--crd"], ["--stage", "2", "--contrast"],
+    ["--stage", "2", "--device_views", "--device_augment"], ["--stage", "1", "--device_views"],
+    ["--stage", "1", "--device_augment"], ["--stage", "2", "--device_augment"]])
 def test_kd_cli_refuses_unported_flags(argv):
     """Each flag of a path not ported is refused, naming ROADMAP.md; the
     flags this port has since taken are accepted, or refused with JAX's

@@ -745,3 +745,29 @@ def test_int8_conv_launches_per_call(cuda, shape, launches):
     args = _int8_args(cuda, n, h, w, c, k, co, torch.bfloat16)
     assert chip_smoke.graph_kernel_launches(
         lambda: int8_conv.int8_conv(*args, 1, (k - 1) // 2)) == launches
+
+
+@pytest.mark.cuda
+def test_dewire_and_banks_on_cuda_equal_the_cpu(cuda):
+    """The u8 wire's dewire is correctly rounded on the card, as on the CPU
+    and in data.transforms.to_float_array (CUDA divides by a Python scalar
+    as a product with its reciprocal, one ulp off for some pixel values);
+    a RenderBank's gather and a ShapeBank's subsets are the CPU's bit for
+    bit."""
+    from pose3d_tpu_torch.ops import augment, shape_bank
+
+    u8 = torch.arange(256, dtype=torch.uint8).reshape(16, 16, 1)
+    want = np.asarray(u8.numpy(), np.float32) / 255.0
+    np.testing.assert_array_equal(augment.dewire(u8.to(cuda)).cpu().numpy(), want)
+    rng = np.random.default_rng(0)
+    renders = rng.integers(0, 256, (3, 144, 16, 16, 3), dtype=np.uint8)
+    table = rng.integers(0, 144, (72, 12))
+    ids, mut = torch.tensor([2, 0, 1, 2]), torch.tensor([0, 71, 5, 36])
+    got = [shape_bank.gather_renders(shape_bank.RenderBank.from_arrays(renders, table, d),
+                                     ids.to(d), mut.to(d)).cpu() for d in ("cpu", cuda)]
+    assert torch.equal(got[0], got[1])
+    counts = torch.tensor([3000, 2500, 1000])
+    seeds = torch.from_numpy(rng.integers(0, 2**32, 3))
+    idx = [shape_bank.sample_indices(counts.to(d), seeds.to(d), 3000, 2500).cpu()
+           for d in ("cpu", cuda)]
+    assert torch.equal(idx[0], idx[1])

@@ -76,11 +76,23 @@ def test_cli_default_device_refuses_without_cuda(cli, tmp_path):
 @pytest.mark.parametrize("argv", [
     ["--shape", "MultiView"], ["--shape", "None", "--bf16"],
     ["--shape", "None", "--int8"], ["--shape", "None", "--device_shapes"],
-    ["--shape", "None", "--n_devices", "2"]])
+    ["--shape", "None", "--n_devices", "2"], ["--shape", "PointCloud", "--device_shapes"],
+    ["--shape", "PointCloud", "--device_shapes", "--int8"]])
 def test_testing_cli_refuses_unported_modes(argv):
-    """Refused, naming ROADMAP.md; --bf16, --int8 and the MultiView teacher
-    are ported: parsed."""
+    """Refused, naming ROADMAP.md; --bf16, --int8, the MultiView teacher and
+    the teacher's --device_shapes are ported: parsed; --device_shapes for
+    the student and with --int8 are refused with JAX's messages."""
     flags = ["--dataset", "ObjectNet3D", "--device", "cpu"]
+    jax_refusals = {("--shape", "None", "--device_shapes"): "applies to teacher eval",
+                    ("--shape", "PointCloud", "--device_shapes", "--int8"):
+                        "not combinable with --int8"}
+    if tuple(argv) in jax_refusals:
+        with pytest.raises(SystemExit, match=jax_refusals[tuple(argv)]):
+            testing.main(flags + argv)
+        return
+    if argv == ["--shape", "PointCloud", "--device_shapes"]:
+        assert testing.parse_args(flags + argv).device_shapes
+        return
     if "--bf16" in argv:
         assert testing.parse_args(flags + argv).bf16
         return
@@ -183,20 +195,29 @@ def test_training_cli_default_device_refuses_without_cuda(tmp_path):
     ["--loader", "shm"], ["--n_devices", "2"], ["--cache_decoded_mb", "64"],
     ["--profile_dir", "trace"], ["--model", "teacher.pth"],
     ["--shape", "None", "--nce", "pose"], ["--shape", "None", "--fused_nce"],
-    ["--student_width_mult", "0.5"]])
+    ["--student_width_mult", "0.5"], ["--shape", "MultiView", "--device_shapes"],
+    ["--shape", "None", "--device_shapes"], ["--shape", "None", "--device_augment"],
+    ["--dataset", "Pascal3D", "--device_augment"]])
 def test_training_cli_refuses_unported_flags(argv):
     """Each flag of a path not ported is refused, naming ROADMAP.md; --shape
-    None, --shape MultiView, --nce pose/multipose and --bf16 are ported
-    (parsed), and where JAX refuses a combination the port refuses it with
-    JAX's message, or, where JAX's run fails on it (a teacher on
-    ShapeNetCore, validated on Pix3D's shapeless samples), says why."""
+    None, --shape MultiView, --nce pose/multipose, --bf16, --device_shapes
+    and --device_augment are ported (parsed), and where JAX refuses a
+    combination the port refuses it with JAX's message, or, where JAX's run
+    fails on it (a teacher on ShapeNetCore, validated on Pix3D's shapeless
+    samples) or gives a wrong result (--device_augment where the train set
+    has no raw emission or the step no augmentation), says why."""
     outcomes = {("--shape", "None"): None, ("--nce", "pose"): None,
                 ("--nce", "multipose"): None, ("--bf16",): None,
                 ("--shape", "MultiView"): None,
                 ("--dataset", "ShapeNetCore"): "Pix3D, whose samples carry no shape",
                 ("--dataset", "Pix3D"): "unsupported training dataset Pix3D",
                 ("--weighting", "sqrt"): "--weighting is consumed only by --nce pose",
-                ("--shape", "None", "--nce", "pose"): "applies to teacher training"}
+                ("--shape", "None", "--nce", "pose"): "applies to teacher training",
+                ("--device_shapes",): None, ("--device_augment",): None,
+                ("--shape", "MultiView", "--device_shapes"): None,
+                ("--shape", "None", "--device_shapes"): "requires --shape PointCloud",
+                ("--shape", "None", "--device_augment"): "takes no device augmentation",
+                ("--dataset", "Pascal3D", "--device_augment"): "no raw-pixel emission"}
     flags = ["--dataset", "ObjectNet3D", "--shape", "PointCloud", "--device", "cpu"]
     expected = outcomes.get(tuple(argv), "ROADMAP")
     if expected is None:

@@ -323,18 +323,22 @@ def test_stage1_cli_two_epochs_then_resume(fixture_dir, monkeypatch):
     ["--use_memory_bank"], ["--nce", "pose"], ["--nce", "multipose"],
     ["--teacher_model", "t.pth"], ["--int8_teacher"], ["--bf16"], ["--device_views"],
     ["--n_devices", "2"], ["--shape", "MultiView"],
-    ["--use_memory_bank", "--nce", "multipose"], ["--weighting", "sqrt"]])
+    ["--use_memory_bank", "--nce", "multipose"], ["--weighting", "sqrt"],
+    ["--device_shapes"], ["--device_augment"]])
 def test_stage1_cli_refuses_what_is_not_ported(argv):
-    """--use_memory_bank, --nce pose/multipose, --bf16 and --shape MultiView
-    are ported: parsed (and --weighting without --nce pose dropped with
-    JAX's warning); a bank with a pose variant and --int8_teacher (nothing
-    is frozen in stage 1) are refused with JAX's reasons; the rest name
-    ROADMAP.md."""
+    """--use_memory_bank, --nce pose/multipose, --bf16, --shape MultiView and
+    --device_shapes are ported: parsed (and --weighting without --nce pose
+    dropped with JAX's warning); a bank with a pose variant, --int8_teacher
+    (nothing is frozen in stage 1) and --device_views (stage 1 has one
+    view) are refused with JAX's reasons, --device_augment (JAX's stage 1
+    ignores it) with the port's; the rest name ROADMAP.md."""
     outcomes = {("--use_memory_bank",): None, ("--nce", "pose"): None, ("--bf16",): None,
                 ("--shape", "MultiView"): None,
                 ("--nce", "multipose"): None, ("--weighting", "sqrt"): None,
                 ("--use_memory_bank", "--nce", "multipose"): "no memory-bank form",
-                ("--int8_teacher",): "not applicable to --stage 1"}  # JAX's
+                ("--int8_teacher",): "not applicable to --stage 1",  # JAX's
+                ("--device_views",): "applies to the 3-view regimes",  # JAX's
+                ("--device_shapes",): None, ("--device_augment",): "ignores the flag"}
     expected = outcomes.get(tuple(argv), "ROADMAP")
     if expected is None:
         opt = trainingKD.parse_args(FLAGS + argv)
