@@ -51,7 +51,11 @@ width with random weights from a seed:
   * the on-device data path: the cloud and render banks, the device
     augmentation and view synthesis card vs CPU, a 2.17 GB render bank
     gathered on the card, and the CLIs at full width with --device_shapes,
-    --device_augment and --device_views on generated files.
+    --device_augment and --device_views on generated files;
+  * exported serving: the student and both teachers exported through
+    `torch.export` in f32, bf16 and int8, saved, reloaded and served on the
+    card (and the f32 student's and PointCloud teacher's files on the
+    CPU), and `inference --export_aot` / `--load_aot` on generated files.
 The student's stem (conv3x3 + ReLU + 2x2 pool) runs in the VGG stem
 kernel in every student forward. Phases:
 
@@ -165,8 +169,22 @@ kernel in every student forward. Phases:
   teachers; then the train loaders alone and the steps with their batch's
   copy from pinned memory, host path and options in turns, f32 and bf16,
   with the busy share, the bank's and the batch's bytes and peak memory
+exported serving (`aot_phases`): 54 the student (2048, 224), the
+  PointCloud teacher (1024/1024, 2,500 points) and the MultiView teacher
+  (1024/256, 12 renders of 224) exported on the card (`torch.export`, the
+  batch symbolic) in f32, bf16 and int8, saved, reloaded to the card and
+  served (the student at 1, 64 and 256, the teachers at 1 and 64, from one
+  file each): each artifact's launches exactly its hand kernels' (the
+  stem, the eval PointNet and the int8 convolution as custom ops), its
+  predictions against the eager model's, its time beside eager's in turns
+  by CUDA events, the export seconds and the file's size; the f32
+  student's and PointCloud teacher's files loaded to the CPU against the
+  CPU eager model (the canary)    55 inference --export_aot then
+  --load_aot (no --ckpt) for the three families on generated files: the
+  same prediction
 Each path (7-8, 10-11, 16-17, 20-21, 24-25, 28-29, each variant of 31,
-35-38's, 40's, 41-44's, 46-50's and each CLI run of 53) is driven with the kernels' launch counts set
+35-38's, 40's, 41-44's, 46-50's, each CLI run of 53, each artifact of 54
+and each family of 55) is driven with the kernels' launch counts set
 to 0 just before it and read just after it; 16, 20, 24, 28 and 31's are
 the training paths' main paths, 35-38's and 40's the bf16 ones. The total
 seconds are printed before the card's line.
@@ -286,6 +304,13 @@ INT8_SERVE_BATCHES, INT8_TEACHER_BATCH, INT8_KD_STEPS, INT8_IMAGE = (1, 64, 256)
 STUDENT_DRIFT, TEACHER_DRIFT = (0.995, 0.1, range(6)), (0.985, 0.25, range(3))
 INT8_OPS = 1979e12
 IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+# exported serving (phases 54-55): the batches one artifact serves; its
+# predictions against the eager model's on the card, as a share of the
+# largest |eager| (at least 1): expected bit-equal (the same kernels and
+# ATen ops); a bin that differs moves a prediction by about 15 degrees,
+# beyond each of these
+AOT_STUDENT_BATCHES, AOT_TEACHER_BATCHES, AOT_IMAGE = (1, 64, 256), (1, 64), 224
+AOT_TOL = {"f32": 1e-4, "bf16": 2.0**-6, "int8": 2.0**-6}
 # the on-device data path (phases 51-53): the vertices of each generated
 # cloud; the realistic render bank (models, renders, H, W, 3: 2.17 GB u8)
 # and its gather (samples, views)
@@ -3223,6 +3248,245 @@ def device_data_phases(dev, card: str, t0: float, reset_counts, counts, bf16_cou
     return added, added16, added_pt16
 
 
+def aot_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
+    """Phases 54-55: exported serving (`serving/aot.py`). 54: the student
+    (2048, 224), the PointCloud teacher (1024/1024, 2,500 points) and the
+    MultiView teacher (1024/256, 12 renders of 224) each exported on the
+    card in f32, bf16 and int8 (`torch.export`, the batch symbolic), saved,
+    reloaded to the card and served (the student at 1, 64 and 256 from one
+    file, the teachers at 1 and 64): the stem, the eval PointNet and the
+    int8 convolution run as custom ops, each artifact's launches counted
+    (exactly its hand kernels' per-call launches, none from a plain
+    version), its predictions held against the eager model on the card, its
+    time beside eager's in turns by CUDA events; the f32 student's and the
+    f32 PointCloud teacher's files also loaded to the CPU and held against
+    the CPU eager model (the canary). 55: `inference --export_aot` then
+    `--load_aot` for the three families on generated files, the two
+    predictions equal. Each serving path is driven with the counts set to 0
+    just before it and read just after it. Returns (the int8 kernel's
+    launches, the other kernels' launches as `counts` orders them and as
+    `bf16_counts` does)."""
+    from pose3d_tpu_torch import geometry, serving
+    from pose3d_tpu_torch.cli import inference as inference_cli
+    from pose3d_tpu_torch.models.estimators import BaselineEstimator, PoseEstimator
+    from pose3d_tpu_torch.ops import int8_conv as i8
+    from pose3d_tpu_torch.serving import aot
+    from pose3d_tpu_torch.train import convert
+
+    added, added16, launched = [0] * 8, [0] * 3, 0
+    # the launches one artifact call makes, by (family, dtype): (counts()
+    # index or "bf16" index, per call), and the int8 kernel's
+    expect = {("student", "f32"): ({4: 1}, {}, 0), ("student", "bf16"): ({}, {0: 1}, 0),
+              ("student", "int8"): ({}, {0: 1}, 10),
+              ("PointCloud", "f32"): ({1: 1}, {}, 0), ("PointCloud", "bf16"): ({}, {2: 1}, 0),
+              ("PointCloud", "int8"): ({1: 1}, {}, 52),
+              ("MultiView", "f32"): ({}, {}, 0), ("MultiView", "bf16"): ({}, {}, 0),
+              ("MultiView", "int8"): ({}, {}, 52 + 19)}
+
+    def take(key, calls):
+        """The launches since reset_counts(), held to `calls` artifact
+        calls' worth and added up."""
+        nonlocal launched
+        torch.cuda.synchronize()
+        f32_want, bf16_want, i8_want = expect[key]
+        got = (counts(), bf16_counts(), i8.int8_conv.launches)
+        want = (tuple(f32_want.get(i, 0) * calls for i in range(8)),
+                tuple(bf16_want.get(i, 0) * calls for i in range(3)), i8_want * calls)
+        if got != want:
+            raise RuntimeError(f"{key} artifact: launches {got}, expected {want}")
+        added[:] = [a + b for a, b in zip(added, got[0])]
+        added16[:] = [a + b for a, b in zip(added16, got[1])]
+        launched += got[2]
+        return got
+
+    s_sd = convert.baseline_state_dict(student_variables(np.random.default_rng(54),
+                                                         input_dim=AOT_IMAGE))
+    t_sd = convert.pose_state_dict(teacher_variables(np.random.default_rng(55), 1024, 1024))
+    mv_sd = convert.pose_state_dict(teacher_variables(np.random.default_rng(56), 1024,
+                                                      MV_SHAPE_DIM, view_num=MV_VIEWS),
+                                    "MultiView")
+
+    def built(cls, sd, device, **kw):
+        with torch.device("meta"):
+            m = cls(**kw)
+        m.load_state_dict({k: v.to(device) for k, v in sd.items()}, strict=True, assign=True)
+        return m.eval().requires_grad_(False)
+
+    kw = {"student": dict(input_dim=AOT_IMAGE),
+          "PointCloud": dict(img_feature_dim=1024, shape_feature_dim=1024),
+          "MultiView": dict(shape="MultiView", view_num=MV_VIEWS, img_feature_dim=1024,
+                            shape_feature_dim=MV_SHAPE_DIM)}
+    sds = {"student": s_sd, "PointCloud": t_sd, "MultiView": mv_sd}
+    image = (AOT_IMAGE, AOT_IMAGE, 3)
+    per_sample = {"student": (image,), "PointCloud": (image, (POINT_NUM, 3)),
+                  "MultiView": (image, (MV_VIEWS, *image))}
+    batches = {"student": AOT_STUDENT_BATCHES, "PointCloud": AOT_TEACHER_BATCHES,
+               "MultiView": AOT_TEACHER_BATCHES}
+    gen = torch.Generator(device=dev).manual_seed(54)
+
+    def inputs(family, b):
+        x = [torch.randn((b, *image), generator=gen, device=dev)]
+        if family != "student":
+            x.append(torch.rand((b,) + per_sample[family][1], generator=gen, device=dev))
+        return x
+
+    def decode(outputs):
+        outputs = [o.float() for o in outputs]
+        return geometry.decode_predictions_inference(outputs[:3], outputs[3:], 15)
+
+    lines, ops_seen, files = [], {}, {}
+    tmp = tempfile.TemporaryDirectory()
+    for family in ("student", "PointCloud", "MultiView"):
+        cls = BaselineEstimator if family == "student" else PoseEstimator
+        model = built(cls, sds[family], dev, **kw[family])
+        ins = {b: inputs(family, b) for b in batches[family]}
+        big = max(ins)
+        calib = [a.cpu().numpy() for a in ins[big]]  # on the requests, as the CLI does
+        if family == "student":
+            q = serving.quantize_student(model, calib[:1])
+        elif family == "MultiView":
+            q = serving.quantize_teacher_mv(model, calib[:1], [calib[1][:16]])
+        else:
+            q = serving.quantize_teacher_resnet(model, calib[:1])
+        for dtype in ("f32", "bf16", "int8"):
+            set_compute_dtype(model, torch.bfloat16 if dtype == "bf16" else None)
+            if dtype == "int8":
+                fn = (aot.student_int8_decode_fn(q, 15) if family == "student"
+                      else aot.teacher_int8_decode_fn(model, q, 15))
+                infer = ((lambda x: decode(serving.student_int8_infer(q, x)))
+                         if family == "student" else
+                         (lambda x, s: decode(serving.make_teacher_int8_infer(model)(q, x, s))))
+            else:
+                fn = (aot.student_decode_fn(model, 15) if family == "student"
+                      else aot.teacher_decode_fn(model, 15))
+                infer = model.predict_viewpoint
+            te = time.perf_counter()
+            program = aot.export_fn(fn, per_sample[family])
+            export_s = time.perf_counter() - te
+            if dtype == "f32":
+                ops_seen[family] = sorted({str(n.target).rsplit(".", 1)[0].replace("aten.", "")
+                                           for n in program.graph.nodes
+                                           if n.op == "call_function"})
+            path = os.path.join(tmp.name, f"{family}_{dtype}.pt2")
+            tl = time.perf_counter()
+            aot.save_serving(program, path, kind=family, dtype=dtype,
+                             tour=2 if family == "MultiView" else None)
+            del program
+            art = aot.load_serving(path, dev)
+            load_s = time.perf_counter() - tl
+            reset_counts()
+            served = {b: art(*x) for b, x in ins.items()}
+            take((family, dtype), len(ins))
+            with torch.no_grad():
+                eager = {b: infer(*x) for b, x in ins.items()}
+            equal, worst = 0, 0.0
+            for b in ins:
+                g, w = served[b], eager[b]
+                if tuple(g.shape) != (b, 3) or not torch.isfinite(g).all():
+                    raise RuntimeError(f"{family} {dtype} artifact at {b}: {g.shape}")
+                equal += bool(torch.equal(g, w))
+                d = float((g - w).abs().max() / max(1.0, float(w.abs().max())))
+                worst = max(worst, d)
+                if d > AOT_TOL[dtype]:
+                    raise RuntimeError(f"{family} {dtype} artifact at {b}: {d:.3g} of "
+                                       f"max|eager| from the eager model (> {AOT_TOL[dtype]})")
+            times = {}
+            for b, iters in ((big, 3), (1, 10)):
+                t = {"eager": [], "artifact": []}
+                for who in ("eager", "artifact", "artifact", "eager"):
+                    run = (lambda: art(*ins[b])) if who == "artifact" else \
+                        (lambda: infer(*ins[b]))
+                    with torch.no_grad():
+                        t[who].append(round(cuda_ms(run, iters, warmup=1), 4))
+                times[b] = t
+            lines.append(f"{family} {dtype}: export {export_s:.2f} s, "
+                         f"{os.path.getsize(path) / 2**20:.1f} MiB, save + load {load_s:.2f} s; "
+                         f"batches {list(ins)} equal to eager in {equal} of {len(ins)} "
+                         f"(largest {worst:.3g} of max|eager|); ms {times}")
+            if dtype == "f32" and family != "MultiView":
+                files[family] = path
+            else:
+                os.remove(path)
+            del art, served, eager
+        if family in files:
+            # the canary: the same file on the CPU against the CPU eager model
+            cpu_model = built(cls, sds[family], "cpu", **kw[family])
+            cpu_in = [a[:2].cpu() for a in ins[big]]
+            got = aot.load_serving(files[family], "cpu")(*cpu_in)
+            with torch.no_grad():
+                want = cpu_model.predict_viewpoint(*cpu_in)
+            card_got = aot.load_serving(files[family], dev)(*[a[:2] for a in ins[big]]).cpu()
+            d = float((got - want).abs().max())
+            dc = float((card_got - got).abs().max() / max(1.0, float(got.abs().max())))
+            if d > AOT_TOL["f32"] * max(1.0, float(want.abs().max())) or dc > AOT_TOL["f32"]:
+                raise RuntimeError(f"{family} canary: CPU artifact {d:.3g} from CPU eager, "
+                                   f"card {dc:.3g} of max from CPU")
+            lines.append(f"{family} f32 file on the CPU: equal to the CPU eager model "
+                         f"{torch.equal(got, want)} (max|d| {d:.3g}); card against CPU "
+                         f"{dc:.3g} of max|ref|")
+            os.remove(files[family])
+            del cpu_model
+        del model, ins, q
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    phase("exported serving", t0, "; ".join(lines) + f"; f32 graphs' call_function targets: "
+          f"{ops_seen} [{card}]")
+
+    # 55. the CLI on generated files: --export_aot, then --load_aot with no
+    # --ckpt and no geometry flags
+    from PIL import Image
+
+    cwd = os.getcwd()
+    rng = np.random.default_rng(57)
+    vps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            Image.fromarray((rng.random((256, 256, 3)) * 255).astype(np.uint8)).save("im.jpg")
+            verts = rng.standard_normal((DD_CLOUD_VERTICES, 3)).astype("<f4")
+            with open("cloud.ply", "wb") as f:
+                f.write(b"ply\nformat binary_little_endian 1.0\nelement vertex %d\n"
+                        b"property float x\nproperty float y\nproperty float z\nend_header\n"
+                        % DD_CLOUD_VERTICES + verts.tobytes())
+            os.makedirs("crop")
+            for k in range(216):  # two rings of 72 and one more; 12 renders distinct
+                if k < 12:
+                    Image.fromarray((rng.random((224, 224, 3)) * 255).astype(np.uint8)).save(
+                        f"crop/render_{k:03d}.png")
+                else:
+                    with open(f"crop/render_{k % 12:03d}.png", "rb") as src, \
+                            open(f"crop/render_{k:03d}.png", "wb") as dst:
+                        dst.write(src.read())
+            model_flags = {"student": [], "PointCloud": [],
+                           "MultiView": ["--shape_feature_dim", str(MV_SHAPE_DIM),
+                                         "--view_num", str(MV_VIEWS)]}
+            for family, shape_flags in (("student", []),
+                                        ("PointCloud", ["--ply_path", "cloud.ply"]),
+                                        ("MultiView", ["--render_dir", "crop"])):
+                torch.save({"state_dict": sds[family]}, f"{family}.pth")
+                base = ["--img_path", "im.jpg", *shape_flags]
+                reset_counts()
+                tc = time.perf_counter()
+                live = quiet(inference_cli.main, base + [
+                    "--ckpt", f"{family}.pth", "--input_dim", str(AOT_IMAGE), *model_flags[family],
+                    "--export_aot", f"{family}.pt2"])
+                served = quiet(inference_cli.main, base + ["--load_aot", f"{family}.pt2"])
+                take((family, "f32"), 2)  # the live forward and the served one
+                if not (np.array_equal(live, served) and np.all(np.isfinite(live))):
+                    raise RuntimeError(f"inference --export_aot / --load_aot, {family}: "
+                                       f"{live} against {served}")
+                vps[family] = (np.round(live, 2).tolist(), round(time.perf_counter() - tc, 2),
+                               round(os.path.getsize(f"{family}.pt2") / 2**20, 1))
+                os.remove(f"{family}.pth")
+                os.remove(f"{family}.pt2")
+        finally:
+            os.chdir(cwd)
+    phase("exported serving CLI", t0, "inference --export_aot then --load_aot (no --ckpt, no "
+          "geometry flags), the same prediction both times (prediction, seconds of both runs, "
+          f"MiB): {vps} [{card}]")
+    return launched, added, added16
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--source", action="append", default=[], type=parse_source,
@@ -5539,11 +5803,17 @@ def main() -> int:
     # 51-53. the on-device data path
     dd_added, dd_added16, dd_pt16 = device_data_phases(dev, card, t0, reset_counts, counts,
                                                        bf16_counts, pt16_counts)
-    # the int8 and the on-device data paths' launches of the other kernels
-    # join the MultiView paths' (the stem's, the PointNet's, the NCE's and
-    # the geodesic's; the train-mode PointNet's join its own)
-    mv_added = [a + b + c for a, b, c in zip(mv_added, i8_added, dd_added)]
-    mv16_added = [a + b + c for a, b, c in zip(mv16_added, i8_added16, dd_added16)]
+    # 54-55. exported serving
+    aot_i8, aot_added, aot_added16 = aot_phases(dev, card, t0, reset_counts, counts,
+                                                bf16_counts)
+    i8_launched += aot_i8
+    # the int8, the on-device data and the exported serving paths' launches
+    # of the other kernels join the MultiView paths' (the stem's, the
+    # PointNet's, the NCE's and the geodesic's; the train-mode PointNet's
+    # join its own)
+    mv_added = [a + b + c + d for a, b, c, d in zip(mv_added, i8_added, dd_added, aot_added)]
+    mv16_added = [a + b + c + d for a, b, c, d in zip(mv16_added, i8_added16, dd_added16,
+                                                      aot_added16)]
     pt16_paths = [a + b + c + d + e for a, b, c, d, e in zip(t16_counts, t16_fit, s116_counts,
                                                              s116_fit, dd_pt16)]
 

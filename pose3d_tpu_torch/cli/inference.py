@@ -18,14 +18,24 @@ the input image itself as JAX does (its renders too, for the MultiView
 teacher), or read from a `--load_quantized` .npz of either package;
 `--save_quantized` writes the quantized tree in JAX's .npz schema. The
 student serves int8 in bfloat16, as JAX's does; a teacher in its dtype.
-The AOT artifacts (`--export_aot`, `--load_aot`) are refused with a message
-until they are ported (ROADMAP.md).
+
+`--export_aot PATH` also writes the served model, in its dtype (f32,
+`--bf16` or `--int8`), as an exported artifact (`serving/aot.py`: one
+`torch.export` file, any batch size, the card or the CPU). `--load_aot
+PATH` serves such a file with no `--ckpt` and no model flags: the image
+size, the point count, the view count, the render size and the ring's
+`--tour` come from the artifact; `--mutation` stays a flag of the request.
+A teacher artifact's second input tells the teachers apart (rank 3: clouds,
+`--ply_path`; rank 5: renders, `--render_dir`).
 
     python -m pose3d_tpu_torch.cli.inference --ckpt student.pth --img_path img.jpg
     python -m pose3d_tpu_torch.cli.inference --ckpt teacher.pth --img_path img.jpg \\
         --ply_path compressed.ply
     python -m pose3d_tpu_torch.cli.inference --ckpt mv_teacher.pth --img_path img.jpg \\
         --render_dir Renders_semi_sphere/bed/01/crop --shape_feature_dim 256
+    python -m pose3d_tpu_torch.cli.inference --ckpt student.pth --img_path img.jpg \\
+        --bf16 --export_aot student_bf16.pt2
+    python -m pose3d_tpu_torch.cli.inference --load_aot student_bf16.pt2 --img_path img.jpg
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from pose3d_tpu_torch import geometry, serving
 from pose3d_tpu_torch.cli import common
 from pose3d_tpu_torch.data import ply
 from pose3d_tpu_torch.data import transforms as T
+from pose3d_tpu_torch.serving import aot
 
 
 def parse_args(argv=None):
@@ -65,19 +76,22 @@ def parse_args(argv=None):
                              "schema; int8 on disk) after calibration")
     parser.add_argument("--load_quantized", type=str, default=None,
                         help="with --int8: load a saved .npz instead of calibrating")
-    for flag in ("export_aot", "load_aot"):
-        parser.add_argument(f"--{flag}", type=str, default=None,
-                            help="not ported yet: refused (ROADMAP.md)")
+    parser.add_argument("--export_aot", type=str, default=None,
+                        help="also write the served model (student, or a teacher with "
+                             "--ply_path / --render_dir; --bf16 or --int8 honoured) as an "
+                             "exported artifact to this path (serving/aot.py)")
+    parser.add_argument("--load_aot", type=str, default=None,
+                        help="serve from an exported artifact instead of a checkpoint "
+                             "(--ckpt not needed; its geometry comes from the artifact)")
     opt = parser.parse_args(argv)
-    common.refuse_unported(opt, ("export_aot", "load_aot"))
     if (opt.save_quantized or opt.load_quantized) and not opt.int8:
         raise SystemExit("--save_quantized / --load_quantized belong to the int8 path: "
                          "pass --int8")
     if opt.ply_path and opt.render_dir:
         raise SystemExit("--ply_path (PointCloud teacher) and --render_dir "
                          "(MultiView teacher) are mutually exclusive")  # JAX's
-    if not opt.ckpt:
-        raise SystemExit("--ckpt is required")
+    if not opt.ckpt and not opt.load_aot:
+        raise SystemExit("--ckpt is required unless --load_aot is given")  # JAX's
     return opt
 
 
@@ -112,11 +126,10 @@ def load_renders(render_dir: str, view_num: int, tour: int, mutation: int,
     return np.stack(renders)[None].astype(np.float32)
 
 
-def int8_outputs(opt, model, arr: np.ndarray, shape: np.ndarray | None, device):
-    """The six heads of the int8 serving forward for one request: the
-    quantized tree read from --load_quantized or calibrated on the request
-    itself (JAX's), written to --save_quantized if asked."""
-    im = torch.from_numpy(arr).to(device)
+def int8_tree(opt, model, arr: np.ndarray, shape: np.ndarray | None, device) -> dict:
+    """The quantized tree of the int8 serving forward: read from
+    --load_quantized or calibrated on the request itself (JAX's), written
+    to --save_quantized if asked."""
     if shape is None:
         q = (serving.load_quantized(opt.load_quantized, device) if opt.load_quantized
              else serving.quantize_student(model, [arr]))
@@ -134,14 +147,58 @@ def int8_outputs(opt, model, arr: np.ndarray, shape: np.ndarray | None, device):
         serving.save_quantized(q, opt.save_quantized)
         print(f"quantized {'student' if shape is None else opt.shape + ' teacher'} saved to "
               f"{opt.save_quantized}")
+    return q
+
+
+def export(opt, model, q: dict | None, shape: np.ndarray | None) -> None:
+    """Write the served model (`model`, or the int8 tree `q` where --int8)
+    as an exported artifact to --export_aot."""
+    image = (opt.input_dim, opt.input_dim, 3)
     if shape is None:
-        return serving.student_int8_infer(q, im)  # bfloat16, JAX's default
-    return serving.make_teacher_int8_infer(model)(q, im, torch.from_numpy(shape).to(device))
+        fn = (aot.student_int8_decode_fn(q, opt.bin_size) if q is not None
+              else aot.student_decode_fn(model, opt.bin_size))
+        kind, shapes = "student", (image,)
+    else:
+        fn = (aot.teacher_int8_decode_fn(model, q, opt.bin_size) if q is not None
+              else aot.teacher_decode_fn(model, opt.bin_size))
+        kind, shapes = opt.shape, (image, shape.shape[1:])
+    aot.save_serving(aot.export_fn(fn, shapes), opt.export_aot, kind=kind,
+                     dtype="int8" if opt.int8 else "bf16" if opt.bf16 else "f32",
+                     tour=opt.tour if kind == "MultiView" else None)
+    print(f"AOT serving artifact saved to {opt.export_aot}")
+
+
+def serve_artifact(opt, device) -> np.ndarray:
+    """The prediction of the --load_aot artifact for the request, its
+    preprocessing taken from the artifact's geometry."""
+    try:
+        artifact = aot.load_serving(opt.load_aot, device)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    inputs = [prep_image(opt.img_path, artifact.input_dim)]
+    if artifact.n_inputs == 2:
+        shape_in = artifact.in_shapes[1]
+        if len(shape_in) == 2:  # (P, 3): the PointCloud teacher
+            if not opt.ply_path:
+                raise SystemExit("this AOT artifact is a PointCloud teacher (image + "
+                                 "cloud) — pass --ply_path")  # JAX's
+            inputs.append(sample_cloud(opt.ply_path, shape_in[0]))
+        elif len(shape_in) == 4:  # (K, h, w, 3): the MultiView teacher
+            if not opt.render_dir:
+                raise SystemExit("this AOT artifact is a MultiView teacher (image + "
+                                 "render ring) — pass --render_dir")  # JAX's
+            inputs.append(load_renders(opt.render_dir, shape_in[0], artifact.tour,
+                                       opt.mutation, shape_in[1]))
+        else:
+            raise SystemExit(f"unrecognized teacher artifact: second input shape {shape_in}")
+    return artifact(*inputs)[0].cpu().numpy()
 
 
 def main(argv=None):
     opt = parse_args(argv)
     device = common.setup_device(opt)
+    if opt.load_aot:
+        return report(serve_artifact(opt, device))
     arr = prep_image(opt.img_path, opt.input_dim)
     im = torch.from_numpy(arr).to(device)
     shape = None
@@ -158,15 +215,26 @@ def main(argv=None):
             shape = sample_cloud(opt.ply_path, opt.point_num)
     else:
         model = common.build_student(opt, opt.ckpt, device)
-    if opt.int8:
-        outputs = [o.float() for o in int8_outputs(opt, model, arr, shape, device)]
+    q = int8_tree(opt, model, arr, shape, device) if opt.int8 else None
+    if opt.export_aot:
+        export(opt, model, q, shape)
+    if q is not None:
+        outputs = (serving.student_int8_infer(q, im) if shape is None  # bf16, JAX's default
+                   else serving.make_teacher_int8_infer(model)(
+                       q, im, torch.from_numpy(shape).to(device)))
+        outputs = [o.float() for o in outputs]
         vp = geometry.decode_predictions_inference(outputs[:3], outputs[3:],
                                                    opt.bin_size)[0].cpu().numpy()
     elif shape is None:
         vp = model.predict_viewpoint(im)[0].cpu().numpy()
     else:
         vp = model.predict_viewpoint(im, torch.from_numpy(shape).to(device))[0].cpu().numpy()
-    # back to annotation convention
+    return report(vp)
+
+
+def report(vp: np.ndarray) -> np.ndarray:
+    """Print the prediction in the annotation convention and return it."""
+    vp = vp.copy()
     vp[1] -= 90.0
     vp[2] -= 180.0
     print("pred_azi=%.2f pred_ele=%.2f pred_inp=%.2f" % tuple(vp))

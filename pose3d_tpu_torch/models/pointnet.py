@@ -64,10 +64,12 @@ class ShapeEncoderPC(nn.Module):
         cd = self.compute_dtype
         if not self.training:
             with torch.no_grad():
+                # the module's own tensors, not state_dict()'s detached
+                # copies: under torch.export they are the traced ones
+                state = {**dict(self.named_parameters()), **dict(self.named_buffers())}
                 if cd is not None:
-                    return pointnet_eval_bf16(points.to(cd),
-                                              eval_layers_bf16(self.state_dict()))
-                return pointnet_eval(points, fold_pointnet_params(self.state_dict()))
+                    return pointnet_eval_bf16(points.to(cd), eval_layers_bf16(state))
+                return pointnet_eval(points, fold_pointnet_params(state))
         if cd is not None:
             points = points.to(cd)
         layers = [(getattr(self, f"conv{i}").weight[:, :, 0], getattr(self, f"conv{i}").bias,

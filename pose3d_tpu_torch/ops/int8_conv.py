@@ -33,7 +33,10 @@ larger (chip_smoke.py computes both at the main path's shapes).
 
 A CPU tensor takes `int8_conv_plain`. A CUDA tensor launches the kernel, on
 the current stream, or the call raises: there is no fallback. Each launching
-call adds one to `int8_conv.launches`.
+call adds one to `int8_conv.launches`. Both go through the custom op
+`pose3d_torch::int8_conv` (`int8_conv_op`), whose fake implementation gives
+the output's shape, so that `torch.export` keeps the convolution whole in
+an exported graph (`serving/aot.py`).
 """
 
 from __future__ import annotations
@@ -121,22 +124,21 @@ def _check(x, a, w, ws, shift, stride, padding):
                          f"({x.device}, {a.device}, {w.device}, {ws.device}, {shift.device})")
 
 
-def int8_conv(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
-              shift: torch.Tensor, stride: int = 1, padding: int = 0,
-              relu: bool = False) -> torch.Tensor:
-    """The int8 convolution (module docstring): the kernel on a CUDA tensor,
-    `int8_conv_plain` on a CPU one."""
-    _check(x, a, w, ws, shift, stride, padding)
-    if x.device.type == "cpu":
-        return int8_conv_plain(x, a, w, ws, shift, stride, padding, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"int8_conv has no kernel for device {x.device}")
+def _out_size(size: int, k: int, stride: int, padding: int) -> int:
+    return (size + 2 * padding - k) // stride + 1
+
+
+@torch.library.custom_op("pose3d_torch::int8_conv", mutates_args=(), device_types="cuda")
+def int8_conv_op(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
+                 shift: torch.Tensor, stride: int, padding: int, relu: bool) -> torch.Tensor:
+    """`int8_conv` as an opaque op, which `torch.export` keeps whole. A
+    CUDA tensor launches the kernel (the sizes and the alignment checked
+    here, at run time); a CPU one takes `int8_conv_plain`."""
     if x.dtype not in _KIND:
         raise TypeError(f"int8_conv's kernel takes float32 or bfloat16 input; got {x.dtype}")
     n, h, wd, c = x.shape
     kh, kw, _, co = w.shape
-    oh = (h + 2 * padding - kh) // stride + 1
-    ow = (wd + 2 * padding - kw) // stride + 1
+    oh, ow = _out_size(h, kh, stride, padding), _out_size(wd, kw, stride, padding)
     m, k = n * oh * ow, kh * kw * c
     if k >= 2**31 or m * co >= 2**62 or max(h, wd, c, co) >= 2**31:
         raise ValueError(f"int8_conv: sizes out of range (M {m}, K {k}, CO {co})")
@@ -159,6 +161,30 @@ def int8_conv(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, ws: torch.Tenso
         raise RuntimeError(f"int8_conv kernel launch failed: cudaError_t {err}")
     _counted.launches += 1
     return y
+
+
+@int8_conv_op.register_kernel("cpu")
+def _(x, a, w, ws, shift, stride, padding, relu):
+    return int8_conv_plain(x, a, w, ws, shift, stride, padding, relu)
+
+
+@int8_conv_op.register_fake
+def _(x, a, w, ws, shift, stride, padding, relu):
+    kh, kw, _, co = w.shape
+    return x.new_empty((x.shape[0], _out_size(x.shape[1], kh, stride, padding),
+                        _out_size(x.shape[2], kw, stride, padding), co))
+
+
+def int8_conv(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
+              shift: torch.Tensor, stride: int = 1, padding: int = 0,
+              relu: bool = False) -> torch.Tensor:
+    """The int8 convolution (module docstring): the kernel on a CUDA tensor,
+    `int8_conv_plain` on a CPU one, both through the op
+    `pose3d_torch::int8_conv`."""
+    _check(x, a, w, ws, shift, stride, padding)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8_conv has no kernel for device {x.device}")
+    return int8_conv_op(x, a, w, ws, shift, stride, padding, relu)
 
 
 int8_conv.launches = 0

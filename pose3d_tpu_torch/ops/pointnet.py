@@ -16,6 +16,13 @@ folded (W, b) reproduces. `eval_layers_bf16` gives the unfolded layers,
 `pointnet_eval_bf16_plain` the function and `pointnet_eval_bf16` its
 kernel (the bf16 instance in the same source, on the bf16 tensor cores),
 with its own launch count.
+
+Both instances are custom ops (`pose3d_torch::pointnet_eval`,
+`pose3d_torch::pointnet_eval_bf16`) on flat parameter lists: the CUDA
+kernel the hand kernel, the CPU kernel the plain version, the fake
+implementation the (N, D) output, so that `torch.export` keeps the encoder
+whole in an exported graph (`serving/aot.py`) and no size of a symbolic
+batch reaches Python (`segments_for` runs inside the CUDA kernel).
 """
 
 from __future__ import annotations
@@ -178,26 +185,25 @@ def _check(points: torch.Tensor, folded: Folded) -> int:
     return d
 
 
-def pointnet_eval(points: torch.Tensor, folded: Folded) -> torch.Tensor:
-    """(N, P, 3) float32 points, folded parameters -> (N, D) float32.
-
-    A CPU tensor goes to `pointnet_eval_plain`. A CUDA tensor goes to the
-    kernel, on the current stream, or the call raises: there is no
-    fallback. Each launch adds one to `pointnet_eval.launches`.
-    """
-    d = _check(points, folded)
-    if points.device.type == "cpu":
-        return pointnet_eval_plain(points, folded)
-    if points.device.type != "cuda":
-        raise ValueError(f"pointnet_eval has no kernel for device {points.device}")
-    tensors = [points] + [t for pair in folded for t in pair]
+def _kernel_sizes(name: str, tensors: Sequence[torch.Tensor], d: int) -> tuple[int, int]:
+    """(N, P) of the points, refused where the kernel does not take them."""
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("pointnet_eval's kernel takes contiguous tensors")
-    n, p = points.shape[0], points.shape[1]
+        raise ValueError(f"{name}'s kernel takes contiguous tensors")
+    n, p = tensors[0].shape[0], tensors[0].shape[1]
     if n >= 2**31 or 3 * p >= 2**31 or d >= 2**31 // 256:
-        raise ValueError(f"pointnet_eval's kernel takes N < 2^31, 3P < 2^31 and "
-                         f"D < 2^23; got {(n, p, d)}")
+        raise ValueError(f"{name}'s kernel takes N < 2^31, 3P < 2^31 and D < 2^23; got "
+                         f"{(n, p, d)}")
+    return n, p
 
+
+@torch.library.custom_op("pose3d_torch::pointnet_eval", mutates_args=(), device_types="cuda")
+def pointnet_eval_op(points: torch.Tensor, params: list[torch.Tensor]) -> torch.Tensor:
+    """`pointnet_eval` as an opaque op, which `torch.export` keeps whole:
+    params the flat (w1, b1, w2, b2, w3, b3). A CUDA tensor launches the
+    kernel (its scratch and its split chosen here, at run time); a CPU one
+    takes `pointnet_eval_plain`."""
+    d = params[5].shape[0]
+    n, p = _kernel_sizes("pointnet_eval", [points, *params], d)
     out = torch.empty((n, d), dtype=torch.float32, device=points.device)
     if n == 0:
         return out
@@ -206,13 +212,37 @@ def pointnet_eval(points: torch.Tensor, folded: Folded) -> torch.Tensor:
     scratch = torch.empty(lib.pointnet_eval_scratch_floats(n, d, segments),
                           dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):
-        err = lib.pointnet_eval(*(t.data_ptr() for t in tensors), out.data_ptr(),
-                                scratch.data_ptr(), n, p, d, segments, groups,
+        err = lib.pointnet_eval(points.data_ptr(), *(t.data_ptr() for t in params),
+                                out.data_ptr(), scratch.data_ptr(), n, p, d, segments, groups,
                                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"pointnet_eval kernel launch failed: cudaError_t {err}")
     pointnet_eval.launches += 1
     return out
+
+
+@pointnet_eval_op.register_kernel("cpu")
+def _(points, params):
+    return pointnet_eval_plain(points, list(zip(params[::2], params[1::2])))
+
+
+@pointnet_eval_op.register_fake
+def _(points, params):
+    return points.new_empty((points.shape[0], params[5].shape[0]))
+
+
+def pointnet_eval(points: torch.Tensor, folded: Folded) -> torch.Tensor:
+    """(N, P, 3) float32 points, folded parameters -> (N, D) float32.
+
+    A CPU tensor goes to `pointnet_eval_plain`. A CUDA tensor goes to the
+    kernel, on the current stream, or the call raises: there is no
+    fallback. Each launch adds one to `pointnet_eval.launches`. Both go
+    through the op `pose3d_torch::pointnet_eval`.
+    """
+    _check(points, folded)
+    if points.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pointnet_eval has no kernel for device {points.device}")
+    return pointnet_eval_op(points, [t for pair in folded for t in pair])
 
 
 pointnet_eval.launches = 0
@@ -243,26 +273,14 @@ def _check_bf16(points: torch.Tensor, layers: Unfolded) -> int:
     return d
 
 
-def pointnet_eval_bf16(points: torch.Tensor, layers: Unfolded) -> torch.Tensor:
-    """(N, P, 3) bfloat16 points, the unfolded layers of `eval_layers_bf16`
-    -> (N, D) bfloat16.
-
-    A CPU tensor goes to `pointnet_eval_bf16_plain`. A CUDA tensor goes to
-    the bf16 kernel, on the current stream, or the call raises: there is no
-    fallback. Each launch adds one to `pointnet_eval_bf16.launches`.
-    """
-    d = _check_bf16(points, layers)
-    if points.device.type == "cpu":
-        return pointnet_eval_bf16_plain(points, layers)
-    if points.device.type != "cuda":
-        raise ValueError(f"pointnet_eval_bf16 has no kernel for device {points.device}")
-    tensors = [points] + [t for layer in layers for t in layer]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("pointnet_eval_bf16's kernel takes contiguous tensors")
-    n, p = points.shape[0], points.shape[1]
-    if n >= 2**31 or 3 * p >= 2**31 or d >= 2**31 // 256:
-        raise ValueError(f"pointnet_eval_bf16's kernel takes N < 2^31, 3P < 2^31 and "
-                         f"D < 2^23; got {(n, p, d)}")
+@torch.library.custom_op("pose3d_torch::pointnet_eval_bf16", mutates_args=(),
+                         device_types="cuda")
+def pointnet_eval_bf16_op(points: torch.Tensor, params: list[torch.Tensor]) -> torch.Tensor:
+    """`pointnet_eval_bf16` as an opaque op: params the flat (w1, b1, bn1,
+    w2, b2, bn2, w3, b3, bn3). A CUDA tensor launches the bf16 kernel; a
+    CPU one takes `pointnet_eval_bf16_plain`."""
+    d = params[7].shape[0]
+    n, p = _kernel_sizes("pointnet_eval_bf16", [points, *params], d)
     out = torch.empty((n, d), dtype=torch.bfloat16, device=points.device)
     if n == 0:
         return out
@@ -271,13 +289,38 @@ def pointnet_eval_bf16(points: torch.Tensor, layers: Unfolded) -> torch.Tensor:
     scratch = torch.empty(lib.pointnet_eval_bf16_scratch_words(n, d, segments),
                           dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):
-        err = lib.pointnet_eval_bf16(*(t.data_ptr() for t in tensors), out.data_ptr(),
-                                     scratch.data_ptr(), n, p, d, segments, groups,
-                                     torch.cuda.current_stream().cuda_stream)
+        err = lib.pointnet_eval_bf16(points.data_ptr(), *(t.data_ptr() for t in params),
+                                     out.data_ptr(), scratch.data_ptr(), n, p, d, segments,
+                                     groups, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"pointnet_eval_bf16 kernel launch failed: cudaError_t {err}")
     pointnet_eval_bf16.launches += 1
     return out
+
+
+@pointnet_eval_bf16_op.register_kernel("cpu")
+def _(points, params):
+    return pointnet_eval_bf16_plain(points, [params[i:i + 3] for i in (0, 3, 6)])
+
+
+@pointnet_eval_bf16_op.register_fake
+def _(points, params):
+    return points.new_empty((points.shape[0], params[7].shape[0]))
+
+
+def pointnet_eval_bf16(points: torch.Tensor, layers: Unfolded) -> torch.Tensor:
+    """(N, P, 3) bfloat16 points, the unfolded layers of `eval_layers_bf16`
+    -> (N, D) bfloat16.
+
+    A CPU tensor goes to `pointnet_eval_bf16_plain`. A CUDA tensor goes to
+    the bf16 kernel, on the current stream, or the call raises: there is no
+    fallback. Each launch adds one to `pointnet_eval_bf16.launches`. Both
+    go through the op `pose3d_torch::pointnet_eval_bf16`.
+    """
+    _check_bf16(points, layers)
+    if points.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pointnet_eval_bf16 has no kernel for device {points.device}")
+    return pointnet_eval_bf16_op(points, [t for layer in layers for t in layer])
 
 
 pointnet_eval_bf16.launches = 0

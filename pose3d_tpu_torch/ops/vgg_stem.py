@@ -14,11 +14,17 @@ route them; odd H or W pool with MaxPool2d's floor.
 channels-last memory (NHWC), the layout the next cuDNN convolution takes
 without a transpose. The kernel reads the image as NHWC memory: the
 student's channels-last view of its NHWC batch is read in place, any
-other layout is copied once. A CPU tensor takes `vgg_stem_plain`,
-differentiated by autograd. A CUDA tensor goes through `_VggStem`, whose
-forward and backward launch the kernels (`stem_forward`, `stem_backward`,
-one launch count each), or the call raises: there is no fallback. The
-image gets no gradient: an `x` that requires one is refused.
+other layout is copied once. Where a gradient is wanted, a CPU tensor
+takes `vgg_stem_plain`, differentiated by autograd, and a CUDA tensor goes
+through `_VggStem`, whose forward and backward launch the kernels
+(`stem_forward`, `stem_backward`, one launch count each). Otherwise the
+call is the custom op `pose3d_torch::vgg_stem_serve` (`vgg_stem_serve`):
+its CUDA kernel the forward kernel without the window indices, its CPU
+kernel `vgg_stem_plain`, its fake implementation the channels-last output,
+so that `torch.export` keeps the stem whole in an exported graph
+(`serving/aot.py`). A CUDA tensor launches a kernel or the call raises:
+there is no fallback. The image gets no gradient: an `x` that requires
+one is refused.
 
 On the card, f32: the forward is one CUDA launch, an im2col product on the
 tensor cores in split TF32 (each f32 operand a TF32 big part plus a TF32
@@ -202,16 +208,10 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> None:
                          "that does not require one")
 
 
-def vgg_stem(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """conv3x3 (SAME) + bias + ReLU + 2x2/2 max pool of NCHW `x`
-    (N, 3, H, W) -> (N, F, H/2, W/2), channels-last on the card; in bf16
-    with `vgg_stem_plain`'s rounding points. Differentiable in `weight` and
-    `bias`."""
-    _check(x, weight, bias)
-    if x.device.type == "cpu":
-        return vgg_stem_plain(x, weight, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"vgg_stem has no kernel for device {x.device}")
+def _kernel_inputs(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor):
+    """What the kernels take: x as NHWC memory (a view of channels-last
+    input, else a copy), the weight and the bias contiguous; the sizes and
+    dtypes they do not take are refused."""
     f = weight.shape[0]
     if x.dtype not in _SUFFIX:
         raise TypeError(f"vgg_stem's kernels take float32 or float64 (or bfloat16); got "
@@ -219,8 +219,41 @@ def vgg_stem(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch
     if f % 8 or f > MAX_F or x.shape[2] >= 2**30 or x.shape[3] >= 2**30:
         raise ValueError(f"vgg_stem's kernels take F a multiple of 8 up to {MAX_F}; "
                          f"got F {f}")
-    x_nhwc = x.permute(0, 2, 3, 1).contiguous()  # a view for channels-last input
-    weight, bias = weight.contiguous(), bias.contiguous()
-    if torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad):
-        return _VggStem.apply(x_nhwc, weight, bias)
-    return stem_forward(x_nhwc, weight, bias, with_index=False)[0]  # no indices to keep
+    return x.permute(0, 2, 3, 1).contiguous(), weight.contiguous(), bias.contiguous()
+
+
+@torch.library.custom_op("pose3d_torch::vgg_stem_serve", mutates_args=(), device_types="cuda")
+def vgg_stem_serve(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The serving forward as an opaque op, which `torch.export` keeps
+    whole: x the (N, 3, H, W) image in any layout, no window index. A CUDA
+    tensor launches the forward kernel; a CPU one takes `vgg_stem_plain`.
+    y is channels-last either way, as the fake implementation gives it."""
+    return stem_forward(*_kernel_inputs(x, weight, bias), with_index=False)[0]
+
+
+@vgg_stem_serve.register_kernel("cpu")
+def _(x, weight, bias):
+    return vgg_stem_plain(x, weight, bias).contiguous(memory_format=torch.channels_last)
+
+
+@vgg_stem_serve.register_fake
+def _(x, weight, bias):
+    n, _, h, w = x.shape
+    return torch.empty((n, weight.shape[0], h // 2, w // 2), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
+def vgg_stem(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """conv3x3 (SAME) + bias + ReLU + 2x2/2 max pool of NCHW `x`
+    (N, 3, H, W) -> (N, F, H/2, W/2); in bf16 with `vgg_stem_plain`'s
+    rounding points. Differentiable in `weight` and `bias`: where a
+    gradient is wanted, the plain version on the CPU and `_VggStem` on the
+    card; otherwise the op `vgg_stem_serve` (channels-last)."""
+    _check(x, weight, bias)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"vgg_stem has no kernel for device {x.device}")
+    if not (torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad)):
+        return vgg_stem_serve(x, weight, bias)
+    if x.device.type == "cpu":
+        return vgg_stem_plain(x, weight, bias)
+    return _VggStem.apply(*_kernel_inputs(x, weight, bias))

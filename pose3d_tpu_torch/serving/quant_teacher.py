@@ -248,7 +248,9 @@ def _parts(teacher):
     its shape encoder is the eval PointNet; the MultiView teacher's q is
     {img, shape} and its renders go through the int8 ResNet-18."""
     dtype = _dtype(teacher)
-    if isinstance(teacher.shape_encoder, ShapeEncoderPC):
+    # an exported int8 MultiView teacher holds no float shape encoder
+    # (serving/aot.py), so a missing one is the MultiView case
+    if isinstance(getattr(teacher, "shape_encoder", None), ShapeEncoderPC):
         return (lambda q: q), (lambda q, shape: teacher.shape_encoder(shape.to(dtype)))
 
     def renders(q, shape):

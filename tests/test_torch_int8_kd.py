@@ -365,6 +365,8 @@ def test_kd_cli_int8_teacher_refusals(argv, message):
 
 
 def test_aot_flags_stay_refused():
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        inference.main(["--ckpt", "s.pth", "--img_path", "x.jpg", "--device", "cpu",
-                        "--int8", "--export_aot", "a"])
+    """--int8 with --export_aot is ported (tests/test_torch_aot.py exports
+    and serves it): parsed, no longer refused."""
+    opt = inference.parse_args(["--ckpt", "s.pth", "--img_path", "x.jpg", "--device", "cpu",
+                                "--int8", "--export_aot", "a"])
+    assert opt.int8 and opt.export_aot == "a"

@@ -27,7 +27,8 @@ banned = {"jax", "jaxlib", "flax", "optax", "orbax", "pose3d_tpu"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 assert not loaded, loaded
 serving = {"pose3d_tpu_torch.serving", "pose3d_tpu_torch.serving.quant_student",
-           "pose3d_tpu_torch.serving.quant_teacher", "pose3d_tpu_torch.ops.int8_conv"}
+           "pose3d_tpu_torch.serving.quant_teacher", "pose3d_tpu_torch.serving.aot",
+           "pose3d_tpu_torch.ops.int8_conv"}
 assert serving <= set(sys.modules), serving - set(sys.modules)
 print(len([m for m in sys.modules if m.startswith("pose3d_tpu_torch")]))
 """
@@ -109,20 +110,14 @@ def test_testing_cli_refuses_unported_modes(argv):
 @pytest.mark.parametrize("argv", [["--bf16"], ["--int8"], ["--load_aot", "a"],
                                   ["--render_dir", "r"], ["--export_aot", "a"]])
 def test_inference_cli_refuses_unported_modes(argv):
-    """Refused, naming ROADMAP.md; --bf16, --int8 and --render_dir (the
-    MultiView teacher) are ported: parsed."""
+    """Every mode of JAX's inference CLI is ported: --bf16, --int8,
+    --render_dir (the MultiView teacher), --export_aot and --load_aot (the
+    exported artifacts; --load_aot without --ckpt) are parsed."""
     flags = ["--ckpt", "s.pth", "--img_path", "x.jpg", "--device", "cpu"]
-    if argv == ["--bf16"]:
-        assert inference.parse_args(flags + argv).bf16
-        return
-    if argv == ["--int8"]:
-        assert inference.parse_args(flags + argv).int8
-        return
-    if argv == ["--render_dir", "r"]:
-        assert inference.parse_args(flags + argv).render_dir == "r"
-        return
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        inference.main(flags + argv)
+    if argv[0] == "--load_aot":
+        flags = flags[2:]
+    opt = inference.parse_args(flags + argv)
+    assert getattr(opt, argv[0][2:]) == (argv[1] if len(argv) == 2 else True)
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
@@ -157,15 +152,17 @@ def test_testing_cli_refuses_unported_teacher_modes(argv):
 @pytest.mark.parametrize("argv", [["--int8"], ["--render_dir", "r"],
                                   ["--export_aot", "a"]])
 def test_inference_cli_refuses_unported_teacher_modes(argv):
-    """Refused, naming ROADMAP.md; --render_dir beside --ply_path with
-    JAX's message (the two teachers exclude each other); --int8 is ported:
+    """--render_dir beside --ply_path is refused with JAX's message (the
+    two teachers exclude each other); --int8 and --export_aot are ported:
     parsed."""
     flags = ["--ckpt", "t.pth", "--img_path", "x.jpg", "--ply_path", "p.ply", "--device", "cpu"]
     if argv == ["--int8"]:
         assert inference.parse_args(flags + argv).int8
         return
-    with pytest.raises(SystemExit, match="mutually exclusive" if "--render_dir" in argv
-                       else "ROADMAP"):
+    if argv == ["--export_aot", "a"]:
+        assert inference.parse_args(flags + argv).export_aot == "a"
+        return
+    with pytest.raises(SystemExit, match="mutually exclusive"):
         inference.main(flags + argv)
 
 
@@ -255,3 +252,33 @@ def test_int8_conv_on_cpu_takes_the_plain_version(rng):
     out = int8_conv.int8_conv(x, a, w, ws, shift, 2, 1, relu=True)
     assert int8_conv.int8_conv.launches == before
     assert torch.equal(out, int8_conv.int8_conv_plain(x, a, w, ws, shift, 2, 1, relu=True))
+
+
+_SERVE_ALONE = """
+import sys
+import numpy as np
+from pose3d_tpu_torch.serving import aot
+art = aot.load_serving(sys.argv[1])
+out = art(np.zeros((3,) + art.in_shapes[0], np.float32))
+assert tuple(out.shape) == (3, 3), out.shape
+banned = {"jax", "jaxlib", "flax", "optax", "orbax", "pose3d_tpu"}
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned
+                or m.startswith("pose3d_tpu_torch.models"))
+assert not loaded, loaded
+"""
+
+
+def test_serving_artifact_loads_without_jax_or_the_models(tmp_path):
+    """`serving.aot` alone serves a saved artifact: no JAX module and no
+    `pose3d_tpu_torch.models` module is loaded (the ops are)."""
+    from pose3d_tpu_torch.models.estimators import BaselineEstimator
+    from pose3d_tpu_torch.serving import aot
+
+    model = BaselineEstimator(img_feature_dim=16, width_mult=0.125, input_dim=32,
+                              generator=torch.Generator().manual_seed(0)).eval()
+    path = str(tmp_path / "student.pt2")
+    aot.save_serving(aot.export_serving(aot.student_decode_fn(model, 15), 32), path,
+                     kind="student", dtype="f32")
+    proc = _run(["-c", _SERVE_ALONE, path], REPO)
+    os.remove(path)
+    assert proc.returncode == 0, proc.stderr
