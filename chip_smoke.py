@@ -131,11 +131,14 @@ kernel in every student forward. Phases:
   on Pix3D
   int8 serving (`int8_phases`): 45 the int8 convolution kernel against its
   plain version bit for bit, f32 and bf16, on every distinct int8 conv of
-  VGG-11, ResNet-50 and ResNet-18 at 224x224 (recorded from the models'
-  int8 forwards), the dense layers at batch 1 and 256, a narrower
-  student's widths and channel counts no vector load takes; IMMA in its
-  SASS; its times summed over one forward's calls (graph replay), beside
-  the plain version's, the bound and im2col + torch._int_mm's    46 the
+  VGG-11 (its four pre-pool convs pooled in the kernel), ResNet-50 and
+  ResNet-18 at 224x224 (recorded from the models' int8 forwards), the
+  dense layers at batch 1 and 256, a narrower student's widths, channel
+  counts no vector load takes and pooled odd sizes, on both routes; IGMMA
+  in the wgmma route's SASS, IMMA in the mma.sync route's; its times
+  summed over one forward's calls (graph replay), beside the plain
+  version's, the bound, im2col + torch._int_mm's and (--source
+  int8_conv=FILE) another build's in turns    46 the
   int8 student (2048, 224x224, its tree calibrated on the requests) at
   batch 1, 64 and 256    47 the int8 PointCloud teacher (ResNet-50,
   1024/1024, 2,500 points) at 64    48 the int8 MultiView teacher (768
@@ -1056,7 +1059,7 @@ def stem_near_shares(x_nhwc, w, b, chunk: int = 23) -> tuple[float, float]:
 
 
 LIBRARIES = ("geodesic", "pointnet_eval", "info_nce", "vgg_stem", "pointnet_train", "int8_conv")
-OTHER_SOURCES = ("info_nce", "vgg_stem", "pointnet_eval")
+OTHER_SOURCES = ("info_nce", "vgg_stem", "pointnet_eval", "int8_conv")
 
 
 def stem_bf16_vs_plain(vgg_stem, x, w, b, g, chunk: int = 23) -> dict:
@@ -1283,7 +1286,8 @@ def parse_source(arg: str) -> tuple[str, str]:
     name, sep, path = arg.partition("=")
     if not sep or name not in OTHER_SOURCES or not os.path.isfile(path):
         raise argparse.ArgumentTypeError(
-            f"--source takes info_nce=FILE, vgg_stem=FILE or pointnet_eval=FILE; got {arg}")
+            f"--source takes info_nce=FILE, vgg_stem=FILE, pointnet_eval=FILE or "
+            f"int8_conv=FILE; got {arg}")
     return name, path
 
 
@@ -2253,13 +2257,14 @@ def multiview_phases(dev, card: str, t0: float, reset_counts, counts, bf16_count
 
 def int8_record_shapes(i8, run) -> list:
     """The int8 convolutions one run() makes, in call order: (N, H, W, C,
-    KH, KW, CO, stride, padding, relu) each, the arguments recorded by a
-    wrapper around `i8.int8_conv` (its kernel still launched)."""
+    KH, KW, CO, stride, padding, relu, pool) each, the arguments recorded by
+    a wrapper around `i8.int8_conv` (its kernel still launched)."""
     calls, kernel = [], i8.int8_conv
 
-    def record(x, a, w, ws, shift, stride=1, padding=0, relu=False):
-        calls.append((*x.shape, *w.shape[:2], w.shape[3], stride, padding, bool(relu)))
-        return kernel(x, a, w, ws, shift, stride, padding, relu)
+    def record(x, a, w, ws, shift, stride=1, padding=0, relu=False, pool=False):
+        calls.append((*x.shape, *w.shape[:2], w.shape[3], stride, padding, bool(relu),
+                      bool(pool)))
+        return kernel(x, a, w, ws, shift, stride, padding, relu, pool)
 
     i8.int8_conv = record
     try:
@@ -2284,15 +2289,56 @@ def plain_int8(i8):
 
 def int8_case(gen: torch.Generator, shape, dtype, dev):
     """Seeded inputs of one int8 convolution (N, H, W, C, KH, KW, CO,
-    stride, padding, relu), made on the card from `gen`: x normal, w
-    uniform in [-127, 127], a = max|x| / 127, ws positive, shift normal."""
-    n, h, w, c, kh, kw, co, stride, padding, relu = shape
+    stride, padding, relu, pool), made on the card from `gen`: x normal, w
+    uniform in [-127, 127] stored K-major as the quantized trees store it
+    (`int8_conv.k_major`), a = max|x| / 127, ws positive, shift normal."""
+    from pose3d_tpu_torch.ops import int8_conv as i8
+
+    n, h, w, c, kh, kw, co, stride, padding, relu, pool = shape
     x = torch.randn((n, h, w, c), generator=gen, device=dev).to(dtype)
     wq = torch.randint(-127, 128, (kh, kw, c, co), generator=gen, device=dev, dtype=torch.int8)
     a = (x.float().abs().max() / 127.0).reshape(())
     ws = torch.rand((co,), generator=gen, device=dev) * 1e-2 + 1e-4
     shift = torch.randn((co,), generator=gen, device=dev)
-    return (x, a, wq, ws, shift, stride, padding, relu)
+    return (x, a, i8.k_major(wq), ws, shift, stride, padding, relu, pool)
+
+
+def legacy_int8_conv(path: str):
+    """fn(x, a, w, ws, shift, stride, padding, relu, pool) through another
+    build of csrc/int8_conv.cu with the earlier C interface (HWIO weights,
+    no pool argument), its 2x2 pool the separate max_pool2d that the
+    student forward ran before the pool moved into the kernel. w must be
+    HWIO contiguous."""
+    import ctypes
+
+    lib = ctypes.CDLL(path)
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.int8_conv.argtypes = [p, ctypes.c_int] + [p] * 7 + [i64] * 11 + [ctypes.c_int, p]
+    lib.int8_conv.restype = ctypes.c_int
+    lib.int8_conv_splits.argtypes = [i64] * 3
+    lib.int8_conv_splits.restype = ctypes.c_int
+
+    def conv(x, a, w, ws, shift, stride, padding, relu, pool):
+        n, h, wd, c = x.shape
+        kh, kw, _, co = w.shape
+        oh, ow = (h + 2 * padding - kh) // stride + 1, (wd + 2 * padding - kw) // stride + 1
+        y = torch.empty((n, oh, ow, co), dtype=x.dtype, device=x.device)
+        xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        m, k = n * oh * ow, kh * kw * c
+        acc = (torch.empty((m, co), dtype=torch.int32, device=x.device)
+               if lib.int8_conv_splits(m, co, k) > 1 else None)
+        err = lib.int8_conv(x.data_ptr(), 0 if x.dtype == torch.float32 else 2, a.data_ptr(),
+                            w.data_ptr(), ws.data_ptr(), shift.data_ptr(), y.data_ptr(),
+                            xq.data_ptr(), None if acc is None else acc.data_ptr(), n, h, wd, c,
+                            kh, kw, stride, padding, oh, ow, co, int(relu),
+                            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{path}: int8_conv failed: cudaError_t {err}")
+        if pool:
+            y = torch.nn.functional.max_pool2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+        return y
+
+    return conv
 
 
 def int8_im2col_mm(x, a, w, stride, padding):
@@ -2312,20 +2358,25 @@ def int8_im2col_mm(x, a, w, stride, padding):
 def int8_bound(shape, dtype) -> tuple[float, str]:
     """The least time of one int8 convolution: x read once in its dtype, w
     once, y written once (and ws, shift) at 3.35 TB/s, against its 2 M CO K
-    operations at the int8 tensor-core rate."""
-    n, h, w, c, kh, kw, co, stride, padding, _ = shape
+    operations at the int8 tensor-core rate. A pooled call computes the
+    4 (OH // 2) (OW // 2) pixels its windows cover and writes a quarter of
+    them."""
+    n, h, w, c, kh, kw, co, stride, padding, _, pool = shape
     oh, ow = (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
     item = torch.tensor([], dtype=dtype).element_size()
-    m, k = n * oh * ow, kh * kw * c
-    return bound(n * h * w * c * item + k * co + m * co * item + 8 * co, 2.0 * m * co * k,
+    m = 4 * n * (oh // 2) * (ow // 2) if pool else n * oh * ow
+    k, out = kh * kw * c, m // 4 if pool else m
+    return bound(n * h * w * c * item + k * co + out * co * item + 8 * co, 2.0 * m * co * k,
                  INT8_OPS)
 
 
-def int8_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
+def int8_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts,
+                others: dict | None = None):
     """Phases 45-50: int8 post-training-quantized serving. The int8 kernel
     against its plain version bit for bit on the main path's shapes, and
-    its times; the student, the PointCloud teacher and the MultiView
-    teacher served int8 (each forward: its heads bit-equal to the same
+    its times (beside each `--source int8_conv=` build's in `others`, {path:
+    library}: the earlier C interface, `legacy_int8_conv`); the student,
+    the PointCloud teacher and the MultiView teacher served int8 (each forward: its heads bit-equal to the same
     forward through the int8 product's plain version on the card, JAX's
     drift rule against the float model in the same dtype, times beside the
     f32 and bf16 forwards, busy share, peak memory); `testing --int8` and
@@ -2350,6 +2401,7 @@ def int8_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
 
     bf16 = torch.bfloat16
     added, added16, launched = [0] * 8, [0] * 3, 0
+    copies0 = i8.int8_conv.weight_copies  # none: the trees store their weights K-major
 
     def take(expect_int8):
         """The paths' launches since reset_counts(), added up; the int8
@@ -2392,19 +2444,27 @@ def int8_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
         return {k: round(v, 5) for k, v in worst.items()}
 
     # 45. the int8 kernel vs its plain version on the card, bit for bit:
-    # every distinct int8 conv of VGG-11 (224x224), ResNet-50 and ResNet-18
-    # (224x224; the shapes recorded from the models' int8 forwards below),
-    # the dense layers at batch 1 and 256, a narrower student's widths
-    # (width_mult 0.3: 80 and 160 channels, no multiple of the 64-channel
-    # tile), channel counts that no vector load takes (C 3 / 20, CO 30),
-    # stride 2 with padding; f32 and bf16; IMMA (the int8 tensor-core
-    # instruction) in the main kernel's SASS only
+    # every distinct int8 conv of VGG-11 (224x224; its four pre-pool convs
+    # pooled in the kernel), ResNet-50 and ResNet-18 (224x224; the shapes
+    # recorded from the models' int8 forwards below), the dense layers at
+    # batch 1 and 256, a narrower student's widths (width_mult 0.3: 80 and
+    # 160 channels, no multiple of the 64-channel tile), channel counts that
+    # no vector load takes (C 3 / 20, CO 30), stride 2 with padding, pooled
+    # calls of odd sizes on both routes; f32 and bf16; IGMMA (wgmma's int8
+    # instruction) in the wgmma route's SASS, IMMA (mma.sync's) in the
+    # mma.sync route's, neither in the epilogue
     lib = _build.build("int8_conv")
-    imma = sass_hmma(lib, "int8_conv", "IMMA")
-    want = {"int8_conv_kernel": True, "int8_conv_kernel<bf16>": True,
-            "int8_conv_epilogue_kernel": False, "int8_conv_epilogue_kernel<bf16>": False}
-    if imma != want:
-        raise RuntimeError(f"int8_conv SASS: IMMA in {imma}, expected {want}")
+    sass = {needle: sass_hmma(lib, "int8_conv", needle) for needle in ("IGMMA", "IMMA")}
+    want = {"IGMMA": {"int8_conv_wgmma_kernel": True, "int8_conv_wgmma_kernel<bf16>": True,
+                      "int8_conv_kernel": False, "int8_conv_kernel<bf16>": False,
+                      "int8_conv_epilogue_kernel": False,
+                      "int8_conv_epilogue_kernel<bf16>": False},
+            "IMMA": {"int8_conv_wgmma_kernel": False, "int8_conv_wgmma_kernel<bf16>": False,
+                     "int8_conv_kernel": True, "int8_conv_kernel<bf16>": True,
+                     "int8_conv_epilogue_kernel": False,
+                     "int8_conv_epilogue_kernel<bf16>": False}}
+    if sass != want:
+        raise RuntimeError(f"int8_conv SASS: {sass}, expected {want}")
     s_sd = convert.baseline_state_dict(student_variables(np.random.default_rng(45),
                                                          input_dim=INT8_IMAGE))
     t_sd = convert.pose_state_dict(teacher_variables(np.random.default_rng(46), 1024, 1024))
@@ -2453,13 +2513,24 @@ def int8_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
     cases += [(max(INT8_SERVE_BATCHES),) + s[1:] for s in shapes["VGG-11"]
               if s[1] == 1]  # the dense layers at the largest serving batch
     narrow = [scaled_width(v, 0.3) for v in VGG11_CONV_WIDTHS]
-    cases += [(2, 112, 112, narrow[0], 3, 3, narrow[1], 1, 1, True),
-              (2, 56, 56, narrow[1], 3, 3, narrow[2], 1, 1, True),
-              (2, 28, 28, narrow[3], 3, 3, narrow[4], 1, 1, True),
-              (2, 9, 11, 20, 3, 3, 30, 2, 1, True), (5, 8, 8, 3, 3, 3, 8, 1, 1, False),
-              (3, 13, 13, 48, 3, 3, 40, 2, 1, False), (1, 1, 1, 1000, 1, 1, 7, 1, 0, False)]
+    cases += [(2, 112, 112, narrow[0], 3, 3, narrow[1], 1, 1, True, False),
+              (2, 56, 56, narrow[1], 3, 3, narrow[2], 1, 1, True, False),
+              (2, 28, 28, narrow[3], 3, 3, narrow[4], 1, 1, True, False),
+              (2, 112, 112, narrow[0], 3, 3, narrow[1], 1, 1, True, True),
+              (2, 9, 11, 20, 3, 3, 30, 2, 1, True, False),
+              (5, 8, 8, 3, 3, 3, 8, 1, 1, False, False),
+              (3, 13, 13, 48, 3, 3, 40, 2, 1, False, False),
+              (1, 1, 1, 1000, 1, 1, 7, 1, 0, False, False),
+              # pooled at odd sizes (the last row and column dropped), on both
+              # routes, the pool on a strided conv, and at batch 1 (K split)
+              (2, 9, 11, 64, 3, 3, 128, 1, 1, True, True),
+              (2, 9, 11, 20, 3, 3, 30, 1, 1, True, True),
+              (3, 13, 13, 48, 3, 3, 40, 2, 1, False, True),
+              (1, 15, 15, 512, 3, 3, 512, 1, 1, True, True)]
     kgen = torch.Generator(device=dev).manual_seed(50)
     max_d, n_checked = 0.0, 0
+    routes_before = dict(i8.int8_conv.route_launches)
+    copies_before = i8.int8_conv.weight_copies
     for shape in cases:
         for dtype in (torch.float32, bf16):
             args = int8_case(kgen, shape, dtype, dev)
@@ -2475,36 +2546,66 @@ def int8_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
                                    f"{int((d > 0).sum())} of {d.numel()} differ, max {float(d.max())}")
             max_d = max(max_d, float((y.float() - ref.float()).abs().max()))
             n_checked += 1
+    routes = {r: i8.int8_conv.route_launches[r] - routes_before[r] for r in i8.ROUTES}
+    want_routes = {r: 2 * sum(i8.route(s[3]) == r for s in cases) for r in i8.ROUTES}
+    if routes != want_routes or i8.int8_conv.weight_copies != copies_before:
+        raise RuntimeError(f"int8 routes {routes}, expected {want_routes}; weights copied "
+                           f"{i8.int8_conv.weight_copies - copies_before} times")
+    pooled = sum(s[10] for s in cases)
     phase("int8 kernel", t0, f"kernel vs plain in {n_checked} cases ({len(cases)} shapes x f32 / "
           f"bf16: the {len(set(shapes['VGG-11']))} VGG-11, {len(set(shapes['ResNet-50']))} "
           f"ResNet-50 and {len(set(shapes['ResNet-18']))} ResNet-18 distinct int8 convs at 224, "
           f"the dense layers at batch 1 and 256, width_mult 0.3's {narrow[1]}/{narrow[2]}/"
-          f"{narrow[4]} channels, C 3 / 20 and CO 7 / 30, stride 2 with padding): bit-equal "
-          f"in all (max|d| {max_d}); cuobjdump -sass: IMMA in {imma}; calibration of the four "
-          f"trees {quantize_s:.1f} s")
+          f"{narrow[4]} channels, C 3 / 20 and CO 7 / 30, stride 2 with padding; {pooled} of "
+          f"them pooled in the kernel): bit-equal in all (max|d| {max_d}); routes {routes}; "
+          f"no weights copied; cuobjdump -sass: IGMMA in {sass['IGMMA']}, IMMA in "
+          f"{sass['IMMA']}; calibration of the four trees {quantize_s:.1f} s")
 
     # the kernel's times at the main path's shapes: each distinct call by
-    # CUDA graph replay, the plain version and im2col + torch._int_mm (the
+    # CUDA graph replay (in turns with each --source int8_conv= build: this
+    # source, the other, the other, this one; the other's pool its separate
+    # max_pool2d), the plain version and im2col + torch._int_mm (the
     # yardstick) by CUDA events; summed over one forward's calls
     stream = torch.cuda.Stream()
     tgen = torch.Generator(device=dev).manual_seed(51)
-    per_forward = {}
+    olds = {path: legacy_int8_conv(lib) for path, lib in (others or {}).items()}
+    per_forward, slower = {}, []
     for name, batch, calls in (("VGG-11", max(INT8_SERVE_BATCHES), shapes["VGG-11"]),
                                ("ResNet-50", INT8_TEACHER_BATCH, shapes["ResNet-50"]),
                                ("ResNet-18", INT8_TEACHER_BATCH * MV_VIEWS, shapes["ResNet-18"])):
         for dtype in (bf16, torch.float32):
-            tot = {"kernel": 0.0, "plain": 0.0, "bound": 0.0, "by ops": 0.0, "library": 0.0}
+            tot = {"kernel": 0.0, "plain": 0.0, "bound": 0.0, "by ops": 0.0, "library": 0.0,
+                   **{path: 0.0 for path in olds}}
             timed = {}
             for s in calls:
                 shape = (batch,) + s[1:]
                 if shape not in timed:
                     args = int8_case(tgen, shape, dtype, dev)
-                    x, a, w, ws, shift, stride, padding, relu = args
+                    x, a, w, ws, shift, stride, padding, relu, pool = args
                     bnd = int8_bound(shape, dtype)
-                    timed[shape] = {
-                        "kernel": graph_ms(lambda: i8.int8_conv(*args), stream, calls=5,
-                                           replays=3),
-                        "bound": bnd[0], "by ops": bnd[0] if bnd[1] == "operations" else 0.0}
+                    timed[shape] = {"bound": bnd[0],
+                                    "by ops": bnd[0] if bnd[1] == "operations" else 0.0}
+                    if olds:
+                        hwio = (x, a, w.contiguous(), *args[3:])  # the earlier weight layout
+                        mine = lambda: i8.int8_conv(*args)  # noqa: E731
+                        turns = {"kernel": [], **{path: [] for path in olds}}
+                        for path, conv in olds.items():
+                            theirs = lambda: conv(*hwio)  # noqa: E731
+                            if not torch.equal(theirs(), mine()):
+                                raise RuntimeError(f"int8 kernel vs {path} at {shape}")
+                            for who, fn in (("kernel", mine), (path, theirs), (path, theirs),
+                                            ("kernel", mine)):
+                                turns[who].append(graph_ms(fn, stream, calls=3, replays=2))
+                        for who, v in turns.items():
+                            timed[shape][who] = sum(v) / len(v)
+                            if who != "kernel" and timed[shape]["kernel"] > timed[shape][who]:
+                                slower.append(f"{shape} {'bf16' if dtype == bf16 else 'f32'}: "
+                                              f"{timed[shape]['kernel']:.4f} ms against "
+                                              f"{timed[shape][who]:.4f}")
+                        del hwio
+                    else:
+                        timed[shape]["kernel"] = graph_ms(lambda: i8.int8_conv(*args), stream,
+                                                          calls=5, replays=3)
                     if dtype == bf16:  # the plain version and the yardstick once
                         timed[shape]["plain"] = cuda_ms(lambda: i8.int8_conv_plain(*args),
                                                         iters=2, warmup=1)
@@ -2520,7 +2621,8 @@ def int8_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
                   if s[1] == 1]
     dense1 = sum(graph_ms(lambda: i8.int8_conv(*args), stream, 5, 3) for args in dense_args)
     dense1_bound = sum(int8_bound(tuple(args[0].shape[:1]) + (1, 1, args[2].shape[2], 1, 1,
-                                                               args[2].shape[3], 1, 0, False),
+                                                               args[2].shape[3], 1, 0, False,
+                                                               False),
                                   bf16)[0] for args in dense_args)
     del dense_args
     for (name, dtype), t in per_forward.items():
@@ -2528,11 +2630,15 @@ def int8_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
                  "ResNet-18": "768 renders"}[name]
         extra = (f", plain {t['plain']} ms, im2col + torch._int_mm {t['library']} ms (no "
                  "quantization or dequantization in it)" if dtype == bf16 else "")
+        extra += "".join(f", {path} {t[path]} ms (its pool separate; in turns)" for path in olds)
         phase("time", t0, f"int8 kernel, one {name} forward's int8 calls ({where}, "
               f"{'bf16' if dtype == bf16 else 'f32'} activations): kernel {t['kernel']} ms "
               f"(CUDA graph replay), bound {t['bound']} ms ({t['by ops']} of it by "
               f"operations; {100 * t['bound'] / t['kernel']:.1f} % of the kernel's time)"
               f"{extra} [{card}]")
+    if olds:
+        phase("time", t0, f"int8 kernel: shapes slower than another source: "
+              f"{'; '.join(slower) if slower else 'none'} [{card}]")
     phase("time", t0, f"int8 kernel, the student's three dense layers at batch 1 (bf16): "
           f"{dense1:.4f} ms by graph replay, bound {dense1_bound:.4f} ms (bytes) [{card}]")
 
@@ -2730,6 +2836,9 @@ def int8_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
         torch.cuda.empty_cache()
     phase("int8 KD", t0, f"--int8_teacher at {KD_BATCH} x 3 views, {INT8_KD_STEPS} steps each "
           f"(the student f32, 2048): " + "; ".join(kd_lines) + f" [{card}]")
+    if i8.int8_conv.weight_copies != copies0:
+        raise RuntimeError(f"int8 paths copied weights K-major on a call "
+                           f"{i8.int8_conv.weight_copies - copies0} times")
     del student, teacher, mv, vanilla, kb, mv_shape, views
     torch.cuda.empty_cache()
     bf_vgg = per_forward["VGG-11", bf16]
@@ -3274,6 +3383,7 @@ def aot_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
     from pose3d_tpu_torch.train import convert
 
     added, added16, launched = [0] * 8, [0] * 3, 0
+    copies0 = i8.int8_conv.weight_copies  # none: an artifact keeps its leaves' K-major storage
     # the launches one artifact call makes, by (family, dtype): (counts()
     # index or "bf16" index, per call), and the int8 kernel's
     expect = {("student", "f32"): ({4: 1}, {}, 0), ("student", "bf16"): ({}, {0: 1}, 0),
@@ -3484,6 +3594,9 @@ def aot_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
     phase("exported serving CLI", t0, "inference --export_aot then --load_aot (no --ckpt, no "
           "geometry flags), the same prediction both times (prediction, seconds of both runs, "
           f"MiB): {vps} [{card}]")
+    if i8.int8_conv.weight_copies != copies0:
+        raise RuntimeError(f"exported int8 artifacts copied weights K-major on a call "
+                           f"{i8.int8_conv.weight_copies - copies0} times")
     return launched, added, added16
 
 
@@ -3491,10 +3604,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--source", action="append", default=[], type=parse_source,
                     metavar="NAME=FILE",
-                    help="another version of csrc/NAME.cu (info_nce, vgg_stem or pointnet_eval; "
-                    "an earlier commit's, with the same C interface, or pointnet_eval as of d190092) "
-                    "to time beside this one: info_nce in phases 18 and 26, vgg_stem in phase "
-                    "22, pointnet_eval in phase 13; repeatable")
+                    help="another version of csrc/NAME.cu (info_nce, vgg_stem, pointnet_eval or "
+                    "int8_conv; an earlier commit's, with the same C interface, pointnet_eval as "
+                    "of d190092, or int8_conv with the HWIO, pool-less interface) to time beside "
+                    "this one: info_nce in phases 18 and 26, vgg_stem in phase 22, "
+                    "pointnet_eval in phase 13, int8_conv in phase 45; repeatable")
     args = ap.parse_args()
     t0 = time.perf_counter()
     # 1. device
@@ -5799,7 +5913,7 @@ def main() -> int:
     geo_err = max(geo_err, mv_geo_err)
     # 45-50. int8 serving
     i8_launched, i8_added, i8_added16, i8_err, i8_times = int8_phases(
-        dev, card, t0, reset_counts, counts, bf16_counts)
+        dev, card, t0, reset_counts, counts, bf16_counts, other_libs["int8_conv"])
     # 51-53. the on-device data path
     dd_added, dd_added16, dd_pt16 = device_data_phases(dev, card, t0, reset_counts, counts,
                                                        bf16_counts, pt16_counts)

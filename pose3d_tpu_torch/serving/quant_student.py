@@ -17,10 +17,9 @@ Scheme (symmetric PTQ, JAX's):
     batches, from a float32 replica of the eval graph with TF32 off;
   * convs 1-7 and the three VGG dense layers: s8 x s8 -> s32 in the port's
     int8 kernel (`ops.int8_conv`), dequantized by (a * ws) and the bias;
-    a 2x2 max-pool after the dequantization, which gives the bits of JAX's
-    pool on the s32 sums because every step of the dequantization (the
-    int -> float32 conversion, the product with a * ws > 0, the bias, the
-    cast, the ReLU) is non-decreasing;
+    the four convs a 2x2 max-pool follows take it inside the kernel, on the
+    s32 sums before the dequantization (`int8_conv(..., pool=True)`):
+    JAX's order, and only the pooled quarter of the pixels is written;
   * the stem (conv + 2x2 pool, JAX's `_stem`: max of the window sums, then
     the bias and the ReLU) stays in the model dtype, in the port's stem
     kernel; the compress MLP with its BatchNorm folded into a per-channel
@@ -110,10 +109,6 @@ def dense0_hwc(weight: torch.Tensor, channels: int) -> np.ndarray:
             .reshape(w.shape[0], -1))
 
 
-def _max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
-
-
 @torch.no_grad()
 def _observe_features(model, x: torch.Tensor) -> dict[str, torch.Tensor]:
     """The float32 replica of the student's eval feature graph (JAX's
@@ -154,9 +149,15 @@ def calibrate(observe, batches, device) -> dict[str, float]:
 
 
 def _tensors(tree, device):
-    """numpy leaves -> tensors on `device` (0-d float32 for the scales)."""
+    """numpy leaves -> tensors on `device` (0-d float32 for the scales). The
+    int8 weights ("w": HWIO convs, (in, out) dense layers) keep their shape
+    and values, stored K-major (`ops.int8_conv.k_major`), the layout the
+    int8 kernel reads: the copy is made here, once a tree, and never
+    written (`save_quantized` writes the HWIO values, JAX's schema)."""
     if isinstance(tree, dict):
-        return {k: _tensors(v, device) for k, v in tree.items()}
+        return {k: (i8.k_major(np.asarray(v)).to(device)
+                    if k == "w" and np.asarray(v).dtype == np.int8 else _tensors(v, device))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tensors(v, device) for v in tree)
     return torch.as_tensor(np.asarray(tree)).to(device)
@@ -209,9 +210,8 @@ def student_int8_infer(q: dict, im: torch.Tensor,
     x = _stem(im, q["stem"]["kernel"], q["stem"]["bias"], dtype)
     kinds = [k for k, _ in _PLAN if k != "stem"]
     for kind, c in zip(kinds, q["convs"]):
-        x = i8.int8_conv(x, c["a"], c["w"], c["ws"], c["b"], stride=1, padding=1, relu=True)
-        if kind == "prepool":  # after the dequantization: the module docstring says why
-            x = _max_pool_nhwc(x)
+        x = i8.int8_conv(x, c["a"], c["w"], c["ws"], c["b"], stride=1, padding=1, relu=True,
+                         pool=kind == "prepool")
     x = x.reshape(x.shape[0], -1)  # (H, W, C): Dense_0's row order in q
     for d, f in enumerate(q["fcs"]):
         x = i8.int8_dense(x, f["a"], f["w"], f["ws"], f["b"], relu=d < 2)

@@ -681,12 +681,14 @@ def test_cpu_vanilla_teacher_train_forward_makes_no_kernel_launch():
 # --- the int8 convolution (int8 serving) -------------------------------------
 
 def _int8_args(dev, n=2, h=9, w=9, c=32, k=3, co=48, dtype=torch.float32, seed=0):
+    """Seeded inputs; the weights stored K-major, as the quantized trees
+    store them (`int8_conv.k_major`: no copy on the call)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((n, h, w, c), generator=g, device=dev).to(dtype)
     wq = torch.randint(-127, 128, (k, k, c, co), generator=g, device=dev, dtype=torch.int8)
     a = (x.float().abs().max() / 127.0).reshape(())
     ws = torch.rand((co,), generator=g, device=dev) * 1e-2 + 1e-4
-    return x, a, wq, ws, torch.randn((co,), generator=g, device=dev)
+    return x, a, int8_conv.k_major(wq), ws, torch.randn((co,), generator=g, device=dev)
 
 
 @pytest.mark.parametrize("change,exc", [
@@ -737,14 +739,47 @@ def test_int8_conv_matches_plain_on_cuda(cuda, n, h, w, c, k, co, stride, paddin
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,launches", [
-    ((64, 56, 56, 64, 3, 64), 2),        # the quantization, the product
-    ((1, 1, 1, 25088, 1, 4096), 3)])     # and the split-K epilogue
-def test_int8_conv_launches_per_call(cuda, shape, launches):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,k,co,stride,padding", [
+    (2, 56, 56, 64, 3, 128, 1, 1), (2, 9, 11, 64, 3, 128, 1, 1), (3, 13, 13, 48, 3, 40, 2, 1),
+    (2, 9, 11, 20, 3, 30, 1, 1), (1, 14, 14, 512, 3, 512, 1, 1), (2, 8, 8, 256, 1, 64, 1, 0)])
+def test_int8_conv_pool_matches_plain_on_cuda(cuda, n, h, w, c, k, co, stride, padding, dtype):
+    """The 2x2 max-pool on the s32 sums, bit for bit, on both routes (C 20:
+    mma.sync through the workspace), odd sizes and a K split (batch 1)."""
+    args = _int8_args(cuda, n, h, w, c, k, co, dtype)
+    routes = dict(int8_conv.int8_conv.route_launches)
+    for relu in (False, True):
+        got = int8_conv.int8_conv(*args, stride, padding, relu, pool=True)
+        want = int8_conv.int8_conv_pool_plain(*args, stride, padding, relu)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and torch.equal(got, want)
+    assert int8_conv.int8_conv.route_launches[int8_conv.route(c)] == \
+        routes[int8_conv.route(c)] + 2
+
+
+@pytest.mark.cuda
+def test_int8_conv_copies_hwio_weights_per_call(cuda):
+    """Weights stored HWIO (as artifacts exported with HWIO leaves hold them) give the
+    same bits through a K-major copy the call makes, which is counted."""
+    x, a, wk, ws, shift = _int8_args(cuda)
+    before = int8_conv.int8_conv.weight_copies
+    got = int8_conv.int8_conv(x, a, wk.contiguous(), ws, shift, 1, 1)
+    assert int8_conv.int8_conv.weight_copies == before + 1
+    assert torch.equal(got, int8_conv.int8_conv(x, a, wk, ws, shift, 1, 1))
+    assert int8_conv.int8_conv.weight_copies == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pool,launches", [
+    ((64, 56, 56, 64, 3, 64), False, 2),      # the quantization, the product
+    ((64, 56, 56, 64, 3, 128), True, 2),      # the pool in the product's epilogue
+    ((1, 1, 1, 25088, 1, 4096), False, 3),    # and the split-K epilogue
+    ((2, 9, 11, 20, 3, 30), True, 3)])        # the mma.sync route's pool
+def test_int8_conv_launches_per_call(cuda, shape, pool, launches):
     n, h, w, c, k, co = shape
     args = _int8_args(cuda, n, h, w, c, k, co, torch.bfloat16)
     assert chip_smoke.graph_kernel_launches(
-        lambda: int8_conv.int8_conv(*args, 1, (k - 1) // 2)) == launches
+        lambda: int8_conv.int8_conv(*args, 1, (k - 1) // 2, pool=pool)) == launches
 
 
 @pytest.mark.cuda

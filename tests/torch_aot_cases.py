@@ -72,7 +72,7 @@ SHAPES = {"student": ((STUDENT_SIZE, STUDENT_SIZE, 3),),
                         (MV_VIEWS, TEACHER_SIZE, TEACHER_SIZE, 3))}
 # the custom ops each artifact's graph must hold
 OPS = {("student", "f32"): {"vgg_stem_serve"}, ("student", "bf16"): {"vgg_stem_serve"},
-       ("student", "int8"): {"vgg_stem_serve", "int8_conv"},
+       ("student", "int8"): {"vgg_stem_serve", "int8_conv", "int8_conv_pool"},
        ("PointCloud", "f32"): {"pointnet_eval"}, ("PointCloud", "bf16"): {"pointnet_eval_bf16"},
        ("PointCloud", "int8"): {"pointnet_eval", "int8_conv"},
        ("MultiView", "f32"): set(), ("MultiView", "bf16"): set(),
