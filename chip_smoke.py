@@ -297,6 +297,21 @@ T16_LOSSES, S1_16_LOSSES = ("loss", "pose_loss", "nce_loss"), ("loss", "teacher_
 # input rounded to the next bf16 value from f32 sums in another order),
 # plus 2 a case
 PT16_MOVED, PT16_FLIPS = 1e-2, 1e-3
+# phase 39's cases beyond its grid (N, P, D, masked, tied): a 1-point tail
+# tile of the D-wide passes' 128-point tiles; D 1024 through four 256-column
+# groups with a 1-point tail; D 320, one full group and one of 64 columns;
+# a masked stage-1 batch through the backward's fused dh2, its tail tile
+# 104 points
+PT16_EDGE_CASES = ((5, 129, 256, False, False), (46, 641, 1024, True, False),
+                   (7, 300, 320, True, False), (46, 1000, 256, True, False))
+PT16_CASES = [(n_c, p_c, d_c, masked, False) for n_c in (1, 7, 160) for p_c in (100, 2500)
+              for d_c in (64, 256, 1024) for masked in (False, True)
+              if not (masked and n_c == 1)] + [
+    (KD_BATCH, POINT_NUM, STAGE1_SHAPE_DIM, masked, False) for masked in (False, True)] + [
+    (16, 2500, 256, True, True)] + list(PT16_EDGE_CASES)
+# the bf16 instance's passes by their tensor-core route
+PT16_WGMMA_PASSES = ("pnb_l3_kernel", "pnb_l3_back_kernel")
+PT16_MMA_PASSES = ("pnb_l2_kernel", "pnb_dh2_kernel", "pnb_l2_back_kernel")
 # int8 serving (phases 45-50): the student served at these batches, the
 # teachers at 64, KD --int8_teacher steps a regime; JAX's drift rule
 # (tests/test_quant_student.py:52-54, tests/test_quant_teacher.py:79-82):
@@ -1059,7 +1074,7 @@ def stem_near_shares(x_nhwc, w, b, chunk: int = 23) -> tuple[float, float]:
 
 
 LIBRARIES = ("geodesic", "pointnet_eval", "info_nce", "vgg_stem", "pointnet_train", "int8_conv")
-OTHER_SOURCES = ("info_nce", "vgg_stem", "pointnet_eval", "int8_conv")
+OTHER_SOURCES = ("info_nce", "vgg_stem", "pointnet_eval", "int8_conv", "pointnet_train")
 
 
 def stem_bf16_vs_plain(vgg_stem, x, w, b, g, chunk: int = 23) -> dict:
@@ -1286,8 +1301,8 @@ def parse_source(arg: str) -> tuple[str, str]:
     name, sep, path = arg.partition("=")
     if not sep or name not in OTHER_SOURCES or not os.path.isfile(path):
         raise argparse.ArgumentTypeError(
-            f"--source takes info_nce=FILE, vgg_stem=FILE, pointnet_eval=FILE or "
-            f"int8_conv=FILE; got {arg}")
+            f"--source takes info_nce=FILE, vgg_stem=FILE, pointnet_eval=FILE, "
+            f"int8_conv=FILE or pointnet_train=FILE; got {arg}")
     return name, path
 
 
@@ -1744,6 +1759,36 @@ def pt_bf16_vs_plain(pt, pts, layers, valid, g) -> dict:
         "same": same, "launches": launches}
 
 
+def pt16_graph_ms(pt, p16, prm, d, g16, stream) -> tuple[float, float]:
+    """The bf16 train-mode PointNet's forward and backward device time a
+    call (ms, `graph_ms`) through the wrapper's library."""
+    saved = pt.train_forward_bf16(p16, prm, d, None)
+    return (graph_ms(lambda: pt.train_forward_bf16(p16, prm, d, None), stream),
+            graph_ms(lambda: pt.train_backward_bf16(p16, prm, d, None, saved[1], saved[0],
+                                                    *saved[2:], g16), stream))
+
+
+def pt16_pass_split(pt, p16, prm, d, g16, calls: int = 10) -> dict:
+    """Each pass of the bf16 train-mode PointNet's forward and backward:
+    {"forward": {kernel: ms a call}, "backward": ...} by the profiler over
+    `calls` calls through the wrapper's library, a template's instances
+    apart, the largest first."""
+    saved = pt.train_forward_bf16(p16, prm, d, None)
+    split = {}
+    for part, run in (("forward", lambda: pt.train_forward_bf16(p16, prm, d, None)),
+                      ("backward", lambda: pt.train_backward_bf16(
+                          p16, prm, d, None, saved[1], saved[0], *saved[2:], g16))):
+        run()
+        rows, _, _ = profile_steps(run, steps=calls)
+        ms = {}
+        for e in rows:
+            m = re.search(r"(pn[bt]_\w+?_kernel(<\w+>)?)", e.key)
+            if m:
+                ms[m.group(1)] = ms.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / calls
+        split[part] = {k: round(v, 4) for k, v in sorted(ms.items(), key=lambda kv: -kv[1])}
+    return split
+
+
 class KDMemorySet(MemorySet):
     """KD samples (three views, labels, a cloud) held in memory, or, with
     `train` False, evaluation samples (one view, no cloud)."""
@@ -1755,6 +1800,168 @@ class KDMemorySet(MemorySet):
             self.batch = {"im": self.batch["im"], "label": self.batch["label"]}
         self.batch["cat_id"] = rng.integers(0, len(EVAL_CATEGORIES), n).astype(np.int32)
         self.category_names = list(EVAL_CATEGORIES)
+
+
+def pt16_phase(dev, card: str, t0: float, lib: str, pt_others: dict, side) -> tuple:
+    """Phase 39: the train-mode PointNet's bf16 instance (`lib`, this
+    source's build) against its plain version, its SASS, launches and times;
+    `pt_others` {source: library} other builds timed in turns. Returns
+    (the worst errors, the times, the bounds) by batch."""
+    from pose3d_tpu_torch.ops import pointnet_train
+
+    bf16 = torch.bfloat16
+    # 39. the train-mode PointNet kernel's bf16 instance (kernel 3 in its
+    # TPU dtype) vs the plain bf16 version, `pt_bf16_vs_plain`: N 1 / 7 /
+    # 160 x P 100 / 2500 x D 64 / 256 / 1024, unmasked and (N 7, 160) with
+    # a quarter of the clouds padded, stage 1's (46, 2500, 256) unmasked and
+    # padded, clouds on a 2^-8 grid whose maxima tie, and PT16_EDGE_CASES;
+    # out and statistics within one bf16 ulp of max|ref|, the gradients by
+    # the oracle rule at each side's own decisions, the differing
+    # decisions counted and bounded; HGMMA (wgmma) in the D-wide passes'
+    # SASS, HMMA.16816.F32.BF16 (mma.sync) in the narrow product passes';
+    # launches a call from a CUDA graph's kernel nodes; device times by
+    # graph replay at the two paths' shapes beside the f32 instance and
+    # beside each --source pointnet_train= build in turns, and each pass's
+    # device time by the profiler
+    pnb_hgmma = sass_hmma(lib, "pnb_", needle="HGMMA")
+    pnb_hmma = sass_hmma(lib, "pnb_", needle="HMMA.16816.F32.BF16")
+    if {k for k, v in pnb_hgmma.items() if v} != set(PT16_WGMMA_PASSES) or \
+            {k for k, v in pnb_hmma.items() if v} != set(PT16_MMA_PASSES):
+        raise RuntimeError(f"pointnet_train bf16 SASS: HGMMA in {pnb_hgmma}, "
+                           f"HMMA.16816.F32.BF16 in {pnb_hmma}")
+    pt16_launch = pointnet_train.kernel_launches_per_call(bf16)
+    trng = np.random.default_rng(39)
+    pt16_cases = PT16_CASES
+    pt16_worst, pt16_total = {}, {"relu_flips": 0, "ties_moved": 0, "count_moved": 0}
+    outputs, grid_ties = 0, None
+    for n_c, p_c, d_c, masked, grid in pt16_cases:
+        pts_c, layers_c, valid_c, g_c = pt_inputs(trng, n_c, p_c, d_c, dev, masked=masked)
+        if grid:  # clouds on a 2^-8 grid, 3 steps each way around one point
+            base = torch.from_numpy(trng.uniform(0.5, 1.0, (n_c, 1, 3))).float()
+            steps_c = torch.from_numpy(trng.integers(-3, 4, (n_c, p_c, 3))).float()
+            pts_c = (base + steps_c * 2.0**-8).to(dev)
+        r = pt_bf16_vs_plain(pointnet_train, pts_c.to(bf16), layers_c, valid_c, g_c.to(bf16))
+        torch.cuda.synchronize()
+        case = (n_c, p_c, d_c, masked, grid)
+        if max(r["a1_share"], r["a2_share"], r["out_share"]) > 1 or r["stats"] > BF16_ULP or \
+                r["grad_share"] > 1 or \
+                not r["bf16_grads"] or not r["same"] or r["launches"] != (1, 1) or \
+                r["count_moved"] > PT16_MOVED * n_c * d_c + 2 or \
+                r["ties_moved"] > PT16_MOVED * n_c * d_c + 2 or \
+                r["relu_flips"] > PT16_FLIPS * n_c * p_c * 192 + 2 or \
+                (grid and r["tie_share"] < 0.1):
+            raise RuntimeError(f"bf16 train-mode pointnet case {case}: {r}")
+        pt16_worst = {k: max(pt16_worst.get(k, 0), v) for k, v in r.items()
+                      if isinstance(v, float)}
+        pt16_total = {k: pt16_total[k] + r[k] for k in pt16_total}
+        grid_ties = r["tie_share"] if grid else grid_ties
+        outputs += n_c * d_c
+        del pts_c, layers_c, valid_c, g_c
+    phase("pointnet_train bf16", t0, f"kernels vs the plain bf16 version in {len(pt16_cases)} "
+          f"cases (N 1/7/160 x P 100/2500 x D 64/256/1024, masked too; stage 1's "
+          f"({KD_BATCH}, {POINT_NUM}, {STAGE1_SHAPE_DIM}) unmasked and masked; "
+          f"{PT16_EDGE_CASES}; tied clouds on a grid, "
+          f"tie share {grid_ties:.3f}): out max|d|/max|ref| {pt16_worst['out']:.3g} (one ulp "
+          f"{BF16_ULP:.3g}), unequal share at most {pt16_worst['out_unequal']:.3g}; each layer on "
+          f"its own input against cuBLAS: a1 and a2 within {pt16_worst['a1_share']:.3g} and "
+          f"{pt16_worst['a2_share']:.3g} ulp, out within {pt16_worst['out_share']:.3g} of |mul3| "
+          f"ulp(a3) + ulp(out) a channel (held at 1); statistics "
+          f"{pt16_worst['stats']:.3g}; gradients at each side's own decisions at most "
+          f"{pt16_worst['grad_share']:.3g} of the oracle's bound (twice the plain version's "
+          f"error against f64 plus 2^-10 max|ref|); decisions that differ, in all: "
+          f"{pt16_total['relu_flips']} ReLU (tol {PT16_FLIPS:.0e} of the ReLU inputs + 2 a "
+          f"case), {pt16_total['ties_moved']} of {outputs} tie sets (tol {PT16_MOVED:.0e} of "
+          f"the outputs + 2), {pt16_total['count_moved']} tie counts the kernel's a2 reads "
+          f"otherwise through cuBLAS; the weights' and biases' gradients bf16 values; one "
+          f"forward and one backward call a use, the same bits on a second run; launches a "
+          f"call {pt16_launch} at D 256, "
+          f"{pointnet_train.kernel_launches_per_call(bf16, 1024)} at D 1024 (library); "
+          f"cuobjdump -sass: HGMMA in {pnb_hgmma}, HMMA.16816.F32.BF16 in {pnb_hmma}")
+    pt16_times, pt16_bounds, pt16_sources = {}, {}, {}
+    for n_c in (TRAIN_BATCH, KD_BATCH):
+        d_c = TRAIN_SHAPE_DIM
+        pts_c, layers_c, _, g_c = pt_inputs(np.random.default_rng(29), n_c, POINT_NUM, d_c, dev)
+        prm = pointnet_train.pack_params(layers_c)
+        p16, g16 = pts_c.to(bf16), g_c.to(bf16)
+        saved16 = pointnet_train.train_forward_bf16(p16, prm, d_c, None)
+        saved32 = pointnet_train.train_forward(pts_c, prm, d_c, None)
+        tie_share = float((saved16[2] > 1).float().mean())
+        fns = {"bf16 forward": lambda: pointnet_train.train_forward_bf16(p16, prm, d_c, None),
+               "bf16 backward": lambda: pointnet_train.train_backward_bf16(
+                   p16, prm, d_c, None, saved16[1], saved16[0], *saved16[2:], g16),
+               "f32 forward": lambda: pointnet_train.train_forward(pts_c, prm, d_c, None),
+               "f32 backward": lambda: pointnet_train.train_backward(
+                   pts_c, prm, d_c, None, *saved32[1:], g_c)}
+        if n_c == TRAIN_BATCH:
+            graphs16 = (graph_kernel_launches(fns["bf16 forward"]),
+                        graph_kernel_launches(fns["bf16 backward"]))
+            if graphs16 != pt16_launch:
+                raise RuntimeError(f"bf16 train-mode pointnet: a CUDA graph of one call holds "
+                                   f"{graphs16} kernels, the library says {pt16_launch}")
+        runs = {k: [] for k in fns}
+        for order in (("f32", "bf16"), ("bf16", "f32")):
+            for who in order:
+                for part in ("forward", "backward"):
+                    runs[f"{who} {part}"].append(round(graph_ms(fns[f"{who} {part}"], side), 4))
+        # this source and each --source pointnet_train= build in turns (this,
+        # other, other, this), and each one's passes by the profiler
+        pt16_sources[n_c] = {}
+        for label, path in [("this source", None)] + list(pt_others.items()):
+            pt16_sources[n_c][label] = {"forward": [], "backward": [], "passes": using(
+                pointnet_train, path, lambda: pt16_pass_split(pointnet_train, p16, prm, d_c, g16))}
+        for label, path in [(k, v) for other in pt_others.items()
+                            for k, v in (("this source", None), other, other,
+                                         ("this source", None))]:
+            f_ms, b_ms = using(pointnet_train, path,
+                               lambda: pt16_graph_ms(pointnet_train, p16, prm, d_c, g16, side))
+            pt16_sources[n_c][label]["forward"].append(round(f_ms, 4))
+            pt16_sources[n_c][label]["backward"].append(round(b_ms, 4))
+        tracked = [[t.clone().requires_grad_() for t in layer] for layer in layers_c]
+        flat = [t for layer in tracked for t in layer]
+        out_p = pointnet_train.pointnet_train_plain_bf16(p16, tracked)[0]
+
+        def plain16_fwd():
+            with torch.no_grad():
+                pointnet_train.pointnet_train_plain_bf16(p16, tracked)
+
+        plain = {"forward": cuda_ms(plain16_fwd, 5),
+                 "backward": cuda_ms(lambda: torch.autograd.grad(out_p, flat, g16,
+                                                                 retain_graph=True), 5)}
+        pt16_times[n_c] = {k: sum(v) / len(v) for k, v in runs.items()} | {
+            f"plain {k}": v for k, v in plain.items()}
+        # the bound: the points (bf16), the parameters and the outputs
+        # (features bf16, statistics) and, backward, the upstream gradient
+        # (bf16) and the parameters' gradients, each moved once; the useful
+        # products on the bf16 tensor cores: forward the three layers,
+        # backward dW and the input's gradient of layers 2 and 3 and dW1
+        rows_c, n_stats = n_c * POINT_NUM, 2 * (64 + 128 + d_c)
+        flops_f = 2.0 * rows_c * (3 * 64 + 64 * 128 + 128 * d_c)
+        flops_b = 2.0 * rows_c * (3 * 64 + 2 * 64 * 128 + 2 * 128 * d_c)
+        bytes_f = 2.0 * 3 * rows_c + 4.0 * prm.numel() + 2.0 * n_c * d_c + 4.0 * n_stats
+        bytes_b = 2.0 * 3 * rows_c + 8.0 * prm.numel() + 2.0 * n_c * d_c + 4.0 * n_stats
+        pt16_bounds[n_c] = (bound(bytes_f, flops_f, BF16_FLOPS),
+                            bound(bytes_b, flops_b, BF16_FLOPS))
+        t = pt16_times[n_c]
+        phase("time", t0, f"train-mode pointnet ({n_c}, {POINT_NUM}, {d_c}), device time a "
+              f"call by graph replay in turns (f32, bf16, bf16, f32): bf16 forward "
+              f"{runs['bf16 forward']} + backward {runs['bf16 backward']} ms, f32 forward "
+              f"{runs['f32 forward']} + backward {runs['f32 backward']} ms; the plain bf16 "
+              f"version by CUDA events {plain['forward']:.4f} + {plain['backward']:.4f} ms; "
+              f"bound forward {pt16_bounds[n_c][0][0]:.4f} ms ({pt16_bounds[n_c][0][1]}, bf16 "
+              f"tensor cores), backward {pt16_bounds[n_c][1][0]:.4f} ms "
+              f"({pt16_bounds[n_c][1][1]}); bf16 at {pt16_bounds[n_c][0][0] / t['bf16 forward']:.1%} "
+              f"and {pt16_bounds[n_c][1][0] / t['bf16 backward']:.1%} of its bound; tied maxima "
+              f"{tie_share:.4f} of the (cloud, channel) entries [{card}]")
+        for label, v in pt16_sources[n_c].items():
+            turns = (f"forward {v['forward']} + backward {v['backward']} ms by graph replay in "
+                     f"turns (this source, other, other, this source); " if v["forward"] else "")
+            phase("time", t0, f"train-mode pointnet bf16 ({n_c}, {POINT_NUM}, {d_c}), {label}: "
+                  f"{turns}each pass's device time a call by the profiler (ms): "
+                  f"forward {v['passes']['forward']}; backward {v['passes']['backward']} "
+                  f"[{card}]")
+        del pts_c, layers_c, g_c, saved16, saved32, out_p, tracked, flat, p16, g16
+
+    return pt16_worst, pt16_times, pt16_bounds
 
 
 def multiview_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
@@ -3604,11 +3811,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--source", action="append", default=[], type=parse_source,
                     metavar="NAME=FILE",
-                    help="another version of csrc/NAME.cu (info_nce, vgg_stem, pointnet_eval or "
-                    "int8_conv; an earlier commit's, with the same C interface, pointnet_eval as "
-                    "of d190092, or int8_conv with the HWIO, pool-less interface) to time beside "
-                    "this one: info_nce in phases 18 and 26, vgg_stem in phase 22, "
-                    "pointnet_eval in phase 13, int8_conv in phase 45; repeatable")
+                    help="another version of csrc/NAME.cu (info_nce, vgg_stem, pointnet_eval, "
+                    "int8_conv or pointnet_train; an earlier commit's, with the same C "
+                    "interface, pointnet_eval as of d190092, or int8_conv with the HWIO, "
+                    "pool-less interface) to time beside this one: info_nce in phases 18 and "
+                    "26, vgg_stem in phase 22, pointnet_eval in phase 13, int8_conv in phase 45, "
+                    "pointnet_train's bf16 instance in phases 39 and 40; repeatable")
+    ap.add_argument("--phase39_only", action="store_true",
+                    help="build the libraries, run phase 39 (the bf16 train-mode PointNet "
+                    "against its plain version, its times and passes, each --source "
+                    "pointnet_train= build in turns) and stop, without the result line")
     args = ap.parse_args()
     t0 = time.perf_counter()
     # 1. device
@@ -3700,6 +3912,10 @@ def main() -> int:
           f"forward and a backward call, as the libraries report them: pointnet_train "
           f"{pointnet_train.kernel_launches_per_call()}, info_nce "
           f"{nce.kernel_launches_per_call()}")
+    if args.phase39_only:
+        pt16_phase(dev, card, t0, libs[4], other_libs["pointnet_train"], torch.cuda.Stream())
+        phase("total", t0, "phase 39 alone (--phase39_only): no result line")
+        return 0
 
     # 3. geodesic kernel vs plain version on the card, 1,000,003 rows + edge rows
     rng = np.random.default_rng(0)
@@ -5162,6 +5378,25 @@ def main() -> int:
     def mean(v):
         return sum(v) / len(v)
 
+    def pt16_in_step(run) -> str:
+        """One bf16 step's busy share and the train-mode PointNet's bf16
+        kernels' share of its device time (a one-step profile); with
+        --source pointnet_train=, its ms by CUDA events with each build in
+        turns (this source, other, other, this source)."""
+        rows, device_ms, wall_ms = profile_steps(run, steps=1)
+        pnb_ms = sum(e.self_device_time_total for e in rows if "pnb_" in e.key) / 1e3
+        text = (f"{device_ms:.3f} ms device of {wall_ms:.3f} ms wall (busy "
+                f"{device_ms / wall_ms:.3f}), the train-mode pointnet's bf16 kernels "
+                f"{pnb_ms:.4f} ms of it")
+        for src, lib in other_libs["pointnet_train"].items():
+            turns = {"this source": [], src: []}
+            for label, path in (("this source", None), (src, lib), (src, lib),
+                                ("this source", None)):
+                turns[label].append(round(using(pointnet_train, path,
+                                                lambda: cuda_ms(run, 3, warmup=1)), 3))
+            text += f"; ms a step in turns: {turns}"
+        return text
+
     # 33. the bf16 stem kernels vs their plain bf16 version on phase 5's
     # cases (the tied image and the bars too): y within one bf16 ulp of
     # max|ref|, the window index equal where the plain version's decision
@@ -5589,134 +5824,8 @@ def main() -> int:
     del s2_state16, s2_teacher16, bl_state16, blb, kb
     bf16_paths = [sum(c) for c in zip(kd16_counts, variant16_counts, s2_counts16, bl_counts16)]
 
-    # 39. the train-mode PointNet kernel's bf16 instance (kernel 3 in its
-    # TPU dtype) vs the plain bf16 version, `pt_bf16_vs_plain`: N 1 / 7 /
-    # 160 x P 100 / 2500 x D 64 / 256 / 1024, unmasked and (N 7, 160) with
-    # a quarter of the clouds padded, stage 1's (46, 2500, 256) unmasked and
-    # padded, and clouds on a 2^-8 grid whose maxima tie; out and
-    # statistics within one bf16 ulp of max|ref|, the gradients by the
-    # oracle rule at each side's own decisions, the differing
-    # decisions counted and bounded; HMMA.16816.F32.BF16 in the passes'
-    # SASS; launches a call from a CUDA graph's kernel nodes; device times
-    # by graph replay at the two paths' shapes beside the f32 instance
-    pnb_hmma = sass_hmma(libs[4], "pnb_", needle="HMMA.16816.F32.BF16")
-    mma_passes = ("pnb_l2_kernel", "pnb_l3_kernel", "pnb_l3_back_kernel", "pnb_dh2_kernel",
-                  "pnb_l2_back_kernel")
-    if not all(pnb_hmma.get(k) for k in mma_passes) or any(
-            v for k, v in pnb_hmma.items() if k not in mma_passes):
-        raise RuntimeError(f"pointnet_train bf16 SASS: HMMA.16816.F32.BF16 in {pnb_hmma}")
-    pt16_launch = pointnet_train.kernel_launches_per_call(bf16)
-    trng = np.random.default_rng(39)
-    pt16_cases = [(n_c, p_c, d_c, masked, False) for n_c in (1, 7, 160) for p_c in (100, 2500)
-                  for d_c in (64, 256, 1024) for masked in (False, True)
-                  if not (masked and n_c == 1)] + [
-        (KD_BATCH, POINT_NUM, STAGE1_SHAPE_DIM, masked, False) for masked in (False, True)] + [
-        (16, 2500, 256, True, True)]
-    pt16_worst, pt16_total = {}, {"relu_flips": 0, "ties_moved": 0, "count_moved": 0}
-    outputs = 0
-    for n_c, p_c, d_c, masked, grid in pt16_cases:
-        pts_c, layers_c, valid_c, g_c = pt_inputs(trng, n_c, p_c, d_c, dev, masked=masked)
-        if grid:  # clouds on a 2^-8 grid, 3 steps each way around one point
-            base = torch.from_numpy(trng.uniform(0.5, 1.0, (n_c, 1, 3))).float()
-            steps_c = torch.from_numpy(trng.integers(-3, 4, (n_c, p_c, 3))).float()
-            pts_c = (base + steps_c * 2.0**-8).to(dev)
-        r = pt_bf16_vs_plain(pointnet_train, pts_c.to(bf16), layers_c, valid_c, g_c.to(bf16))
-        torch.cuda.synchronize()
-        case = (n_c, p_c, d_c, masked, grid)
-        if max(r["a1_share"], r["a2_share"], r["out_share"]) > 1 or r["stats"] > BF16_ULP or \
-                r["grad_share"] > 1 or \
-                not r["bf16_grads"] or not r["same"] or r["launches"] != (1, 1) or \
-                r["count_moved"] > PT16_MOVED * n_c * d_c + 2 or \
-                r["ties_moved"] > PT16_MOVED * n_c * d_c + 2 or \
-                r["relu_flips"] > PT16_FLIPS * n_c * p_c * 192 + 2 or \
-                (grid and r["tie_share"] < 0.1):
-            raise RuntimeError(f"bf16 train-mode pointnet case {case}: {r}")
-        pt16_worst = {k: max(pt16_worst.get(k, 0), v) for k, v in r.items()
-                      if isinstance(v, float)}
-        pt16_total = {k: pt16_total[k] + r[k] for k in pt16_total}
-        outputs += n_c * d_c
-        del pts_c, layers_c, valid_c, g_c
-    phase("pointnet_train bf16", t0, f"kernels vs the plain bf16 version in {len(pt16_cases)} "
-          f"cases (N 1/7/160 x P 100/2500 x D 64/256/1024, masked too; stage 1's "
-          f"({KD_BATCH}, {POINT_NUM}, {STAGE1_SHAPE_DIM}) unmasked and masked; tied clouds on a "
-          f"grid, "
-          f"tie share {r['tie_share']:.3f}): out max|d|/max|ref| {pt16_worst['out']:.3g} (one ulp "
-          f"{BF16_ULP:.3g}), unequal share at most {pt16_worst['out_unequal']:.3g}; each layer on "
-          f"its own input against cuBLAS: a1 and a2 within {pt16_worst['a1_share']:.3g} and "
-          f"{pt16_worst['a2_share']:.3g} ulp, out within {pt16_worst['out_share']:.3g} of |mul3| "
-          f"ulp(a3) + ulp(out) a channel (held at 1); statistics "
-          f"{pt16_worst['stats']:.3g}; gradients at each side's own decisions at most "
-          f"{pt16_worst['grad_share']:.3g} of the oracle's bound (twice the plain version's "
-          f"error against f64 plus 2^-10 max|ref|); decisions that differ, in all: "
-          f"{pt16_total['relu_flips']} ReLU (tol {PT16_FLIPS:.0e} of the ReLU inputs + 2 a "
-          f"case), {pt16_total['ties_moved']} of {outputs} tie sets (tol {PT16_MOVED:.0e} of "
-          f"the outputs + 2), {pt16_total['count_moved']} tie counts the kernel's a2 reads "
-          f"otherwise through cuBLAS; the weights' and biases' gradients bf16 values; one "
-          f"forward and one backward call a use, the same bits on a second run; launches a "
-          f"call {pt16_launch} (library); cuobjdump -sass: HMMA.16816.F32.BF16 in {pnb_hmma}")
-    pt16_times, pt16_bounds = {}, {}
-    for n_c in (TRAIN_BATCH, KD_BATCH):
-        d_c = TRAIN_SHAPE_DIM
-        pts_c, layers_c, _, g_c = pt_inputs(np.random.default_rng(29), n_c, POINT_NUM, d_c, dev)
-        prm = pointnet_train.pack_params(layers_c)
-        p16, g16 = pts_c.to(bf16), g_c.to(bf16)
-        saved16 = pointnet_train.train_forward_bf16(p16, prm, d_c, None)
-        saved32 = pointnet_train.train_forward(pts_c, prm, d_c, None)
-        tie_share = float((saved16[2] > 1).float().mean())
-        fns = {"bf16 forward": lambda: pointnet_train.train_forward_bf16(p16, prm, d_c, None),
-               "bf16 backward": lambda: pointnet_train.train_backward_bf16(
-                   p16, prm, d_c, None, saved16[1], saved16[0], *saved16[2:], g16),
-               "f32 forward": lambda: pointnet_train.train_forward(pts_c, prm, d_c, None),
-               "f32 backward": lambda: pointnet_train.train_backward(
-                   pts_c, prm, d_c, None, *saved32[1:], g_c)}
-        if n_c == TRAIN_BATCH:
-            graphs16 = (graph_kernel_launches(fns["bf16 forward"]),
-                        graph_kernel_launches(fns["bf16 backward"]))
-            if graphs16 != pt16_launch:
-                raise RuntimeError(f"bf16 train-mode pointnet: a CUDA graph of one call holds "
-                                   f"{graphs16} kernels, the library says {pt16_launch}")
-        runs = {k: [] for k in fns}
-        for order in (("f32", "bf16"), ("bf16", "f32")):
-            for who in order:
-                for part in ("forward", "backward"):
-                    runs[f"{who} {part}"].append(round(graph_ms(fns[f"{who} {part}"], side), 4))
-        tracked = [[t.clone().requires_grad_() for t in layer] for layer in layers_c]
-        flat = [t for layer in tracked for t in layer]
-        out_p = pointnet_train.pointnet_train_plain_bf16(p16, tracked)[0]
-
-        def plain16_fwd():
-            with torch.no_grad():
-                pointnet_train.pointnet_train_plain_bf16(p16, tracked)
-
-        plain = {"forward": cuda_ms(plain16_fwd, 5),
-                 "backward": cuda_ms(lambda: torch.autograd.grad(out_p, flat, g16,
-                                                                 retain_graph=True), 5)}
-        pt16_times[n_c] = {k: sum(v) / len(v) for k, v in runs.items()} | {
-            f"plain {k}": v for k, v in plain.items()}
-        # the bound: the points (bf16), the parameters and the outputs
-        # (features bf16, statistics) and, backward, the upstream gradient
-        # (bf16) and the parameters' gradients, each moved once; the useful
-        # products on the bf16 tensor cores: forward the three layers,
-        # backward dW and the input's gradient of layers 2 and 3 and dW1
-        rows_c, n_stats = n_c * POINT_NUM, 2 * (64 + 128 + d_c)
-        flops_f = 2.0 * rows_c * (3 * 64 + 64 * 128 + 128 * d_c)
-        flops_b = 2.0 * rows_c * (3 * 64 + 2 * 64 * 128 + 2 * 128 * d_c)
-        bytes_f = 2.0 * 3 * rows_c + 4.0 * prm.numel() + 2.0 * n_c * d_c + 4.0 * n_stats
-        bytes_b = 2.0 * 3 * rows_c + 8.0 * prm.numel() + 2.0 * n_c * d_c + 4.0 * n_stats
-        pt16_bounds[n_c] = (bound(bytes_f, flops_f, BF16_FLOPS),
-                            bound(bytes_b, flops_b, BF16_FLOPS))
-        t = pt16_times[n_c]
-        phase("time", t0, f"train-mode pointnet ({n_c}, {POINT_NUM}, {d_c}), device time a "
-              f"call by graph replay in turns (f32, bf16, bf16, f32): bf16 forward "
-              f"{runs['bf16 forward']} + backward {runs['bf16 backward']} ms, f32 forward "
-              f"{runs['f32 forward']} + backward {runs['f32 backward']} ms; the plain bf16 "
-              f"version by CUDA events {plain['forward']:.4f} + {plain['backward']:.4f} ms; "
-              f"bound forward {pt16_bounds[n_c][0][0]:.4f} ms ({pt16_bounds[n_c][0][1]}, bf16 "
-              f"tensor cores), backward {pt16_bounds[n_c][1][0]:.4f} ms "
-              f"({pt16_bounds[n_c][1][1]}); bf16 at {pt16_bounds[n_c][0][0] / t['bf16 forward']:.1%} "
-              f"and {pt16_bounds[n_c][1][0] / t['bf16 backward']:.1%} of its bound; tied maxima "
-              f"{tie_share:.4f} of the (cloud, channel) entries [{card}]")
-        del pts_c, layers_c, g_c, saved16, saved32, out_p, tracked, flat, p16, g16
+    pt16_worst, pt16_times, pt16_bounds = pt16_phase(dev, card, t0, libs[4],
+                                                     other_libs["pointnet_train"], side)
 
     # 40. the teacher's training (batch 160, --fused_nce, shape feature 256)
     # and KD --stage 1 (batch 46, --fused_nce) in bf16, through the bf16
@@ -5844,6 +5953,7 @@ def main() -> int:
         teacher_fit_trainer, lambda tr, n, start: tr.fit(n, start_epoch=start), "bf16 teacher")
     t16_times = in_turns([teacher16_state.model], lambda: t16_step(teacher16_state, tb16), 3)
     t16_lead = leads(lambda: t16_step(teacher16_state, tb16))
+    t16_pt = pt16_in_step(lambda: t16_step(teacher16_state, tb16))
     del teacher16_state, tb16, history
     # the stage-1 step
     t1_16, s1_16 = stage1_states(46)
@@ -5883,14 +5993,15 @@ def main() -> int:
                                        "bf16 stage 1")
     s116_times = in_turns([t1_16.model, s1_16.model], lambda: s1_16_step(t1_16, s1_16, sb16), 3)
     s116_lead = leads(lambda: s1_16_step(t1_16, s1_16, sb16))
+    s116_pt = pt16_in_step(lambda: s1_16_step(t1_16, s1_16, sb16))
     del t1_16, s1_16, sb16, history
-    for name, what, ratio, losses, launched, fitted, records, t, rows, lead in (
+    for name, what, ratio, losses, launched, fitted, records, t, rows, lead, in_step in (
             ("teacher training bf16", f"teacher train step batch {TRAIN_BATCH}, --fused_nce",
              t16_ratio, t16_losses, t16_counts, t16_fit, t16_records, t16_times, TRAIN_BATCH,
-             t16_lead),
+             t16_lead, t16_pt),
             ("stage 1 bf16", f"KD --stage 1 step batch {KD_BATCH}, --fused_nce", s116_ratio,
              s116_losses, s116_counts, s116_fit, s116_records, s116_times, KD_BATCH,
-             s116_lead)):
+             s116_lead, s116_pt)):
         phase(name, t0, f"{len(t_batches)} small steps card vs CPU (bf16, against f64; "
               f"residual branches damped): the card's error summed over them at most "
               f"{ratio['share']:.3g} of the oracle's bound, each loss {ratio['keys']}; over the "
@@ -5907,6 +6018,7 @@ def main() -> int:
               f"{rows * 1000.0 / mean(t['bf16']):.1f} samples/s (f32 "
               f"{rows * 1000.0 / mean(t['f32']):.1f}) [{card}]")
         phase("profile", t0, f"{name}: {lead}")
+        phase("time", t0, f"{what} in bf16: {in_step} [{card}]")
     # 41-44. the MultiView teacher's paths and the remaining datasets
     mv_added, mv16_added, mv_geo_err = multiview_phases(dev, card, t0, reset_counts, counts,
                                                         bf16_counts)

@@ -104,17 +104,18 @@
 //   h_k = relu(y_k), k = 1, 2;  out = the max over the points of y_3
 // Layer 3's statistics come from the rounded a_3, which no Gram form of h2
 // gives, so the D-wide layer runs in three passes (its statistics, the
-// max, the backward), each recomputing a_3 on the tensor cores by the same
-// code (layer3_tile: the same fragments, the same k order), so that a_3 and
-// y_3 are the same bits in every pass. Ties at the max are common in bf16
-// (2-14 % of the (cloud, channel) maxima at 2,500 points), and JAX's VJP of
-// jnp.max splits them evenly: the max pass keeps, per cloud and channel,
-// the maximum, the number of points that reach it and the sum of their
-// a_3 - mu_3 (dgamma3 needs each tied point's own a_3: points with equal
-// y_3 can differ in a_3), merged over tiles in a fixed order (an equal
-// maximum adds its count and sum, a larger one restarts them); the
-// backward gives bf16(g / count) to each point whose recomputed y_3 equals
-// the stored maximum, an equality of two results of the same computation.
+// max, the backward), each recomputing a_3 on the tensor cores by one
+// device function (layer3_issue: the same wgmma instruction, operands and
+// k order), so that a_3 and y_3 are the same bits in every pass. Ties at
+// the max are common in bf16 (2-14 % of the (cloud, channel) maxima at
+// 2,500 points), and JAX's VJP of jnp.max splits them evenly: the max pass
+// keeps, per cloud and channel, the maximum, the number of points that
+// reach it and the sum of their a_3 - mu_3 (dgamma3 needs each tied
+// point's own a_3: points with equal y_3 can differ in a_3), merged over
+// tiles in a fixed order (an equal maximum adds its count and sum, a
+// larger one restarts them); the backward gives bf16(g / count) to each
+// point whose recomputed y_3 equals the stored maximum, an equality of two
+// results of the same computation.
 // The f32 and f64 instances keep their first-argmax rule (ties there are
 // rare, and each tie is one gradient-equivalent point in practice).
 // The backward rounds where JAX's autodiff of those layers does: the
@@ -123,36 +124,64 @@
 // the statistics, the latter over the valid clouds' points only), the
 // products' dW = bf16(h^T da), dh = bf16(da W^T), db = bf16(sum da), the
 // BatchNorm parameters' gradients in f32.
-// Passes (pnb_<pass>_kernel; layers 2 and 3 forward and backward by
-// mma.sync m16n8k16 bf16 with f32 accumulators, layer 1 (K 3) on the CUDA
-// cores; 64-point tiles, the D-wide passes a 64-column chunk of W3 a block):
+// Passes (pnb_<pass>_kernel), with what bounds each on the H100 at the
+// teacher step's (160, 2500, 256) (400,000 points; 3.35 TB/s, 989 TFLOP/s
+// bf16):
 //   forward   l1_stats    points -> a1 stored, sums of a1, a1^2   (+ stats)
+//                         bytes: a1 51 MB written
 //             l2          a1 -> h1 -> a2 stored, sums of a2, a2^2 (+ stats)
+//                         bytes: 153 MB (a1 read, a2 written), 46 us
 //             l3<false>   a2 -> h2 -> a3: sums of a3, a3^2       (+ stats)
 //             l3<true>    a3 -> y3: each tile's max, count, sum
+//                         each: 102 MB of a2 (31 us) beside 26 GFLOP (27 us)
 //             max_reduce  -> out, count, tsum
 //   backward  bn3         g, count, tsum -> bf16(g / count), dgamma3,
-//                         dbeta3, BN3's coefficients; W3 in bf16
-//             l3_back     a3, y3 again -> da3 stored; dW3 (h2^T da3), db3
+//                         dbeta3, BN3's coefficients (and W3 in bf16 above
+//                         D 256)
+//             l3_back     a3, y3 again -> da3 (shared memory); dW3 (h2^T
+//                         da3), db3; up to D 256 also dh2 = da3 W3^T -> dy2
+//                         stored, BN2's sums: 79 GFLOP (80 us) beside 204
+//                         MB (a2 read, dy2 written; 61 us). Above D 256 da3
+//                         is stored and
+//             dh2         da3 W3^T (mma.sync) -> dy2 stored; BN2's sums
 //             sum_round   -> dW3, db3 rounded to bf16
-//             dh2         da3 W3^T (W3 in shared memory up to D 768) ->
-//                         dy2 stored; BN2's sums
 //             bn_back     -> dgamma2, dbeta2, BN2's coefficients
 //             l2_back     -> da2; dW2 (h1^T da2), db2; da2 W2^T -> dy1
-//                         stored; BN1's sums
+//                         stored; BN1's sums: bytes, 306 MB (91 us)
 //             sum_round   -> dW2, db2;  bn_back -> dgamma1, dbeta1, BN1's
 //             l1_back     -> da1; dW1, db1;  sum_round -> dW1, db1
-// 8 launches forward, 10 backward. a1 and a2 (the dense layers' rounded
-// outputs, 384 bytes a point) are stored and h1, h2 recomputed from them
-// where a pass reads them: h = relu(bn(a)) is a few exact operations a
-// value, and the backward's BatchNorm needs a itself; recomputing a2 would
-// redo layer 2's product in every pass that reads h2. da3, dy2 and dy1 are
-// stored for the passes after them, as the TPU kernels store d_y2 and d_y1.
-// A pass reads a tile of a stored tensor 16 bytes a thread at a time, every
-// load of the tile issued before the values are used; the D-wide passes
-// read the next tile's a2 while this tile's products run. Every bf16 kernel
-// declares __launch_bounds__(kThreads) and is launched with kThreads
-// threads.
+// (+ stats) is pnb_stats_kernel: pnt_stats_kernel<float>'s sums in its
+// order, its loads issued 16 blocks ahead of their use (one block, latency-
+// bound). 8 launches forward, 9 backward up to D 256 (10 above). The narrow
+// passes (layers 1-2) run mma.sync m16n8k16 bf16 products on 64-point
+// tiles. The D-wide passes (l3, l3_back) are what the layer's width makes
+// expensive, and they run on Hopper's wgmma: persistent blocks of two
+// warpgroups walk 128-point tiles across a group of 256 columns of W3,
+// staged once a block in shared memory (64 KB of bf16, 128-byte swizzle);
+// h2 = relu(bn2(a2)) is normalised once a tile into the swizzled layout the
+// products read; the next tile's a2 lands by cp.async while this one's
+// products and epilogue run. The epilogues work on the accumulators: the
+// bias, the rounding, the statistics or BN3 and the max / count / sum,
+// reduced over a thread's two rows, then the 8 lanes of a column by
+// shuffles, then the 8 warps through a small shared array in row order.
+// Their cost is the bound today, not the products or the bytes: the
+// products of a tile take about a microsecond, its epilogue several on 8
+// warps an SM, where the bf16 roundings (a conversion each, at a fraction of
+// the FP32 rate; two a conversion here, bf2_bits) and the lane shuffles
+// lead. The backward fuses dh2 into layer 3's
+// pass: da3 goes from the accumulators into shared memory (swizzled),
+// feeds dW3 += h2^T da3 and dh2 = da3 W3^T as two more wgmma products (h2,
+// da3 and W3 read down their columns through wgmma's transpose bit), and
+// never reaches device memory; dW3's 128 x 256 f32 sums stay in registers
+// over the block's tiles (128 a thread), which is why a3 is recomputed
+// there one 128-column product at a time (the forward keeps both in
+// flight). a1 and a2 (the dense layers' rounded outputs, 384 bytes a point)
+// are stored and h1, h2 recomputed from them where a pass reads them: h =
+// relu(bn(a)) is a few exact operations a value, and the backward's
+// BatchNorm needs a itself. dy2 and dy1 are stored for the passes after
+// them, as the TPU kernels store d_y2 and d_y1. The narrow bf16 kernels
+// declare __launch_bounds__(kThreads), the D-wide ones (kThreads, 1); all
+// are launched with kThreads threads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -221,13 +250,14 @@ struct Tile {
   bool valid;             // the cloud counts in the statistics
 };
 
+template <int TP = kTileP>
 __device__ __forceinline__ Tile tile_of(long long tile, long long p, const uint8_t* valid) {
-  const long long tpc = (p + kTileP - 1) / kTileP;
+  const long long tpc = (p + TP - 1) / TP;
   Tile t;
   t.cloud = tile / tpc;
-  const long long p0 = (tile % tpc) * kTileP;
+  const long long p0 = (tile % tpc) * TP;
   t.row0 = t.cloud * p + p0;
-  t.np = static_cast<int>(min(static_cast<long long>(kTileP), p - p0));
+  t.np = static_cast<int>(min(static_cast<long long>(TP), p - p0));
   t.valid = valid == nullptr || valid[t.cloud] != 0;
   return t;
 }
@@ -1248,16 +1278,17 @@ pnt_b3_kernel(const T* __restrict__ points, const T* __restrict__ dy1,
 // flax's ShapeEncoderPC(dtype=bfloat16) in train mode (the header's
 // "bf16 instance"): the layers round where flax's do, and the passes work
 // on the rounded values, so no Gram form applies. Every product runs on
-// the bf16 tensor cores (mma.sync m16n8k16, f32 accumulators), except
-// layer 1's (K 3) on the CUDA cores. The a-fragments of a row-major tile
-// [row][k] and the b-fragments of a tile stored [n][k] are single 32-bit
-// loads from shared memory (two bf16 each), so each product whose operand
-// is the transpose of a stored tile has that tile staged in both layouts.
+// the bf16 tensor cores with f32 accumulators, except layer 1's (K 3) on
+// the CUDA cores: layer 3's on wgmma (below), the narrow passes' and the
+// separate dh2's on mma.sync m16n8k16. For those, the a-fragments of a
+// row-major tile [row][k] and the b-fragments of a tile stored [n][k] are
+// single 32-bit loads from shared memory (two bf16 each), so each product
+// whose operand is the transpose of a stored tile has that tile staged in
+// both layouts.
 
 constexpr int kLdB = kC2 + 8;        // row stride (bf16) of a tile 128 wide
 constexpr int kLdB64 = kTileP + 8;   // row stride (bf16) of a tile 64 wide
 constexpr int kLdA2 = kC2 + 4;       // row stride (f32) of layer 2's tile
-constexpr int kLdA3 = kChunk + 1;    // row stride (f32) of layer 3's tile
 constexpr int kL3Rows = kC2 + 1;     // a segment's layer-3 gradient rows: dW3, db3
 // dh2 holds W3 (bf16) in shared memory up to this size (D 768); beyond it
 // reads W3 from L2 for each tile
@@ -1325,29 +1356,6 @@ __device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const uint16_
   const uint16_t* q = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
   b0 = word(q);
   b1 = word(q + 8);
-}
-
-// a tile's a3 accumulators: warp w takes points 16 (w % 4).. and columns
-// 32 (w / 4) + 8 j.. of the 64-column chunk, k-steps in order from 0. Every
-// pass that needs a3 calls this on the same operands, so a3 is the same
-// bits in every pass (no float computed two ways is ever compared).
-__device__ __forceinline__ void layer3_tile(float (&acc)[4][4], const uint16_t* h2s,
-                                            const uint16_t* w3t, int warp, int lane) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
-#pragma unroll
-  for (int ks = 0; ks < kC2 / 16; ++ks) {
-    uint32_t a[4];
-    load_a(a, h2s, kLdB, 16 * (warp & 3), 16 * ks, lane);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t b0, b1;
-      load_b(b0, b1, w3t, kLdB, 32 * (warp >> 2) + 8 * j, 16 * ks, lane);
-      mma_bf16(acc[j], a, b0, b1);
-    }
-  }
 }
 
 // the tile's 16-byte vectors of a (rows, C) bf16 tensor, a thread's j-th:
@@ -1434,31 +1442,6 @@ __device__ __forceinline__ void load_h(uint16_t* hs, int ld, uint16_t* ht, const
   store_h<C>(raw, hs, ld, ht, tl, bn);
 }
 
-constexpr int kH2Vectors = kTileP * kC2 / 8 / kThreads;  // a thread's 16-byte vectors of a2
-
-// the next tile from `from` that a D-wide pass takes: every tile, or with
-// `valid_only` the valid clouds' only (the same for every thread)
-__device__ __forceinline__ long long next_tile(long long from, long long tiles, long long p,
-                                               const uint8_t* valid, bool valid_only) {
-  while (valid_only && from < tiles && !tile_of(from, p, valid).valid) from += gridDim.x;
-  return from;
-}
-
-// layer 2's BatchNorm (mu, mul, beta) and W3's chunk d0.. (bf16, [c][k])
-// into shared memory
-__device__ __forceinline__ void load_l3_operands(float* bn2, uint16_t* w3t, const float* prm,
-                                                 const float* stats, long long d, long long d0) {
-  for (int i = threadIdx.x; i < kC2; i += kThreads) {
-    bn2[i] = stats[kStats2 + i];
-    bn2[kC2 + i] = bn_mul_bf16(stats[kStats2 + kC2 + i], prm[off_l2() + kC2 + i]);
-    bn2[2 * kC2 + i] = prm[off_l2() + 2 * kC2 + i];
-  }
-  for (int i = threadIdx.x; i < kC2 * kChunk; i += kThreads) {
-    const int k = i / kChunk, c = i % kChunk;
-    w3t[c * kLdB + k] = bf_bits(prm[off_w3() + k * d + d0 + c]);
-  }
-}
-
 // a1 = bf16(bf16(x W1) + b1) stored for every point; the sums of a1 and
 // a1^2 over the valid clouds' points -> partial[block][4][64], as
 // pnt_l1_stats_kernel's
@@ -1497,6 +1480,44 @@ pnb_l1_stats_kernel(const uint16_t* __restrict__ points, const uint8_t* __restri
   }
   stats_to_shared(red, 4, kC1, pg, k, s, cs, q, cq);
   stats_partial(red, 4, kC1, partial + blockIdx.x * 4 * kC1, kC1);
+}
+
+// pnt_stats_kernel<float>'s statistics, its sums in its order, the
+// partials' loads issued 16 blocks ahead of their use: in one block the
+// loop's load latency, not its adds, was the pass's time
+__global__ void __launch_bounds__(kThreads)
+pnb_stats_kernel(const float* __restrict__ partial, int blocks, long long ch,
+                 const uint8_t* __restrict__ valid, long long n, long long p,
+                 float* __restrict__ out) {
+  constexpr int kAhead = 16;
+  __shared__ long long m_s;
+  if (threadIdx.x == 0) m_s = valid_points(valid, n, p);
+  __syncthreads();
+  const float m = static_cast<float>(m_s);
+  for (long long c = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; c < ch;
+       c += static_cast<long long>(gridDim.x) * kThreads) {
+    float s = 0.0f, q = 0.0f, cs = 0.0f, cq = 0.0f;
+    for (int b0 = 0; b0 < blocks; b0 += kAhead) {
+      float v[kAhead][4];
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          v[i][k] = b0 + i < blocks ? partial[(b0 + i) * 4 * ch + k * ch + c] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) {
+        if (b0 + i >= blocks) break;
+        add_c(s, cs, v[i][0]);
+        add_c(q, cq, v[i][1]);
+        cs += v[i][2];
+        cq += v[i][3];
+      }
+    }
+    const float mu = (s + cs) / m;
+    const float var = (q + cq) / m - mu * mu;
+    out[c] = mu;
+    out[ch + c] = var > 0.0f ? var : 0.0f;
+  }
 }
 
 __host__ __device__ constexpr int l2b_smem_bytes() {
@@ -1580,127 +1601,506 @@ pnb_l2_kernel(const uint16_t* __restrict__ a1, const uint8_t* __restrict__ valid
   stats_partial(a2s, 2, kC2, partial + blockIdx.x * 4 * kC2, kC2);
 }
 
-__host__ __device__ constexpr int l3b_smem_bytes() {
-  return 2 * (2 * kChunk * kLdB) + 4 * (kTileP * kLdA3 + 3 * kC2 + 4 * kChunk + 3 * 4 * kChunk);
+// ------------------------------------------- the D-wide passes on Hopper's wgmma
+//
+// Layer 3 (K 128, D columns) runs on the asynchronous warpgroup products:
+// a block of two warpgroups takes 128-point tiles (warpgroup w rows 64 w..)
+// across a group of 256 columns of W3, held in shared memory (64 KB of
+// bf16) for the block's life. Operands sit in shared memory in the
+// 128-byte swizzle that wgmma's descriptors name: a tile of R rows is
+// stored as column blocks of 64 bf16 (128 bytes a row), R * 128 bytes each,
+// 16-byte chunk c of row r at chunk c ^ (r % 8) (sw_off). Read along its
+// rows it is a K-major operand; read down its columns (wgmma's transpose
+// bit for 16-bit types) an MN-major one, the column blocks R * 128 bytes
+// apart (the descriptor's leading byte offset) and 8-row groups 1024 bytes
+// apart (its stride byte offset).
+
+constexpr int kTileW = 128;                  // points a D-wide tile
+constexpr int kGroupW = 256;                 // W3's columns a D-wide block holds
+constexpr int kWarps = kThreads / 32;        // 8: warps w / 4 = warpgroup, w % 4 its 16 rows
+constexpr int kW3Bytes = 2 * kGroupW * 128;  // W3's group [k block][column][64 k], 64 KB
+constexpr int kH2Bytes = 2 * kTileW * 128;   // h2 [k block][point][64 k], 32 KB
+constexpr int kRawBytes = kTileW * kC2 * 2;  // a2's tile as stored, [point][128], 32 KB
+constexpr int kDa3Bytes = 4 * kTileW * 128;  // da3 [column block][point][64 columns], 64 KB
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// byte offset of element (r, c) of a swizzled tile of R rows
+__device__ __forceinline__ int sw_off(int r, int c, int R) {
+  return (c >> 6) * (R * 128) + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+// a wgmma shared-memory descriptor: 128-byte swizzle, 8-row groups 1024
+// bytes apart, column blocks `lbo` bytes apart (MN-major operands)
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) | (64ull << 32) | (1ull << 62);
+}
+// k-step s (16 k) of a K-major operand: rows row0.. of a tile of R rows
+__device__ __forceinline__ uint64_t k_major(uint32_t base, int R, int row0, int s) {
+  return sw_desc(base + (s >> 2) * (R * 128) + row0 * 128 + (s & 3) * 32, 16);
+}
+// k-step s (16 rows) of an MN-major operand from column block `blk` of a
+// tile of R rows
+__device__ __forceinline__ uint64_t mn_major(uint32_t base, int R, int blk, int s) {
+  return sw_desc(base + blk * (R * 128) + s * 2048, R * 128);
 }
 
-// grid (segments, d / 64): layer 3 on the chunk of columns d0 = 64
-// blockIdx.y.. for the tiles blockIdx.x, blockIdx.x + gridDim.x, ...:
-// a3 = bf16(bf16(h2 W3) + b3) (layer3_tile) and then
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// the generic proxy's shared-memory writes made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving the accumulators' reads and writes across
+// the asynchronous products' issue and wait
+template <int N>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void zero_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.0f;
+}
+
+// D (64 x N, f32) (+)= A (64 x 16) B (16 x N), bf16 from shared memory;
+// scale_d 0 starts the sum. _tb: B read MN-major; _tt: A and B both. The
+// accumulators: warp w % 4 of the warpgroup holds rows 16 (w % 4) + lane / 4
+// (+ 8: h = 1), d[4 j + 2 h + e] column 8 j + 2 (lane % 4) + e.
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128_tb(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n256_tt(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// a3's accumulators (before the bias) of the tile's rows 64 wg.. and the
+// group's columns 128 half..: the one computation of a3, in every pass that
+// needs it (the same instruction, operands and k order, so a3 and y3 are
+// the same bits in the statistics, the max and the backward). Issues the
+// eight k-steps as one product group; the caller waits for it.
+__device__ __forceinline__ void layer3_issue(float (&acc)[64], uint32_t h2s, uint32_t w3s, int wg,
+                                             int half) {
+  zero_acc<64>(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < kC2 / 16; ++s)
+    wgmma_n128(acc, k_major(h2s, kTileW, 64 * wg, s), k_major(w3s, kGroupW, 128 * half, s), s);
+  wgmma_commit();
+}
+
+// W3's columns g0.. (kGroupW of them, 0 past d) in bf16 into w3s: row =
+// column, k = channel (layer 3's K-major B)
+__device__ __forceinline__ void stage_w3(unsigned char* w3s, const float* prm, long long d,
+                                         long long g0) {
+  for (int i = threadIdx.x; i < kC2 * kGroupW; i += kThreads) {
+    const int k = i / kGroupW, c = i % kGroupW;
+    const float w = g0 + c < d ? prm[off_w3() + k * d + g0 + c] : 0.0f;
+    *reinterpret_cast<uint16_t*>(w3s + sw_off(c, k, kGroupW)) = bf_bits(w);
+  }
+}
+
+// Rounding to bf16 is a conversion, and the conversion unit's rate, not the
+// FP32 one, bounds the epilogues: the D-wide passes round two values an
+// instruction (cvt.rn.bf16x2.f32, the same round-to-nearest-even as
+// bf_round) and pack rounded values by a byte permute.
+// bf16(lo) in the low half, bf16(hi) in the high half
+__device__ __forceinline__ uint32_t bf2_bits(float lo, float hi) {
+  uint32_t w;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(w) : "f"(hi), "f"(lo));
+  return w;
+}
+__device__ __forceinline__ float lo_val(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_val(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+// two values that are bf16 already, as one word (lo in the low half)
+__device__ __forceinline__ uint32_t pack_rounded(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+// bf_round of a pair
+__device__ __forceinline__ void bf_round2(float& lo, float& hi) {
+  const uint32_t w = bf2_bits(lo, hi);
+  lo = lo_val(w);
+  hi = hi_val(w);
+}
+// dense_bf16 of a pair: a_e = bf16(bf16(acc_e) + b_e)
+__device__ __forceinline__ void dense2(float& a0, float& a1, float b0, float b1) {
+  bf_round2(a0, a1);
+  a0 = __fadd_rn(a0, b0);
+  a1 = __fadd_rn(a1, b1);
+  bf_round2(a0, a1);
+}
+// bn_bf16 before its rounding
+__device__ __forceinline__ float bn_f32(float a, float mu, float mul, float beta) {
+  return __fadd_rn(__fmul_rn(__fsub_rn(a, mu), mul), beta);
+}
+
+// BatchNorm 2's (mu, mul, beta) into shared memory, one 16-byte read a
+// channel: channel k at bn2_at(k), 16 bytes of padding after every 8
+// channels, so that the 8 lanes of a quarter-warp reading channels 8 apart
+// (norm_h2) fall in different banks
+constexpr int kBn2Floats = 4 * kC2 + 4 * (kC2 / 8);
+__device__ __forceinline__ int bn2_at(int k) { return 4 * k + 4 * (k >> 3); }
+__device__ __forceinline__ void load_bn2(float* bn2s, const float* prm, const float* stats) {
+  for (int i = threadIdx.x; i < kC2; i += kThreads) {
+    float* b = bn2s + bn2_at(i);
+    b[0] = stats[kStats2 + i];
+    b[1] = bn_mul_bf16(stats[kStats2 + kC2 + i], prm[off_l2() + kC2 + i]);
+    b[2] = prm[off_l2() + 2 * kC2 + i];
+    b[3] = 0.0f;
+  }
+}
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// a2's rows of a tile into raw ([point][128] bf16 as stored) by cp.async,
+// 16 bytes a copy, rows past the tile's end zero-filled; one commit group
+__device__ __forceinline__ void issue_a2(uint32_t raw, const uint16_t* a2, const Tile& tl) {
+#pragma unroll
+  for (int i = 0; i < kRawBytes / 16 / kThreads; ++i) {
+    const int v = threadIdx.x + i * kThreads, row = v >> 4;
+    const bool in = row < tl.np;
+    cp_async16(raw + 16 * v, a2 + (in ? (tl.row0 + row) * kC2 + 8 * (v & 15) : 0), in ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+// h2 = relu(bn2(a2)) of the tile in raw into h2s (swizzled), rows past np
+// 0 (bn2s: load_bn2's): thread t the channels 8 (t % 16).. of rows t / 16 +
+// 16 i, 16 bytes a read and a write
+__device__ __forceinline__ void norm_h2(unsigned char* h2s, const unsigned char* raw,
+                                        const float* bn2s, int np) {
+  const int c8 = threadIdx.x & 15;
+  float4 bn[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) bn[e] = ld4(bn2s + bn2_at(8 * c8 + e));
+#pragma unroll
+  for (int i = 0; i < kTileW / (kThreads / 16); ++i) {
+    const int row = (threadIdx.x >> 4) + (kThreads / 16) * i;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + row * 2 * kC2 + 16 * c8);
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 b0 = bn[2 * q], b1 = bn[2 * q + 1];
+      // relu on the pair: a bf16's sign is its 16-bit integer's
+      w[q] = row < np ? __vmaxs2(bf2_bits(bn_f32(half_of(v, 2 * q), b0.x, b0.y, b0.z),
+                                          bn_f32(half_of(v, 2 * q + 1), b1.x, b1.y, b1.z)),
+                                 0u)
+                      : 0u;
+    }
+    *reinterpret_cast<uint4*>(h2s + sw_off(row, 8 * c8, kTileW)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Sums over the 8 lanes of a fragment column (lane bits 2-4, the rows
+// lane / 4): v[0..8) -> v[0], the sum for value 4 b2 + 2 b3 + b4 (b the
+// lane's bits), each step sending half the values and keeping the other
+// half (a fixed tree: the same bits every run)
+template <int H>
+__device__ __forceinline__ void fold_sum_step(float (&v)[8], int lane, int m) {
+  const bool up = lane & m;
+#pragma unroll
+  for (int i = 0; i < H; ++i)
+    v[i] = (up ? v[i + H] : v[i]) + __shfl_xor_sync(0xffffffffu, up ? v[i] : v[i + H], m);
+}
+__device__ __forceinline__ void fold_sum(float (&v)[8], int lane) {
+  fold_sum_step<4>(v, lane, 4);
+  fold_sum_step<2>(v, lane, 8);
+  fold_sum_step<1>(v, lane, 16);
+}
+__device__ __forceinline__ int fold_index(int lane) {
+  return 4 * ((lane >> 2) & 1) + 2 * ((lane >> 3) & 1) + ((lane >> 4) & 1);
+}
+
+// the max's merge of two partial results (the warps' of a tile, in row
+// order): a larger maximum restarts the count and the tied points' sum of
+// a3 - mu3, an equal one adds to them
+__device__ __forceinline__ void merge_max(float& best, int& cnt, float& sum, float b2, int c2,
+                                          float s2) {
+  if (c2 == 0) return;
+  if (cnt == 0 || b2 > best) {
+    best = b2;
+    cnt = c2;
+    sum = s2;
+  } else if (b2 == best) {
+    cnt += c2;
+    sum = __fadd_rn(sum, s2);
+  }
+}
+// fold_sum's tree with the maximum in place of the sum
+template <int H>
+__device__ __forceinline__ void fold_fmax_step(float (&v)[8], int lane, int m) {
+  const bool up = lane & m;
+#pragma unroll
+  for (int i = 0; i < H; ++i)
+    v[i] = fmaxf(up ? v[i + H] : v[i], __shfl_xor_sync(0xffffffffu, up ? v[i] : v[i + H], m));
+}
+__device__ __forceinline__ void fold_fmax(float (&v)[8], int lane) {
+  fold_fmax_step<4>(v, lane, 4);
+  fold_fmax_step<2>(v, lane, 8);
+  fold_fmax_step<1>(v, lane, 16);
+}
+
+// the next tile from `from` that a D-wide pass takes: every tile, or with
+// `valid_only` the valid clouds' only (the same for every thread)
+__device__ __forceinline__ long long next_tile(long long from, long long tiles, long long p,
+                                               const uint8_t* valid, bool valid_only) {
+  while (valid_only && from < tiles && !tile_of<kTileW>(from, p, valid).valid) from += gridDim.x;
+  return from;
+}
+
+__host__ __device__ constexpr int l3_smem_bytes() {
+  return 1024 + kW3Bytes + kH2Bytes + kRawBytes +
+         4 * (4 * kGroupW + kBn2Floats + 3 * kWarps * kGroupW);
+}
+
+// grid (segments, column groups): layer 3 on the group of columns g0 = 256
+// blockIdx.y.. for the 128-point tiles blockIdx.x, blockIdx.x + gridDim.x,
+// ...: a3 = bf16(bf16(h2 W3) + b3) (layer3_issue, two products of 128
+// columns in flight, the first one's epilogue running while the second
+// one's products do) and then, on the accumulators,
 //   kMax false: the sums of a3 and a3^2 over the valid clouds' points ->
-//               partial[segment][4][d] (the columns of the chunk);
-//   kMax true:  y3 = bn3(a3) and, per tile and column, the largest y3 over
-//               every point, the number of points that take it and the
-//               sum of their a3 - mu3 -> pmax, pcnt, psum [tile][d]
+//               partial[segment][4][d] (sums and their errors);
+//   kMax true:  y3 = bn3(a3) and, per tile and column, the largest y3, the
+//               number of points that take it and the sum of their a3 -
+//               mu3 -> pmax, pcnt, psum [tile][d]
+// a thread's two rows, then the 8 lanes of its column by shuffles
+// (fold_sum; the maximum by fold_fmax, its ties then counted and summed by
+// fold_sum), then the 8 warps in row order through shared
+// memory (thread t: column t). a2's next tile lands by cp.async while this
+// one's products and epilogue run.
 template <bool kMax>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 pnb_l3_kernel(const uint16_t* __restrict__ a2, const uint8_t* __restrict__ valid, long long n,
               long long p, long long d, const float* __restrict__ prm,
               const float* __restrict__ stats, float* __restrict__ partial,
               float* __restrict__ pmax, int* __restrict__ pcnt, float* __restrict__ psum) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* w3t = reinterpret_cast<uint16_t*>(smem_raw);  // [64][kLdB]: W3's chunk, [c][k]
-  uint16_t* h2s = w3t + kChunk * kLdB;                    // [64][kLdB]
-  float* a3s = reinterpret_cast<float*>(h2s + kTileP * kLdB);  // [64][kLdA3]
-  float* bn2 = a3s + kTileP * kLdA3;                      // [3][128]
-  float* col3 = bn2 + 3 * kC2;                            // [4][64]: b3, mu3, mul3, beta3
-  float* redv = col3 + 4 * kChunk;                        // [4][64] each: max, count, sum
-  int* redc = reinterpret_cast<int*>(redv + 4 * kChunk);
-  float* reds = redv + 8 * kChunk;
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32, g = lane >> 2, tq = lane & 3;
-  const long long d0 = static_cast<long long>(blockIdx.y) * kChunk;
-  load_l3_operands(bn2, w3t, prm, stats, d, d0);
-  if (t < kChunk) {
-    col3[t] = bf_round(prm[off_l3(d) + d0 + t]);
-    if (kMax) {
-      col3[kChunk + t] = stats[kStats3 + d0 + t];
-      col3[2 * kChunk + t] = bn_mul_bf16(stats[kStats3 + d + d0 + t], prm[off_l3(d) + d + d0 + t]);
-      col3[3 * kChunk + t] = prm[off_l3(d) + 2 * d + d0 + t];
-    }
-  }
-  const int c = t % kChunk, quarter = t / kChunk;  // the tile's column c, 16 points
-  float s = 0.0f, q = 0.0f, cs = 0.0f, cq = 0.0f;
-  const long long tiles = n * ((p + kTileP - 1) / kTileP);
-  // a2 of the next tile is read while this one's products run
-  uint4 raw[kH2Vectors];
-  long long next = next_tile(blockIdx.x, tiles, p, valid, !kMax);
-  if (next < tiles) load_rows<kC2, true>(raw, a2, tile_of(next, p, valid));
-  for (long long tile = next; tile < tiles; tile = next) {
-    const Tile tl = tile_of(tile, p, valid);
-    __syncthreads();  // the operands stored; the previous tile read
-    store_h<kC2>(raw, h2s, kLdB, nullptr, tl, bn2);
-    next = next_tile(tile + gridDim.x, tiles, p, valid, !kMax);
-    if (next < tiles) load_rows<kC2, true>(raw, a2, tile_of(next, p, valid));
+  unsigned char* w3s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* h2s = w3s + kW3Bytes;
+  unsigned char* raw = h2s + kH2Bytes;
+  float* col3 = reinterpret_cast<float*>(raw + kRawBytes);  // [256][4]: b3, mu3, mul3, beta3
+  float* bn2s = col3 + 4 * kGroupW;  // mu2, mul2, beta2 (bn2_at)
+  float* red = bn2s + kBn2Floats;    // [3][8 warps][256]
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, wg = warp >> 2, tq = lane & 3;
+  const long long g0 = static_cast<long long>(blockIdx.y) * kGroupW, c3 = g0 + t;
+  stage_w3(w3s, prm, d, g0);
+  const bool cin = c3 < d;
+  col3[4 * t] = cin ? bf_round(prm[off_l3(d) + c3]) : 0.0f;
+  col3[4 * t + 1] = cin && kMax ? stats[kStats3 + c3] : 0.0f;
+  col3[4 * t + 2] =
+      cin && kMax ? bn_mul_bf16(stats[kStats3 + d + c3], prm[off_l3(d) + d + c3]) : 0.0f;
+  col3[4 * t + 3] = cin && kMax ? prm[off_l3(d) + 2 * d + c3] : 0.0f;
+  load_bn2(bn2s, prm, stats);
+  fence_proxy_async();  // W3 for the products (the loop's first barrier orders it)
+  const uint32_t h2a = smem_addr(h2s), w3a = smem_addr(w3s), rawa = smem_addr(raw);
+  const int r0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // the thread's rows r0, r0 + 8
+  const int fi = fold_index(lane);
+  float s = 0.0f, q = 0.0f, cs = 0.0f, cq = 0.0f;  // column t's sums (kMax false)
+  const long long tiles = n * ((p + kTileW - 1) / kTileW);
+  long long tile = next_tile(blockIdx.x, tiles, p, valid, !kMax);
+  if (tile < tiles) issue_a2(rawa, a2, tile_of<kTileW>(tile, p, valid));
+  while (tile < tiles) {
+    const Tile tl = tile_of<kTileW>(tile, p, valid);
+    cp_async_wait_all();
+    __syncthreads();  // a2 landed; the previous tile's products and merge done
+    norm_h2(h2s, raw, bn2s, tl.np);
+    fence_proxy_async();
     __syncthreads();
-    float acc[4][4];
-    layer3_tile(acc, h2s, w3t, warp, lane);
+    const long long next = next_tile(tile + gridDim.x, tiles, p, valid, !kMax);
+    if (next < tiles) issue_a2(rawa, a2, tile_of<kTileW>(next, p, valid));
+    float acc[2][64];
+    layer3_issue(acc[0], h2a, w3a, wg, 0);
+    layer3_issue(acc[1], h2a, w3a, wg, 1);
+    const bool lo_in = r0 < tl.np, hi_in = r0 + 8 < tl.np;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int half = 0; half < 2; ++half) {
+      if (half == 0) {
+        wgmma_wait<1>();
+        fence_acc<64>(acc[0]);
+      } else {
+        wgmma_wait<0>();
+        fence_acc<64>(acc[1]);
+      }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = 16 * (warp & 3) + g + 8 * (e >> 1);
-        const int col = 32 * (warp >> 2) + 8 * j + 2 * tq + (e & 1);
-        a3s[row * kLdA3 + col] = dense_bf16(acc[j][e], col3[col]);
-      }
-    __syncthreads();
-    if (!kMax) {
-      float ts = 0.0f, tsq = 0.0f;
-      for (int pp = 16 * quarter; pp < 16 * quarter + 16 && pp < tl.np; ++pp) {
-        const float a = a3s[pp * kLdA3 + c];
-        ts += a;
-        tsq = fmaf(a, a, tsq);
-      }
-      add_c(s, cs, ts);
-      add_c(q, cq, tsq);
-      continue;
-    }
-    // the quarter's points in order, then the quarters in order: a larger
-    // y3 restarts the count and the sum, an equal one adds to them
-    const float mu = col3[kChunk + c], mul = col3[2 * kChunk + c], be = col3[3 * kChunk + c];
-    float best = 0.0f, sum = 0.0f;
-    int cnt = 0;
-    for (int pp = 16 * quarter; pp < 16 * quarter + 16 && pp < tl.np; ++pp) {
-      const float a = a3s[pp * kLdA3 + c];
-      const float y = bn_bf16(a, mu, mul, be);
-      if (cnt == 0 || y > best) {
-        best = y;
-        cnt = 1;
-        sum = __fsub_rn(a, mu);
-      } else if (y == best) {
-        ++cnt;
-        sum = __fadd_rn(sum, __fsub_rn(a, mu));
-      }
-    }
-    redv[quarter * kChunk + c] = best;
-    redc[quarter * kChunk + c] = cnt;
-    reds[quarter * kChunk + c] = sum;
-    __syncthreads();
-    if (t < kChunk) {
-      best = redv[t];
-      cnt = redc[t];
-      sum = reds[t];
-      for (int r = 1; r < 4; ++r) {
-        const int rc = redc[r * kChunk + t];
-        const float rv = redv[r * kChunk + t];
-        if (rc == 0) continue;
-        if (cnt == 0 || rv > best) {
-          best = rv;
-          cnt = rc;
-          sum = reds[r * kChunk + t];
-        } else if (rv == best) {
-          cnt += rc;
-          sum = __fadd_rn(sum, reds[r * kChunk + t]);
+      for (int jc = 0; jc < 4; ++jc) {  // four column octets a round: 8 columns of the thread
+        float v0[8], v1[8], yl[8], yh[8], xl[8], xh[8];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * jc + jj, c = 128 * half + 8 * j + 2 * tq, i = 2 * jj;
+          // columns c, c + 1 (b3, mu3, mul3, beta3), rows r0 and r0 + 8
+          const float4 p0 = ld4(col3 + 4 * c), p1 = ld4(col3 + 4 * (c + 1));
+          float lo0 = acc[half][4 * j], lo1 = acc[half][4 * j + 1];
+          float hi0 = acc[half][4 * j + 2], hi1 = acc[half][4 * j + 3];
+          dense2(lo0, lo1, p0.x, p1.x);
+          dense2(hi0, hi1, p0.x, p1.x);
+          if (!kMax) {
+            const float x0 = lo_in ? lo0 : 0.0f, y0 = hi_in ? hi0 : 0.0f;
+            const float x1 = lo_in ? lo1 : 0.0f, y1 = hi_in ? hi1 : 0.0f;
+            v0[i] = x0 + y0;
+            v1[i] = fmaf(y0, y0, x0 * x0);
+            v0[i + 1] = x1 + y1;
+            v1[i + 1] = fmaf(y1, y1, x1 * x1);
+          } else {
+            yl[i] = bn_f32(lo0, p0.y, p0.z, p0.w);
+            yl[i + 1] = bn_f32(lo1, p1.y, p1.z, p1.w);
+            yh[i] = bn_f32(hi0, p0.y, p0.z, p0.w);
+            yh[i + 1] = bn_f32(hi1, p1.y, p1.z, p1.w);
+            bf_round2(yl[i], yl[i + 1]);
+            bf_round2(yh[i], yh[i + 1]);
+            xl[i] = __fsub_rn(lo0, p0.y);
+            xl[i + 1] = __fsub_rn(lo1, p1.y);
+            xh[i] = __fsub_rn(hi0, p0.y);
+            xh[i + 1] = __fsub_rn(hi1, p1.y);
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              v0[i + e] = fmaxf(lo_in ? yl[i + e] : -CUDART_INF_F,
+                                hi_in ? yh[i + e] : -CUDART_INF_F);
+          }
+        }
+        const int col = 128 * half + 8 * (4 * jc + (fi >> 1)) + 2 * tq + (fi & 1);
+        if (!kMax) {
+          fold_sum(v0, lane);
+          fold_sum(v1, lane);
+          red[warp * kGroupW + col] = v0[0];
+          red[(kWarps + warp) * kGroupW + col] = v1[0];
+        } else {
+          // the warp's maximum of each column, back to the lanes that hold
+          // the column; then the rows that reach it, counted and their a3 -
+          // mu3 summed
+          fold_fmax(v0, lane);
+          float cnt[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float m = __shfl_sync(0xffffffffu, v0[0], (lane & 3) | ((i & 4) << 0) |
+                                                                ((i & 2) << 2) | ((i & 1) << 4));
+            const bool tl = lo_in && yl[i] == m, th = hi_in && yh[i] == m;
+            cnt[i] = (tl ? 1.0f : 0.0f) + (th ? 1.0f : 0.0f);
+            v1[i] = (tl ? xl[i] : 0.0f) + (th ? xh[i] : 0.0f);
+          }
+          fold_sum(cnt, lane);
+          fold_sum(v1, lane);
+          red[warp * kGroupW + col] = v0[0];
+          reinterpret_cast<int*>(red)[(kWarps + warp) * kGroupW + col] = static_cast<int>(cnt[0]);
+          red[(2 * kWarps + warp) * kGroupW + col] = v1[0];
         }
       }
-      pmax[tile * d + d0 + t] = best;
-      pcnt[tile * d + d0 + t] = cnt;
-      psum[tile * d + d0 + t] = sum;
     }
+    __syncthreads();
+    // thread t: column t's tile result, the warps in row order
+    if (!kMax) {
+      if (tl.valid) {
+        float ts = red[t], tsq = red[kWarps * kGroupW + t];
+        for (int w = 1; w < kWarps; ++w) {
+          ts += red[w * kGroupW + t];
+          tsq += red[(kWarps + w) * kGroupW + t];
+        }
+        add_c(s, cs, ts);
+        add_c(q, cq, tsq);
+      }
+    } else if (cin) {
+      float best = red[t], sum = red[2 * kWarps * kGroupW + t];
+      int cnt = reinterpret_cast<const int*>(red)[kWarps * kGroupW + t];
+      for (int w = 1; w < kWarps; ++w)
+        merge_max(best, cnt, sum, red[w * kGroupW + t],
+                  reinterpret_cast<const int*>(red)[(kWarps + w) * kGroupW + t],
+                  red[(2 * kWarps + w) * kGroupW + t]);
+      pmax[tile * d + c3] = best;
+      pcnt[tile * d + c3] = cnt;
+      psum[tile * d + c3] = sum;
+    }
+    tile = next;
   }
-  if (kMax) return;
-  __syncthreads();
-  stats_to_shared(a3s, 4, kChunk, quarter, c, s, cs, q, cq);
-  stats_partial(a3s, 4, kChunk, partial + blockIdx.x * 4 * d + d0, d);
+  if (!kMax && cin) {
+    float* part = partial + static_cast<long long>(blockIdx.x) * 4 * d + c3;
+    part[0] = s;
+    part[d] = q;
+    part[2 * d] = cs;
+    part[3 * d] = cq;
+  }
 }
 
 // out[n, c] (bf16), count[n, c] and tsum[n, c]: the cloud's tiles merged
@@ -1785,123 +2185,252 @@ pnb_bn3_kernel(const uint16_t* __restrict__ g, const int* __restrict__ count,
     }
     bn_back_coef(sdy, sdyx, stats[kStats3 + c], stats[kStats3 + d + c], prm[off_l3(d) + d + c],
                  static_cast<double>(m_s), coef, c, d, grads + off_l3(d) + d);
-    for (int k = 0; k < kC2; ++k) w3b[k * d + c] = bf_bits(prm[off_w3() + k * d + c]);
+    if (w3b != nullptr)
+      for (int k = 0; k < kC2; ++k) w3b[k * d + c] = bf_bits(prm[off_w3() + k * d + c]);
   }
 }
 
 __host__ __device__ constexpr int l3back_smem_bytes() {
-  return 2 * (2 * kChunk * kLdB + kC2 * kLdB64 + kChunk * kLdB64) +
-         4 * (3 * kC2 + 6 * kChunk + 4 * kChunk);
+  return 1024 + kW3Bytes + kH2Bytes + kRawBytes + kDa3Bytes +
+         4 * (8 * kGroupW + kBn2Floats + 2 * kWarps * kGroupW);
 }
 
-// grid (segments, d / 64), the tiles and chunks of pnb_l3_kernel: a3 and y3
-// recomputed by the same code; dy = gk at each point whose y3 equals the
-// cloud's maximum (out), 0 elsewhere; da3 = BN3's backward (bf16), stored
-// (n * p, d); dW3 += h2^T da3 on the tensor cores (warp w: channels 16 w..,
-// the chunk's 64 columns), db3 += sum da3 -> partial[segment][129][d]
-__global__ void __launch_bounds__(kThreads)
+// grid (segments, column groups), every tile (padded clouds' too): a3 and
+// y3 recomputed by layer3_issue, one 128-column product at a time; on the
+// accumulators dy = gk at each point whose y3 equals the cloud's maximum
+// (out), 0 elsewhere, and da3 = BN3's backward (bf16) into shared memory
+// (swizzled, the next products' operand); db3 by fold_sum; then
+// dW3 += h2^T da3 (wgmma m64n256k16, both operands read down their columns:
+// warpgroup w channels 64 w.., all 256 columns, 128 accumulators a thread
+// held over the block's tiles). kFused (one column group, D <= 256): dh2 =
+// da3 W3^T in the same block (wgmma m64n128k16 over the 256 columns, W3
+// read down its columns), rounded to bf16; dy2 = dh2 where h2 > 0 (a2 read
+// again, from L2), stored; BN2's sums of dy2 and dy2 (a2 - mu2) ->
+// partial2[segment][2][128]: da3 never reaches device memory. Otherwise
+// da3 is stored (n * p, d) for pnb_dh2_kernel. dW3, db3 ->
+// partial[segment][129][d].
+template <bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
 pnb_l3_back_kernel(const uint16_t* __restrict__ a2, const uint8_t* __restrict__ valid,
                    long long n, long long p, long long d, const float* __restrict__ prm,
                    const float* __restrict__ stats, const uint16_t* __restrict__ out,
                    const float* __restrict__ gk, const float* __restrict__ coef,
-                   uint16_t* __restrict__ da3, float* __restrict__ partial) {
+                   uint16_t* __restrict__ da3, uint16_t* __restrict__ dy2,
+                   float* __restrict__ partial, float* __restrict__ partial2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* w3t = reinterpret_cast<uint16_t*>(smem_raw);  // [64][kLdB]: W3's chunk, [c][k]
-  uint16_t* h2s = w3t + kChunk * kLdB;                    // [64][kLdB]: h2 [p][k]
-  uint16_t* h2t = h2s + kTileP * kLdB;                    // [128][kLdB64]: h2 [k][p]
-  uint16_t* dat = h2t + kC2 * kLdB64;                     // [64][kLdB64]: da3 [c][p]
-  float* bn2 = reinterpret_cast<float*>(dat + kChunk * kLdB64);  // [3][128]
-  float* col3 = bn2 + 3 * kC2;  // [6][64]: b3, mu3, mul3, beta3, A3, B3
-  float* red = col3 + 6 * kChunk;                         // [4][64]
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32, g = lane >> 2, tq = lane & 3;
-  const long long d0 = static_cast<long long>(blockIdx.y) * kChunk;
-  load_l3_operands(bn2, w3t, prm, stats, d, d0);
-  if (t < kChunk) {
-    col3[t] = bf_round(prm[off_l3(d) + d0 + t]);
-    col3[kChunk + t] = stats[kStats3 + d0 + t];
-    col3[2 * kChunk + t] = bn_mul_bf16(stats[kStats3 + d + d0 + t], prm[off_l3(d) + d + d0 + t]);
-    col3[3 * kChunk + t] = prm[off_l3(d) + 2 * d + d0 + t];
-  }
-  float dw[8][4], db[4][2];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dw[j][e] = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) db[j][0] = db[j][1] = 0.0f;
-  const long long tiles = n * ((p + kTileP - 1) / kTileP);
-  // a2 of the next tile is read while this one's products run
-  uint4 raw[kH2Vectors];
-  if (blockIdx.x < tiles) load_rows<kC2, false>(raw, a2, tile_of(blockIdx.x, p, valid));
+  unsigned char* w3s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* h2s = w3s + kW3Bytes;
+  unsigned char* raw = h2s + kH2Bytes;
+  unsigned char* das = raw + kRawBytes;
+  // [256][8]: b3, mu3, mul3, beta3, A3, B3 (BN3's backward), the tile's
+  // cloud's out and bf16(gk mul3); then BN2's (mu, mul, beta) (bn2_at); then the
+  // warps' sums [2][8][256]: db3, BN2's (dy2, dy2 (a2 - mu2))
+  float* col3 = reinterpret_cast<float*>(das + kDa3Bytes);
+  float* bn2s = col3 + 8 * kGroupW;
+  float* red = bn2s + kBn2Floats;
+  float* red2 = red + kWarps * kGroupW;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, wg = warp >> 2, tq = lane & 3;
+  const long long g0 = static_cast<long long>(blockIdx.y) * kGroupW, c3 = g0 + t;
+  stage_w3(w3s, prm, d, g0);
+  const bool cin = c3 < d;
+  const int dlim = static_cast<int>(d - g0 < kGroupW ? d - g0 : kGroupW);  // the group's columns
+  col3[8 * t] = cin ? bf_round(prm[off_l3(d) + c3]) : 0.0f;
+  col3[8 * t + 1] = cin ? stats[kStats3 + c3] : 0.0f;
+  col3[8 * t + 2] = cin ? coef[c3] : 0.0f;
+  col3[8 * t + 3] = cin ? prm[off_l3(d) + 2 * d + c3] : 0.0f;
+  col3[8 * t + 4] = cin ? coef[d + c3] : 0.0f;
+  col3[8 * t + 5] = cin ? coef[2 * d + c3] : 0.0f;
+  load_bn2(bn2s, prm, stats);
+  fence_proxy_async();
+  const uint32_t h2a = smem_addr(h2s), w3a = smem_addr(w3s), rawa = smem_addr(raw),
+                 daa = smem_addr(das);
+  const int r0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // the thread's rows r0, r0 + 8
+  const int fi = fold_index(lane);
+  float dw[128];  // dW3: channel 64 wg + 16 (warp % 4) + lane / 4 (+ 8), column 8 j + 2 tq + e
+  zero_acc<128>(dw);
+  float db = 0.0f, sbn = 0.0f;  // thread t: db3 of column t; BN2's sum t of [2][128]
+  const long long tiles = n * ((p + kTileW - 1) / kTileW);
+  // the next tile's a2 by cp.async and its cloud's out and gk (column t) into registers
+  float out_next = 0.0f, gk_next = 0.0f;
+  auto prefetch = [&](long long tile) {
+    const Tile tn = tile_of<kTileW>(tile, p, valid);
+    issue_a2(rawa, a2, tn);
+    out_next = cin ? bf_val(out[tn.cloud * d + c3]) : 0.0f;
+    gk_next = cin ? gk[tn.cloud * d + c3] : 0.0f;
+  };
+  if (blockIdx.x < tiles) prefetch(blockIdx.x);
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const Tile tl = tile_of(tile, p, valid);
-    __syncthreads();  // the operands stored; the previous tile read
-    store_h<kC2>(raw, h2s, kLdB, h2t, tl, bn2);
-    if (tile + gridDim.x < tiles)
-      load_rows<kC2, false>(raw, a2, tile_of(tile + gridDim.x, p, valid));
+    const Tile tl = tile_of<kTileW>(tile, p, valid);
+    cp_async_wait_all();
+    __syncthreads();  // a2 landed; the previous tile's products and sums done
+    if (kFused && tile != blockIdx.x) {  // the previous tile's BN2 sums
+      float v = red2[t];
+      for (int w = 1; w < kWarps; ++w) v += red2[w * 2 * kC2 + t];
+      sbn += v;
+    }
+    norm_h2(h2s, raw, bn2s, tl.np);
+    col3[8 * t + 6] = out_next;
+    col3[8 * t + 7] = bf_round(__fmul_rn(gk_next, col3[8 * t + 2]));
+    fence_proxy_async();
     __syncthreads();
-    float acc[4][4];
-    layer3_tile(acc, h2s, w3t, warp, lane);
+    if (tile + gridDim.x < tiles) prefetch(tile + gridDim.x);
+    const bool lo_in = r0 < tl.np, hi_in = r0 + 8 < tl.np;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float acc[64];
+      layer3_issue(acc, h2a, w3a, wg, half);
+      wgmma_wait<0>();
+      fence_acc<64>(acc);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int jc = 0; jc < 4; ++jc) {
+        float sd[8];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = 16 * (warp & 3) + g + 8 * h;
-        const int col = 32 * (warp >> 2) + 8 * j + 2 * tq;
-        float da[2] = {0.0f, 0.0f};
-        if (row < tl.np) {
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * jc + jj, c = 128 * half + 8 * j + 2 * tq;
+          // columns c, c + 1: b3, mu3, mul3, beta3 | A3, B3, out, bf16(gk mul3)
+          float4 p[2][2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int cc = col + e;
-            const float a = dense_bf16(acc[j][2 * h + e], col3[cc]);
-            const float y = bn_bf16(a, col3[kChunk + cc], col3[2 * kChunk + cc],
-                                    col3[3 * kChunk + cc]);
-            const long long at = tl.cloud * d + d0 + cc;
-            const float dy = y == bf_val(out[at]) ? gk[at] : 0.0f;
-            const float t1 = bf_round(__fmul_rn(dy, col3[2 * kChunk + cc]));
-            const float t2 =
-                tl.valid ? bf_round(fmaf(coef[2 * d + d0 + cc], a, coef[d + d0 + cc])) : 0.0f;
-            da[e] = bf_round(__fadd_rn(t1, t2));
-            db[j][e] += da[e];
+            p[e][0] = ld4(col3 + 8 * (c + e));
+            p[e][1] = ld4(col3 + 8 * (c + e) + 4);
           }
-          *reinterpret_cast<uint32_t*>(da3 + (tl.row0 + row) * d + d0 + col) =
-              pack_bf16(da[0], da[1]);
+          float da[2][2];  // [row h][column e]
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float a[2] = {acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]}, y[2], t2[2], v[2];
+            dense2(a[0], a[1], p[0][0].x, p[1][0].x);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              y[e] = bn_f32(a[e], p[e][0].y, p[e][0].z, p[e][0].w);
+              t2[e] = fmaf(p[e][1].y, a[e], p[e][1].x);
+            }
+            bf_round2(y[0], y[1]);
+            bf_round2(t2[0], t2[1]);
+            // bf16(dy mul) + bf16(A + B a), dy = gk where y3 reaches the
+            // maximum, else 0: bf16(dy mul) is bf16(gk mul) or 0 mul, per
+            // column
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              v[e] = __fadd_rn(y[e] == p[e][1].z ? p[e][1].w : __fmul_rn(0.0f, p[e][0].z),
+                               tl.valid ? t2[e] : 0.0f);
+            uint32_t w = bf2_bits(v[0], v[1]);
+            const int row = r0 + 8 * h;
+            if (!(h ? hi_in : lo_in)) w = 0u;
+            if (c + 1 >= dlim) w = c < dlim ? w & 0xffffu : 0u;
+            *reinterpret_cast<uint32_t*>(das + sw_off(row, c, kTileW)) = w;
+            if (!kFused && row < tl.np && c < dlim)
+              *reinterpret_cast<uint32_t*>(da3 + (tl.row0 + row) * d + g0 + c) = w;
+            da[h][0] = lo_val(w);
+            da[h][1] = hi_val(w);
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) sd[2 * jj + e] = da[0][e] + da[1][e];
         }
-        dat[col * kLdB64 + row] = bf_bits(da[0]);
-        dat[(col + 1) * kLdB64 + row] = bf_bits(da[1]);
-      }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kTileP / 16; ++ks) {
-      uint32_t a[4];
-      load_a(a, h2t, kLdB64, 16 * warp, 16 * ks, lane);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1;
-        load_b(b0, b1, dat, kLdB64, 8 * j, 16 * ks, lane);
-        mma_bf16(dw[j], a, b0, b1);
+        fold_sum(sd, lane);
+        red[warp * kGroupW + 128 * half + 8 * (4 * jc + (fi >> 1)) + 2 * tq + (fi & 1)] = sd[0];
       }
     }
+    fence_proxy_async();
+    __syncthreads();  // da3's tile and the warps' db3 sums complete
+    {
+      float v = red[t];
+      for (int w = 1; w < kWarps; ++w) v += red[w * kGroupW + t];
+      db += v;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kTileW / 16; ++s)
+      wgmma_n256_tt(dw, mn_major(h2a, kTileW, wg, s), mn_major(daa, kTileW, 0, s), 1);
+    wgmma_commit();
+    if (!kFused) {
+      wgmma_wait<0>();
+      fence_acc<128>(dw);
+      continue;
+    }
+    float dh[64];
+    zero_acc<64>(dh);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kGroupW / 16; ++s)
+      wgmma_n128_tb(dh, k_major(daa, kTileW, 64 * wg, s), mn_major(w3a, kGroupW, 0, s), s);
+    wgmma_commit();
+    // a2 at the thread's rows and channels read again (from L2), four
+    // column octets ahead of their use: the first ones while the products run
+    uint32_t aw_next[4][2];
+    auto a2_words = [&](int jc) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          aw_next[jj][h] = (h ? hi_in : lo_in) ? *reinterpret_cast<const uint32_t*>(
+                                                     a2 + (tl.row0 + r0 + 8 * h) * kC2 +
+                                                     8 * (4 * jc + jj) + 2 * tq)
+                                               : 0u;
+    };
+    a2_words(0);
+    wgmma_wait<0>();
+    fence_acc<128>(dw);
+    fence_acc<64>(dh);
+    // dy2 and BN2's sums: channel 8 j + 2 tq + e of rows r0, r0 + 8
+#pragma unroll
+    for (int jc = 0; jc < 4; ++jc) {
+      float u[8], v[8];
+      uint32_t aws[4][2];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) aws[jj][0] = aw_next[jj][0], aws[jj][1] = aw_next[jj][1];
+      if (jc < 3) a2_words(jc + 1);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * jc + jj, c = 8 * j + 2 * tq;
+        const uint32_t(&aw)[2] = aws[jj];
+        const float4 b0 = ld4(bn2s + bn2_at(c)), b1 = ld4(bn2s + bn2_at(c + 1));  // mu, mul, beta
+        float dy[2][2], x[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float a0 = lo_val(aw[h]), a1 = hi_val(aw[h]);
+          // dy2 = bf16(dh2) where y2 > 0: a bf16 is positive where its
+          // 16-bit integer is
+          const uint32_t y = bf2_bits(bn_f32(a0, b0.x, b0.y, b0.z), bn_f32(a1, b1.x, b1.y, b1.z));
+          uint32_t w = bf2_bits(dh[4 * j + 2 * h], dh[4 * j + 2 * h + 1]) & __vcmpgts2(y, 0u);
+          if (!(h ? hi_in : lo_in)) w = 0u;
+          else
+            *reinterpret_cast<uint32_t*>(dy2 + (tl.row0 + r0 + 8 * h) * kC2 + c) = w;
+          dy[h][0] = lo_val(w);
+          dy[h][1] = hi_val(w);
+          x[h][0] = __fsub_rn(a0, b0.x);
+          x[h][1] = __fsub_rn(a1, b1.x);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          u[2 * jj + e] = dy[0][e] + dy[1][e];
+          v[2 * jj + e] = fmaf(dy[1][e], x[1][e], dy[0][e] * x[0][e]);
+        }
+      }
+      fold_sum(u, lane);
+      fold_sum(v, lane);
+      const int ch = 8 * (4 * jc + (fi >> 1)) + 2 * tq + (fi & 1);
+      red2[warp * 2 * kC2 + ch] = u[0];
+      red2[warp * 2 * kC2 + kC2 + ch] = v[0];
+    }
+  }
+  if (kFused) {
+    __syncthreads();
+    if (blockIdx.x < tiles) {
+      float v = red2[t];
+      for (int w = 1; w < kWarps; ++w) v += red2[w * 2 * kC2 + t];
+      sbn += v;
+    }
+    partial2[static_cast<long long>(blockIdx.x) * 2 * kC2 + t] = sbn;
   }
   float* part = partial + static_cast<long long>(blockIdx.x) * kL3Rows * d;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kGroupW / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      part[(16 * warp + g + 8 * (e >> 1)) * d + d0 + 8 * j + 2 * tq + (e & 1)] = dw[j][e];
-  // db3: the lanes of one column (same tq) in a fixed tree, then the warps
-  // of the four point ranges in order
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = db[j][e];
-      for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (g == 0) red[(warp & 3) * kChunk + 32 * (warp >> 2) + 8 * j + 2 * tq + e] = v;
+    for (int e = 0; e < 4; ++e) {
+      const long long c = g0 + 8 * j + 2 * tq + (e & 1);
+      if (c < d) part[(r0 + 8 * (e >> 1)) * d + c] = dw[4 * j + e];
     }
-  __syncthreads();
-  if (t < kChunk)
-    part[kC2 * d + d0 + t] = red[t] + red[kChunk + t] + red[2 * kChunk + t] + red[3 * kChunk + t];
+  if (cin) part[kC2 * d + c3] = db;
 }
 
 // dh2 = da3 W3^T on the tensor cores (K = d; warp w: points 16 (w % 4)..,
@@ -2393,18 +2922,33 @@ int backward(const T* points, const uint8_t* valid, long long n, long long p, lo
 }
 
 
+// the D-wide passes' column groups and segments: one block an SM, each
+// group's segments walking the 128-point tiles
+long long wide_tiles(long long n, long long p) { return n * ((p + kTileW - 1) / kTileW); }
+long long groups_of(long long d) { return (d + kGroupW - 1) / kGroupW; }
+int wide_segments(long long n, long long p, long long d, int sms) {
+  long long s = sms / groups_of(d);
+  const long long tiles = wide_tiles(n, p);
+  if (s > tiles) s = tiles;
+  return static_cast<int>(s < 1 ? 1 : s);
+}
+// the backward fuses dh2 into layer 3's pass where W3 is one column group
+bool fused_dh2(long long d) { return d <= kGroupW; }
+
 // the bf16 instance's workspaces: 0, forward f32 (partials, then the
 // per-tile maxima and tie sums); 1, forward int32 (the per-tile tie
-// counts); 2, backward f32 (gk, the three layers' coefficients, partials);
-// 3, backward bf16 (da3, dy2, dy1, W3)
+// counts); 2, backward f32 (gk, the three layers' coefficients, BN2's
+// partial sums, the other partials); 3, backward bf16 (dy2, dy1 and, above
+// one column group, da3 and W3)
 long long workspace_bf16(long long n, long long p, long long d, int sms, int which) {
-  const long long tiles = tiles_of(n, p);
-  const long long b = narrow_blocks(tiles, sms), s = max_segments(tiles, d, sms);
-  if (which == 0) return max3(b * 4 * kC2, s * 4 * d, 0) + 2 * tiles * d;
-  if (which == 1) return tiles * d;
+  const long long tiles = tiles_of(n, p), wt = wide_tiles(n, p);
+  const long long b = narrow_blocks(tiles, sms), s = wide_segments(n, p, d, sms);
+  if (which == 0) return max3(b * 4 * kC2, s * 4 * d, 0) + 2 * wt * d;
+  if (which == 1) return wt * d;
   if (which == 2)
-    return n * d + 3 * (d + kC2 + kC1) + max3(s * kL3Rows * d, b * kB2Partial, b * 2 * kC2);
-  return n * p * (d + kC2 + kC1) + kC2 * d;
+    return n * d + 3 * (d + kC2 + kC1) + (s > b ? s : b) * 2 * kC2 +
+           max3(s * kL3Rows * d, b * kB2Partial, 0);
+  return n * p * (kC2 + kC1) + (fused_dh2(d) ? 0 : n * p * d + kC2 * d);
 }
 
 int forward_bf16(const uint16_t* points, const uint8_t* valid, long long n, long long p,
@@ -2414,36 +2958,35 @@ int forward_bf16(const uint16_t* points, const uint8_t* valid, long long n, long
   if (n <= 0) return 0;
   if (p <= 0 || d <= 0 || d % kChunk || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long tiles = tiles_of(n, p);
-  const int b = narrow_blocks(tiles, sms), s = max_segments(tiles, d, sms);
+  const long long tiles = tiles_of(n, p), wt = wide_tiles(n, p);
+  const int b = narrow_blocks(tiles, sms), s = wide_segments(n, p, d, sms);
   float* partial = ws;
   float* pmax = ws + max3(static_cast<long long>(b) * 4 * kC2, static_cast<long long>(s) * 4 * d,
                           0);
-  float* psum = pmax + tiles * d;
+  float* psum = pmax + wt * d;
   CHECK(allow_smem(pnb_l2_kernel, l2b_smem_bytes()));
-  CHECK(allow_smem(pnb_l3_kernel<false>, l3b_smem_bytes()));
-  CHECK(allow_smem(pnb_l3_kernel<true>, l3b_smem_bytes()));
-  const dim3 wgrid(static_cast<unsigned>(s), static_cast<unsigned>(d / kChunk));
+  CHECK(allow_smem(pnb_l3_kernel<false>, l3_smem_bytes()));
+  CHECK(allow_smem(pnb_l3_kernel<true>, l3_smem_bytes()));
+  const dim3 wgrid(static_cast<unsigned>(s), static_cast<unsigned>(groups_of(d)));
 
   pnb_l1_stats_kernel<<<b, kThreads, 0, st>>>(points, valid, n, p, prm, a1, partial);
   LAUNCHED();
-  pnt_stats_kernel<float><<<1, kThreads, 0, st>>>(partial, b, kC1, valid, n, p, stats + kStats1);
+  pnb_stats_kernel<<<1, kThreads, 0, st>>>(partial, b, kC1, valid, n, p, stats + kStats1);
   LAUNCHED();
   pnb_l2_kernel<<<b, kThreads, l2b_smem_bytes(), st>>>(a1, valid, n, p, prm, stats, a2, partial);
   LAUNCHED();
-  pnt_stats_kernel<float><<<1, kThreads, 0, st>>>(partial, b, kC2, valid, n, p, stats + kStats2);
+  pnb_stats_kernel<<<1, kThreads, 0, st>>>(partial, b, kC2, valid, n, p, stats + kStats2);
   LAUNCHED();
-  pnb_l3_kernel<false><<<wgrid, kThreads, l3b_smem_bytes(), st>>>(
+  pnb_l3_kernel<false><<<wgrid, kThreads, l3_smem_bytes(), st>>>(
       a2, valid, n, p, d, prm, stats, partial, nullptr, nullptr, nullptr);
   LAUNCHED();
-  pnt_stats_kernel<float><<<grid_for(d), kThreads, 0, st>>>(partial, s, d, valid, n, p,
-                                                            stats + kStats3);
+  pnb_stats_kernel<<<grid_for(d), kThreads, 0, st>>>(partial, s, d, valid, n, p, stats + kStats3);
   LAUNCHED();
-  pnb_l3_kernel<true><<<wgrid, kThreads, l3b_smem_bytes(), st>>>(
+  pnb_l3_kernel<true><<<wgrid, kThreads, l3_smem_bytes(), st>>>(
       a2, valid, n, p, d, prm, stats, nullptr, pmax, iws, psum);
   LAUNCHED();
   pnb_max_reduce_kernel<<<grid_for(n * d), kThreads, 0, st>>>(
-      pmax, iws, psum, n, (p + kTileP - 1) / kTileP, d, out, count, tsum);
+      pmax, iws, psum, n, (p + kTileW - 1) / kTileW, d, out, count, tsum);
   LAUNCHED();
   return 0;
 }
@@ -2457,41 +3000,50 @@ int backward_bf16(const uint16_t* points, const uint8_t* valid, long long n, lon
   if (p <= 0 || d <= 0 || d % kChunk || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long tiles = tiles_of(n, p);
-  const int b = narrow_blocks(tiles, sms), s = max_segments(tiles, d, sms);
+  const int b = narrow_blocks(tiles, sms), s = wide_segments(n, p, d, sms);
+  const bool fused = fused_dh2(d);
   float* gk = ws;
   float* coef3 = gk + n * d;
   float* coef2 = coef3 + 3 * d;
   float* coef1 = coef2 + 3 * kC2;
-  float* partial = coef1 + 3 * kC1;
-  uint16_t* da3 = hws;
-  uint16_t* dy2 = da3 + n * p * d;
+  float* partial2 = coef1 + 3 * kC1;  // BN2's sums, [segment or block][2][128]
+  float* partial = partial2 + static_cast<long long>(s > b ? s : b) * 2 * kC2;
+  uint16_t* dy2 = hws;
   uint16_t* dy1 = dy2 + n * p * kC2;
-  uint16_t* w3b = dy1 + n * p * kC1;
-  CHECK(allow_smem(pnb_l3_back_kernel, l3back_smem_bytes()));
+  uint16_t* da3 = fused ? nullptr : dy1 + n * p * kC1;
+  uint16_t* w3b = fused ? nullptr : da3 + n * p * d;
+  CHECK(allow_smem(pnb_l3_back_kernel<true>, l3back_smem_bytes()));
+  CHECK(allow_smem(pnb_l3_back_kernel<false>, l3back_smem_bytes()));
   CHECK(allow_smem(pnb_l2_back_kernel, l2back_smem_bytes()));
-  const dim3 wgrid(static_cast<unsigned>(s), static_cast<unsigned>(d / kChunk));
+  const dim3 wgrid(static_cast<unsigned>(s), static_cast<unsigned>(groups_of(d)));
 
   pnb_bn3_kernel<<<grid_for(d), kThreads, 0, st>>>(g, count, tsum, valid, n, p, d, prm, stats,
                                                    grads, gk, coef3, w3b);
   LAUNCHED();
-  pnb_l3_back_kernel<<<wgrid, kThreads, l3back_smem_bytes(), st>>>(
-      a2, valid, n, p, d, prm, stats, out, gk, coef3, da3, partial);
+  if (fused)
+    pnb_l3_back_kernel<true><<<wgrid, kThreads, l3back_smem_bytes(), st>>>(
+        a2, valid, n, p, d, prm, stats, out, gk, coef3, nullptr, dy2, partial, partial2);
+  else
+    pnb_l3_back_kernel<false><<<wgrid, kThreads, l3back_smem_bytes(), st>>>(
+        a2, valid, n, p, d, prm, stats, out, gk, coef3, da3, nullptr, partial, nullptr);
   LAUNCHED();
   pnb_sum_round_kernel<<<grid_for(kL3Rows * d), kThreads, 0, st>>>(
       partial, s, kL3Rows * d, kL3Rows * d, grads + off_w3());
   LAUNCHED();
-  const size_t w3s = sizeof(uint16_t) * kC2 * (d + 8);
-  if (w3s <= kDh2StagedBytes) {
-    CHECK(allow_smem(pnb_dh2_kernel<true>, w3s));
-    pnb_dh2_kernel<true><<<b, kThreads, w3s, st>>>(da3, w3b, a2, n, p, d, prm, stats, dy2,
-                                                   partial);
-  } else {
-    pnb_dh2_kernel<false><<<b, kThreads, 0, st>>>(da3, w3b, a2, n, p, d, prm, stats, dy2,
-                                                  partial);
+  if (!fused) {
+    const size_t w3s = sizeof(uint16_t) * kC2 * (d + 8);
+    if (w3s <= kDh2StagedBytes) {
+      CHECK(allow_smem(pnb_dh2_kernel<true>, w3s));
+      pnb_dh2_kernel<true><<<b, kThreads, w3s, st>>>(da3, w3b, a2, n, p, d, prm, stats, dy2,
+                                                     partial2);
+    } else {
+      pnb_dh2_kernel<false><<<b, kThreads, 0, st>>>(da3, w3b, a2, n, p, d, prm, stats, dy2,
+                                                    partial2);
+    }
+    LAUNCHED();
   }
-  LAUNCHED();
-  pnb_bn_back_kernel<<<1, kThreads, 0, st>>>(partial, b, 2 * kC2, 0, kC2, stats + kStats2,
-                                             prm + off_l2() + kC2, valid, n, p,
+  pnb_bn_back_kernel<<<1, kThreads, 0, st>>>(partial2, fused ? s : b, 2 * kC2, 0, kC2,
+                                             stats + kStats2, prm + off_l2() + kC2, valid, n, p,
                                              grads + off_l2() + kC2, coef2);
   LAUNCHED();
   pnb_l2_back_kernel<<<b, kThreads, l2back_smem_bytes(), st>>>(a1, a2, dy2, valid, n, p, prm,
@@ -2514,10 +3066,11 @@ int backward_bf16(const uint16_t* points, const uint8_t* valid, long long n, lon
 }  // namespace
 
 // The kernels' launches a call: 0 forward and 1 backward of the f32 and
-// f64 instances, 2 forward and 3 backward of the bf16 one.
+// f64 instances, 2 forward and 3 backward of the bf16 one at D <= 256 (dh2
+// fused into layer 3's backward), 4 and 5 the bf16 one above.
 extern "C" int pointnet_train_launches(int which) {
-  constexpr int kLaunches[4] = {9, 10, 8, 10};
-  return which >= 0 && which < 4 ? kLaunches[which] : 0;
+  constexpr int kLaunches[6] = {9, 10, 8, 9, 8, 10};
+  return which >= 0 && which < 6 ? kLaunches[which] : 0;
 }
 
 // The workspace a call takes, in elements: which 0 the forward's (of the

@@ -56,6 +56,7 @@ from pose3d_tpu_torch.ops import _build
 
 HIDDEN = (64, 128)
 CHUNK_D = 64  # csrc/pointnet_train.cu kChunk: D a multiple of it
+FUSED_D = 256  # kGroupW: the bf16 backward's widest D with dh2 in layer 3's pass
 GRAM_SIZE = HIDDEN[1] * (HIDDEN[1] + 1)  # G (128 x 128) and s (128), float64
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 BF16 = torch.bfloat16
@@ -135,8 +136,11 @@ def pointnet_train_plain_bf16(points: torch.Tensor, params: Sequence[Layer],
 
 
 @functools.cache
-def _lib():
-    lib = _build.load("pointnet_train")
+def _lib(path: str | None = None):
+    """The kernels' library, its entry points typed: csrc/pointnet_train.cu's
+    build, or the library at `path`, built from another version of the
+    source with the same C interface."""
+    lib = _build.load("pointnet_train") if path is None else ctypes.CDLL(path)
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     # pointers and the stream are 64-bit: ctypes' default int would cut them
     for suffix in ("f32", "f64"):
@@ -162,11 +166,14 @@ def _lib():
     return lib
 
 
-def kernel_launches_per_call(dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+def kernel_launches_per_call(dtype: torch.dtype = torch.float32,
+                             d: int = 256) -> tuple[int, int]:
     """The CUDA kernels one forward call and one backward call launch, of
-    the float32 and float64 instances or of the bf16 one (builds the
+    the float32 and float64 instances or of the bf16 one at D `d` (its
+    backward fuses dh2 into layer 3's pass up to D 256; builds the
     library)."""
-    lib, at = _lib(), 2 if dtype == BF16 else 0
+    lib = _lib()
+    at = 0 if dtype != BF16 else 2 if d <= FUSED_D else 4
     return lib.pointnet_train_launches(at), lib.pointnet_train_launches(at + 1)
 
 

@@ -6,6 +6,7 @@ machine run them with
 (`--noconftest`: tests/conftest.py sets up JAX, which that machine lacks).
 """
 
+import argparse
 import importlib.util
 import pathlib
 
@@ -73,6 +74,46 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("geodesic")
+
+
+@pytest.mark.parametrize("name", chip_smoke.OTHER_SOURCES)
+def test_chip_smoke_source_takes_each_kernel(tmp_path, name):
+    """chip_smoke.py --source NAME=FILE takes another version of each
+    kernel source it can time in turns, pointnet_train's included."""
+    src = tmp_path / f"{name}_other.cu"
+    src.write_text("// another version\n")
+    assert chip_smoke.parse_source(f"{name}={src}") == (name, str(src))
+
+
+@pytest.mark.parametrize("arg", ["pointnet_train={missing}", "pointnet_train", "geodesic={file}",
+                                 "={file}"])
+def test_chip_smoke_source_refuses(tmp_path, arg):
+    """A missing file, no file, or a name it cannot time is refused."""
+    src = tmp_path / "pointnet_train.cu"
+    src.write_text("// another version\n")
+    arg = arg.format(missing=tmp_path / "absent.cu", file=src)
+    with pytest.raises(argparse.ArgumentTypeError, match="pointnet_train=FILE"):
+        chip_smoke.parse_source(arg)
+
+
+def test_phase39_cases_hold_the_redesigned_tiles():
+    """Phase 39 keeps its grid, stage 1's cases and the tied clouds, and adds
+    a 1-point tail of the D-wide passes' 128-point tiles, D 1024 through the
+    256-column groups, and a masked stage-1 batch (46 clouds, D 256) through
+    the backward's fused dh2."""
+    cases = chip_smoke.PT16_CASES
+    grid = [(n, p, d, masked, False) for n in (1, 7, 160) for p in (100, 2500)
+            for d in (64, 256, 1024) for masked in (False, True) if not (masked and n == 1)]
+    assert all(c in cases for c in grid)
+    assert (46, 2500, 256, False, False) in cases and (46, 2500, 256, True, False) in cases
+    assert (16, 2500, 256, True, True) in cases
+    edge = chip_smoke.PT16_EDGE_CASES
+    assert all(c in cases for c in edge) and len(cases) == len(set(cases))
+    assert any(p % 128 == 1 and d <= 256 for _, p, d, _, _ in edge)
+    assert any(d == 1024 and p % 128 for _, p, d, _, _ in edge)
+    assert any(d % 256 and d > 256 for _, _, d, _, _ in edge)
+    assert any(n == 46 and masked and d <= 256 and p != 2500 for n, p, d, masked, _ in edge)
+    assert set(chip_smoke.PT16_WGMMA_PASSES).isdisjoint(chip_smoke.PT16_MMA_PASSES)
 
 
 @pytest.mark.cuda
@@ -597,8 +638,12 @@ def test_shape_encoder_train_mode_launches_the_kernels(cuda, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,p,d,masked", [(1, 100, 64, False), (7, 2500, 256, True),
-                                          (46, 2500, 256, False), (7, 511, 1024, False)])
+@pytest.mark.parametrize("n,p,d,masked", [
+    (1, 100, 64, False), (7, 2500, 256, True), (46, 2500, 256, False), (7, 511, 1024, False),
+    # the D-wide passes' 128-point tiles with a 1-point tail; D 1024 in four
+    # 256-column groups; D 320, a full group and one of 64 columns; a masked
+    # stage-1 batch through the backward's fused dh2
+    (5, 129, 256, False), (46, 641, 1024, True), (7, 300, 320, True), (46, 1000, 256, True)])
 def test_pointnet_train_bf16_kernels_match_plain_on_cuda(cuda, monkeypatch, n, p, d, masked):
     """The bf16 instance against the plain bf16 version with chip_smoke.py's
     rule (phase 39): statistics within one bf16 ulp, each layer within an
@@ -623,21 +668,24 @@ def test_pointnet_train_bf16_kernels_match_plain_on_cuda(cuda, monkeypatch, n, p
 
 
 @pytest.mark.cuda
-def test_pointnet_train_bf16_launches_per_call(cuda):
-    """The bf16 instance: 8 CUDA launches a forward call and 10 a backward
-    call, as the library says and as a CUDA graph of one call counts them."""
-    assert pointnet_train.kernel_launches_per_call(torch.bfloat16) == (8, 10)
-    pts, layers, _, g = chip_smoke.pt_inputs(np.random.default_rng(1), 3, 300, 128, cuda)
+@pytest.mark.parametrize("d,launches", [(128, (8, 9)), (256, (8, 9)), (1024, (8, 10))])
+def test_pointnet_train_bf16_launches_per_call(cuda, d, launches):
+    """The bf16 instance: 8 CUDA launches a forward call; 9 a backward call
+    up to D 256, where dh2 runs in layer 3's backward pass, and 10 above,
+    where a pass of its own reads da3; as the library says and as a CUDA
+    graph of one call counts them."""
+    assert pointnet_train.kernel_launches_per_call(torch.bfloat16, d) == launches
+    pts, layers, _, g = chip_smoke.pt_inputs(np.random.default_rng(1), 3, 300, d, cuda)
     pts, g = pts.to(torch.bfloat16), g.to(torch.bfloat16)
     prm = pointnet_train.pack_params(layers)
-    out, stats, *rest = pointnet_train.train_forward_bf16(pts, prm, 128, None)
+    out, stats, *rest = pointnet_train.train_forward_bf16(pts, prm, d, None)
     counted = (
         chip_smoke.graph_kernel_launches(
-            lambda: pointnet_train.train_forward_bf16(pts, prm, 128, None)),
+            lambda: pointnet_train.train_forward_bf16(pts, prm, d, None)),
         chip_smoke.graph_kernel_launches(
-            lambda: pointnet_train.train_backward_bf16(pts, prm, 128, None, stats, out, *rest,
+            lambda: pointnet_train.train_backward_bf16(pts, prm, d, None, stats, out, *rest,
                                                        g)))
-    assert counted == (8, 10)
+    assert counted == launches
 
 
 @pytest.mark.cuda
