@@ -83,10 +83,13 @@ kernel in every student forward. Phases:
   teacher step, the baseline), each card vs CPU    32 the NCE forward on
   two streams at once
   bf16 (--bf16: bfloat16 compute, f32 parameters): 33 the bf16 stem
-  kernels vs their plain bf16 version on phase 5's cases (y within one bf16
-  ulp of max|ref|, the window index where the plain decision is clear, dW
-  and db given the kernel's index; HMMA.16816.F32.BF16 in the forward's
-  SASS), and their times    34 the bf16 eval PointNet kernel vs its plain
+  kernels vs their plain bf16 version on phase 5's cases and the TMA
+  route's edges (y within one bf16 ulp of max|ref|, the window index where
+  the plain decision is clear and where the plain sums tie exactly between
+  equal windows, dW and db given the kernel's index; both routes, TMA and
+  registers; a tensor-core instruction in every bf16 instantiation's
+  SASS), and their times by graph replay (with --source vgg_stem=, that
+  source's in turns)    34 the bf16 eval PointNet kernel vs its plain
   version at (64 / 46 / 1, 2500, 1024) and (46, 2500, 256) (and HMMA.16816.
   F32.BF16 in its SASS), times    35 the student in bf16: serving, an
   evaluation, card vs CPU at small width by an oracle rule (the card's
@@ -96,7 +99,8 @@ kernel in every student forward. Phases:
   37 KD --crd in bf16 at batch 46 x 3: four small steps (phase 19's size
   and batch, and three more) card vs CPU by the oracle rule on each
   tensor's errors summed over them, 6 steps, the trainer's epoch and
-  resume, the step beside f32, a profile; --contrast and --vid 2 steps
+  resume, the step beside f32, a profile, its device time (with --source
+  vgg_stem=, each source's in turns); --contrast and --vid 2 steps
   each    38 KD --stage 2 (its
   teacher read from phase 26's checkpoint under --bf16) and the RGB-only
   baseline (batch 64) in bf16, likewise    39 the train-mode PointNet's
@@ -197,7 +201,8 @@ With --source NAME=FILE (repeatable), another version of csrc/NAME.cu
 earlier commit's, from `git show`) is built beside this one, and its
 kernels are timed in turns with this source's: info_nce's and the teacher
 step through them in phase 18, the stage-1 step in phase 26; vgg_stem's
-and the KD step through them in phase 22; pointnet_eval's and teacher
+and the KD step through them in phase 22 (f32), its bf16 kernels in phase
+33 and the bf16 KD step's device time in phase 37; pointnet_eval's and teacher
 serving through them in phase 13 (also the CUDA-core version of commit
 d190092 and before, with its own C interface and segment rule:
 `legacy_pointnet_eval`).
@@ -304,6 +309,12 @@ PT16_MOVED, PT16_FLIPS = 1e-2, 1e-3
 # 104 points
 PT16_EDGE_CASES = ((5, 129, 256, False, False), (46, 641, 1024, True, False),
                    (7, 300, 320, True, False), (46, 1000, 256, True, False))
+# phase 33's cases beyond phase 5's (N, H = W, F, kind): the TMA route's
+# edges, widths 232 and 40 (multiples of 8 whose last tile is partial), one
+# 16 x 16 image (smaller than a patch), F 8 and 256 through the weight
+# gradient's channel groups
+STEM16_EDGE_CASES = [(7, 232, 64, "rand"), (7, 40, 16, "rand"), (1, 16, 64, "rand"),
+                     (7, 64, 8, "rand"), (7, 232, 256, "rand")]
 PT16_CASES = [(n_c, p_c, d_c, masked, False) for n_c in (1, 7, 160) for p_c in (100, 2500)
               for d_c in (64, 256, 1024) for masked in (False, True)
               if not (masked and n_c == 1)] + [
@@ -1077,7 +1088,7 @@ LIBRARIES = ("geodesic", "pointnet_eval", "info_nce", "vgg_stem", "pointnet_trai
 OTHER_SOURCES = ("info_nce", "vgg_stem", "pointnet_eval", "int8_conv", "pointnet_train")
 
 
-def stem_bf16_vs_plain(vgg_stem, x, w, b, g, chunk: int = 23) -> dict:
+def stem_bf16_vs_plain(vgg_stem, x, w, b, g, chunk: int = 23, ties: bool = False) -> dict:
     """The bf16 stem kernels against the plain bf16 version on the same
     inputs (x an NCHW view of NHWC bf16 memory, w and b bf16 needing a
     gradient, g bf16): y through the wrapper (autograd: one forward and one
@@ -1087,8 +1098,14 @@ def stem_bf16_vs_plain(vgg_stem, x, w, b, g, chunk: int = 23) -> dict:
     one's top two window sums are more than one bf16 ulp apart and its ReLU
     input more than two from 0; dW's and db's max|d| over max|ref| against
     the f32 sums (exact products, TF32 off) of g routed by the kernel's own
-    index, and their largest absolute differences (dw_abs, db_abs). Chunks
-    of `chunk` images keep the full-resolution sums small."""
+    index, and their largest absolute differences (dw_abs, db_abs). With
+    `ties`, also how many index bytes differ from the plain version's first
+    maximum (tie_bad) among those (tie_checked) where its rounded window sums
+    tie exactly between windows equal on every weighed tap, the other
+    positions more than an ulp below and its ReLU input more than two from
+    0: such windows have one sum in any order of summation, so the first of
+    them wins on both sides. Chunks of `chunk` images keep the
+    full-resolution sums small."""
     F = torch.nn.functional
     y = vgg_stem.vgg_stem(x, w, b)
     dw, db = torch.autograd.grad(y, (w, b), g)
@@ -1099,7 +1116,8 @@ def stem_bf16_vs_plain(vgg_stem, x, w, b, g, chunk: int = 23) -> dict:
     y_scale = float(y_ref.float().abs().max())
     out = {"y_err": float(d.max()) / y_scale if y_scale > 0 else float(d.max()),
            "y_unequal": float((y.detach() != y_ref).float().mean()), "index_unequal": 0.0,
-           "index_bad": 0, "max_abs_err": float(d.max())}
+           "index_bad": 0, "max_abs_err": float(d.max()), "tie_bad": 0, "tie_checked": 0}
+    weighed = (w != 0).permute(0, 2, 3, 1).reshape(w.shape[0], 27).any(0)  # taps (ky, kx, c)
     n, f, hh, ww = x.shape[0], w.shape[0], x.shape[2], x.shape[3]
     ho, wo = hh // 2, ww // 2
     dw_ref = torch.zeros(w.shape, dtype=torch.float32, device=x.device)
@@ -1121,6 +1139,22 @@ def stem_bf16_vs_plain(vgg_stem, x, w, b, g, chunk: int = 23) -> dict:
         differ = k_idx != plain
         unequal += int(differ.sum())
         out["index_bad"] += int((differ & clear).sum())
+        if ties:
+            taps = F.unfold(xs, 3, padding=1).view(m, 3, 3, 3, hh, ww).permute(0, 2, 3, 1, 4, 5)
+            taps = taps.reshape(m, 27, hh, ww)[:, weighed]
+            pos = [taps[:, :, dy:2 * ho:2, dx:2 * wo:2] for dy in (0, 1) for dx in (0, 1)]
+            # same[:, a, :, :, c]: windows a and c equal on every weighed tap
+            same = torch.stack([torch.stack([(pos[a] == pos[c]).all(1) for c in range(4)], -1)
+                                for a in range(4)], 1)                     # (m, 4, ho, wo, 4)
+            same_first = same.unsqueeze(1).expand(m, f, 4, ho, wo, 4).gather(
+                2, first[:, :, None, :, :, None].expand(m, f, 1, ho, wo, 4)).squeeze(2)
+            at_max = win == top2[..., :1]
+            below = torch.where(at_max, torch.full_like(win, -math.inf), win).amax(-1)
+            tied = (at_max.sum(-1) >= 2) & (at_max <= same_first).all(-1) & \
+                (top2[..., 0] - below > ulp) & (pre.abs() > 2 * ulp)
+            out["tie_checked"] += int(tied.sum())
+            out["tie_bad"] += int((differ & tied).sum())
+            del taps, pos, same, same_first, at_max, below, tied
         gs = g[i:i + chunk].float() * (k_idx < 4)
         routed = torch.zeros((m, f, ho, wo, 4), device=x.device).scatter_(
             4, k_idx.clamp(max=3).unsqueeze(-1), gs.unsqueeze(-1))
@@ -1129,7 +1163,7 @@ def stem_bf16_vs_plain(vgg_stem, x, w, b, g, chunk: int = 23) -> dict:
                                            .permute(0, 1, 2, 4, 3, 5).reshape(m, f, 2 * ho, 2 * wo))
         dw_ref += torch.nn.grad.conv2d_weight(xs, tuple(w.shape), g_conv, padding=1)
         db_ref += gs.sum((0, 2, 3))
-        del conv, win, top2, first, pre, plain, ulp, clear, routed, g_conv
+        del conv, win, top2, first, pre, plain, ulp, clear, routed, g_conv, differ
     out["index_unequal"] = unequal / index.numel()
     for name, got, want in (("dw_err", dw, dw_ref), ("db_err", db, db_ref)):
         scale = float(want.abs().max())
@@ -1396,12 +1430,13 @@ def with_pointnet_source(path: str | None, run):
         model.pointnet_eval = pointnet.pointnet_eval
 
 
-def sass_hmma(lib: str, prefix: str, needle: str = "HMMA") -> dict:
+def sass_hmma(lib: str, prefix: str, needle: str = "HMMA", bools: bool = False) -> dict:
     """{kernel: whether its SASS holds `needle` (an HMMA, tensor-core,
     instruction; "HMMA.16816.F32.BF16" the bf16 m16n8k16 one)} for the
     kernels of a built library whose names start with `prefix`, by
     cuobjdump beside nvcc; a template's instantiations apart (<4>, <double>,
-    <bf16>; the float one bare)."""
+    <bf16>; the float one bare; with `bools`, <1,0> for bool arguments, else
+    those merged, any instantiation holding it)."""
     from pose3d_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -1410,13 +1445,15 @@ def sass_hmma(lib: str, prefix: str, needle: str = "HMMA") -> dict:
     found = {}
     for part in sass.split("Function : ")[1:]:
         mangled = part.split(None, 1)[0]
-        m = re.search(r"\d+(%s\w*?_kernel)(I(?:Li(\d+)E|d|f|13__nv_bfloat16))?" % prefix,
-                      mangled)
+        m = re.search(r"\d+(%s\w*?_kernel)(I(?:Li(\d+)E|d|f|13__nv_bfloat16|((?:Lb[01]E)+)))?"
+                      % prefix, mangled)
         if m is None:
             continue
         key = m.group(1) + ("" if m.group(2) in (None, "If") else
                             "<double>" if m.group(2) == "Id" else
-                            "<bf16>" if m.group(2) == "I13__nv_bfloat16" else f"<{m.group(3)}>")
+                            "<bf16>" if m.group(2) == "I13__nv_bfloat16" else
+                            ("<%s>" % ",".join(re.findall(r"Lb([01])E", m.group(4)))
+                             if bools else "") if m.group(4) else f"<{m.group(3)}>")
         found[key] = found.get(key, False) or needle in part
     return found
 
@@ -3815,7 +3852,8 @@ def main() -> int:
                     "int8_conv or pointnet_train; an earlier commit's, with the same C "
                     "interface, pointnet_eval as of d190092, or int8_conv with the HWIO, "
                     "pool-less interface) to time beside this one: info_nce in phases 18 and "
-                    "26, vgg_stem in phase 22, pointnet_eval in phase 13, int8_conv in phase 45, "
+                    "26, vgg_stem in phases 22, 33 and 37, pointnet_eval in phase 13, int8_conv "
+                    "in phase 45, "
                     "pointnet_train's bf16 instance in phases 39 and 40; repeatable")
     ap.add_argument("--phase39_only", action="store_true",
                     help="build the libraries, run phase 39 (the bf16 train-mode PointNet "
@@ -3986,11 +4024,14 @@ def main() -> int:
     # 5. VGG stem kernel vs plain version on the card: forward and the
     # weight/bias gradient, at the main path's shapes and around them
     # the f32 forward runs on the tensor cores (HMMA in its SASS), the f64
-    # kernels and the f32 weight gradient on the CUDA cores
-    hmma = sass_hmma(libs[3], "stem_")
+    # kernels and the f32 weight gradient on the CUDA cores; the bf16
+    # kernels (every instantiation: index or not, TMA or registers) on the
+    # tensor cores
+    hmma = sass_hmma(libs[3], "stem_", bools=True)
     want = {"stem_forward_tf32x3_kernel": True, "stem_wgrad_stream_kernel": False,
-            "stem_forward_f64_kernel": False, "stem_wgrad_f64_kernel": False,
-            "stem_forward_bf16_kernel": True, "stem_wgrad_stream_kernel<bf16>": False}
+            "stem_forward_f64_kernel": False, "stem_wgrad_f64_kernel": False}
+    want.update({f"stem_forward_bf16_kernel<{i},{t}>": True for i in (0, 1) for t in (0, 1)})
+    want.update({f"stem_wgrad_bf16_kernel<{t}>": True for t in (0, 1)})
     if any(hmma.get(k) != v for k, v in want.items()):
         raise RuntimeError(f"vgg_stem SASS: HMMA in {hmma}, want {want}")
     phase("vgg_stem", t0, f"cuobjdump -sass: HMMA in {hmma}")
@@ -5397,70 +5438,129 @@ def main() -> int:
             text += f"; ms a step in turns: {turns}"
         return text
 
+    def stem16_in_step(run) -> str:
+        """A bf16 step's device time and busy share, and the stem kernels'
+        share of it, from a one-step profile, with this source's stem and
+        (--source vgg_stem=...) each other's in turns (this source, other,
+        other, this source)."""
+        turns = {}
+        for label in ("this source", *stem16_others, *stem16_others, "this source"):
+            rows, device_ms, wall_ms = using(vgg_stem, stem16_others.get(label),
+                                             lambda: profile_steps(run, steps=1))
+            stem_ms = sum(e.self_device_time_total for e in rows if "stem_" in e.key) / 1e3
+            turns.setdefault(label, []).append(
+                f"{device_ms:.3f} ms device (the stem {stem_ms:.4f}) of {wall_ms:.3f} wall, "
+                f"busy {device_ms / wall_ms:.3f}")
+        return "; ".join(f"{k}: {v}" for k, v in turns.items())
+
     # 33. the bf16 stem kernels vs their plain bf16 version on phase 5's
-    # cases (the tied image and the bars too): y within one bf16 ulp of
-    # max|ref|, the window index equal where the plain version's decision
-    # is more than an ulp clear, dW and db within one ulp of the gradient
-    # routed by the kernel's own index; HMMA.16816.F32.BF16 in the bf16
-    # forward's SASS only
-    hmma = sass_hmma(libs[3], "stem_", needle="HMMA.16816.F32.BF16")
-    if not hmma.get("stem_forward_bf16_kernel") or any(
-            v for k, v in hmma.items() if k != "stem_forward_bf16_kernel"):
-        raise RuntimeError(f"vgg_stem SASS: HMMA.16816.F32.BF16 in {hmma}")
+    # cases (the tied image and the bars too) and the TMA route's edges
+    # (widths 232 and 40, a multiple of 8 with a partial last tile; one
+    # 16 x 16 image; F 8 and 256 through the weight gradient): y within one
+    # bf16 ulp of max|ref|, the window index equal where the plain version's
+    # decision is more than an ulp clear and, on the tied and bars images,
+    # wherever the plain version's window sums tie exactly between windows
+    # equal on every weighed tap, dW and db within one ulp of the gradient
+    # routed by the kernel's own index; both routes taken; a tensor-core
+    # instruction (HMMA.16816.F32.BF16 or HGMMA) in every instantiation of
+    # both bf16 kernels, none in the f32 weight-gradient stream or the f64
+    # kernels
+    tc = {needle: sass_hmma(libs[3], "stem_", needle=needle, bools=True)
+          for needle in ("HMMA.16816.F32.BF16", "HGMMA")}
+    tensor_cores = {k: tc["HMMA.16816.F32.BF16"][k] or tc["HGMMA"].get(k, False)
+                    for k in tc["HMMA.16816.F32.BF16"]}
+    bf16_kernels = [f"stem_forward_bf16_kernel<{i},{t}>" for i in (0, 1) for t in (0, 1)] + \
+        [f"stem_wgrad_bf16_kernel<{t}>" for t in (0, 1)]
+    if not all(tensor_cores.get(k) for k in bf16_kernels) or any(
+            tensor_cores.get(k) for k in ("stem_wgrad_stream_kernel", "stem_forward_f64_kernel",
+                                          "stem_wgrad_f64_kernel")):
+        raise RuntimeError(f"vgg_stem SASS: a bf16 tensor-core instruction in {tensor_cores}")
     srng = np.random.default_rng(33)
     stem_cases = [(n_c, hw, f_c, "rand") for n_c in (1, 7, 138) for hw in (224, 64, 30)
                   for f_c in (16, 64)]
     stem_cases += [(7, 224, 64, "ties"), (7, 224, 64, "negative"), (7, 31, 8, "rand"),
                    (7, 64, 256, "rand"), (7, 224, 64, "bars")]
-    worst = {}
+    stem_cases += STEM16_EDGE_CASES
+    worst, routes, tie_checked = {}, {}, {}
     for case in stem_cases:
         x_s, w_s, b_s, g_s = stem_inputs(srng, *case, dev, dtype=bf16)
+        routes[case] = vgg_stem.bf16_route(x_s.permute(0, 2, 3, 1))
         before = bf16_counts()
-        r = stem_bf16_vs_plain(vgg_stem, x_s, w_s, b_s, g_s)
+        r = stem_bf16_vs_plain(vgg_stem, x_s, w_s, b_s, g_s, ties=case[3] in ("ties", "bars"))
         torch.cuda.synchronize()
         launched = tuple(a - b for a, b in zip(bf16_counts()[:2], before[:2]))
-        if launched != (2, 1) or r["y_err"] > BF16_ULP or r["index_bad"] or \
+        if launched != (2, 1) or r["y_err"] > BF16_ULP or r["index_bad"] or r["tie_bad"] or \
                 r["dw_err"] > BF16_ULP or r["db_err"] > BF16_ULP:
-            raise RuntimeError(f"bf16 stem case {case}: launches (forward, backward) "
-                               f"{launched}, {r}")
+            raise RuntimeError(f"bf16 stem case {case} ({routes[case]} route): launches "
+                               f"(forward, backward) {launched}, {r}")
+        if case[3] in ("ties", "bars"):
+            tie_checked[case[3]] = r["tie_checked"]
         worst = {k: max(worst.get(k, 0), v) for k, v in r.items()}
     del x_s, w_s, b_s, g_s
+    if set(routes.values()) != {"tma", "registers"}:
+        raise RuntimeError(f"bf16 stem cases: routes {routes}, want both")
     stem16_err, stem16_wgrad_err = worst["max_abs_err"], max(worst["dw_abs"], worst["db_abs"])
     phase("vgg_stem bf16", t0, f"kernels vs the plain bf16 version in {len(stem_cases)} cases "
-          f"(phase 5's): y max|d|/max|ref| {worst['y_err']:.3g} (one ulp {BF16_ULP:.3g}), "
-          f"unequal share at most {worst['y_unequal']:.3g}; window index unequal share at "
-          f"most {worst['index_unequal']:.3g}, {worst['index_bad']} differing where the plain "
-          f"version's decision is more than an ulp clear; dW {worst['dw_err']:.3g} and db "
-          f"{worst['db_err']:.3g} of max|ref| given the kernel's index (tol one ulp; max|d| "
-          f"{worst['dw_abs']:.3g} and {worst['db_abs']:.3g}); "
-          f"cuobjdump -sass: HMMA.16816.F32.BF16 in {hmma}")
-    # times at the KD shape (138, 224, 224) F 64: the kernels and the plain
-    # version, the forward with indices also on the tied and bars images
-    x_s, w_s, b_s, g_s = stem_inputs(np.random.default_rng(25), 3 * KD_BATCH, 224, 64, "rand",
-                                     dev, dtype=bf16)
-    x_nhwc, w_d, b_d = x_s.permute(0, 2, 3, 1), w_s.detach(), b_s.detach()
-    _, index = vgg_stem.stem_forward(x_nhwc, w_d, b_d, with_index=True)
-    y_plain = vgg_stem.vgg_stem_plain(x_s, w_s, b_s)
+          f"(phase 5's and {len(STEM16_EDGE_CASES)} of the TMA route's edges; routes "
+          f"{sum(v == 'tma' for v in routes.values())} TMA, "
+          f"{sum(v == 'registers' for v in routes.values())} registers): y max|d|/max|ref| "
+          f"{worst['y_err']:.3g} (one ulp {BF16_ULP:.3g}), unequal share at most "
+          f"{worst['y_unequal']:.3g}; window index unequal share at most "
+          f"{worst['index_unequal']:.3g}, {worst['index_bad']} differing where the plain "
+          f"version's decision is more than an ulp clear, {worst['tie_bad']} where its sums "
+          f"tie exactly (windows equal on every weighed tap; outputs x channels checked "
+          f"{tie_checked}); dW {worst['dw_err']:.3g} and db {worst['db_err']:.3g} of max|ref| "
+          f"given the kernel's index (tol one ulp; max|d| {worst['dw_abs']:.3g} and "
+          f"{worst['db_abs']:.3g}); cuobjdump -sass: HMMA.16816.F32.BF16 or HGMMA in "
+          f"{tensor_cores}")
+    # times at the KD shape (138, 224, 224) F 64: the kernels by CUDA graph
+    # replay, this source and (--source vgg_stem=...) the others' in turns
+    # (this, others, others reversed, this), serving also at (256, 224,
+    # 224); the plain version by CUDA events; the forward with indices also
+    # on the tied and bars images
+    stem16_others = other_libs["vgg_stem"]
+    side16 = torch.cuda.Stream()
+    whos16 = ("this source", *stem16_others)
+    stem16_runs, stem16_serve_bounds = {}, {}
+    for n_s in (3 * KD_BATCH, 256):
+        x_s, w_s, b_s, g_s = stem_inputs(np.random.default_rng(25), n_s, 224, 64, "rand", dev,
+                                         dtype=bf16)
+        x_nhwc, w_d, b_d = x_s.permute(0, 2, 3, 1), w_s.detach(), b_s.detach()
+        _, index = vgg_stem.stem_forward(x_nhwc, w_d, b_d, with_index=True)
+        fns = {"forward, serving": lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, False)}
+        if n_s == 3 * KD_BATCH:
+            fns["forward"] = lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, True)
+            fns["backward"] = lambda: vgg_stem.stem_backward(x_nhwc, index, g_s)
+        for order in (whos16, whos16[::-1]):
+            for who in order:
+                path = stem16_others.get(who)
+                for part, fn in fns.items():
+                    stem16_runs.setdefault((n_s, who, part), []).append(round(using(
+                        vgg_stem, path, functools.partial(graph_ms, fn, side16)), 4))
+        pooled = n_s * 112 * 112 * 64
+        in_bytes = 2.0 * (n_s * 224 * 224 * 3 + 64 * 28)
+        products = 2.0 * 27 * 4 * pooled
+        stem16_serve_bounds[n_s] = bound(in_bytes + 2.0 * pooled, products, BF16_FLOPS)
+        if n_s == 3 * KD_BATCH:
+            unmasked = int((index < 4).sum())
+            y_plain = vgg_stem.vgg_stem_plain(x_s, w_s, b_s)
 
-    def plain16_fwd():
-        with torch.no_grad():
-            vgg_stem.vgg_stem_plain(x_s, w_d, b_d)
+            def plain16_fwd():
+                with torch.no_grad():
+                    vgg_stem.vgg_stem_plain(x_s, w_d, b_d)
 
-    stem16 = {k: round(cuda_ms(fn, 10), 4) for k, fn in (
-        ("kernel forward", lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, True)),
-        ("kernel forward, serving", lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, False)),
-        ("kernel backward", lambda: vgg_stem.stem_backward(x_nhwc, index, g_s)),
-        ("plain forward", plain16_fwd),
-        ("plain backward", lambda: torch.autograd.grad(y_plain, (w_s, b_s), g_s,
-                                                       retain_graph=True)))}
-    pooled = 3 * KD_BATCH * 112 * 112 * 64
-    unmasked = int((index < 4).sum())
-    in_bytes = 2.0 * (3 * KD_BATCH * 224 * 224 * 3 + 64 * 28)
-    products = 2.0 * 27 * 4 * pooled
-    stem16_bounds = (bound(in_bytes + 2.0 * pooled + pooled, products, BF16_FLOPS),
-                     bound(in_bytes + 2.0 * pooled + pooled, 2.0 * 28 * unmasked),
-                     bound(in_bytes + 2.0 * pooled, products, BF16_FLOPS))
-    del x_s, x_nhwc, index, y_plain, g_s
+            stem16 = {k: round(cuda_ms(fn, 10), 4) for k, fn in (
+                ("plain forward", plain16_fwd),
+                ("plain backward", lambda: torch.autograd.grad(y_plain, (w_s, b_s), g_s,
+                                                               retain_graph=True)))}
+            stem16_bounds = (bound(in_bytes + 2.0 * pooled + pooled, products, BF16_FLOPS),
+                             bound(in_bytes + 2.0 * pooled + pooled, 2.0 * 28 * unmasked),
+                             stem16_serve_bounds[n_s])
+            del y_plain
+        del x_s, x_nhwc, index, g_s
+    for part in ("forward", "forward, serving", "backward"):
+        v = stem16_runs[3 * KD_BATCH, "this source", part]
+        stem16[f"kernel {part}"] = round(sum(v) / len(v), 4)
     tied = {}
     for kind, bars in (("ties", 0.0), ("bars", 0.25), ("bars", 0.5)):
         x_s, w_s, b_s, _ = stem_inputs(np.random.default_rng(25), 3 * KD_BATCH, 224, 64, kind,
@@ -5470,11 +5570,19 @@ def main() -> int:
             lambda: vgg_stem.stem_forward(x_nhwc, w_d, b_d, True), 10), 4)
         del x_s, x_nhwc
     fb, bb, sb = stem16_bounds
-    phase("time", t0, f"stem bf16 ({3 * KD_BATCH}, 224, 224) F 64: {stem16} ms; the forward "
-          f"with indices where windows tie (every window; bars over 25 / 50 %): {tied} ms; "
-          f"bound forward {fb[0]:.4f} ms ({fb[1]}), serving {sb[0]:.4f} ({sb[1]}), backward "
-          f"{bb[0]:.4f} ({bb[1]}; {unmasked / pooled:.3f} of the outputs pass the ReLU) "
-          f"[{card}]")
+    kd_pooled = 3 * KD_BATCH * 112 * 112 * 64
+    for (n_s, who, part), v in stem16_runs.items():
+        b_ms = (stem16_serve_bounds[n_s] if part == "forward, serving" else
+                fb if part == "forward" else bb)[0]
+        phase("time", t0, f"stem bf16 ({n_s}, 224, 224) F 64, {who}: {part} {v} ms by CUDA "
+              f"graph replay (in turns), bound {b_ms:.4f} ms, {b_ms / (sum(v) / len(v)):.3f} of "
+              f"it [{card}]")
+    phase("time", t0, f"stem bf16 ({3 * KD_BATCH}, 224, 224) F 64: {stem16} ms (the plain "
+          f"version by CUDA events); the forward with indices where windows tie (every "
+          f"window; bars over 25 / 50 %) by CUDA events: {tied} ms; bound forward "
+          f"{fb[0]:.4f} ms ({fb[1]}), serving {sb[0]:.4f} ({sb[1]}; at 256 "
+          f"{stem16_serve_bounds[256][0]:.4f}), backward {bb[0]:.4f} ({bb[1]}; "
+          f"{unmasked / kd_pooled:.3f} of the outputs pass the ReLU) [{card}]")
 
     # 34. the bf16 eval PointNet kernel vs its plain bf16 version: the
     # shapes of the paths (64 / 46 / 1, 2500, 1024) and (46, 2500, 256),
@@ -5748,6 +5856,9 @@ def main() -> int:
           f"{KD_BATCH * 1000.0 / mean(kd16_times['bf16']):.1f} samples/s (f32 "
           f"{KD_BATCH * 1000.0 / mean(kd16_times['f32']):.1f}) [{card}]")
     phase("profile", t0, f"KD --crd step bf16: {lead}")
+    phase("time", t0, f"KD --crd step bf16 at batch {KD_BATCH} x 3 views, one step's profile "
+          f"each (stem sources in turns): "
+          f"{stem16_in_step(lambda: kd_step(kd16_state, teacher16, kb))} [{card}]")
     # --contrast and --vid in bf16, 2 steps each (then 3 timed)
     variant16_counts = (0, 0, 0)
     for variant in ("contrast", "vid"):

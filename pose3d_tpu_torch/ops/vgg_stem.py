@@ -45,11 +45,17 @@ bf16 (`--bf16`, flax's bfloat16 compute) is another function: JAX's
 bf16 student rounds each window sum to bf16, pools, then adds the bias in
 bf16 (`pose3d_tpu/models/vgg.py _ConvPool2x2`), so x, the weight and the
 bias come in bf16 (the model casts them) and `vgg_stem_plain` rounds at
-those points. Its kernels: the im2col product on the bf16 tensor cores
-(mma.m16n8k16, f32 accumulators, no split) and the f32 kernels' weight
-gradient stream on bf16 inputs, dW and db summed in f32 and rounded to
-bf16 at the store. They count their launches apart
-(`stem_forward.bf16_launches`, `stem_backward.bf16_launches`).
+those points. Its kernels, both on the bf16 tensor cores (mma.m16n8k16,
+f32 accumulators): the forward's im2col product, its epilogue on the
+accumulators, y and the index staged in shared memory and written as
+whole lines; the weight gradient's first pass as four products a tile,
+one a window position (the gradient where the index names it, times that
+position's window, a ones column giving db), f32 partials summed in a
+fixed order and rounded to bf16 at the store. Both take the image patch
+by TMA where TMA can map the image (W % 8 == 0, a 16-byte aligned base)
+and through registers otherwise, a route chosen by shape (`bf16_route`).
+They count their launches apart (`stem_forward.bf16_launches`,
+`stem_backward.bf16_launches`).
 """
 
 from __future__ import annotations
@@ -99,7 +105,17 @@ def _lib(path: str | None = None):
     lib.vgg_stem_partial_blocks.restype = ctypes.c_int
     lib.vgg_stem_smem_bytes.argtypes = [i64, ctypes.c_int, ctypes.c_int]
     lib.vgg_stem_smem_bytes.restype = ctypes.c_int
+    if hasattr(lib, "vgg_stem_bf16_route"):  # earlier sources have one route
+        lib.vgg_stem_bf16_route.argtypes = [p, i64]
+        lib.vgg_stem_bf16_route.restype = ctypes.c_int
     return lib
+
+
+def bf16_route(x_nhwc: torch.Tensor) -> str:
+    """The route the bf16 kernels take for an NHWC image (builds the
+    library): "tma" where TMA maps it (W % 8 == 0, 16-byte aligned), else
+    "registers"."""
+    return ("tma", "registers")[_lib().vgg_stem_bf16_route(x_nhwc.data_ptr(), x_nhwc.shape[2])]
 
 
 def shared_memory_bytes(f: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:

@@ -116,6 +116,20 @@ def test_phase39_cases_hold_the_redesigned_tiles():
     assert set(chip_smoke.PT16_WGMMA_PASSES).isdisjoint(chip_smoke.PT16_MMA_PASSES)
 
 
+def test_phase33_cases_reach_the_tma_route_edges():
+    """Phase 33's bf16 stem cases beyond phase 5's reach the TMA route's
+    edges: widths that are multiples of 8 whose last 16-output tile is
+    partial, an image smaller than a patch, and the weight gradient's
+    channel groups at F 8 and F 256; phase 5's odd widths still take the
+    register route."""
+    edge = chip_smoke.STEM16_EDGE_CASES
+    tma = [(n, hw, f) for n, hw, f, _ in edge if hw % 8 == 0]
+    assert len(tma) == len(edge) and len(set(edge)) == len(edge)
+    assert {232, 40} <= {hw for _, hw, _ in tma if (hw // 2) % 16}
+    assert any(n == 1 and hw == 16 for n, hw, _ in tma)
+    assert {8, 256} <= {f for _, _, f in tma}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 255, 257, 100_003])
 def test_geodesic_kernel_matches_plain_on_cuda(cuda, n):
@@ -473,29 +487,61 @@ def test_vgg_stem_kernel_checks_its_inputs(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,hw,f,kind", [
     (1, 224, 64, "rand"), (7, 64, 16, "rand"), (7, 30, 64, "rand"), (2, 31, 16, "rand"),
-    (3, 48, 64, "ties"), (3, 48, 64, "negative"), (2, 32, 24, "rand"), (2, 64, 256, "rand")])
+    (3, 48, 64, "ties"), (3, 48, 64, "negative"), (2, 32, 24, "rand"), (2, 64, 256, "rand"),
+    (2, 30, 8, "rand"), (2, 40, 8, "rand"), (2, 232, 256, "rand"), (2, 30, 256, "rand"),
+    (1, 16, 64, "rand")])
 def test_vgg_stem_bf16_kernels_match_plain_on_cuda(cuda, n, hw, f, kind):
     """The bf16 instances against the plain bf16 version on the same
     inputs (chip_smoke.stem_bf16_vs_plain): y within one bf16 ulp of
     max|ref| (2^-7), no window index differing where the plain version's
-    decision is more than an ulp clear, dW and db within one ulp of max|ref|
-    of the gradient routed by the kernel's own index; one forward and one
-    backward launch through the wrapper, counted apart from f32's."""
+    decision is more than an ulp clear, nor, on the tied image, where its
+    window sums tie exactly; dW and db within one ulp of max|ref| of the
+    gradient routed by the kernel's own index; one forward and one backward
+    launch through the wrapper, counted apart from f32's; the patch by TMA
+    where the width is a multiple of 8, through registers otherwise."""
     torch.backends.cudnn.allow_tf32 = False
     x, w, b, cot = _stem_inputs(n, hw, f, kind, cuda, torch.bfloat16)
+    assert vgg_stem.bf16_route(x.permute(0, 2, 3, 1)) == ("tma" if hw % 8 == 0 else "registers")
     before = (vgg_stem.stem_forward.launches, vgg_stem.stem_forward.bf16_launches,
               vgg_stem.stem_backward.bf16_launches)
-    r = chip_smoke.stem_bf16_vs_plain(vgg_stem, x, w, b, cot)
+    r = chip_smoke.stem_bf16_vs_plain(vgg_stem, x, w, b, cot, ties=kind == "ties")
     torch.cuda.synchronize()
     assert (vgg_stem.stem_forward.launches, vgg_stem.stem_forward.bf16_launches,
             vgg_stem.stem_backward.bf16_launches) == (before[0], before[1] + 2, before[2] + 1)
     assert r["y_err"] <= chip_smoke.BF16_ULP and r["index_bad"] == 0, r
+    assert r["tie_bad"] == 0 and (r["tie_checked"] > 0) == (kind == "ties"), r
     assert r["dw_err"] <= chip_smoke.BF16_ULP and r["db_err"] <= chip_smoke.BF16_ULP, r
     with torch.no_grad():
         y = vgg_stem.vgg_stem(x, w, b)
     assert y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last)
     if kind == "negative":
         assert float(y.float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_vgg_stem_bf16_unaligned_image_takes_the_register_route_on_cuda(cuda):
+    """An image TMA cannot map for its address (a view one value into its
+    storage, not 16-byte aligned) takes the register route, chosen by the
+    same rule as odd widths: the forward gives the aligned copy's bits; the
+    weight gradient, whose grid (and so the order of its f32 partial sums)
+    follows each route's occupancy, is within one bf16 ulp of max|dW|."""
+    x, w, b, cot = _stem_inputs(2, 64, 64, "rand", cuda, torch.bfloat16)
+    nhwc = x.permute(0, 2, 3, 1)
+    storage = torch.empty(nhwc.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = storage[1:].view(nhwc.shape)
+    shifted.copy_(nhwc)
+    assert vgg_stem.bf16_route(nhwc) == "tma" and vgg_stem.bf16_route(shifted) == "registers"
+    w, b = w.detach(), b.detach()
+    y_tma, i_tma = vgg_stem.stem_forward(nhwc, w, b, with_index=True)
+    y_reg, i_reg = vgg_stem.stem_forward(shifted, w, b, with_index=True)
+    g = cot.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    dw_tma, db_tma = vgg_stem.stem_backward(nhwc, i_tma, g)
+    dw_reg, db_reg = vgg_stem.stem_backward(shifted, i_reg, g)
+    torch.cuda.synchronize()
+    assert torch.equal(y_tma, y_reg) and torch.equal(i_tma, i_reg)
+    for got, want in ((dw_reg, dw_tma), (db_reg, db_tma)):
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= chip_smoke.BF16_ULP * scale
 
 
 @pytest.mark.cuda

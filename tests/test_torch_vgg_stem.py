@@ -548,3 +548,258 @@ def test_exact_ties_are_routed_without_the_f32_recompute(kind):
     assert _rel(y, np.asarray(xla_vgg_stem(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b)))) <= TOL
     if kind == "ties":
         assert set(np.unique(index)) == {0, 4}
+
+
+# --- the bf16 kernels' arithmetic, emulated -----------------------------------
+#
+# csrc/vgg_stem.cu's bf16 forward reads a tile's patch as TMA lays it out: the
+# image viewed as (N, H, W x 3), a box of 34 rows x 112 values from row
+# 2 ty0 - 1 and value 6 tx0 - 8 (TMA takes a box only from a multiple of 8
+# values), so the patch row's first value, 6 tx0 - 3, sits at value 5. A pair
+# of neighbouring values is then one aligned 4-byte word at window positions
+# 1 and 3, and straddles two words at 0 and 2 (joined by a funnel shift).
+# Its k order is (ky, j), k = 10 ky + j, j = 3 kx + c, with j = 9 and
+# k >= 30 weighing nothing (their half masked). The weight gradient is four
+# products a tile, one a window position s: the gradient where the index is s
+# times position s's 27 window values and a ones column (db).
+
+PITCH16, LEAD16, K16 = 112, 5, 32
+
+
+def _tma_box(x, img, r0, c0):
+    """One TMA box of the NHWC image x viewed as (N, H, W * 3): 34 rows x 112
+    values from (r0, c0), zero outside."""
+    n, h, w, c = x.shape
+    flat = x.reshape(n, h, w * c)
+    box = np.zeros((34, PITCH16), x.dtype)
+    rows = np.arange(r0, r0 + 34)
+    cols = np.arange(c0, c0 + PITCH16)
+    rin, cin = (rows >= 0) & (rows < h), (cols >= 0) & (cols < w * c)
+    box[np.ix_(rin, cin)] = flat[img][np.ix_(rows[rin], cols[cin])]
+    return box
+
+
+def _pair_offset(k):
+    """The forward's pair (k, k + 1), k even: its value offset from a
+    window's corner in the patch (rows of PITCH16) and whether the high
+    half is kept (j = 9 is masked); None past the 30 taps."""
+    if k >= 30:
+        return None
+    ky, j = divmod(k, 10)
+    return ky * PITCH16 + j, j != 8
+
+
+def bf16_forward_rows(x, ty0, tx0):
+    """The bf16 forward's A rows for tile (ty0, tx0) of image 0, as the
+    kernel loads them: (16, 16, 4, 32) for the tile's pooled outputs (ly,
+    lx), window positions s, k, from 4-byte words of the patch (pairs of
+    values at even offsets): one word at positions 1 and 3, the high half
+    of one and the low half of the next at 0 and 2."""
+    assert 6 * tx0 % 8 == 0
+    patch = _tma_box(x, 0, 2 * ty0 - 1, 6 * tx0 - 8).ravel()
+    words = patch.reshape(-1, 2)  # the aligned 4-byte words
+    rows = np.zeros((16, 16, 4, K16), x.dtype)
+    for ly in range(16):
+        for lx in range(16):
+            corner = 2 * ly * PITCH16 + 6 * lx + LEAD16
+            for s in range(4):
+                base = corner + (s >> 1) * PITCH16 + 3 * (s & 1)
+                for k in range(0, K16, 2):
+                    pair = _pair_offset(k)
+                    if pair is None:
+                        continue
+                    at = base + pair[0]
+                    assert at % 2 == (0 if s & 1 else 1)
+                    lo, hi = ((words[at // 2, 0], words[at // 2, 1]) if at % 2 == 0 else
+                              (words[at // 2, 1], words[at // 2 + 1, 0]))  # the funnel shift
+                    rows[ly, lx, s, k] = lo
+                    rows[ly, lx, s, k + 1] = hi if pair[1] else 0
+    return rows
+
+
+def _forward_weights(k):
+    """The (32, F) weight matrix in the forward's k order, from HWIO k."""
+    wm = np.zeros((K16, k.shape[-1]), np.float32)
+    for kk in range(30):
+        ky, j = divmod(kk, 10)
+        if j < 9:
+            wm[kk] = k[ky, j // 3, j % 3]
+    return wm
+
+
+def _bf16_ties_inputs(n, hw, f, seed):
+    """Phase 33's "ties" image in bf16 values: constant 2 x 2 cells, the
+    centre tap only, so that every pooling window ties exactly."""
+    rng = np.random.default_rng(seed)
+    cells = rng.standard_normal((n, hw // 2, hw // 2, 3)).astype(np.float32)
+    x = np.repeat(np.repeat(cells, 2, axis=1), 2, axis=2)
+    k = np.zeros((3, 3, 3, f), np.float32)
+    k[1, 1] = rng.standard_normal((3, f)).astype(np.float32)
+    b = (rng.standard_normal(f) * 0.1).astype(np.float32)
+    return tuple(_bf16_values(a) for a in (x, k, b))
+
+
+def bf16_kernel_stem(x, k, b):
+    """The bf16 forward kernel's output for image 0 of x (H, W multiples of
+    32): the A rows of every tile times the weights in k order, one f32 sum
+    of exact products a k-step of 16, each window sum rounded to bf16, the
+    first maximum, + bias in f32 rounded to bf16, the ReLU. Returns y
+    (Ho, Wo, F) and the index (4: masked)."""
+    _, h, w, _ = x.shape
+    wm = _forward_weights(k).astype(np.float64)
+    f = k.shape[-1]
+    sums = np.zeros((h // 2, w // 2, 4, f), np.float32)
+    for ty in range(h // 32):
+        for tx in range(w // 32):
+            a = bf16_forward_rows(x, 16 * ty, 16 * tx).astype(np.float64)
+            acc = np.zeros((16, 16, 4, f), np.float32)
+            for j in range(K16 // 16):
+                ks = slice(16 * j, 16 * j + 16)
+                acc = (acc + a[..., ks] @ wm[ks]).astype(np.float32)
+            sums[16 * ty:16 * ty + 16, 16 * tx:16 * tx + 16] = acc
+    rounded = _bf16_values(sums)
+    best, pos = rounded.max(axis=2), np.argmax(rounded, axis=2)  # the first maximum
+    out = _bf16_values(best + b)
+    return np.where(out > 0, out, 0), np.where(out > 0, pos, 4).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["rand", "ties"])
+def test_bf16_forward_rows_read_the_window_in_k_order(kind):
+    """The forward's A rows from the TMA box (a 112-value pitch from an
+    aligned start, the row at value 5): each row holds its window's 27
+    values at the k order's slots and 0 at the masked ones, the SAME halo
+    from TMA's zero fill; on
+    the tied image the four positions' rows are identical wherever their
+    windows are equal, so their products tie bit for bit."""
+    if kind == "ties":
+        x, _, _ = _bf16_ties_inputs(1, 64, 8, seed=41)
+    else:
+        x, _, _ = (_bf16_values(a) for a in _inputs(1, 64, 8, seed=41))
+    win = _windows(x)  # (1, 32, 32, 4, 4, 3): the zero-padded SAME windows
+    for ty0, tx0 in ((0, 0), (16, 16), (0, 16)):  # the image's corners and edges
+        rows = bf16_forward_rows(x, ty0, tx0)
+        for s in range(4):
+            dy, dx = divmod(s, 2)
+            want = np.zeros((16, 16, K16), np.float32)
+            for kk in range(30):
+                ky, j = divmod(kk, 10)
+                if j < 9:
+                    want[..., kk] = win[0, ty0:ty0 + 16, tx0:tx0 + 16, dy + ky, dx + j // 3, j % 3]
+            assert np.array_equal(rows[:, :, s], want)
+        if kind == "ties":
+            # constant 2 x 2 cells: the four windows of an output share the
+            # weighed taps (ky, kx) = (1, 1), k 13-15, so those slots of the
+            # four rows are equal, value for value
+            centre = [10 + 3 + c for c in range(3)]
+            for s in range(1, 4):
+                assert np.array_equal(rows[:, :, s, centre], rows[:, :, 0, centre])
+
+
+def test_bf16_forward_emulation_matches_the_plain_version():
+    """The bf16 forward's emulated arithmetic against the port's plain bf16
+    version (each window sum rounded to bf16, the first maximum, + bias,
+    ReLU): y within one bf16 ulp of max|ref|; on the tied image the index
+    equal to the plain version's first maximum everywhere (identical rows
+    give identical sums, so the first of the tied windows wins)."""
+    for kind in ("rand", "ties"):
+        if kind == "ties":
+            x, k, b = _bf16_ties_inputs(1, 64, 16, seed=43)
+        else:
+            x, k, b = (_bf16_values(a) for a in _inputs(1, 64, 16, seed=43))
+        y, index = bf16_kernel_stem(x, k, b)
+        xt, wt, bt = (t.to(torch.bfloat16) for t in _port(x, k, b))
+        plain = stem.vgg_stem_plain(xt, wt, bt).float().permute(0, 2, 3, 1).numpy()[0]
+        _within_ulps(y, plain, 1, f"bf16 forward emulation, {kind}")
+        if kind == "ties":
+            conv = torch.nn.functional.conv2d(xt.float(), wt.float(), padding=1)
+            _, where = torch.nn.functional.max_pool2d(conv.to(torch.bfloat16).float(), 2,
+                                                      return_indices=True)
+            w_out = conv.shape[-1]
+            pos = ((where // w_out) % 2 * 2 + where % w_out % 2)[0].permute(1, 2, 0).numpy()
+            want = np.where(plain > 0, pos, 4)
+            assert np.array_equal(index, want)
+            assert set(np.unique(index)) <= {0, 4}
+
+
+def tensor_core_wgrad(x, index, g):
+    """The bf16 weight gradient's first pass in numpy: for each window
+    position s, the gradient where the index is s (F x outputs) times the
+    outputs' position-s windows with a ones column, (outputs x 32: the 27
+    taps in (ky, kx, c) order, 1, zeros); the four products add into one
+    set of f32 sums, 16 outputs (one mma k-step) at a time. Returns dW
+    (F, 3, 3, 3) torch layout and db (F,), in f32 before the bf16 store."""
+    win = _windows(x)                                         # (N, Ho, Wo, 4, 4, 3)
+    f = g.shape[-1]
+    g2 = g.reshape(-1, f).astype(np.float64)
+    idx = index.reshape(-1, f)
+    acc = np.zeros((f, K16), np.float32)
+    for s in range(4):
+        dy, dx = divmod(s, 2)
+        bmat = np.zeros((g2.shape[0], K16))
+        bmat[:, :TAPS] = win[:, :, :, dy:dy + 3, dx:dx + 3, :].reshape(-1, TAPS)
+        bmat[:, TAPS] = 1.0
+        a_s = np.where(idx == s, g2, 0.0).T                   # (F, outputs)
+        for p0 in range(0, a_s.shape[1], 16):
+            acc = (acc + a_s[:, p0:p0 + 16] @ bmat[p0:p0 + 16]).astype(np.float32)
+    dw = acc[:, :TAPS].reshape(f, 3, 3, 3).transpose(0, 3, 1, 2)  # (ky, kx, c) -> torch
+    return dw, acc[:, TAPS]
+
+
+@pytest.mark.parametrize("hw,f", [(16, 8), (32, 64)])
+def test_tensor_core_weight_gradient_matches_the_plain_version_and_jax(hw, f):
+    """The bf16 weight gradient's decomposition (four position-masked
+    products, the ones column as db), routed by the plain bf16 forward's
+    index, rounded to bf16 as the store rounds it: against the plain bf16
+    version's autograd within one bf16 ulp of max|ref|, and against
+    jax.grad through JAX's bf16 student block (_ConvPool2x2 in bfloat16,
+    then ReLU) by the rule test_stem_bf16_matches_jax holds the port to:
+    one ulp of the f64 sum, and the error at most twice JAX's plus 2^-10
+    of max|ref|."""
+    x, k, b = (_bf16_values(a) for a in _inputs(2, hw, f, seed=500 + hw + f))
+    cot = _bf16_values(np.random.default_rng(hw * f + 5).standard_normal(
+        (2, hw // 2, hw // 2, f)))
+    xt, wt, bt = (t.to(torch.bfloat16) for t in _port(x, k, b))
+    wt, bt = wt.requires_grad_(), bt.requires_grad_()
+    y = stem.vgg_stem_plain(xt, wt, bt)
+    conv = torch.nn.functional.conv2d(xt.float(), wt.detach().float(), padding=1)
+    _, where = torch.nn.functional.max_pool2d(conv.to(torch.bfloat16).float(), 2,
+                                              return_indices=True)
+    w_out = conv.shape[-1]
+    pos = ((where // w_out) % 2 * 2 + where % w_out % 2).permute(0, 2, 3, 1).numpy()
+    on = (y.detach() > 0).permute(0, 2, 3, 1).numpy()
+    index = np.where(on, pos, 4).astype(np.uint8)
+    assert (index == 4).any() and (index < 4).any()
+    dw, db = tensor_core_wgrad(x, index, cot)
+    dw, db = _bf16_values(dw), _bf16_values(db)
+    g_t = torch.from_numpy(cot).permute(0, 3, 1, 2).to(torch.bfloat16)
+    plain_dw, plain_db = torch.autograd.grad(y, (wt, bt), g_t)
+    _within_ulps(dw, plain_dw.float().numpy(), 1, f"tensor-core dW vs plain {hw} {f}")
+    _within_ulps(db, plain_db.float().numpy(), 1, f"tensor-core db vs plain {hw} {f}")
+    block = _ConvPool2x2(features=f, dtype=jnp.bfloat16)
+    params = {"kernel": jnp.asarray(k), "bias": jnp.asarray(b)}
+    jg = jax.grad(lambda p: jnp.sum(jax.nn.relu(block.apply({"params": p}, jnp.asarray(x)))
+                                    .astype(jnp.float32) * cot))(params)
+    g_conv = torch.zeros_like(conv).flatten(2).scatter_(
+        2, where.flatten(2), (g_t.float() * torch.from_numpy(on).permute(0, 3, 1, 2))
+        .double().float().flatten(2)).view_as(conv)
+    exact_dw = torch.nn.grad.conv2d_weight(xt.double(), tuple(wt.shape), g_conv.double(),
+                                           padding=1).numpy()
+    exact_db = (cot * on).sum((0, 1, 2))
+    for name, got, jax_g, exact in (
+            ("dW", dw, np.asarray(jg["kernel"]).transpose(3, 2, 0, 1), exact_dw),
+            ("db", db, np.asarray(jg["bias"]), exact_db)):
+        _within_ulps(got, exact, 1, f"tensor-core {name} vs f64 {hw} {f}")
+        err, jax_err = np.abs(got - exact).max(), np.abs(jax_g - exact).max()
+        assert err <= 2 * jax_err + 2.0**-10 * np.abs(exact).max()
+
+
+def test_chip_smoke_takes_another_stem_source(tmp_path):
+    """chip_smoke.py --source vgg_stem=FILE (an earlier commit's
+    csrc/vgg_stem.cu, timed in turns in phases 22, 33 and 37) parses."""
+    import chip_smoke
+
+    other = tmp_path / "vgg_stem_other.cu"
+    other.write_text("// another version\n")
+    assert chip_smoke.parse_source(f"vgg_stem={other}") == ("vgg_stem", str(other))
+    with pytest.raises(Exception):
+        chip_smoke.parse_source("vgg_stem=" + str(tmp_path / "missing.cu"))
