@@ -60,8 +60,8 @@ The student's stem (conv3x3 + ReLU + 2x2 pool) runs in the VGG stem
 kernel in every student forward. Phases:
 
   1 device    2 build    3 geodesic kernel vs plain
-  4 pointnet kernel vs plain (in f32 and f64; HMMA in the encoder's SASS
-     only)    5 VGG stem kernel vs plain (and HMMA in the f32 forward's
+  4 pointnet kernel vs plain (in f32 and f64; HMMA in the f32 encoder's
+     SASS only)    5 VGG stem kernel vs plain (and HMMA in the f32 forward's
      SASS only)
   6 student at full width    7 student serving    8 student evaluation
   9 teacher at full width    10 teacher serving    11 teacher evaluation
@@ -90,17 +90,22 @@ kernel in every student forward. Phases:
   registers; a tensor-core instruction in every bf16 instantiation's
   SASS), and their times by graph replay (with --source vgg_stem=, that
   source's in turns)    34 the bf16 eval PointNet kernel vs its plain
-  version at (64 / 46 / 1, 2500, 1024) and (46, 2500, 256) (and HMMA.16816.
-  F32.BF16 in its SASS), times    35 the student in bf16: serving, an
+  version at (64 / 46 / 1, 2500, 1024) and (46, 2500, 256), a D that 8
+  does not divide and a cloud one past a tile (and HGMMA, wgmma, in its
+  encoder's SASS alone), times by graph replay with the launches a call
+  and the share of the bound (with --source pointnet_eval=, each source's
+  in turns)    35 the student in bf16: serving, an
   evaluation, card vs CPU at small width by an oracle rule (the card's
   error against f64, the largest and the RMS difference, at most twice
   the CPU's bf16 error plus 2^-10 of max|ref|), serving at batch 256 and 1
-  beside f32, a profile    36 the teacher in bf16 likewise (batch 64)
+  beside f32, a profile    36 the teacher in bf16 likewise (batch 64; its
+  serving batch's device time with each pointnet_eval source in turns)
   37 KD --crd in bf16 at batch 46 x 3: four small steps (phase 19's size
   and batch, and three more) card vs CPU by the oracle rule on each
   tensor's errors summed over them, 6 steps, the trainer's epoch and
   resume, the step beside f32, a profile, its device time (with --source
-  vgg_stem=, each source's in turns); --contrast and --vid 2 steps
+  vgg_stem= or pointnet_eval=, each source's in turns); --contrast and
+  --vid 2 steps
   each    38 KD --stage 2 (its
   teacher read from phase 26's checkpoint under --bf16) and the RGB-only
   baseline (batch 64) in bf16, likewise    39 the train-mode PointNet's
@@ -205,7 +210,10 @@ and the KD step through them in phase 22 (f32), its bf16 kernels in phase
 33 and the bf16 KD step's device time in phase 37; pointnet_eval's and teacher
 serving through them in phase 13 (also the CUDA-core version of commit
 d190092 and before, with its own C interface and segment rule:
-`legacy_pointnet_eval`).
+`legacy_pointnet_eval`), its bf16 kernel in phase 34 and bf16 teacher
+serving's and the bf16 KD step's device time in phases 36 and 37 (the bf16
+kernel of commits up to daad727 with the split it was built for,
+`segments_for`'s).
 
 Each phase prints a line; any failure raises and exits non-zero. Before the
 last line come the card's name and power limit (nvidia-smi) and one JSON
@@ -1411,7 +1419,9 @@ def legacy_pointnet_eval(path: str):
 def with_pointnet_source(path: str | None, run):
     """run(encoder) with the eval PointNet built from another version of
     csrc/pointnet_eval.cu at `path` (None: this source's): a library with
-    this version's C interface through this wrapper (`using`), one with
+    this version's C interface through this wrapper (`using`; the bf16
+    instance of commits up to daad727, without pointnet_eval_bf16_tile_points,
+    with the grid it was built for, `segments_for`'s), one with
     commit d190092's through `legacy_pointnet_eval`, which is then also the
     encoder of the models (models.pointnet's pointnet_eval); `encoder` is
     the function that runs it. The swap is undone at once."""
@@ -1420,6 +1430,15 @@ def with_pointnet_source(path: str | None, run):
     from pose3d_tpu_torch.models import pointnet as model
     from pose3d_tpu_torch.ops import pointnet
 
+    if path is not None and hasattr(ctypes.CDLL(path), "pointnet_eval_scratch_floats") and \
+            not hasattr(ctypes.CDLL(path), "pointnet_eval_bf16_tile_points"):
+        # a source up to daad727: its bf16 grid is (segments, groups) by the f32 split
+        own_split = pointnet.bf16_split
+        pointnet.bf16_split = pointnet.segments_for
+        try:
+            return using(pointnet, path, lambda: run(pointnet.pointnet_eval))
+        finally:
+            pointnet.bf16_split = own_split
     if path is None or hasattr(ctypes.CDLL(path), "pointnet_eval_scratch_floats"):
         return using(pointnet, path, lambda: run(pointnet.pointnet_eval))
     legacy = legacy_pointnet_eval(path)
@@ -3980,11 +3999,12 @@ def main() -> int:
 
     # 4. pointnet kernel vs plain version on the card, in f32 and in f64 (the
     # split-TF32 products' own error); D 1000 is no multiple of the 256-column
-    # pass. Layer 3 runs on the tensor cores: HMMA in the encoder's SASS only
+    # pass. Layer 3 runs on the tensor cores: HMMA (mma.sync) in the f32
+    # encoder's SASS only (the bf16 encoder's wgmma, HGMMA: phase 34)
     hmma = sass_hmma(libs[1], "pne_")
     want = {"pne_split_w3_kernel": False, "pne_encoder_kernel": True,
             "pne_segment_max_kernel": False, "pne_pack_w3_bf16_kernel": False,
-            "pne_encoder_bf16_kernel": True, "pne_segment_max_bf16_kernel": False}
+            "pne_encoder_bf16_kernel": False, "pne_segment_max_bf16_kernel": False}
     if hmma != want:
         raise RuntimeError(f"pointnet_eval SASS: HMMA in {hmma}, expected {want}")
     pn_err, pn_rel, pn_rel64, cases = 0.0, 0.0, 0.0, []
@@ -5438,20 +5458,30 @@ def main() -> int:
             text += f"; ms a step in turns: {turns}"
         return text
 
-    def stem16_in_step(run) -> str:
-        """A bf16 step's device time and busy share, and the stem kernels'
-        share of it, from a one-step profile, with this source's stem and
-        (--source vgg_stem=...) each other's in turns (this source, other,
-        other, this source)."""
+    def kernel_in_step(run, others, swap, prefix: str, what: str) -> str:
+        """A bf16 run's device time and busy share, and the share of it of
+        the kernels whose names hold `prefix` (`what`), from a one-run
+        profile, with this source's kernels and (--source) each other's in
+        turns (this source, other, other, this source); swap(path, thunk)
+        runs thunk with the kernels built from path (None: this source's)."""
         turns = {}
-        for label in ("this source", *stem16_others, *stem16_others, "this source"):
-            rows, device_ms, wall_ms = using(vgg_stem, stem16_others.get(label),
-                                             lambda: profile_steps(run, steps=1))
-            stem_ms = sum(e.self_device_time_total for e in rows if "stem_" in e.key) / 1e3
+        for label in ("this source", *others, *others, "this source"):
+            rows, device_ms, wall_ms = swap(others.get(label),
+                                            lambda: profile_steps(run, steps=1))
+            ms = sum(e.self_device_time_total for e in rows if prefix in e.key) / 1e3
             turns.setdefault(label, []).append(
-                f"{device_ms:.3f} ms device (the stem {stem_ms:.4f}) of {wall_ms:.3f} wall, "
+                f"{device_ms:.3f} ms device ({what} {ms:.4f}) of {wall_ms:.3f} wall, "
                 f"busy {device_ms / wall_ms:.3f}")
         return "; ".join(f"{k}: {v}" for k, v in turns.items())
+
+    def stem16_in_step(run) -> str:
+        return kernel_in_step(run, stem16_others, lambda p, f: using(vgg_stem, p, f),
+                              "stem_", "the stem")
+
+    def pn16_in_step(run) -> str:
+        return kernel_in_step(run, other_libs["pointnet_eval"],
+                              lambda p, f: with_pointnet_source(p, lambda _: f()),
+                              "pne_", "the eval PointNet")
 
     # 33. the bf16 stem kernels vs their plain bf16 version on phase 5's
     # cases (the tied image and the bars too) and the TMA route's edges
@@ -5586,18 +5616,22 @@ def main() -> int:
 
     # 34. the bf16 eval PointNet kernel vs its plain bf16 version: the
     # shapes of the paths (64 / 46 / 1, 2500, 1024) and (46, 2500, 256),
-    # every output negative, identical points, a ragged column chunk;
-    # HMMA.16816.F32.BF16 in the bf16 encoder's SASS only; times
-    hmma = sass_hmma(libs[1], "pne_", needle="HMMA.16816.F32.BF16")
-    if not hmma.get("pne_encoder_bf16_kernel") or any(
-            v for k, v in hmma.items() if k != "pne_encoder_bf16_kernel"):
-        raise RuntimeError(f"pointnet_eval SASS: HMMA.16816.F32.BF16 in {hmma}")
+    # every output negative, identical points, a ragged column chunk, a D
+    # that 8 does not divide (W3 copied into rows of a multiple of 8), a
+    # cloud one point past a 256-point tile; HGMMA (wgmma) in the bf16
+    # encoder's SASS alone; times by graph replay, this source and (--source
+    # pointnet_eval=...) the others' in turns, with their launches a call
+    hgmma = sass_hmma(libs[1], "pne_", needle="HGMMA")
+    if not hgmma.get("pne_encoder_bf16_kernel") or any(
+            v for k, v in hgmma.items() if k != "pne_encoder_bf16_kernel"):
+        raise RuntimeError(f"pointnet_eval SASS: HGMMA in {hgmma}")
     prng = np.random.default_rng(34)
     pn16_err = pn16_rel = pn16_unequal = 0.0
     pn16_cases = [(64, 2500, 1024, None, False), (46, 2500, 1024, None, False),
                   (1, 2500, 1024, None, False), (46, 2500, 256, None, False),
                   (3, 2500, 256, -100.0, False), (2, 700, 1024, None, True),
-                  (3, 511, 1000, None, False), (2, 1, 256, None, False)]
+                  (3, 511, 1000, None, False), (2, 1, 256, None, False),
+                  (2, 300, 1001, None, False), (2, 257, 1024, None, False)]
     for n_c, p_c, d_c, b3, identical in pn16_cases:
         layers = pointnet_bf16_params(prng, d_c, dev, b3)
         pts = prng.uniform(-1, 1, (n_c, 1 if identical else p_c, 3)).astype(np.float32)
@@ -5608,33 +5642,51 @@ def main() -> int:
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
+        unequal = float((out != ref).float().mean())
         if pointnet.pointnet_eval_bf16.launches != before + 1 or out.shape != (n_c, d_c) or \
-                out.dtype != bf16 or err > BF16_ULP * scale or \
-                (b3 is not None and float(out.float().max()) >= 0):
+                out.dtype != bf16 or err > BF16_ULP * scale or unequal >= 0.01 or \
+                (b3 is not None and float(out.float().max()) >= 0) or \
+                not torch.equal(out, pointnet.pointnet_eval_bf16(pts, layers)):
             raise RuntimeError(f"bf16 pointnet {(n_c, p_c, d_c, b3, identical)}: shape "
-                               f"{tuple(out.shape)}, max|d| {err:.3g}, max|ref| {scale:.3g}")
+                               f"{tuple(out.shape)}, max|d| {err:.3g}, max|ref| {scale:.3g}, "
+                               f"unequal {unequal:.3g} (or other bits on a second call)")
         pn16_err, pn16_rel = max(pn16_err, err), max(pn16_rel, err / scale)
-        pn16_unequal = max(pn16_unequal, float((out != ref).float().mean()))
+        pn16_unequal = max(pn16_unequal, unequal)
     phase("pointnet bf16", t0, f"kernel vs the plain bf16 version in {len(pn16_cases)} cases "
           f"((64 / 46 / 1, 2500, 1024), (46, 2500, 256), all outputs negative, identical "
-          f"points, (3, 511, 1000), one point): max|d|/max|ref| {pn16_rel:.3g} (one ulp "
-          f"{BF16_ULP:.3g}), unequal share at most {pn16_unequal:.3g}; cuobjdump -sass: "
-          f"HMMA.16816.F32.BF16 in {hmma}")
-    pn16_times, pn16_bounds = {}, {}
+          f"points, (3, 511, 1000), one point, (2, 300, 1001), (2, 257, 1024)): max|d|/max|ref| "
+          f"{pn16_rel:.3g} (one ulp {BF16_ULP:.3g}), unequal share at most "
+          f"{pn16_unequal:.3g}, the same bits on a second call; cuobjdump -sass: HGMMA in "
+          f"{hgmma}")
+    pn16_times, pn16_bounds, pn16_runs, pn16_launches = {}, {}, {}, {}
+    pn16_others = other_libs["pointnet_eval"]
+    pn16_whos = ("this source", *pn16_others)
     side = torch.cuda.Stream()
     for n_c, d_c in ((64, 1024), (46, 1024), (1, 1024), (46, 256)):
         layers = pointnet_bf16_params(np.random.default_rng(35), d_c, dev)
         pts = torch.rand((n_c, POINT_NUM, 3), device=dev).to(bf16)
-        kernel_ms = graph_ms(lambda: pointnet.pointnet_eval_bf16(pts, layers), side)
+        call = functools.partial(pointnet.pointnet_eval_bf16, pts, layers)
+        for order in (pn16_whos, pn16_whos[::-1]):
+            for who in order:
+                pn16_runs.setdefault((n_c, d_c, who), []).append(round(with_pointnet_source(
+                    pn16_others.get(who), lambda _: graph_ms(call, side)), 4))
+        for who in pn16_whos:
+            pn16_launches[n_c, d_c, who] = with_pointnet_source(
+                pn16_others.get(who), lambda _: graph_kernel_launches(call))
         plain_ms = cuda_ms(lambda: pointnet.pointnet_eval_bf16_plain(pts, layers), 5)
         flops = 2.0 * n_c * POINT_NUM * (3 * 64 + 64 * 128 + 128 * d_c)
         pn16_bounds[n_c, d_c] = bound(2.0 * (pts.numel() + n_c * d_c) + sum(
             t.numel() * t.element_size() for layer in layers for t in layer), flops, BF16_FLOPS)
-        pn16_times[n_c, d_c] = (kernel_ms, plain_ms)
-    phase("time", t0, "pointnet bf16, device time a call by graph replay (plain by events), "
-          "ms: " + "; ".join(f"({n_c}, {POINT_NUM}, {d_c}) kernel {k:.4f} plain {p:.4f} bound "
-                             f"{pn16_bounds[n_c, d_c][0]:.4f} ({pn16_bounds[n_c, d_c][1]})"
-                             for (n_c, d_c), (k, p) in pn16_times.items()) + f" [{card}]")
+        pn16_times[n_c, d_c] = (mean(pn16_runs[n_c, d_c, "this source"]), plain_ms)
+    for (n_c, d_c, who), v in pn16_runs.items():
+        b_ms = pn16_bounds[n_c, d_c][0]
+        phase("time", t0, f"pointnet bf16 ({n_c}, {POINT_NUM}, {d_c}), {who}: {v} ms by CUDA "
+              f"graph replay (in turns), {pn16_launches[n_c, d_c, who]} CUDA launches a call, "
+              f"bound {b_ms:.4f} ms ({pn16_bounds[n_c, d_c][1]}), {b_ms / mean(v):.3f} of it "
+              f"[{card}]")
+    phase("time", t0, "pointnet bf16, the plain version by CUDA events, ms: " + "; ".join(
+        f"({n_c}, {POINT_NUM}, {d_c}) {p:.4f}" for (n_c, d_c), (_, p) in pn16_times.items()) +
+          f" [{card}]")
 
     # 35. the student in bf16 at full width (phase 6's weights): serving,
     # then an evaluation; card vs CPU at the small width by the oracle rule;
@@ -5757,6 +5809,10 @@ def main() -> int:
               f"{t['bf16']} ms/batch = {b * 1000.0 / mean(t['bf16']):.1f} img/s (f32 "
               f"{b * 1000.0 / mean(t['f32']):.1f}) [{card}]")
     phase("profile", t0, f"teacher serving bf16 batch {TEACHER_BATCH}: {lead}")
+    with torch.no_grad():
+        phase("time", t0, f"teacher serving bf16 batch {TEACHER_BATCH}, one batch's profile "
+              f"each (eval PointNet sources in turns): "
+              f"{pn16_in_step(lambda: teacher16(xt, pc))} [{card}]")
     teacher16_serving = t_serving16[2] + t_eval16[2]
     del xt, pc
 
@@ -5859,6 +5915,9 @@ def main() -> int:
     phase("time", t0, f"KD --crd step bf16 at batch {KD_BATCH} x 3 views, one step's profile "
           f"each (stem sources in turns): "
           f"{stem16_in_step(lambda: kd_step(kd16_state, teacher16, kb))} [{card}]")
+    phase("time", t0, f"KD --crd step bf16 at batch {KD_BATCH} x 3 views, one step's profile "
+          f"each (eval PointNet sources in turns): "
+          f"{pn16_in_step(lambda: kd_step(kd16_state, teacher16, kb))} [{card}]")
     # --contrast and --vid in bf16, 2 steps each (then 3 timed)
     variant16_counts = (0, 0, 0)
     for variant in ("contrast", "vid"):

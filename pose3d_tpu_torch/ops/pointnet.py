@@ -14,15 +14,16 @@ dense_bn_forward`) is another function: each layer rounds x W to bf16,
 adds b in bf16, and normalises in f32 before it rounds again, which no
 folded (W, b) reproduces. `eval_layers_bf16` gives the unfolded layers,
 `pointnet_eval_bf16_plain` the function and `pointnet_eval_bf16` its
-kernel (the bf16 instance in the same source, on the bf16 tensor cores),
-with its own launch count.
+kernel (the bf16 instance in the same source: persistent blocks on Hopper's
+wgmma, W3 by TMA, its own split `bf16_split` beside the f32 instance's
+`segments_for`), with its own launch count.
 
 Both instances are custom ops (`pose3d_torch::pointnet_eval`,
 `pose3d_torch::pointnet_eval_bf16`) on flat parameter lists: the CUDA
 kernel the hand kernel, the CPU kernel the plain version, the fake
 implementation the (N, D) output, so that `torch.export` keeps the encoder
 whole in an exported graph (`serving/aot.py`) and no size of a symbolic
-batch reaches Python (`segments_for` runs inside the CUDA kernel).
+batch reaches Python (the splits run inside the CUDA kernel).
 """
 
 from __future__ import annotations
@@ -44,6 +45,15 @@ HIDDEN = (64, 128)
 # of one 256-column pass of layer 3 over a tile (split TF32 on the tensor
 # cores); estimates that steer the split
 _LAYERS12_PASSES, _BLOCK_SETUP_PASSES = 0.5, 0.1
+
+# the bf16 instance's split: 256-point tiles (two warpgroups of 128 points),
+# 128-column chunks of W3 (one wgmma product), at most 8 chunks a column
+# group (a warp's running max of each column in shared memory); a tile's
+# layers 1-2 and a block's setup (W2 and the tables into shared memory, the
+# ring's first chunk), in units of one chunk's products over a tile:
+# estimates that steer the split
+BF16_TILE_P, BF16_CHUNK_D, BF16_GROUP_CHUNKS = 256, 128, 8
+_BF16_LAYERS12_CHUNKS, _BF16_BLOCK_SETUP_CHUNKS = 1.5, 1.0
 
 Folded = Sequence[tuple[torch.Tensor, torch.Tensor]]
 # per layer: W (in, out) and b (out,) in bf16, and the eval BN (3, out) in
@@ -123,6 +133,42 @@ def segments_for(n: int, p: int, d: int, sms: int) -> tuple[int, int]:
             if best_cost is None or cost < best_cost:
                 best, best_cost = (segments, groups), cost
     return best
+
+
+@functools.cache
+def bf16_split(n: int, p: int, d: int, sms: int) -> tuple[int, int]:
+    """(blocks, groups) of the bf16 instance: its work is the list of
+    (column group, cloud, BF16_TILE_P-point tile) units, each group whole
+    BF16_CHUNK_D-column chunks (at most BF16_GROUP_CHUNKS), dealt out in
+    contiguous runs to `blocks` persistent blocks (one an SM, at most `sms`).
+    The groups minimise the longest run's work, a unit being a tile's layers
+    1-2 (once a unit: once a tile where one group holds every column) and
+    its group's chunks; ties keep fewer groups."""
+    tiles, chunks = -(-p // BF16_TILE_P), -(-d // BF16_CHUNK_D)
+    best, best_cost = None, None
+    for groups in range(-(-chunks // BF16_GROUP_CHUNKS), chunks + 1):
+        per_group = -(-chunks // groups)
+        if -(-chunks // per_group) < groups:
+            continue  # a group would have no columns
+        units = groups * n * tiles
+        blocks = min(units, sms)
+        cost = -(-units // blocks) * (_BF16_LAYERS12_CHUNKS + per_group) + \
+            _BF16_BLOCK_SETUP_CHUNKS
+        if best_cost is None or cost < best_cost:
+            best, best_cost = (blocks, groups), cost
+    return best
+
+
+def bf16_launches_per_call(n: int, p: int, d: int, sms: int) -> int:
+    """The CUDA launches of one bf16 call (csrc/pointnet_eval.cu
+    pointnet_eval_bf16's contract): the encoder; W3's copy into rows of a
+    multiple of 8 columns where d % 8 != 0; the merge of the clouds that
+    several blocks shared, where a block's run starts inside a cloud."""
+    blocks, groups = bf16_split(n, p, d, sms)
+    tiles = -(-p // BF16_TILE_P)
+    units = groups * n * tiles
+    shared = any(b * units // blocks % tiles for b in range(1, blocks))
+    return 1 + (d % 8 != 0) + shared
 
 
 @functools.cache
@@ -284,7 +330,9 @@ def pointnet_eval_bf16_op(points: torch.Tensor, params: list[torch.Tensor]) -> t
     out = torch.empty((n, d), dtype=torch.bfloat16, device=points.device)
     if n == 0:
         return out
-    segments, groups = segments_for(n, p, d, _sm_count(points.device))
+    if params[3].data_ptr() % 16 or params[6].data_ptr() % 16:
+        raise ValueError("pointnet_eval_bf16's kernel takes W2 and W3 16-byte aligned")
+    segments, groups = bf16_split(n, p, d, _sm_count(points.device))
     lib = _lib()
     scratch = torch.empty(lib.pointnet_eval_bf16_scratch_words(n, d, segments),
                           dtype=torch.float32, device=points.device)

@@ -252,12 +252,15 @@ def test_pointnet_kernel_tiles_and_groups_on_cuda(cuda, n, p, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,p,d,b3", [
     (1, 1, 256, None), (2, 100, 256, None), (3, 511, 1000, None), (46, 2500, 256, None),
-    (64, 2500, 1024, None), (46, 2501, 1024, None), (3, 2500, 256, -100.0)])
+    (64, 2500, 1024, None), (46, 2501, 1024, None), (3, 2500, 256, -100.0),
+    (2, 300, 1001, None), (2, 257, 1024, None)])
 def test_pointnet_bf16_kernel_matches_plain_on_cuda(cuda, n, p, d, b3):
     """The bf16 instance against pointnet_eval_bf16_plain on the same
     inputs (the BN multipliers of either sign): each element within one bf16
     ulp of max|ref| (2^-7), under 1 % unequal; every output negative where
-    b3 is -100; the same bits on a second call."""
+    b3 is -100; the same bits on a second call. D 1001 takes the route of a
+    D that 8 does not divide (W3 copied into rows of 1008 columns); P 257 is
+    one point past a 256-point tile."""
     layers = chip_smoke.pointnet_bf16_params(np.random.default_rng(n + p), d, cuda, b3)
     pts = torch.rand((n, p, 3), generator=torch.Generator().manual_seed(p)).to(cuda)
     pts = (2 * pts - 1).to(torch.bfloat16)
@@ -280,24 +283,31 @@ def test_pointnet_bf16_kernel_matches_plain_on_cuda(cuda, n, p, d, b3):
 @pytest.mark.parametrize("n,p,d", [(64, 2500, 1024), (46, 2500, 1024), (1, 2500, 1024),
                                    (2, 1, 256), (46, 2500, 256)])
 def test_pointnet_eval_launches_per_call(cuda, n, p, d, dtype):
-    """Two CUDA launches a call (W3's split, or its bf16 packing, and the
-    encoder) and three with point segments (the max over them), as a CUDA
-    graph that captures one call counts them: at serving's and the KD
-    step's shapes (segments) and at a single tile (none). One count on the
-    wrapper a call, f32's and bf16's apart."""
+    """The CUDA launches of a call, as a CUDA graph that captures one call
+    counts them. f32: two (W3's split, the encoder) and three with point
+    segments (the max over them): at serving's and the KD step's shapes
+    (segments) and at a single tile (none). bf16: the encoder, and the
+    merge of the clouds that several persistent blocks share
+    (pointnet.bf16_launches_per_call; no W3 copy at these D, multiples of
+    8): two at the shapes with several tiles a cloud, one at a single tile.
+    One count on the wrapper a call, f32's and bf16's apart."""
     pts = torch.rand((n, p, 3), generator=torch.Generator().manual_seed(n)).to(cuda)
     call = pointnet.pointnet_eval
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     if dtype == torch.bfloat16:
         pts, call = pts.to(dtype), pointnet.pointnet_eval_bf16
         layers = chip_smoke.pointnet_bf16_params(np.random.default_rng(d), d, cuda)
+        assert pointnet._lib().pointnet_eval_bf16_tile_points() == pointnet.BF16_TILE_P
+        want = pointnet.bf16_launches_per_call(n, p, d, sms)
+        assert want == 1 + (p > pointnet.BF16_TILE_P)
     else:
         layers = _folded(d, cuda)
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    segments, _ = pointnet.segments_for(n, p, d, sms)
-    assert (segments > 1) == (p > pointnet.TILE_P)
+        segments, _ = pointnet.segments_for(n, p, d, sms)
+        assert (segments > 1) == (p > pointnet.TILE_P)
+        want = 2 + (segments > 1)
     before = call.launches
     counted = chip_smoke.graph_kernel_launches(lambda: call(pts, layers))
-    assert counted == 2 + (segments > 1)
+    assert counted == want
     assert call.launches == before + 2  # the run before the capture, and it
 
 

@@ -273,3 +273,110 @@ def test_segments_stay_within_the_tiles(n, p, d):
     s, g = pointnet.segments_for(n, p, d, 132)
     assert 1 <= s <= -(-p // pointnet.TILE_P)
     assert 1 <= g <= -(-d // pointnet.CHUNK_D)
+
+
+def bf16_accumulator_max(pts, layers, tile=256):
+    """The bf16 kernel's order of work, on the CPU: layers 1-2 at the plain
+    version's rounding points, layer 3's f32 sums, the rows of a cloud's
+    last tile past its end repeating that tile's first point, the columns
+    whose BN multiplier is negative negated, the max over the points of
+    those sums, then layer 3's epilogue once a column on the max negated
+    back (flax's rounding points: bf16(acc), + b in bf16, the BN in f32)."""
+    x = pts
+    for w, b, bn in layers[:2]:
+        h = (x.float() @ w.float()).to(torch.bfloat16)
+        h = (h.float() + b.float()).to(torch.bfloat16)
+        x = torch.relu(((h.float() - bn[0]) * bn[1] + bn[2]).to(torch.bfloat16))
+    w3, b3, bn3 = layers[2]
+    acc = x.float() @ w3.float()  # (n, p, d)
+    p = pts.shape[1]
+    rows = torch.arange(-(-p // tile) * tile)
+    acc = acc[:, torch.where(rows < p, rows, rows // tile * tile)]
+    sign = torch.where(bn3[1] < 0, -1.0, 1.0)
+    m = (acc * sign).amax(dim=1) * sign
+    h = (m.to(torch.bfloat16).float() + b3.float()).to(torch.bfloat16)
+    return ((h.float() - bn3[0]) * bn3[1] + bn3[2]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,p,d,b3", [(2, 1, 256, None), (3, 257, 1001, None),
+                                      (2, 700, 1024, None), (3, 300, 256, -100.0)])
+def test_bf16_max_on_accumulators_is_the_plain_max(n, p, d, b3):
+    """Why the bf16 kernel may take the max before the epilogue: each step
+    of layer 3's epilogue rounds monotonically, rising with the accumulator
+    where the BN multiplier is positive and falling where it is negative, so
+    the max over the points of the epilogue is the epilogue at the
+    accumulators' max (min where negative), and repeated rows change no
+    max: bit-equal to pointnet_eval_bf16_plain, multipliers of both signs
+    (every output negative at b3 -100)."""
+    layers = chip_smoke.pointnet_bf16_params(np.random.default_rng(d + p), d, "cpu", b3)
+    assert bool((layers[2][2][1] < 0).any()) == (b3 is None)
+    pts = torch.from_numpy(np.random.default_rng(p).uniform(-1, 1, (n, p, 3)).astype(
+        np.float32)).to(torch.bfloat16)
+    got = bf16_accumulator_max(pts, layers)
+    assert torch.equal(got, pointnet.pointnet_eval_bf16_plain(pts, layers))
+    if b3 is not None:
+        assert float(got.float().max()) < 0
+
+
+@pytest.mark.parametrize("p", [100, 513])
+def test_bf16_accumulator_max_matches_jax(p):
+    """The bf16 kernel's order of work (bf16_accumulator_max) against JAX's
+    ShapeEncoderPC(dtype=bfloat16) eval forward on the same points: within
+    one bf16 ulp (2^-7 of max|ref|), under 1 % unequal."""
+    v = _variables("seeded")
+    pts = _points(5, p, seed=p + 3)
+    want = JaxShapeEncoderPC(FEATURE_DIM, dtype=jnp.bfloat16).apply(
+        jax.tree_util.tree_map(jnp.asarray, v), jnp.asarray(pts), train=False)
+    layers = pointnet.eval_layers_bf16(_port_state(v))
+    got = bf16_accumulator_max(torch.from_numpy(pts).to(torch.bfloat16), layers)
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    assert _rel(got, want) <= 2.0**-7 and float(np.mean(got != want)) < 0.01
+
+
+@pytest.mark.parametrize("n,p,d,want", [
+    # serving and evaluation at batch 64: 64 clouds x 10 tiles of 256 points
+    # in one column group (D 1024 is 8 chunks: layers 1-2 once a tile); 640
+    # units over 132 blocks, at most 5 a block. Two groups would be 10
+    # units of 4 chunks a block, layers 1-2 twice a tile
+    (64, 2500, 1024, (132, 1)),
+    # the KD step's frozen teacher: 460 units over 132 blocks, at most 4 a
+    # block (2 groups: at most 7 units of 4 chunks, more work a block)
+    (46, 2500, 1024, (132, 1)),
+    # serving at batch 1: 10 tiles would leave 122 SMs idle; 8 groups of
+    # one chunk make 80 units, one a block
+    (1, 2500, 1024, (80, 8)),
+    # stage 2 and the D-256 teachers: one group of 2 chunks, which stays
+    # in the ring for a block's run; 460 units, at most 4 a block
+    (46, 2500, 256, (132, 1)),
+    # a single tile: 2 groups of one chunk, 4 units on 4 blocks
+    (2, 1, 256, (4, 2)),
+    # 132 clouds of 2 tiles: 264 units, 2 a block, each block one cloud
+    (132, 300, 256, (132, 1)),
+])
+def test_bf16_split_fills_the_card(n, p, d, want):
+    assert pointnet.bf16_split(n, p, d, 132) == want
+
+
+@pytest.mark.parametrize("n,p,d", [(1, 511, 256), (46, 2501, 1024), (300, 2500, 1024),
+                                   (1, 1, 1000)])
+def test_bf16_split_stays_within_the_tiles_and_columns(n, p, d):
+    """Every group holds columns and at most BF16_GROUP_CHUNKS chunks (the
+    running max's room), and no block is left without a unit."""
+    blocks, groups = pointnet.bf16_split(n, p, d, 132)
+    tiles, chunks = -(-p // pointnet.BF16_TILE_P), -(-d // pointnet.BF16_CHUNK_D)
+    per_group = -(-chunks // groups)
+    assert 1 <= per_group <= pointnet.BF16_GROUP_CHUNKS
+    assert -(-chunks // per_group) == groups
+    assert 1 <= blocks <= min(132, groups * n * tiles)
+
+
+@pytest.mark.parametrize("n,p,d,want", [
+    # the shared clouds' merge: a block's run starts inside a cloud
+    (64, 2500, 1024, 2), (46, 2500, 1024, 2), (1, 2500, 1024, 2), (46, 2500, 256, 2),
+    # one cloud a block (a tile's 4 units on 4 blocks; 2 tiles a block)
+    (2, 1, 256, 1), (132, 300, 256, 1),
+    # and W3's copy into rows of a multiple of 8 columns
+    (2, 300, 1001, 3),
+])
+def test_bf16_launches_per_call(n, p, d, want):
+    assert pointnet.bf16_launches_per_call(n, p, d, 132) == want
