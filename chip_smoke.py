@@ -55,7 +55,11 @@ width with random weights from a seed:
   * exported serving: the student and both teachers exported through
     `torch.export` in f32, bf16 and int8, saved, reloaded and served on the
     card (and the f32 student's and PointCloud teacher's files on the
-    CPU), and `inference --export_aot` / `--load_aot` on generated files.
+    CPU), and `inference --export_aot` / `--load_aot` on generated files;
+  * the host data options: the native PLY reader built on the host, the
+    train loaders (thread and `--loader shm`, the decode cache off and on)
+    alone and under the steps, and the training and KD CLIs with `--loader
+    shm --cache_decoded_mb --profile_dir` on generated files.
 The student's stem (conv3x3 + ReLU + 2x2 pool) runs in the VGG stem
 kernel in every student forward. Phases:
 
@@ -194,9 +198,26 @@ exported serving (`aot_phases`): 54 the student (2048, 224), the
   CPU eager model (the canary)    55 inference --export_aot then
   --load_aot (no --ckpt) for the three families on generated files: the
   same prediction
+the host data options (`host_data_phases`): 56 (a) the native PLY reader
+  (csrc/ply_reader.cpp) built by the host's C++ compiler, equal to the
+  numpy reader on ascii, little- and big-endian files of 100,000 vertices
+  (big-endian declined by it), and both readers' first-read times; (b) the
+  train loaders alone on generated files, the MultiView teacher's host path
+  and KD --crd's three views in batches of 16, an epoch of two batches a
+  worker at the host's cores (at most 16): thread against shm at 4 workers
+  and at the cores with the decode cache off, and at the cores with it at
+  512 MB (two epochs, hits and misses), each rate timed after the loader's
+  fill (shm: its first `workers` batches), every batch bit-equal across
+  the loaders; (c) the MultiView teacher and KD --crd steps (batch 16)
+  through the trainers' Prefetcher with each loader, an epoch f32 and one
+  bf16, after their first `cores` steps: samples/s, and the busy share from
+  a CUDA trace of those steps; (d) training --shape MultiView and
+  trainingKD --crd with --loader shm --cache_decoded_mb 512 --profile_dir,
+  batch 8, one epoch of 16 steps each, each trace holding steps 5-14 and the hand
+  kernels of its steps; the host's cores and /dev/shm beside each line
 Each path (7-8, 10-11, 16-17, 20-21, 24-25, 28-29, each variant of 31,
-35-38's, 40's, 41-44's, 46-50's, each CLI run of 53, each artifact of 54
-and each family of 55) is driven with the kernels' launch counts set
+35-38's, 40's, 41-44's, 46-50's, each CLI run of 53, each artifact of 54,
+each family of 55 and each sweep and CLI run of 56) is driven with the kernels' launch counts set
 to 0 just before it and read just after it; 16, 20, 24, 28 and 31's are
 the training paths' main paths, 35-38's and 40's the bf16 ones. The total
 seconds are printed before the card's line.
@@ -352,6 +373,14 @@ AOT_TOL = {"f32": 1e-4, "bf16": 2.0**-6, "int8": 2.0**-6}
 # cloud; the realistic render bank (models, renders, H, W, 3: 2.17 GB u8)
 # and its gather (samples, views)
 DD_CLOUD_VERTICES, DD_BANK_SHAPE, DD_GATHER = 10_000, (100, 144, 224, 224, 3), (64, 12)
+# the host data options (phase 56): the native PLY reader's cloud; the
+# decode cache's budget; the batch of the loaders alone and of the steps
+# (the CLIs' default --batch_size); the batches an epoch of those gives
+# each shm worker at the host's cores (a worker builds whole batches, so the
+# first of them is the pipeline's fill, and the rates are timed after it);
+# the CLIs' train rows and batch (16 steps an epoch)
+HD_PLY_VERTICES, HD_CACHE_MB, HD_BATCH, HD_ROUNDS = 100_000, 512, 16, 2
+HD_CLI_ROWS, HD_CLI_BATCH = 128, 8
 EVAL_CATEGORIES = ["bed", "bookshelf", "calculator"]
 EVAL_COUNTS = [64] * 8 + [37]  # 8 full batches of 64 + a ragged 37 padded to 64
 EDGE_ROWS = (  # (pred, label): identical triples (0 deg) and 180 deg apart,
@@ -667,10 +696,11 @@ def check_eval(result, geometry, name: str, counts=EVAL_COUNTS) -> None:
                                f"{result.per_category_med[cat]} vs CPU {acc}/{med}")
 
 
-def write_fixtures(root: str, rng: np.random.Generator) -> dict:
+def write_fixtures(root: str, rng: np.random.Generator, n_train: int = 48) -> dict:
     """Small datasets in the layouts the CLIs read, at the recipes' image
-    sizes: <root>/train/ObjectNet3D (256x256 JPEGs of 2 test categories, 96
-    train and 32 val rows; 12 of each model's 216 224x224 renders distinct),
+    sizes: <root>/train/ObjectNet3D (256x256 JPEGs of 2 test categories,
+    n_train train rows each (96 in all by default) and 32 val rows; 12 of
+    each model's 216 224x224 renders distinct),
     ShapeNetCore (48 240x240 RGBA renders, the SUN backgrounds beside it)
     and Pix3D (24 rows of the evaluation layout); <root>/test/LineMod (24
     rows) and Pix3D (the contrastive layout, 24 val rows). Returns the two
@@ -703,7 +733,7 @@ def write_fixtures(root: str, rng: np.random.Generator) -> dict:
     flags = dict(difficult=0, truncated=0, occluded=0, has_keypoints=1)
     rows = []
     for cat in ("bed", "bookshelf"):
-        for split, n in (("train", 48), ("val", 16)):
+        for split, n in (("train", n_train), ("val", 16)):
             for i in range(n):
                 name = f"Images/{cat}_{split}_{i}.jpg"
                 image(os.path.join(train, "ObjectNet3D", name), 256)
@@ -3863,6 +3893,387 @@ def aot_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts):
     return launched, added, added16
 
 
+def batches_differ(got: list[dict], want: list[dict]) -> list[int]:
+    """The indices of the batches that differ (keys, shapes, dtypes or a
+    byte), and a batch too many or too few."""
+    bad = [j for j, (g, w) in enumerate(zip(got, want))
+           if g.keys() != w.keys() or any(g[k].dtype != w[k].dtype
+                                          or not np.array_equal(g[k], w[k]) for k in g)]
+    return bad + list(range(min(len(got), len(want)), max(len(got), len(want))))
+
+
+def write_ply_fixtures(root: str, rng: np.random.Generator, n: int) -> tuple[dict, np.ndarray]:
+    """The same n-vertex cloud as ascii, binary_little_endian and
+    binary_big_endian PLY files (float x, y, z, then a uchar the readers
+    skip)."""
+    verts = rng.standard_normal((n, 3)).astype(np.float32)
+    header = (b"ply\nformat %s 1.0\nelement vertex %d\nproperty float x\nproperty float y\n"
+              b"property float z\nproperty uchar c\nend_header\n")
+    paths = {}
+    for fmt, end in (("ascii", None), ("binary_little_endian", "<"), ("binary_big_endian", ">")):
+        paths[fmt] = os.path.join(root, f"{fmt}.ply")
+        with open(paths[fmt], "wb") as f:
+            f.write(header % (fmt.encode(), n))
+            if end is None:
+                f.write("".join("%.9g %.9g %.9g 7\n" % tuple(v) for v in verts).encode())
+            else:
+                rows = np.zeros(n, [("p", end + "f4", 3), ("c", "u1")])
+                rows["p"], rows["c"] = verts, 7
+                f.write(rows.tobytes())
+    return paths, verts
+
+
+def trace_events(path: str) -> list[dict]:
+    """A chrome trace's events."""
+    with open(path) as f:
+        return json.load(f).get("traceEvents", [])
+
+
+def trace_busy(events: list[dict]) -> tuple[float, float, float]:
+    """From a chrome trace's events: the kernels' summed time and the
+    window, in ms, and their ratio. The window runs from the first "step i"
+    annotation's start (where the trace has them, as a CPU and CUDA trace of
+    annotated steps does; else from the first kernel's start) to the last
+    event's end."""
+    events = [e for e in events if "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    steps = [e for e in events if str(e.get("name", "")).startswith("step ")]
+    start = min(e["ts"] for e in steps or kernels)
+    end = max(e["ts"] + e["dur"] for e in steps + kernels)
+    kernel_ms = sum(e["dur"] for e in kernels) / 1e3
+    return kernel_ms, (end - start) / 1e3, kernel_ms / max((end - start) / 1e3, 1e-9)
+
+
+def host_data_phases(dev, card: str, t0: float, reset_counts, counts, bf16_counts,
+                     pt16_counts):
+    """Phase 56: the host data options on the card's machine. (a) the native
+    PLY reader built here, against the numpy reader on ascii, little- and
+    big-endian files of HD_PLY_VERTICES vertices, and their first-read
+    times; (b) the train loaders alone on `write_fixtures`' files, the
+    MultiView teacher's host path and KD --crd's three views in batches of
+    HD_BATCH, an epoch of HD_ROUNDS batches a worker at the host's cores (at
+    most 16): thread against shm at 4 workers and at the cores with the
+    decode cache off (one epoch), and at the cores with it at HD_CACHE_MB
+    (two epochs, hits and misses), each rate timed after the loader's fill,
+    every batch held bit-equal across the loaders; (c) the two steps through
+    the trainers' `Prefetcher` with each loader (the cores, the cache off),
+    an epoch f32 then one bf16, each timed and traced (CUDA activity) after
+    its first `cores` steps: samples/s, and the busy share read from the
+    trace; (d) `training --shape MultiView` and `trainingKD --crd` with
+    --loader shm --cache_decoded_mb HD_CACHE_MB --profile_dir, one epoch of
+    16 steps each on a set of HD_CLI_ROWS rows, the launch counts set to 0
+    before each and read after it, each trace searched for the hand kernels
+    of its steps. Returns the launches summed, as `counts`, `bf16_counts` and
+    `pt16_counts` order them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pose3d_tpu_torch.cli import common as cli_common
+    from pose3d_tpu_torch.cli import training as training_cli
+    from pose3d_tpu_torch.cli import trainingKD as kd_cli
+    from pose3d_tpu_torch.data import ply, shm_loader
+    from pose3d_tpu_torch.models.estimators import BaselineEstimator, PoseEstimator
+    from pose3d_tpu_torch.ops import _build
+    from pose3d_tpu_torch.train import convert, steps
+    from pose3d_tpu_torch.train.evaluate import host_array
+    from pose3d_tpu_torch.train.state import create_train_state
+    from pose3d_tpu_torch.train.trainer import Prefetcher
+
+    added, added16, added_pt16 = [0] * 8, [0] * 3, [0] * 2
+
+    def drive(run):
+        reset_counts()
+        out = run()
+        torch.cuda.synchronize()
+        c, c16, p16 = counts(), bf16_counts(), pt16_counts()
+        for acc, got in ((added, c), (added16, c16), (added_pt16, p16)):
+            for i, v in enumerate(got):
+                acc[i] += v
+        return out, c, c16, p16
+
+    cores = min(16, len(os.sched_getaffinity(0)))
+    free, total = shm_loader.shm_free_bytes()
+    host = (f"host: {cores} cores ({os.cpu_count()} online), /dev/shm {total / 2**30:.2f} "
+            f"GiB ({free / 2**30:.2f} free)")
+    workdir = tempfile.TemporaryDirectory()
+
+    # 56a. the native PLY reader: built by the host's C++ compiler, its
+    # vertices equal to the numpy reader's; big-endian declined and read by
+    # numpy; first reads (the files warm in the page cache) of each
+    tb = time.perf_counter()
+    lib_path = _build.build_host("ply_reader")
+    ply._library()
+    ply_build_s = time.perf_counter() - tb
+    paths, verts = write_ply_fixtures(workdir.name, np.random.default_rng(56), HD_PLY_VERTICES)
+    read_ms = {}
+    for fmt, path in paths.items():
+        native, plain = ply.read_native(path), ply.read_numpy(path)
+        loaded = ply.load_vertices(path, cache=False)
+        ok = (native is None) if fmt == "binary_big_endian" else np.array_equal(native, plain)
+        if not ok or not np.array_equal(loaded, plain) or not np.array_equal(plain, verts):
+            raise RuntimeError(f"native PLY reader ({fmt}): native "
+                               f"{None if native is None else native.shape}, not equal to "
+                               "the numpy reader's or to the cloud written")
+        for who, read in (("native", ply.read_native), ("numpy", ply.read_numpy)):
+            if who == "native" and fmt == "binary_big_endian":
+                continue
+            read_ms[fmt, who] = []
+            for _ in range(3):
+                tt = time.perf_counter()
+                read(path)
+                read_ms[fmt, who].append((time.perf_counter() - tt) * 1e3)
+    phase("host data: PLY", t0, f"{lib_path} built in {ply_build_s:.2f} s; {HD_PLY_VERTICES} "
+          "vertices equal to the numpy reader's (ascii, little-endian; big-endian declined, "
+          "read by numpy); reads (ms, three each, warm): " + "; ".join(
+              f"{fmt} {who} {[round(v, 3) for v in ms]}" for (fmt, who), ms in read_ms.items())
+          + f" [{card}; {host}]")
+
+    # 56b. the train loaders alone: an epoch of HD_ROUNDS batches a worker
+    # at the cores. A shm worker builds whole batches, so its loader's
+    # first `workers` batches of an epoch are the pipeline's fill; the
+    # thread loader's pool builds its batches in order, so only its first
+    # batch is. Each rate runs from the fill's last batch's arrival to the
+    # epoch's last (the samples after the fill over that time). The
+    # consumer keeps each batch (a copy of a shm slot), held against the
+    # first loader's after the epoch. The loaders at the cores with the
+    # cache off stay open for (c).
+    rows = HD_ROUNDS * max(cores, 4) * HD_BATCH
+    roots = write_fixtures(os.path.join(workdir.name, "sweep"), np.random.default_rng(57),
+                           rows // 2)
+    write_clouds(roots["train"], np.random.default_rng(58))
+
+    def flag_sets(root):
+        data = ["--dataset", "ObjectNet3D", "--data_root", root, "--decrease", "100"]
+        return (data + ["--shape", "MultiView", "--fused_nce", "--print_freq", "100"],
+                data + ["--shape", "PointCloud", "--shape_dir", "pointcloud", "--crd"])
+
+    def train_set(flags, kind, batch, loader, workers, cache_mb):
+        extra = ["--batch_size", str(batch), "--loader", loader, "--workers", str(workers),
+                 "--cache_decoded_mb", str(cache_mb)]
+        if kind == "mv":
+            opt = training_cli.parse_args(flags[0] + extra)
+            return cli_common.build_train_eval_datasets(opt)[0], opt
+        opt = kd_cli.parse_args(flags[1] + extra)
+        return cli_common.build_kd_datasets(opt)[0], opt
+
+    def read_epoch(ld, fill, copy):
+        """The epoch's batches; its samples/s after the fill, and over the
+        whole epoch."""
+        tt = time.perf_counter()
+        batches, stamps = [], []
+        for b in ld:
+            stamps.append(time.perf_counter())
+            batches.append({k: v.copy() for k, v in b.items()} if copy else b)
+        n = [int(b["valid"].sum()) for b in batches]
+        return batches, (sum(n[fill:]) / (stamps[-1] - stamps[fill - 1]),
+                         sum(n) / (stamps[-1] - tt))
+
+    # 56c's models: the steps through the trainers' Prefetcher with the
+    # loaders at the cores, the cache off, an epoch f32 then an epoch bf16
+    # on the same weights. The first `cores` steps of each epoch are the
+    # loader's fill; after them, synced,
+    # the rest is timed on the host's clock and traced with CUDA activity
+    # only: the busy share is the kernels' time over the traced window
+    mv_model = PoseEstimator(shape="MultiView", view_num=MV_VIEWS, img_feature_dim=1024,
+                             shape_feature_dim=MV_SHAPE_DIM,
+                             generator=torch.Generator().manual_seed(64)).to(dev)
+    mv_state = create_train_state(mv_model, LR, [10**9], seed=64)
+    student = BaselineEstimator(generator=torch.Generator().manual_seed(65)).to(dev)
+    kd_state = create_train_state(student, LR, [10**9], seed=65)
+    pc_sd = convert.pose_state_dict(teacher_variables(np.random.default_rng(66), 1024, 1024))
+    pc_teacher = PoseEstimator(img_feature_dim=1024, shape_feature_dim=1024)
+    pc_teacher.load_state_dict(pc_sd, strict=True)
+    pc_teacher = pc_teacher.to(dev).eval().requires_grad_(False)
+    mv_step = steps.make_teacher_train_step(use_fused_nce=True)
+    kd_step = steps.make_kd_crd_step()
+    runs = {"mv": (("im", "shape", "label"), lambda db: mv_step(mv_state, db),
+                   [mv_state.model]),
+            "kd": (("im", "shape", "label", "im_flip", "label_flip", "im_rot", "label_rot"),
+                   lambda db: kd_step(kd_state, pc_teacher, db), [kd_state.model, pc_teacher])}
+
+    def sweep(ld, keys, run_step, trace_path):
+        """One epoch; (samples, steps, seconds) after the first `cores`
+        steps, and the trace's (kernel ms, window ms, busy share)."""
+        prof, n, n_steps = None, 0, 0
+        try:
+            for k, (db, valid) in enumerate(Prefetcher(ld, keys, dev)):
+                if k == cores:
+                    torch.cuda.synchronize()
+                    tt = time.perf_counter()
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.__enter__()
+                run_step(db)
+                if prof is not None:
+                    n += int(valid.sum())
+                    n_steps += 1
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - tt
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+        prof.export_chrome_trace(trace_path)
+        return n, n_steps, secs, trace_busy(trace_events(trace_path))
+
+    sweep_flags = flag_sets(roots["train"])
+    turns = [(4, "thread", 0), (4, "shm", 0), (cores, "thread", 0), (cores, "shm", 0),
+             (cores, "shm", HD_CACHE_MB), (cores, "thread", HD_CACHE_MB)]
+    turns = [t for i, t in enumerate(turns) if t not in turns[:i]]
+    rates, cache_stats, slot_mb, n_batches = {}, {}, {}, {}
+    step_rates, busy, warmed = {}, {}, set()
+    for kind, (keys, run_step, models) in runs.items():
+        ref = {}
+        with contextlib.ExitStack() as kept:
+            for workers, loader, cache_mb in turns:
+                ds, opt = train_set(sweep_flags, kind, HD_BATCH, loader, workers, cache_mb)
+                ld = kept.enter_context(cli_common.make_train_loader(ds, opt))
+                fill = workers if loader == "shm" else 1
+                n_batches[kind] = len(ld)
+                for epoch in ((0, 1) if cache_mb else (0,)):
+                    ld.set_epoch(epoch)
+                    batches, rate = read_epoch(ld, fill, loader == "shm")
+                    rates.setdefault((kind, workers, loader, cache_mb), []).append(rate)
+                    bad = batches_differ(batches, ref.setdefault(epoch, batches))
+                    if bad:
+                        raise RuntimeError(f"host data: the {kind} {loader} loader's "
+                                           f"batches {bad} (workers {workers}, cache "
+                                           f"{cache_mb} MB, epoch {epoch}) differ from "
+                                           "the first loader's")
+                    del batches
+                cache_stats[kind, workers, loader, cache_mb] = ld.cache_stats()
+                if loader == "shm":
+                    slot_mb[kind] = shm_loader._spec_layout(ld._spec)[1] / 2**20
+                if (workers, cache_mb) != (cores, 0):
+                    ld.close()
+                    continue
+                # 56c. this loader's steps: epochs 1 (f32) and 2 (bf16), each
+                # dtype's first calls (cuDNN's choices, the allocator) made
+                # before on a resident batch, untimed: a slow first step
+                # would let the loader fill its buffers, which the window
+                # would then drain faster than the loader builds
+                if kind not in warmed:
+                    resident = {k: torch.from_numpy(np.ascontiguousarray(
+                        host_array(ref[0][0][k]))).to(dev) for k in keys}
+                    for dtype in ("f32", "bf16"):
+                        for m in models:
+                            set_compute_dtype(m, torch.bfloat16 if dtype == "bf16" else None)
+                        for _ in range(2):
+                            run_step(resident)
+                    torch.cuda.synchronize()
+                    warmed.add(kind)
+                    del resident
+                for epoch, dtype in ((1, "f32"), (2, "bf16")):
+                    for m in models:
+                        set_compute_dtype(m, torch.bfloat16 if dtype == "bf16" else None)
+                    ld.set_epoch(epoch)
+                    trace_path = os.path.join(workdir.name, f"{kind}_{loader}_{dtype}.json")
+                    (n, n_steps, secs, busy[kind, loader, dtype]), *_ = drive(
+                        lambda: sweep(ld, keys, run_step, trace_path))
+                    step_rates[kind, loader, dtype] = n / secs, n_steps
+                    os.remove(trace_path)
+            del ref
+        for m in models:
+            set_compute_dtype(m, None)
+    left = [n for n in os.listdir(shm_loader.SHM_DIR)
+            if n.startswith(f"{shm_loader.SHM_PREFIX}_{os.getpid()}_")]
+    if left:
+        raise RuntimeError(f"host data: shared-memory segments left after close: {left}")
+
+    def cached(stats):
+        return "" if not stats else f", hits {stats['hits']}, misses {stats['misses']}"
+
+    for kind, what in (("mv", "the MultiView teacher's host path (12 PNG renders and three "
+                              "JPEG views a sample)"),
+                       ("kd", f"KD --crd's (three JPEG views and a {POINT_NUM}-point subset "
+                              "a sample)")):
+        phase("host data: loaders", t0, f"{what}, {rows} samples in {n_batches[kind]} batches "
+              f"of {HD_BATCH}, every batch equal across the loaders, shm slot "
+              f"{slot_mb[kind]:.1f} MiB; samples/s after the fill (shm: its first `workers` "
+              "batches, thread: its first), an epoch each (the cache: epochs 1, 2) [whole "
+              "epoch 1]: " + "; ".join(
+                  f"{loader} w{workers} cache {cache_mb} "
+                  f"{[round(r[0], 1) for r in rates[kind, workers, loader, cache_mb]]} "
+                  f"[{rates[kind, workers, loader, cache_mb][0][1]:.1f}"
+                  f"{cached(cache_stats[kind, workers, loader, cache_mb])}]"
+                  for workers, loader, cache_mb in turns) + f" [{card}; {host}]")
+    for kind, what in (("mv", f"the MultiView teacher step (batch {HD_BATCH}, "
+                              "--fused_nce)"),
+                       ("kd", f"the KD --crd step (batch {HD_BATCH} x 3 views, the "
+                              "PointCloud teacher 1024/1024)")):
+        phase("host data: steps", t0, f"{what} through the Prefetcher, the loaders above at "
+              f"{cores} workers, the cache off, epochs of {rows // HD_BATCH} steps, after the "
+              f"first {cores}: samples/s (busy share, kernel ms a step, from a CUDA trace of "
+              "those steps): " + "; ".join(
+                  f"{dtype} {loader} {step_rates[kind, loader, dtype][0]:.1f} "
+                  f"({busy[kind, loader, dtype][2]:.3f}, "
+                  f"{busy[kind, loader, dtype][0] / step_rates[kind, loader, dtype][1]:.3f})"
+                  for dtype in ("f32", "bf16") for loader in ("thread", "shm"))
+              + f" [{card}; {host}]")
+    del mv_state, kd_state, pc_teacher, runs
+    torch.cuda.empty_cache()
+
+    # 56d. the CLIs with the three options, one epoch of 16 steps each
+    cli_roots = write_fixtures(os.path.join(workdir.name, "cli"), np.random.default_rng(59),
+                               HD_CLI_ROWS // 2)
+    write_clouds(cli_roots["train"], np.random.default_rng(60))
+    mv_flags, pc_flags = flag_sets(cli_roots["train"])
+    pc_ckpt = os.path.join(workdir.name, "pc_teacher.pth")
+    torch.save({"state_dict": pc_sd}, pc_ckpt)
+    host_opts = ["--n_epoch", "1", "--loader", "shm", "--cache_decoded_mb", str(HD_CACHE_MB),
+                 "--workers", str(cores), "--batch_size", str(HD_CLI_BATCH)]
+    cwd = os.getcwd()
+    os.chdir(workdir.name)
+    cli, traces = {}, {}
+    try:
+        for name, main, argv in (
+                ("training --shape MultiView", training_cli.main, mv_flags),
+                ("trainingKD --crd", kd_cli.main, pc_flags + ["--teacher_model", pc_ckpt])):
+            trace_dir = os.path.join(workdir.name, f"trace_{len(cli)}")
+            tt = time.perf_counter()
+            _, c, c16, _ = drive(lambda: quiet(main, argv + host_opts + [
+                "--profile_dir", trace_dir, "--result_dir", f"result_{len(cli)}"]))
+            cli[name] = c, c16, time.perf_counter() - tt
+            traces[name] = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        steps_n = len(cli_common.make_train_loader(*train_set(
+            (mv_flags, pc_flags), "mv", HD_CLI_BATCH, "thread", 1, 0)))
+        val_batches = math.ceil(len(cli_common.build_kd_datasets(
+            kd_cli.parse_args(pc_flags + ["--batch_size", str(HD_CLI_BATCH)]))[1])
+            / HD_CLI_BATCH)
+    finally:
+        os.chdir(cwd)
+    want = {"training --shape MultiView": (2, 0, steps_n, steps_n, 0, 0, 0, 0),
+            "trainingKD --crd": (1, steps_n, 0, 0, steps_n + val_batches, steps_n, 0, 0)}
+    got = {k: v[0] for k, v in cli.items()}
+    if steps_n != 16 or got != want or any(any(v[1]) for v in cli.values()):
+        raise RuntimeError(f"host data CLIs: launches {got}, expected {want} (16 steps each, "
+                           f"bf16 none: {[v[1] for v in cli.values()]})")
+    needles = {"training --shape MultiView": ("nce_forward_kernel", "nce_backward_kernel"),
+               "trainingKD --crd": ("stem_forward_tf32x3_kernel", "stem_wgrad",
+                                    "pne_encoder_kernel")}
+    found, busy_of = {}, {}
+    for name, files in traces.items():
+        regime = "teacher" if name.startswith("training ") else "crd"
+        if [os.path.basename(f) for f in files] != [f"{regime}_steps5-14.pt.trace.json"]:
+            raise RuntimeError(f"host data: {name} wrote traces {files}, expected one of "
+                               "steps 5-14")
+        events = trace_events(files[0])
+        names = {e.get("name", "") for e in events}
+        found[name] = {n: sum(n in e for e in names) > 0 for n in needles[name]}
+        steps_in = {f"step {i}" for i in range(5, 15)} <= names and "step 15" not in names
+        if not all(found[name].values()) or not steps_in:
+            raise RuntimeError(f"host data: {name}'s trace names the kernels {found[name]}, "
+                               f"steps 5-14 annotated {steps_in}")
+        busy_of[name] = trace_busy(events)
+    phase("host data: CLIs", t0, "--loader shm --cache_decoded_mb "
+          f"{HD_CACHE_MB} --profile_dir, {HD_CLI_ROWS} rows in batches of {HD_CLI_BATCH}, one "
+          f"epoch of {steps_n} steps, {cores} workers: launches (geodesic, pointnet, NCE fwd, "
+          "bwd, stem fwd, bwd, train-mode pointnet fwd, bwd) " + "; ".join(
+              f"{name} {c} in {s:.1f} s, its trace of steps 5-14 names "
+              f"{', '.join(needles[name])}: kernels {busy_of[name][0]:.1f} ms of a "
+              f"{busy_of[name][1]:.1f} ms window under the profiler (busy "
+              f"{busy_of[name][2]:.3f})" for name, (c, _, s) in cli.items()) + f" [{card}; {host}]")
+    workdir.cleanup()
+    return added, added16, added_pt16
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--source", action="append", default=[], type=parse_source,
@@ -6203,15 +6614,18 @@ def main() -> int:
     aot_i8, aot_added, aot_added16 = aot_phases(dev, card, t0, reset_counts, counts,
                                                 bf16_counts)
     i8_launched += aot_i8
-    # the int8, the on-device data and the exported serving paths' launches
-    # of the other kernels join the MultiView paths' (the stem's, the
+    # 56. the host data options
+    hd_added, hd_added16, hd_pt16 = host_data_phases(dev, card, t0, reset_counts, counts,
+                                                     bf16_counts, pt16_counts)
+    # the int8, the on-device data, the exported serving and the host data
+    # paths' launches of the other kernels join the MultiView paths' (the stem's, the
     # PointNet's, the NCE's and the geodesic's; the train-mode PointNet's
     # join its own)
-    mv_added = [a + b + c + d for a, b, c, d in zip(mv_added, i8_added, dd_added, aot_added)]
-    mv16_added = [a + b + c + d for a, b, c, d in zip(mv16_added, i8_added16, dd_added16,
-                                                      aot_added16)]
-    pt16_paths = [a + b + c + d + e for a, b, c, d, e in zip(t16_counts, t16_fit, s116_counts,
-                                                             s116_fit, dd_pt16)]
+    mv_added = [sum(v) for v in zip(mv_added, i8_added, dd_added, aot_added, hd_added)]
+    mv16_added = [sum(v) for v in zip(mv16_added, i8_added16, dd_added16, aot_added16,
+                                      hd_added16)]
+    pt16_paths = [sum(v) for v in zip(t16_counts, t16_fit, s116_counts, s116_fit, dd_pt16,
+                                      hd_pt16)]
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -45,6 +45,15 @@ DEVICE_SHAPES_HELP = ("keep every CAD model's shape on the device (ops/shape_ban
 DEVICE_AUGMENT_HELP = ("run the photometric augmentation and the normalisation in the "
                        "step (ops/augment.py): the loader sends the views' raw pixels as "
                        "uint8")
+LOADER_HELP = ("train-loader backend: thread (a thread pool sharing the GIL with the train "
+               "loop) or shm (--workers spawned processes that write whole batches into "
+               "shared-memory slots in /dev/shm, which must hold (workers + 2) batches; "
+               "data/shm_loader.py). Both give the same batches")
+CACHE_HELP = ("LRU-cache decoded images up to this many MB in each loader process, so that "
+              "later epochs skip the decode (exact; 0 = off, the default; "
+              "data/decode_cache.py)")
+PROFILE_HELP = ("write a torch.profiler trace (CPU, and CUDA on the card) of steps 5-14 of "
+                "the first epoch here")
 TEST_CATS = {"ObjectNet3D": annotations.OBJECTNET3D_TEST_CATS,
              "Pascal3D": annotations.PASCAL3D_TEST_CATS,
              "Pix3D": annotations.PIX3D_TEST_CATS,
@@ -197,17 +206,36 @@ def maybe_shape_bank(opt, dataset, device: torch.device) -> ShapeBank | RenderBa
     return ShapeBank.from_arrays(verts, counts, opt.point_num, device)
 
 
+def add_loader_flags(parser: argparse.ArgumentParser, loader_help: str = LOADER_HELP) -> None:
+    """JAX's `--loader` and `--cache_decoded_mb` (`add_common_flags`)."""
+    parser.add_argument("--loader", type=str, default="thread", choices=["thread", "shm"],
+                        help=loader_help)
+    parser.add_argument("--cache_decoded_mb", type=float, default=0.0, help=CACHE_HELP)
+
+
 def make_train_loader(dataset, opt, seed: int = MANUAL_SEED) -> DataLoader:
-    """The shuffled train loader. The ragged tail is dropped unless the set
-    is smaller than one batch (then its one batch is padded and masked)."""
-    return DataLoader(dataset, opt.batch_size, shuffle=True,
-                      drop_last=len(dataset) > opt.batch_size, num_workers=opt.workers,
-                      seed=seed)
+    """The shuffled train loader of --loader (JAX's `make_train_loader`):
+    the thread `DataLoader`, or with `shm` the `ShmDataLoader` of --workers
+    processes, zero-copy (the trainers' `Prefetcher` copies each batch out
+    of its slot before it asks for the next); close it after the run. The
+    ragged tail is dropped unless the set is smaller than one batch (then
+    its one batch is padded and masked)."""
+    kw = dict(shuffle=True, drop_last=len(dataset) > opt.batch_size,
+              num_workers=opt.workers, seed=seed)
+    if getattr(opt, "loader", "thread") == "shm":
+        from pose3d_tpu_torch.data.shm_loader import ShmDataLoader
+
+        return ShmDataLoader(dataset, opt.batch_size, copy=False, **kw)
+    return DataLoader(dataset, opt.batch_size, **kw)
+
+
+def _cache(opt) -> dict:
+    return dict(decode_cache_mb=getattr(opt, "cache_decoded_mb", 0.0))
 
 
 def _shape_kwargs(opt) -> dict:
     return dict(shape=opt.shape, shape_dir=opt.shape_dir, input_dim=opt.input_dim,
-                point_num=opt.point_num, view_num=opt.view_num, tour=opt.tour)
+                point_num=opt.point_num, view_num=opt.view_num, tour=opt.tour, **_cache(opt))
 
 
 def build_train_eval_datasets(opt):
@@ -239,7 +267,7 @@ def build_train_eval_datasets(opt):
             root_dir, annotation_file, bg_dir=os.path.join(opt.data_root, "SUN"), train=True,
             random=opt.random, cat_choice=SHAPENET_CATS, novel=opt.novel, shape=opt.shape,
             shape_dir=opt.shape_dir, view_num=opt.view_num, tour=opt.tour,
-            random_range=opt.random_range)
+            random_range=opt.random_range, **_cache(opt))
         val = datasets.Pix3D(os.path.join(opt.data_root, "Pix3D"), "Pix3D.txt")
     else:
         raise SystemExit(f"unsupported training dataset {opt.dataset}")  # JAX's
@@ -275,7 +303,8 @@ def build_kd_datasets(opt, val_shapes: bool = False):
         root_dir, annotation_file, train=True, cat_choice=cats, novel=opt.novel,
         shot=opt.shot if opt.dataset == "ObjectNet3D" else None, seed=MANUAL_SEED,
         **_shape_kwargs(opt), **extra)
-    val_shape = _shape_kwargs(opt) if val_shapes else dict(shape=None, input_dim=opt.input_dim)
+    val_shape = (_shape_kwargs(opt) if val_shapes
+                 else dict(shape=None, input_dim=opt.input_dim, **_cache(opt)))
     val = datasets.Pascal3DContrast(root_dir, annotation_file, train=False, cat_choice=cats,
                                     novel=opt.novel, **val_shape, **extra)
     return train, val

@@ -15,7 +15,10 @@ batches; its teacher evaluation computes no contrastive loss, as JAX's.
 device-resident bank (ops/shape_bank.py), resolved in the step from a few
 scalars a sample; it is refused for the student and with `--int8`, as
 JAX refuses them. `--n_devices` is refused with a message until it is
-ported (ROADMAP.md).
+ported (ROADMAP.md). `--cache_decoded_mb` caches the decoded images of
+ObjectNet3D's and Pascal3D's evaluation sets (`data/decode_cache.py`), as
+JAX's CLI does; `--loader` is parsed as JAX's is, and the evaluation reads
+through the thread loader whatever its value, as in JAX.
 
     python -m pose3d_tpu_torch.cli.testing --dataset ObjectNet3D --shape None \\
         --img_feature_dim 2048 --model student.pth
@@ -75,6 +78,8 @@ def parse_args(argv=None):
     parser.add_argument("--device_shapes", action="store_true",
                         help="teacher eval only: resolve shapes from a device-resident bank "
                              "(ops/shape_bank.py) instead of per-sample host loads and copies")
+    common.add_loader_flags(parser, loader_help="parsed as JAX's testing CLI parses it: the "
+                            "evaluation reads through the thread loader whatever its value")
     parser.add_argument("--n_devices", type=int, default=None,
                         help="not ported yet: refused (ROADMAP.md)")
     opt = parser.parse_args(argv)
@@ -109,7 +114,7 @@ def build_eval_dataset(opt):
         root_dir, annotation_file, input_dim=opt.input_dim,
         keypoint=opt.dataset == "Pascal3D", cat_choice=cats, shape=opt.shape,
         shape_dir=opt.shape_dir, point_num=opt.point_num, random_model=opt.random_model,
-        view_num=opt.view_num, tour=opt.tour)
+        view_num=opt.view_num, tour=opt.tour, decode_cache_mb=opt.cache_decoded_mb)
 
 
 def int8_eval_step(opt, model, kind: str, dataset):

@@ -19,7 +19,10 @@ bf16 instance on the card. The teacher takes the on-device data options:
 resolved in the step from a few scalars a sample) and `--device_augment`
 (the loader sends raw uint8 pixels; the photometric augmentation and the
 normalisation run in the step; ObjectNet3D, whose contrastive train set
-has the raw emission).
+has the raw emission). The host data options take every path: `--loader
+shm` (process workers that write whole batches into shared memory),
+`--cache_decoded_mb` (an LRU cache of decoded images) and `--profile_dir`
+(a torch.profiler trace of steps 5-14 of the first epoch).
 
     python -m pose3d_tpu_torch.cli.training --dataset ObjectNet3D \\
         --shape PointCloud --shape_dir pointcloud --batch_size 160 \\
@@ -61,8 +64,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch_size", type=int, default=16)
     parser.add_argument("--workers", type=int, default=4)
-    parser.add_argument("--loader", type=str, default="thread", choices=["thread", "shm"],
-                        help="shm: not ported yet, refused (ROADMAP.md)")
+    common.add_loader_flags(parser)
     parser.add_argument("--model", type=str, default=None,
                         help="not read by the training CLI: refused (use --resume)")
     parser.add_argument("--img_feature_dim", type=int, default=1024)
@@ -119,10 +121,7 @@ def parse_args(argv=None):
                         help=common.DEVICE_AUGMENT_HELP + "; the teacher on ObjectNet3D")
     parser.add_argument("--n_devices", type=int, default=None,
                         help="more than 1: not ported yet, refused (ROADMAP.md)")
-    parser.add_argument("--cache_decoded_mb", type=float, default=0.0,
-                        help="above 0: not ported yet, refused (ROADMAP.md)")
-    parser.add_argument("--profile_dir", type=str, default=None,
-                        help="not ported yet, refused (ROADMAP.md)")
+    parser.add_argument("--profile_dir", type=str, default=None, help=common.PROFILE_HELP)
     opt = parser.parse_args(argv)
     if opt.dataset is None:
         raise SystemExit("--dataset is required")
@@ -165,10 +164,7 @@ def parse_args(argv=None):
     if opt.shape != "None" and opt.student_width_mult != 1.0:
         raise SystemExit("--student_width_mult applies to --shape None, the RGB baseline "
                          "(ROADMAP.md Queue 1 lists the ported regimes)")
-    unported = {"--loader shm": opt.loader != "thread",
-                "--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
-                "--cache_decoded_mb > 0": opt.cache_decoded_mb > 0,
-                "--profile_dir": opt.profile_dir is not None,
+    unported = {"--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
                 "--model": opt.model is not None}
     for flag, set_ in unported.items():
         if set_:
@@ -183,7 +179,14 @@ def main(argv=None):
     device = common.setup_device(opt)
 
     dataset_train, dataset_eval = common.build_train_eval_datasets(opt)
-    train_loader = common.make_train_loader(dataset_train, opt)
+    if opt.device_augment:  # the train views' raw pixels, augmented in the step
+        dataset_train.host_augment = False
+    shape_bank = common.maybe_shape_bank(opt, dataset_train, device)
+    with common.make_train_loader(dataset_train, opt) as train_loader:
+        return _train(opt, device, dataset_train, dataset_eval, train_loader, shape_bank)
+
+
+def _train(opt, device, dataset_train, dataset_eval, train_loader, shape_bank):
     eval_loader = DataLoader(dataset_eval, opt.batch_size, shuffle=False,
                              num_workers=opt.workers, seed=common.MANUAL_SEED)
     steps_per_epoch = max(len(train_loader), 1)
@@ -216,7 +219,8 @@ def main(argv=None):
         # the supervised RGB-only baseline (the reference's train_vanilla)
         trainer = SupervisedTrainer(state, train_loader, eval_loader,
                                     dataset_eval.category_names, result_path, kind="student",
-                                    bin_size=opt.bin_size, print_freq=opt.print_freq)
+                                    bin_size=opt.bin_size, print_freq=opt.print_freq,
+                                    profile_dir=opt.profile_dir)
     else:
         # the per-category Acc sweep runs on the contrastive val set without
         # the keypoint filter, as the reference's training.py does
@@ -227,15 +231,13 @@ def main(argv=None):
             view_num=opt.view_num, tour=opt.tour)
         cat_eval_loader = DataLoader(cat_ds, opt.batch_size, shuffle=False,
                                      num_workers=opt.workers, seed=common.MANUAL_SEED)
-        if opt.device_augment:  # the train views' raw pixels, augmented in the step
-            dataset_train.host_augment = False
         trainer = TeacherTrainer(state, train_loader, eval_loader, cat_ds.category_names,
                                  result_path, bin_size=opt.bin_size, print_freq=opt.print_freq,
                                  cat_eval_loader=cat_eval_loader,
                                  use_fused_nce=opt.fused_nce, nce_variant=opt.nce,
                                  nce_weighting=opt.weighting or "linear",
-                                 device_augment=opt.device_augment,
-                                 shape_bank=common.maybe_shape_bank(opt, dataset_train, device))
+                                 device_augment=opt.device_augment, shape_bank=shape_bank,
+                                 profile_dir=opt.profile_dir)
     start_epoch = 0
     if opt.resume:
         latest = trainer.ckpt.latest_epoch()

@@ -58,7 +58,10 @@ sample), `--device_augment` (--crd, --contrast, --vid: the loader sends
 raw uint8 views, augmented and normalised in the step) and
 `--device_views` (--crd's regimes and --stage 2: the loader sends one raw
 view a sample, and the step builds the flipped and rotated views and
-augments all three).
+augments all three). The host data options take every regime: `--loader
+shm` (process workers that write whole batches into shared memory),
+`--cache_decoded_mb` (an LRU cache of decoded images) and `--profile_dir`
+(a torch.profiler trace of steps 5-14 of the first epoch).
 The flags of paths not ported yet are refused with a message that names
 ROADMAP.md.
 """
@@ -87,8 +90,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch_size", type=int, default=16)
     parser.add_argument("--workers", type=int, default=4)
-    parser.add_argument("--loader", type=str, default="thread", choices=["thread", "shm"],
-                        help="shm: not ported yet, refused (ROADMAP.md)")
+    common.add_loader_flags(parser)
     parser.add_argument("--model", type=str, default=None,
                         help="not read by the KD CLI: refused (use --student_model "
                              "or --resume)")
@@ -190,10 +192,7 @@ def parse_args(argv=None):
                              "pose-weighted pose (weighted by --weighting) and multipose")
     parser.add_argument("--n_devices", type=int, default=None,
                         help="more than 1: not ported yet, refused (ROADMAP.md)")
-    parser.add_argument("--cache_decoded_mb", type=float, default=0.0,
-                        help="above 0: not ported yet, refused (ROADMAP.md)")
-    parser.add_argument("--profile_dir", type=str, default=None,
-                        help="not ported yet, refused (ROADMAP.md)")
+    parser.add_argument("--profile_dir", type=str, default=None, help=common.PROFILE_HELP)
     opt = parser.parse_args(argv)
     if opt.shape == "None":
         raise SystemExit("--shape None: KD distils from a teacher; give its shape encoder, "
@@ -261,10 +260,8 @@ def parse_args(argv=None):
                                                         "trains on raw, unnormalised pixels")
                          + "; ROADMAP.md Queue 3); it applies to --crd / --contrast / --vid, "
                          "and --device_views brings it to --stage 2")
-    unported = {"--loader shm": opt.loader != "thread",
-                "--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
-                "--cache_decoded_mb > 0": opt.cache_decoded_mb > 0,
-                "--profile_dir": opt.profile_dir is not None, "--model": opt.model is not None}
+    unported = {"--n_devices > 1": opt.n_devices is not None and opt.n_devices > 1,
+                "--model": opt.model is not None}
     for flag, set_ in unported.items():
         if set_:
             raise SystemExit(f"{flag} is not ported to pose3d_tpu_torch's KD training yet; "
@@ -303,7 +300,11 @@ def main(argv=None):
     if opt.device_views:  # one raw view a sample, the others built in the step
         dataset_train.device_views = True
     shape_bank = common.maybe_shape_bank(opt, dataset_train, device)
-    train_loader = common.make_train_loader(dataset_train, opt)
+    with common.make_train_loader(dataset_train, opt) as train_loader:
+        return _train(opt, device, dataset_train, dataset_eval, train_loader, shape_bank)
+
+
+def _train(opt, device, dataset_train, dataset_eval, train_loader, shape_bank):
     eval_loader = DataLoader(dataset_eval, opt.batch_size, shuffle=False,
                              num_workers=opt.workers, seed=common.MANUAL_SEED)
 
@@ -341,7 +342,7 @@ def main(argv=None):
                         tau=opt.tau, use_fused_nce=opt.fused_nce, nce_variant=opt.nce,
                         nce_weighting=opt.weighting or "linear", int8_teacher=opt.int8_teacher,
                         device_augment=opt.device_augment, device_views=opt.device_views,
-                        shape_bank=shape_bank)
+                        shape_bank=shape_bank, profile_dir=opt.profile_dir)
     start_epoch = 0
     latest = trainer.ckpt.latest_epoch() if opt.resume else None
     if latest is not None:

@@ -11,8 +11,11 @@ and the on-device data options of `Pascal3D` and `Pascal3DContrast`:
     uint8, augmented and normalised in the step (`--device_augment`);
   * `device_views` (`Pascal3DContrast`): one raw uint8 view a train sample
     and its `rot_sign`, the flipped and rotated views built in the step.
-JAX's decode cache (`--cache_decoded_mb`) is not ported: every image is
-decoded where it is used.
+With `decode_cache_mb` above 0 (every constructor that takes it in JAX;
+`--cache_decoded_mb` on the CLIs) each image decode goes through an LRU
+cache of decoded images (`data/decode_cache.py`), exact and shared: what
+is pasted into is copied first. The render bank's decode stays uncached,
+as JAX's: it reads each render once.
 
 Samples are dicts of numpy arrays: 'im' NHWC float32 (uint8 on the raw
 wire), 'label' the canonical int triple, 'cat_id' the index of the
@@ -34,7 +37,7 @@ import pandas as pd
 from PIL import Image
 
 from pose3d_tpu_torch.data import annotations as anno
-from pose3d_tpu_torch.data import ply
+from pose3d_tpu_torch.data import decode_cache, ply
 from pose3d_tpu_torch.data import transforms as T
 
 
@@ -76,28 +79,36 @@ def _category_ids(frame: pd.DataFrame, column: str) -> tuple[list, dict]:
     return names, {c: i for i, c in enumerate(names)}
 
 
+def _resized(im: Image.Image, size: int | None) -> Image.Image:
+    return im if size is None else im.resize((size, size), Image.BILINEAR)
+
+
 class _Renders:
     """A model's ring of renders: the `multiview_ids` of its sorted
     `<render_dir>/*` files, each to float in [0, 1] (no normalisation, no
-    augmentation). Sorted listings are kept per directory."""
+    augmentation), decoded through `cache`. Sorted listings are kept per
+    directory."""
 
-    def __init__(self, view_num: int, tour: int):
+    def __init__(self, view_num: int, tour: int, cache):
         self.view_num = view_num
         self.tour = tour
+        self.cache = cache
         self._names: dict[str, list[str]] = {}
 
     def load(self, render_dir: str, mutation: int, size: int | None) -> np.ndarray:
         """(view_num, H, W, 3) float32; each render resized (bilinear) to
         size x size unless `size` is None."""
         names = self._sorted(render_dir)
-        return np.stack([T.to_float_array(self._decode(render_dir, names[i], size))
-                         for i in T.multiview_ids(self.view_num, self.tour, mutation)]
-                        ).astype(np.float32)
+        return np.stack([
+            T.to_float_array(_resized(self.cache.open_rgb(os.path.join(render_dir, names[i])),
+                                      size))
+            for i in T.multiview_ids(self.view_num, self.tour, mutation)]).astype(np.float32)
 
     def load_all(self, render_dir: str, size: int | None) -> np.ndarray:
         """(R, H, W, 3) uint8: every render of the directory, sorted,
-        resized as `load` resizes them."""
-        return np.stack([np.asarray(self._decode(render_dir, name, size), np.uint8)
+        resized as `load` resizes them, decoded once and not cached."""
+        return np.stack([np.asarray(_resized(T.load_rgb(os.path.join(render_dir, name)), size),
+                                    np.uint8)
                          for name in self._sorted(render_dir)])
 
     def _sorted(self, render_dir: str) -> list[str]:
@@ -106,19 +117,13 @@ class _Renders:
             names = self._names[render_dir] = sorted(os.listdir(render_dir))
         return names
 
-    @staticmethod
-    def _decode(render_dir: str, name: str, size: int | None) -> Image.Image:
-        im = T.load_rgb(os.path.join(render_dir, name))
-        if size is not None:
-            im = im.resize((size, size), Image.BILINEAR)
-        return im
-
 
 class _PascalBase:
-    """The annotation frame, category ids and the shape loaders."""
+    """The annotation frame, category ids, the decode cache and the shape
+    loaders."""
 
     def __init__(self, root_dir, frame, shape, shape_dir, point_num, input_dim,
-                 random_model, view_num=12, tour=2):
+                 random_model, view_num=12, tour=2, decode_cache_mb=0.0):
         if shape not in (None, "None", "PointCloud", "MultiView"):
             raise ValueError(f"shape={shape!r}: None, 'PointCloud' or 'MultiView'")
         self.root_dir = root_dir
@@ -128,7 +133,8 @@ class _PascalBase:
         self.point_num = point_num
         self.input_dim = input_dim
         self.random_model = random_model
-        self.renders = _Renders(view_num, tour)
+        self.cache = decode_cache.make(decode_cache_mb)
+        self.renders = _Renders(view_num, tour, self.cache)
         self.category_names, self._cat_to_id = _category_ids(frame, "cat")
 
     def __len__(self):
@@ -242,11 +248,12 @@ class Pascal3D(_PascalBase):
     def __init__(self, root_dir, annotation_file, input_dim=224, shape=None,
                  shape_dir="pointcloud", random=False, novel=True, keypoint=True, train=True,
                  cat_choice=None, random_range=0, point_num=2500, view_num=12, tour=2,
-                 device_shapes=False):
+                 device_shapes=False, decode_cache_mb=0.0):
         frame = anno.pascal3d_frame(root_dir, annotation_file, train=train, keypoint=keypoint,
                                     novel=novel, cat_choice=cat_choice)
         super().__init__(root_dir, frame, shape, shape_dir, point_num, input_dim,
-                         random_model=False, view_num=view_num, tour=tour)
+                         random_model=False, view_num=view_num, tour=tour,
+                         decode_cache_mb=decode_cache_mb)
         self.train = train
         self.random = random
         self.random_range = random_range
@@ -255,7 +262,7 @@ class Pascal3D(_PascalBase):
     def get(self, idx: int, rng: np.random.Generator) -> dict[str, Any]:
         row, cat, cad_index, label = self._row(idx, rng)
         left, upper, right, lower = row["left"], row["upper"], row["right"], row["lower"]
-        im = T.load_rgb(os.path.join(self.root_dir, row["im_path"]))
+        im = self.cache.open_rgb(os.path.join(self.root_dir, row["im_path"]))
         if self.train:
             if min(right - left, lower - upper) > 224 and rng.random() < 0.3:
                 im = T.gaussian_blur(im, 3)
@@ -303,12 +310,13 @@ class Pascal3DContrast(_PascalBase):
                  cat_choice=None, shape=None, shape_dir="pointcloud", point_num=2500,
                  random_model=False, train=False, novel=False, shot=None, seed=None,
                  view_num=12, tour=2, host_augment=True, device_views=False,
-                 device_shapes=False):
+                 device_shapes=False, decode_cache_mb=0.0):
         frame = anno.pascal3d_frame(root_dir, annotation_file, train=train, keypoint=keypoint,
                                     novel=novel, cat_choice=cat_choice, shot=shot,
                                     contrast_val_keypoint=not train, seed=seed)
         super().__init__(root_dir, frame, shape, shape_dir, point_num, input_dim,
-                         random_model, view_num=view_num, tour=tour)
+                         random_model, view_num=view_num, tour=tour,
+                         decode_cache_mb=decode_cache_mb)
         self.train = train
         self.host_augment = host_augment
         self.device_views = device_views
@@ -319,7 +327,7 @@ class Pascal3DContrast(_PascalBase):
         and the cloud's subset (or its seed), in JAX's order."""
         row, cat, cad_index, label = self._row(idx, rng)
         left, upper, right, lower = row["left"], row["upper"], row["right"], row["lower"]
-        im = T.load_rgb(os.path.join(self.root_dir, row["im_path"]))
+        im = self.cache.open_rgb(os.path.join(self.root_dir, row["im_path"]))
         cat_id = np.int32(self._cat_to_id.get(cat, -1))
         if self.train:
             if min(right - left, lower - upper) > 224 and rng.random() > 0.5:
@@ -399,12 +407,13 @@ class ShapeNet(_PascalBase):
     def __init__(self, root_dir, annotation_file, bg_dir, bg_list="SUN_database.txt",
                  input_dim=224, model_number=200, novel=False, shape="MultiView",
                  shape_dir="Renders_semi_sphere", view_num=12, tour=2, random_range=0,
-                 point_num=2500, cat_choice=None, train=True, random=False):
+                 point_num=2500, cat_choice=None, train=True, random=False,
+                 decode_cache_mb=0.0):
         frame = anno.shapenet_frame(root_dir, annotation_file, train=train, novel=novel,
                                     cat_choice=cat_choice, model_number=model_number)
         super().__init__(root_dir, frame.rename(columns={"cat_id": "cat"}), shape,
                          shape_dir, point_num, input_dim, random_model=False,
-                         view_num=view_num, tour=tour)
+                         view_num=view_num, tour=tour, decode_cache_mb=decode_cache_mb)
         self.bg_dir = bg_dir
         self.bg_list = pd.read_csv(os.path.join(bg_dir, bg_list))
         self.train = train
@@ -415,7 +424,7 @@ class ShapeNet(_PascalBase):
         path = os.path.join(self.bg_dir,
                             self.bg_list.iloc[int(rng.integers(len(self.bg_list))), 1])
         try:
-            bg = T.load_rgb(path)
+            bg = self.cache.open_rgb(path)
             if bg.size == size:
                 return bg
         except OSError:
@@ -427,11 +436,11 @@ class ShapeNet(_PascalBase):
         cat, example_id = row["cat"], row["example_id"]
         label = np.array([row["azimuth"], row["elevation"], 0.0], np.float64)
 
-        render = Image.open(os.path.join(self.root_dir, row["image_path"]))
+        render = self.cache.open_raw(os.path.join(self.root_dir, row["image_path"]))
         r = max(-45, min(45, rng.standard_normal() * 15))
         render = render.rotate(r)
         label[2] += r
-        im = self._background(render.size, rng).copy()
+        im = self._background(render.size, rng).copy()  # pasted into: a cached image stays
         im.paste(render, (0, 0), render if render.mode == "RGBA" else None)
 
         if self.train:
@@ -470,9 +479,11 @@ class Pix3D:
     already, normalised; labels in Pix3D's units (`pix3d_frame`). No shape:
     the reference's Pix3D carries none."""
 
-    def __init__(self, root_dir, annotation_file, input_dim=224, cat_choice=None):
+    def __init__(self, root_dir, annotation_file, input_dim=224, cat_choice=None,
+                 decode_cache_mb=0.0):
         self.root_dir = root_dir
         self.input_dim = input_dim
+        self.cache = decode_cache.make(decode_cache_mb)
         self.frame = anno.pix3d_frame(root_dir, annotation_file, cat_choice)
         self.category_names, self._cat_to_id = _category_ids(self.frame, "cat_id")
 
@@ -482,7 +493,7 @@ class Pix3D:
     def get(self, idx: int, rng: np.random.Generator) -> dict[str, Any]:
         row = self.frame.iloc[idx]
         label = row[anno.LABEL_COLS].to_numpy(dtype=np.float64).astype(np.int64)
-        im = T.load_rgb(os.path.join(self.root_dir, row["image_path"]))
+        im = self.cache.open_rgb(os.path.join(self.root_dir, row["image_path"]))
         if self.input_dim != 224 or im.size != (self.input_dim, self.input_dim):
             im = im.resize((self.input_dim, self.input_dim), Image.BILINEAR)
         arr = T.normalize_image(T.to_float_array(im))
@@ -495,9 +506,11 @@ class Linemod:
     h) box, resize-padded and normalised; labels in LineMod's units
     (elevation + 90, in-plane (180 - inp) mod 360). No shape."""
 
-    def __init__(self, root_dir, annotation_file, input_dim=224, cat_choice=None):
+    def __init__(self, root_dir, annotation_file, input_dim=224, cat_choice=None,
+                 decode_cache_mb=0.0):
         self.root_dir = root_dir
         self.input_dim = input_dim
+        self.cache = decode_cache.make(decode_cache_mb)
         self.frame = anno.linemod_frame(root_dir, annotation_file, cat_choice)
         self.category_names, self._cat_to_id = _category_ids(self.frame, "obj_id")
 
@@ -508,7 +521,7 @@ class Linemod:
         row = self.frame.iloc[idx]
         x, y, w, h = row["x"], row["y"], row["w"], row["h"]
         label = row[anno.LABEL_COLS].to_numpy(dtype=np.float64)
-        im = T.load_rgb(os.path.join(self.root_dir, row["image_path"]))
+        im = self.cache.open_rgb(os.path.join(self.root_dir, row["image_path"]))
         arr = T.normalize_image(T.to_float_array(
             T.resize_pad(im.crop((x, y, x + w, y + h)), self.input_dim)))
         label[1] = label[1] + 90.0
@@ -528,8 +541,9 @@ class Pix3DContrast:
 
     def __init__(self, root_dir, annotation_file, train=True, input_dim=224, offset=0,
                  shot=None, train_feat=False, cls_choice=None, idx_choice=None, rot=0,
-                 train_cls=None, pose_batch=False, bs=32, seed=None):
+                 train_cls=None, pose_batch=False, bs=32, seed=None, decode_cache_mb=0.0):
         self.root_dir = root_dir
+        self.cache = decode_cache.make(decode_cache_mb)
         self.input_dim = input_dim
         self.train = train
         self.offset = offset
@@ -562,7 +576,7 @@ class Pix3DContrast:
         row = self.frame.iloc[idx]
         left, upper, right, lower = row["left"], row["upper"], row["right"], row["lower"]
         label = row[anno.LABEL_COLS].to_numpy(dtype=np.float64)
-        im = T.load_rgb(os.path.join(self.root_dir, row["im_path"]))
+        im = self.cache.open_rgb(os.path.join(self.root_dir, row["im_path"]))
         cat_id = np.int32(self._cat_to_id.get(row["cls_name"], -1))
         if self.train:
             im_pos = im.copy()

@@ -59,6 +59,21 @@ class DataLoader:
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
+    def close(self) -> None:
+        """Nothing to free (`ShmDataLoader` stops its workers here)."""
+
+    def cache_stats(self) -> dict | None:
+        """The dataset's decode cache's stats (`DecodeCache.stats`), or None
+        where it has none."""
+        cache = getattr(self.dataset, "cache", None)
+        return None if cache is None else cache.stats()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
     def _indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
         if self.shuffle:

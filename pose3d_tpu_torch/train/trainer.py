@@ -18,10 +18,15 @@ batches carry the bank's scalar keys in place of 'shape'; with
 `device_augment` the views arrive as raw uint8 pixels, and with
 `device_views` (KD) one raw view a sample and 'rot_sign'. Evaluation runs
 on host shapes, as JAX's trainers evaluate.
+
+`profile_dir` (JAX's `_maybe_profile`, the CLIs' `--profile_dir`): a
+`torch.profiler` trace of steps [5, 15) of the first epoch a trainer runs,
+CPU activity and, on the card, CUDA activity (`StepProfiler`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -47,13 +52,21 @@ class Prefetcher:
     padded, 'valid' (JAX attaches it the same way, so full batches keep the
     mask-free path); uint8 images stay uint8 on the wire, and u32 seeds
     travel as int64 (`evaluate.host_array`). Exceptions of the loader
-    re-raise in the consumer."""
+    re-raise in the consumer.
+
+    Each batch is copied out of the loader's arrays before the next is
+    asked for: on the card into pinned memory, on the CPU into tensors of
+    its own (and the valid mask into an array of its own), so a loader may
+    hand out buffers it recycles once the next batch is asked for (the
+    zero-copy `ShmDataLoader`)."""
 
     _DONE = object()
 
     DEPTH = 2  # batches placed ahead of the consumer
 
     def __init__(self, loader: Iterable[dict], keys: Sequence[str], device: torch.device):
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         self.keys, self.device = tuple(keys), device
         self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self._q: queue.Queue = queue.Queue(maxsize=self.DEPTH)
@@ -74,12 +87,12 @@ class Prefetcher:
         self._thread.start()
 
     def _place(self, batch: dict):
-        valid = np.asarray(batch["valid"], bool)
+        valid = np.array(batch["valid"], bool)
         host = {k: host_array(batch[k]) for k in self.keys if k in batch}
         if not valid.all():
             host["valid"] = valid
         if self._stream is None:
-            return {k: torch.as_tensor(v, device=self.device)
+            return {k: torch.tensor(v, device=self.device)
                     for k, v in host.items()}, valid, None
         with torch.cuda.stream(self._stream):
             out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
@@ -105,6 +118,60 @@ class Prefetcher:
             for t in out.values():  # the allocator must not reuse them early
                 t.record_stream(stream)
         return out, valid
+
+
+class StepProfiler:
+    """JAX's `_maybe_profile`: with `profile_dir`, one `torch.profiler`
+    trace of steps [FIRST, END) of the first epoch that reaches step FIRST
+    (CPU activity, and CUDA activity on a CUDA device), each step inside a
+    "step i" annotation. It starts before step FIRST and stops before step
+    END, or at the end of an epoch shorter than END; the trace is written
+    to `<profile_dir>/<name>_steps<FIRST>-<last>.pt.trace.json` and its
+    path printed. Without `profile_dir` nothing is recorded or written."""
+
+    FIRST, END = 5, 15
+
+    def __init__(self, profile_dir: str | None, name: str, device: torch.device):
+        self.profile_dir, self.name, self.device = profile_dir, name, device
+        self.done = profile_dir is None
+        self._prof = None
+        self._last = -1
+
+    def step(self, i: int):
+        """The context to run step i in."""
+        if self.done:
+            return contextlib.nullcontext()
+        if i == self.END:
+            self.stop()
+            return contextlib.nullcontext()
+        if i == self.FIRST and self._prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+                torch.cuda.synchronize(self.device)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+        if self._prof is None:
+            return contextlib.nullcontext()
+        self._last = i
+        return torch.profiler.record_function(f"step {i}")
+
+    def stop(self) -> None:
+        """End the trace (if one is running), write it and print its path."""
+        if self.done or self._prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.__exit__(None, None, None)
+        self.done = True
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir,
+                            f"{self.name}_steps{self.FIRST}-{self._last}.pt.trace.json")
+        self._prof.export_chrome_trace(path)
+        self._prof = None
+        print(f"profiler trace written to {path}")
 
 
 def shape_batch_keys(shape_bank: ShapeBank | RenderBank | None) -> tuple[str, ...]:
@@ -153,9 +220,11 @@ class TeacherTrainer:
                  category_names: list[str], result_path: str, bin_size: int = 15,
                  print_freq: int = 50, cat_eval_loader=None, use_fused_nce: bool = False,
                  nce_variant: str = "info", nce_weighting: str = "linear",
-                 device_augment: bool = False, shape_bank=None):
+                 device_augment: bool = False, shape_bank=None,
+                 profile_dir: str | None = None):
         self.state = state
         self.device = next(state.model.parameters()).device
+        self.profiler = StepProfiler(profile_dir, "teacher", self.device)
         self.train_loader = train_loader
         self.eval_loader = eval_loader
         self.cat_eval_loader = cat_eval_loader or eval_loader
@@ -189,19 +258,23 @@ class TeacherTrainer:
             data_time, batch_time = AverageValueMeter(), AverageValueMeter()
             t0 = end = time.time()
             batches = Prefetcher(self.train_loader, self.keys, self.device)
-            for i, (db, valid) in enumerate(batches):
-                data_time.update(time.time() - end)
-                meters.push(self.train_step(self.state, db), int(valid.sum()))
-                # the enqueue cadence, not a synced step time
-                batch_time.update(time.time() - end)
-                end = time.time()
-                if (i + 1) % self.print_freq == 0:
-                    meters.flush()
-                    print(f"\tEpoch {epoch:3d} --- Iter [{i + 1}/{len(self.train_loader)}] "
-                          f"Train loss: {train_loss.avg:.2f} || "
-                          f"Train accuracy: {train_acc.avg:.2f}")
-                    print(f"\tData loading time: {data_time.val:.2f} ({data_time.avg:.2f})"
-                          f"-- Batch time: {batch_time.val:.2f} ({batch_time.avg:.2f})\n")
+            try:  # the trace ends however the loop does
+                for i, (db, valid) in enumerate(batches):
+                    data_time.update(time.time() - end)
+                    with self.profiler.step(i):
+                        meters.push(self.train_step(self.state, db), int(valid.sum()))
+                    # the enqueue cadence, not a synced step time
+                    batch_time.update(time.time() - end)
+                    end = time.time()
+                    if (i + 1) % self.print_freq == 0:
+                        meters.flush()
+                        print(f"\tEpoch {epoch:3d} --- Iter [{i + 1}/{len(self.train_loader)}] "
+                              f"Train loss: {train_loss.avg:.2f} || "
+                              f"Train accuracy: {train_acc.avg:.2f}")
+                        print(f"\tData loading time: {data_time.val:.2f} ({data_time.avg:.2f})"
+                              f"-- Batch time: {batch_time.val:.2f} ({batch_time.avg:.2f})\n")
+            finally:
+                self.profiler.stop()
             meters.flush()
             train_seconds = time.time() - t0
 
@@ -251,9 +324,11 @@ class SupervisedTrainer:
 
     def __init__(self, state: TrainState, train_loader, eval_loader,
                  category_names: list[str], result_path: str, kind: str = "student",
-                 bin_size: int = 15, print_freq: int = 50, shape_bank=None):
+                 bin_size: int = 15, print_freq: int = 50, shape_bank=None,
+                 profile_dir: str | None = None):
         self.state = state
         self.device = next(state.model.parameters()).device
+        self.profiler = StepProfiler(profile_dir, kind, self.device)
         self.train_loader = train_loader
         self.eval_loader = eval_loader
         self.category_names = category_names
@@ -280,12 +355,16 @@ class SupervisedTrainer:
             meters = DeferredMeters(loss_m, acc_m)
             t0 = time.time()
             batches = Prefetcher(self.train_loader, self.keys, self.device)
-            for i, (db, valid) in enumerate(batches):
-                meters.push(self.train_step(self.state, db), int(valid.sum()))
-                if (i + 1) % self.print_freq == 0:
-                    meters.flush()
-                    print(f"\tEpoch {epoch:3d} --- Iter [{i + 1}/{len(self.train_loader)}] "
-                          f"Train loss: {loss_m.avg:.2f} || Train accuracy: {acc_m.avg:.2f}")
+            try:  # the trace ends however the loop does
+                for i, (db, valid) in enumerate(batches):
+                    with self.profiler.step(i):
+                        meters.push(self.train_step(self.state, db), int(valid.sum()))
+                    if (i + 1) % self.print_freq == 0:
+                        meters.flush()
+                        print(f"\tEpoch {epoch:3d} --- Iter [{i + 1}/{len(self.train_loader)}] "
+                              f"Train loss: {loss_m.avg:.2f} || Train accuracy: {acc_m.avg:.2f}")
+            finally:
+                self.profiler.stop()
             meters.flush()
             train_seconds = time.time() - t0
 
@@ -340,7 +419,8 @@ class KDTrainer:
                  temperature: float = 1.0, teacher_state: TrainState | None = None,
                  tau: float = 0.5, use_fused_nce: bool = False, nce_variant: str = "info",
                  nce_weighting: str = "linear", int8_teacher: bool = False,
-                 device_augment: bool = False, device_views: bool = False, shape_bank=None):
+                 device_augment: bool = False, device_views: bool = False, shape_bank=None,
+                 profile_dir: str | None = None):
         self.state = state
         self.device_augment, self.device_views = device_augment, device_views
         self.shape_bank = shape_bank
@@ -351,6 +431,7 @@ class KDTrainer:
         self.use_fused_nce = use_fused_nce
         self.nce_variant, self.nce_weighting = nce_variant, nce_weighting
         self.device = next(state.model.parameters()).device
+        self.profiler = StepProfiler(profile_dir, "kd", self.device)
         self.train_loader = train_loader
         self.eval_loader = eval_loader
         self.category_names = category_names
@@ -444,13 +525,18 @@ class KDTrainer:
         `eval_step`, the save of `checkpoint()`, one log line and one
         metrics record with the sustained train samples/s."""
         best_acc = self.ckpt.best_acc() if start_epoch > 0 else 0.0
+        self.profiler.name = kind
         for epoch in range(start_epoch, epochs):
             self.train_loader.set_epoch(epoch)
             loss_m, acc_m = AverageValueMeter(), AverageValueMeter()
             meters = DeferredMeters(loss_m, acc_m)
             t0 = time.time()
-            for db, valid in Prefetcher(self.train_loader, keys, self.device):
-                meters.push(run_step(db), int(valid.sum()))
+            try:  # the trace ends however the loop does
+                for i, (db, valid) in enumerate(Prefetcher(self.train_loader, keys, self.device)):
+                    with self.profiler.step(i):
+                        meters.push(run_step(db), int(valid.sum()))
+            finally:
+                self.profiler.stop()
             # the flush waits for the last step, so train_seconds holds the
             # device's time: the sustained samples/s is train_samples over it
             meters.flush()

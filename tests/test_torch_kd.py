@@ -409,6 +409,8 @@ KD_CLI_OUTCOMES = {
     ("--vid", "--contrast"): "--vid is a --crd loss variant",  # JAX's
     ("--stage", "1", "--use_memory_bank", "--nce", "pose"): "no memory-bank form",
     ("--shape", "MultiView"): None,
+    ("--loader", "shm"): None, ("--cache_decoded_mb", "64"): None,
+    ("--profile_dir", "trace"): None,
     ("--dataset", "Pix3D"): "unsupported KD training dataset Pix3D",  # JAX's
     ("--int8_teacher",): None, ("--stage", "2", "--int8_teacher"): None,
     ("--device_augment",): None, ("--device_views",): None, ("--device_shapes",): None,

@@ -197,8 +197,9 @@ def test_training_cli_default_device_refuses_without_cuda(tmp_path):
     ["--dataset", "Pascal3D", "--device_augment"]])
 def test_training_cli_refuses_unported_flags(argv):
     """Each flag of a path not ported is refused, naming ROADMAP.md; --shape
-    None, --shape MultiView, --nce pose/multipose, --bf16, --device_shapes
-    and --device_augment are ported (parsed), and where JAX refuses a
+    None, --shape MultiView, --nce pose/multipose, --bf16, --device_shapes,
+    --device_augment and the host data options (--loader shm,
+    --cache_decoded_mb, --profile_dir) are ported (parsed), and where JAX refuses a
     combination the port refuses it with JAX's message, or, where JAX's run
     fails on it (a teacher on ShapeNetCore, validated on Pix3D's shapeless
     samples) or gives a wrong result (--device_augment where the train set
@@ -206,6 +207,8 @@ def test_training_cli_refuses_unported_flags(argv):
     outcomes = {("--shape", "None"): None, ("--nce", "pose"): None,
                 ("--nce", "multipose"): None, ("--bf16",): None,
                 ("--shape", "MultiView"): None,
+                ("--loader", "shm"): None, ("--cache_decoded_mb", "64"): None,
+                ("--profile_dir", "trace"): None,
                 ("--dataset", "ShapeNetCore"): "Pix3D, whose samples carry no shape",
                 ("--dataset", "Pix3D"): "unsupported training dataset Pix3D",
                 ("--weighting", "sqrt"): "--weighting is consumed only by --nce pose",
